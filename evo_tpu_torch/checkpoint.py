@@ -9,17 +9,21 @@ snapshots hold. Reading safetensors snapshots from disk is not ported yet.
 
 Three layout assumptions could not be pinned to engine source and are
 carried over unchanged from the JAX package (`RECONSTRUCTED_LAYOUTS`).
+
+`cache_from_jax` / `cache_to_jax` carry a decode cache across in the same
+way, so either package can resume from a state the other produced.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Optional, Union
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
 
 from evo_tpu_torch.config import ModelConfig
+from evo_tpu_torch.layers.hyena import HyenaState
 from evo_tpu_torch.model import AttentionBlock, StripedHyena
 
 RECONSTRUCTED_LAYOUTS = {
@@ -170,3 +174,50 @@ def state_dict(model: StripedHyena) -> Dict[str, torch.Tensor]:
         if h.b_out is not None:
             sd[p + 'out_filter_dense.bias'] = h.b_out
     return {k: v.detach().to('cpu').contiguous() for k, v in sd.items()}
+
+
+def cache_from_jax(cache: Dict[str, Any], cfg: ModelConfig,
+                   device: Union[str, torch.device] = 'cuda'
+                   ) -> Dict[str, Any]:
+    """The JAX package's decode cache, as numpy arrays, as the port's.
+
+    There a cache has one entry per run of layers
+    (`ModelConfig.layer_segments`): the KV dict of an attention layer, in
+    either layout, or the (fir, iir) states of a Hyena run stacked on a
+    leading layer axis. Here it has one entry per layer and a Python int
+    offset. Arrays are copied."""
+    layers = []
+    for (kind, idxs), seg in zip(cfg.layer_segments(), cache['layers']):
+        if kind == 'attn':
+            layers.append({k: _as_tensor(np.array(a)).to(device)
+                           for k, a in seg.items()})
+            continue
+        fir, iir = seg
+        for j in range(len(idxs)):
+            layers.append(HyenaState(
+                fir=_as_tensor(np.array(fir[j])).to(device),
+                iir=_as_tensor(np.array(iir[j])).to(device)))
+    return {'offset': int(cache['offset']), 'layers': layers}
+
+
+def _as_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def cache_to_jax(cache: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
+    """Inverse of `cache_from_jax`: numpy arrays in the JAX package's
+    layout, a Hyena run as a (fir, iir) pair stacked over its layers."""
+    layers = []
+    for kind, idxs in cfg.layer_segments():
+        if kind == 'attn':
+            layers.append({k: _as_numpy(t)
+                           for k, t in cache['layers'][idxs[0]].items()})
+        else:
+            run = [cache['layers'][i] for i in idxs]
+            layers.append((np.stack([_as_numpy(s.fir) for s in run]),
+                           np.stack([_as_numpy(s.iir) for s in run])))
+    return {'offset': np.int32(cache['offset']), 'layers': layers}

@@ -132,7 +132,8 @@ class ModelConfig:
     param_dtype: str = 'bfloat16'
     # chunk (= Toeplitz tile) of the long conv, ops/fftconv.py
     hyena_matmul_chunk: int = 64
-    # quantized modes: only 'none' is ported (see ROADMAP.md)
+    # quantized modes: the int8 KV cache (kv_quant 'none' | 'int8') is
+    # ported, the weight and activation modes are not (see ROADMAP.md)
     weight_quant: str = 'none'
     act_quant: str = 'none'
     kv_quant: str = 'none'
@@ -161,11 +162,14 @@ class ModelConfig:
             raise NotImplementedError(
                 'hyena_filter_groups > 1 is not implemented; reference '
                 'configs use 1')
-        for name in ('weight_quant', 'act_quant', 'kv_quant'):
+        for name in ('weight_quant', 'act_quant'):
             if getattr(self, name) != 'none':
                 raise NotImplementedError(
                     f'{name}={getattr(self, name)!r} is not ported yet '
                     f'(ROADMAP.md, modules queue: quantized modes)')
+        if self.kv_quant not in ('none', 'int8'):
+            raise ValueError(f"kv_quant must be 'none' or 'int8', got "
+                             f'{self.kv_quant!r}')
         if self.param_dtype != self.compute_dtype:
             raise NotImplementedError(
                 'param_dtype != compute_dtype is not ported: the port keeps '

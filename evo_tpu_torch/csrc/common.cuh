@@ -1,6 +1,9 @@
 // Shared helpers of the port's kernels: element conversion for bf16, the
-// one activation type the kernels take.
+// one activation type the kernels take, and the tensor-core product and
+// bf16 packing that the two attention kernels share.
 #pragma once
+
+#include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -16,6 +19,28 @@ __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
+}
+
+// c (16x8 fp32) += a (16x16 bf16, row major) * b (16x8 bf16, column major)
+__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
+                                               const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// two floats rounded to bf16 (nearest even), low half first
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo,
+                                             __nv_bfloat16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) |
+         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
 }
 
 }  // namespace evo

@@ -31,31 +31,15 @@
 
 namespace {
 
+using evo::mma_bf16_16816;
+using evo::pack_bf16;
+using evo::pack_raw;
+
 constexpr int kHeadDim = 128;
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
 constexpr int kThreads = 128;
 constexpr int kPad = kHeadDim + 8;  // smem row stride: conflict-free reads
-
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
-                                               const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo,
-                                             __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
 
 __global__ void __launch_bounds__(kThreads)
     flash_causal_kernel(const __nv_bfloat16* __restrict__ q,

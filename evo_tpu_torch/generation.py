@@ -1,16 +1,20 @@
 """Autoregressive generation (port of `evo_tpu/generation.py`).
 
-A fresh prompt is prefilled in one pass, then decoded by a Python loop of
-`decode_step` calls. As in the reference:
+A prompt is prefilled (in one pass, or in segments with
+`prefill_segment_len`), then decoded by a Python loop of `decode_step`
+calls. As in the reference:
 
+  * the cache (`inference_params_dict`) can be passed in and is returned,
+    so sampling resumes across calls. The returned cache has NOT consumed
+    the last sampled token: a resuming caller feeds it as the new input;
   * teacher forcing of long prompts: with `force_prompt_threshold` set and
     a longer prompt, the first `force_prompt_threshold` tokens are
     prefilled and the rest are fed step by step as forced tokens;
   * the score of a generation pairs step-i logits with the step-(i+1)
     token (`logits_to_logprobs` with trim_bos=True).
 
-Not ported yet: resuming from a passed `inference_params_dict` and
-`prefill_segment_len` (both need the resumed prefill).
+The engine updates a cache in place, so a resumed call clones the passed
+cache first and leaves the caller's as it was, unless `donate_cache`.
 """
 
 from __future__ import annotations
@@ -22,13 +26,57 @@ import numpy as np
 import torch
 
 from evo_tpu_torch import model as model_lib
+from evo_tpu_torch.layers.hyena import HyenaState
 from evo_tpu_torch.ops.sampling import sample
-from evo_tpu_torch.scoring import (_aligned_cache_len, logits_to_logprobs,
-                                   prepare_batch)
+from evo_tpu_torch.scoring import (_aligned_cache_len, _cache_align,
+                                   logits_to_logprobs, prepare_batch)
 from evo_tpu_torch.tokenizer import CharLevelTokenizer
 
-_RESUME_TODO = ('(ROADMAP.md, modules queue: resumed prefill with the '
-                'flash_attention_buffer kernel)')
+
+def _cache_kv_len(cache) -> Optional[int]:
+    """Length of the attention KV buffers, or None for a cache without
+    attention layers (time is axis 1 of a (B, T, H, Dh) buffer, axis 2 of
+    a head-major int8 one)."""
+    for layer in cache['layers']:
+        if isinstance(layer, dict):
+            return layer['k'].shape[2 if 'ks' in layer else 1]
+    return None
+
+
+def _grow_cache(cache, needed_len: int, donate: bool = False):
+    """A cache whose KV buffers hold at least `needed_len` positions, the
+    new tail zeros. Only the KV buffers depend on the length; the Hyena
+    state does not.
+
+    donate=False returns a deep copy (the engine writes into a cache in
+    place, and the caller's stays valid for reuse). donate=True consumes
+    the caller's cache: buffers that fit are handed through, and a buffer
+    that grows is dropped as soon as its longer copy exists, so at most
+    one buffer is held twice."""
+    current = _cache_kv_len(cache)
+    pad = 0 if current is None else max(0, needed_len - current)
+
+    def carry(t: torch.Tensor, t_axis: Optional[int] = None):
+        if pad and t_axis is not None:
+            shape = list(t.shape)
+            shape[t_axis] += pad
+            out = torch.zeros(shape, dtype=t.dtype, device=t.device)
+            out.narrow(t_axis, 0, current).copy_(t)
+            return out
+        return t if donate else t.clone()
+
+    layers = []
+    for layer in cache['layers']:
+        if isinstance(layer, dict):
+            t_axis = 2 if 'ks' in layer else 1
+            # a donated buffer leaves the caller's dict before its longer
+            # copy is made, so no other reference keeps it alive after
+            layers.append({
+                name: carry(layer.pop(name) if donate else layer[name],
+                            t_axis) for name in list(layer)})
+        else:
+            layers.append(HyenaState(*(carry(t) for t in layer)))
+    return {'offset': cache['offset'], 'layers': layers}
 
 
 class Generator:
@@ -48,17 +96,25 @@ class Generator:
                  force_prompt_threshold: Optional[int] = None,
                  prefill_segment_len: Optional[int] = None,
                  seed: int = 0, max_seqlen: Optional[int] = None,
-                 inference_params_dict=None, verbose: bool = False):
+                 inference_params_dict=None, cache_growth_align: int = 8192,
+                 donate_cache: bool = False, verbose: bool = False):
         """Returns (generation (B, num_tokens), scores (B, num_tokens, V)
         float32 logits of each emitted step, cache). The cache has not
-        consumed the last sampled token."""
-        if inference_params_dict is not None:
-            raise NotImplementedError(
-                'generation resumed from an inference_params_dict is not '
-                'ported yet ' + _RESUME_TODO)
-        if prefill_segment_len is not None:
-            raise NotImplementedError(
-                'prefill_segment_len is not ported yet ' + _RESUME_TODO)
+        consumed the last sampled token.
+
+        inference_params_dict: a cache returned by an earlier call; the
+        input continues its sequence. Its KV buffers are grown when they
+        are too short, to a length rounded up to `cache_growth_align` so
+        that a generation resumed in many chunks regrows rarely; buffers
+        that already fit are kept at their length.
+
+        donate_cache: consume the passed cache (update it in place, and
+        free each old KV buffer during regrowth) where the default clones
+        it and leaves the caller's valid.
+
+        prefill_segment_len: prefill a longer prompt in segments of this
+        many tokens through the resumed prefill, for activation memory of
+        one segment."""
         if num_tokens < 1:
             raise ValueError('num_tokens must be >= 1')
         if input_ids is None:
@@ -83,12 +139,43 @@ class Generator:
             prompt, forced = x, x[:, :0]
         num_forced = forced.shape[1]
         total = num_forced + num_tokens
-        cache = self.model.initialize_inference_params(
-            B, _aligned_cache_len(prompt.shape[1] + total - 1))
-        rng = torch.Generator(device=device).manual_seed(seed)
 
+        align = _cache_align(self.model.config)
+        resume = inference_params_dict is not None
+        if resume:
+            # The last sampled token is never written, so the run's
+            # positions end at offset + prompt + total - 2: a buffer of
+            # `needed` positions holds them all.
+            needed = inference_params_dict['offset'] + prompt.shape[1] \
+                + total - 1
+            current = _cache_kv_len(inference_params_dict)
+            if current is not None and current < needed:
+                needed = _aligned_cache_len(
+                    needed, max(align, int(cache_growth_align)))
+            cache = _grow_cache(inference_params_dict, needed,
+                                donate=donate_cache)
+        else:
+            cache = self.model.initialize_inference_params(
+                B, _aligned_cache_len(prompt.shape[1] + total - 1, align))
+
+        if (prefill_segment_len is not None
+                and prompt.shape[1] > prefill_segment_len):
+            # the prompt's head in whole segments through the resumed
+            # prefill; its tail (at least one token) goes below
+            head_len = ((prompt.shape[1] - 1) // prefill_segment_len) \
+                * prefill_segment_len
+            for s in range(0, head_len, prefill_segment_len):
+                _, cache = self.model(
+                    prompt[:, s:s + prefill_segment_len],
+                    inference_params_dict=cache, donate_cache=True,
+                    resume=resume or s > 0)
+            prompt = prompt[:, head_len:]
+            resume = True
+
+        rng = torch.Generator(device=device).manual_seed(seed)
         module = self.model.module
-        logits, cache = model_lib.prefill(module, prompt, cache)
+        logits, cache = model_lib.prefill(module, prompt, cache,
+                                          resume=resume)
         last = logits[:, -1]
         toks, steps = [], []
         for i in range(total):

@@ -2,19 +2,26 @@
 `evo_tpu/layers/attention.py`).
 
 Weights keep the JAX layouts: wqkv (D, 3, H, Dh), wo (H, Dh, D), bqkv
-(3, H, Dh), bo (D,). The KV cache is a dict of preallocated (B, T, H, Dh)
-buffers {'k', 'v'} that this module writes in place at the cache offset,
-as the reference engine updates its `inference_params_dict`.
+(3, H, Dh), bo (D,). The KV cache of a layer is a dict of preallocated,
+zero-filled buffers that this module writes in place at the cache offset,
+as the reference engine updates its `inference_params_dict`:
 
-Ported paths: a fresh full sequence (`mha_full`, which fills the KV cache
-from position 0) and the single-token decode step (`mha_step`). Attending a
-new segment over a filled buffer (resumed prefill) is not ported yet.
+  {'k', 'v'}              (B, T, H, Dh) in the activation type, or
+  {'k', 'v', 'ks', 'vs'}  `kv_quant='int8'`: head-major int8 (B, H, T, Dh)
+                          with float32 scales (B, H, T), one per
+                          (position, head).
+
+Paths: a fresh full sequence (`mha_full`, the causal flash kernel), a
+segment that continues a filled cache (`mha_full(offset=,
+attend_buffer=True)`, the buffer-attention kernel), and the single-token
+decode step (`mha_step`: dense float32 softmax over a bf16 cache, the int8
+buffer-attention kernel over an int8 one).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -22,6 +29,7 @@ from torch import nn
 from evo_tpu_torch.config import ModelConfig
 from evo_tpu_torch.layers.rotary import apply_rotary, rotary_cos_sin
 from evo_tpu_torch.ops.attention import flash_attention_causal
+from evo_tpu_torch.ops.attention_buffer import flash_attention_buffer
 
 
 class Attention(nn.Module):
@@ -69,37 +77,81 @@ def _out(p: Attention, y: torch.Tensor) -> torch.Tensor:
     return o
 
 
+def kv_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantisation per (batch, position, head): x (...,
+    Dh) -> (codes int8 of x's shape, scales float32 (...,)). Rounds half to
+    even and divides by the scale, as the JAX package does, so both give
+    the same codes."""
+    x32 = x.float()
+    s = (x32.abs().amax(dim=-1) / 127.0).clamp(min=1e-12)
+    q = torch.round(x32 / s[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, s
+
+
 def _kv_write(st: Dict[str, torch.Tensor], k, v, offset: int) -> None:
-    T = st['k'].shape[1]
-    if offset + k.shape[1] > T:
+    """Write k, v (B, L, H, Dh) into the layer cache at positions [offset,
+    offset + L): as they are, or quantised and head-major."""
+    quantized = 'ks' in st
+    T = st['k'].shape[2 if quantized else 1]
+    end = offset + k.shape[1]
+    if end > T:
         raise ValueError(f'KV cache of length {T} cannot take positions '
-                         f'[{offset}, {offset + k.shape[1]})')
-    st['k'][:, offset:offset + k.shape[1]] = k
-    st['v'][:, offset:offset + v.shape[1]] = v
+                         f'[{offset}, {end})')
+    if not quantized:
+        st['k'][:, offset:end] = k
+        st['v'][:, offset:end] = v
+        return
+    for name, x in (('k', k), ('v', v)):
+        codes, scales = kv_quantize(x)
+        st[name][:, :, offset:end] = codes.transpose(1, 2)
+        st[name + 's'][:, :, offset:end] = scales.transpose(1, 2)
 
 
 def mha_full(p: Attention, cfg: ModelConfig, x: torch.Tensor,
-             kv_buffers: Optional[Dict[str, torch.Tensor]] = None):
-    """Causal attention over a fresh sequence x (B, L, D) (scoring and
-    fresh prefill). With `kv_buffers`, k and v are written at positions
-    [0, L). Returns (y (B, L, D), kv_buffers)."""
+             kv_buffers: Optional[Dict[str, torch.Tensor]] = None,
+             offset: int = 0, attend_buffer: bool = False):
+    """Causal attention over the sequence or segment x (B, L, D) at
+    positions [offset, offset + L) (scoring and prefill). With
+    `kv_buffers`, k and v are written there. Returns (y (B, L, D),
+    kv_buffers).
+
+    By default the block attends only itself (a fresh sequence), over its
+    own unquantised k and v even when the cache is int8. With
+    `attend_buffer` it continues a filled cache: the queries attend the
+    whole buffer under the mask `key <= offset + query`."""
+    if attend_buffer and kv_buffers is None:
+        raise ValueError('attend_buffer needs the kv_buffers to attend')
     q, k, v = _qkv(p, x)
-    q, k = _rotate(cfg, q, k, 0)
-    y = flash_attention_causal(q, k, v)
+    q, k = _rotate(cfg, q, k, offset)
     if kv_buffers is not None:
-        _kv_write(kv_buffers, k, v, 0)
+        _kv_write(kv_buffers, k, v, offset)
+    if attend_buffer:
+        y = flash_attention_buffer(q, kv_buffers['k'], kv_buffers['v'],
+                                   offset, kv_buffers.get('ks'),
+                                   kv_buffers.get('vs'))
+    else:
+        y = flash_attention_causal(q, k, v)
     return _out(p, y), kv_buffers
 
 
 def mha_step(p: Attention, cfg: ModelConfig, x_t: torch.Tensor,
              kv_buffers: Dict[str, torch.Tensor], offset: int):
     """Single-token decode step: x_t (B, 1, D) at position `offset`. Writes
-    its k, v into the cache and attends over positions [0, offset]. Dots in
-    float32 on the cache-typed values, softmax in float32, the weights
-    rounded to the cache type before A @ V, as the JAX package does."""
+    its k, v into the cache and attends over positions [0, offset].
+
+    A bf16 cache: dots in float32 on the cache-typed values, softmax in
+    float32, the weights rounded to the cache type before A @ V, as the JAX
+    package does. An int8 cache goes through the buffer-attention kernel
+    with one query row, which reads one byte per element of the live
+    prefix."""
     q, k, v = _qkv(p, x_t)
     q, k = _rotate(cfg, q, k, offset)
     _kv_write(kv_buffers, k, v, offset)
+    if 'ks' in kv_buffers:
+        y = flash_attention_buffer(q, kv_buffers['k'], kv_buffers['v'],
+                                   offset, kv_buffers['ks'],
+                                   kv_buffers['vs'])
+        return _out(p, y), kv_buffers
     kb = kv_buffers['k'][:, :offset + 1]
     vb = kv_buffers['v'][:, :offset + 1]
     scale = 1.0 / math.sqrt(q.shape[-1])

@@ -11,14 +11,14 @@ Weights keep the JAX layouts: w_in (D, 3, C), fir_w (3, C, K), poles and
 residues (C, S, 2) float32, d_skip (C,), w_out (C, D).
 
 Decode state (`HyenaState`): fir (B, 3, C, K-1) trailing pre-FIR inputs
-and iir (B, C, S, 2) float32 modal state. Ported paths: a fresh full
-sequence (`hyena_full`) and the decode step (`hyena_step`); continuing a
-sequence from a carried state is not ported yet.
+and iir (B, C, S, 2) float32 modal state. Paths: a full sequence or a
+segment that continues from a carried state (`hyena_full`), and the decode
+step (`hyena_step`).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -66,9 +66,13 @@ def _out_proj(p: HyenaMixer, y: torch.Tensor) -> torch.Tensor:
 
 
 def hyena_full(p: HyenaMixer, cfg: ModelConfig, x: torch.Tensor, *,
-               collect_state: bool = False):
-    """Fresh full-sequence mixer: x (B, L, D) -> (y (B, L, D), HyenaState
-    after position L-1, or None unless `collect_state`).
+               collect_state: bool = False,
+               state: Optional[HyenaState] = None):
+    """Full-sequence mixer: x (B, L, D) -> (y (B, L, D), HyenaState after
+    position L-1, or None unless `collect_state`). With `state`, x is a
+    segment that continues the sequence the state was collected from: the
+    FIR reads the carried tail before t=0 and the long conv starts from
+    the carried modal state, both exactly.
 
     The FIR + gate kernel runs when L >= short_filter_length; a shorter
     sequence takes `fir_causal_conv`, as in the JAX package."""
@@ -79,14 +83,30 @@ def hyena_full(p: HyenaMixer, cfg: ModelConfig, x: torch.Tensor, *,
     if p.b_in is not None:
         zl = zl + p.b_in
     z = zl.permute(0, 2, 3, 1).contiguous()          # (B, 3, C, L)
+    tail = None if state is None else state.fir.contiguous()
     if L >= K:
-        x2, u = fir_gate(z, p.fir_w, p.fir_b)
+        x2, u = fir_gate(z, p.fir_w, p.fir_b, tail)
         fir_state = z[..., L - (K - 1):]
     else:
-        zf, fir_state = fftconv.fir_causal_conv(z, p.fir_w, p.fir_b)
+        zf, fir_state = fftconv.fir_causal_conv(z, p.fir_w, p.fir_b, tail)
         x2, u = zf[:, 0], zf[:, 1] * zf[:, 2]
-    y, iir = fftconv.conv_matmul_chunked(
-        u, p.poles, p.residues, cfg.hyena_matmul_chunk, d_skip=p.d_skip)
+    chunk = cfg.hyena_matmul_chunk
+    iir = None if state is None else state.iir
+    if state is not None and L > chunk and L % chunk:
+        # a continued conv needs chunk | L: the aligned prefix runs
+        # chunked, then the remainder (shorter than a chunk) from the
+        # state in between
+        split = (L // chunk) * chunk
+        y1, iir = fftconv.conv_matmul_chunked(
+            u[..., :split], p.poles, p.residues, chunk, state=iir,
+            d_skip=p.d_skip)
+        y2, iir = fftconv.conv_matmul_chunked(
+            u[..., split:], p.poles, p.residues, chunk, state=iir,
+            d_skip=p.d_skip)
+        y = torch.cat([y1, y2], dim=-1)
+    else:
+        y, iir = fftconv.conv_matmul_chunked(
+            u, p.poles, p.residues, chunk, state=iir, d_skip=p.d_skip)
     y = x2 * y.to(x.dtype)
     out = _out_proj(p, y.transpose(1, 2))
     if not collect_state:

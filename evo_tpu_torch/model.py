@@ -10,10 +10,13 @@ the Hyena poles and residues (float32); activations in `compute_dtype`;
 RMSNorm statistics, softmax, the long conv and the logits in float32.
 
 The decode cache is a dict {'offset': int, 'layers': [...]}, one entry per
-layer in layer order: {'k', 'v'} (B, T, H, Dh) KV buffers for attention,
-a `HyenaState` for Hyena. The entry points update it in place and return
-it. `prefill` fills a fresh cache; continuing a filled one
-(`resume=True`) is not ported yet.
+layer in layer order: the KV buffers of `layers/attention.py` for
+attention ({'k', 'v'}, or with `kv_quant='int8'` {'k', 'v', 'ks', 'vs'}),
+a `HyenaState` for Hyena. The offset is a Python int, so no entry point
+reads the device to learn it. The entry points update the cache in place
+and return it: a caller that wants to keep a cache as it was clones it
+first (`generation._grow_cache`). Every buffer is made of zeros: the
+attention kernels multiply masked keys by 0, which a NaN survives.
 """
 
 from __future__ import annotations
@@ -153,7 +156,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     K, S = cfg.short_filter_length, cfg.state_size
     layers = []
     for i in range(cfg.num_layers):
-        if cfg.is_attn_layer(i):
+        if cfg.is_attn_layer(i) and cfg.kv_quant == 'int8':
+            # head-major, so a head's positions are contiguous for the
+            # decode step that streams them
+            layers.append({
+                name: torch.zeros(shape, dtype=dt, device=device)
+                for name, shape, dt in (
+                    ('k', (batch, H, max_len, Dh), torch.int8),
+                    ('v', (batch, H, max_len, Dh), torch.int8),
+                    ('ks', (batch, H, max_len), torch.float32),
+                    ('vs', (batch, H, max_len), torch.float32))})
+        elif cfg.is_attn_layer(i):
             layers.append({
                 'k': torch.zeros((batch, max_len, H, Dh), dtype=cd,
                                  device=device),
@@ -181,20 +194,24 @@ def _unembed(model: StripedHyena, x: torch.Tensor) -> torch.Tensor:
     return logits[..., :model.config.vocab_size]
 
 
-def _full_sequence(model: StripedHyena, ids: torch.Tensor, layers=None):
-    """The fresh full-sequence pass shared by `forward` and `prefill`;
-    with `layers` (the cache's list), each layer's decode state is written
-    into it."""
+def _full_sequence(model: StripedHyena, ids: torch.Tensor, layers=None,
+                   offset: int = 0, resume: bool = False):
+    """The full-sequence pass shared by `forward` and `prefill`. With
+    `layers` (the cache's list), each layer's decode state is written into
+    it; with `resume`, ids continue the sequence that filled `layers` up
+    to `offset`."""
     cfg = model.config
     x = _embed(model, ids)
     for i, blk in enumerate(model.blocks):
         h = blk.pre_norm(x)
         if isinstance(blk, AttentionBlock):
             mix, _ = mha_full(blk.attn, cfg, h, kv_buffers=(
-                None if layers is None else layers[i]))
+                None if layers is None else layers[i]), offset=offset,
+                attend_buffer=resume)
         else:
             mix, st = hyena_full(blk.hyena, cfg, h,
-                                 collect_state=layers is not None)
+                                 collect_state=layers is not None,
+                                 state=layers[i] if resume else None)
             if layers is not None:
                 layers[i] = st
         x = x + mix
@@ -210,14 +227,16 @@ def forward(model: StripedHyena, ids: torch.Tensor) -> torch.Tensor:
 
 def prefill(model: StripedHyena, ids: torch.Tensor, cache: Cache,
             resume: bool = False):
-    """Consume a fresh prompt ids (B, L), filling `cache` from position 0.
-    Returns (logits (B, L, vocab) float32, cache with offset L)."""
-    if resume:
-        raise NotImplementedError(
-            'prefill(resume=True) is not ported yet (ROADMAP.md, modules '
-            'queue: resumed prefill with the flash_attention_buffer kernel)')
-    logits = _full_sequence(model, ids, cache['layers'])
-    cache['offset'] = ids.shape[1]
+    """Consume ids (B, L), filling `cache`. Returns (logits (B, L, vocab)
+    float32, the cache with its offset advanced by L).
+
+    A fresh prompt fills the cache from position 0. `resume=True`
+    continues a filled cache: attention attends the cached and the new
+    positions, rotary positions start at the cache offset, and the Hyena
+    layers start from the carried FIR tail and modal state."""
+    offset = cache['offset'] if resume else 0
+    logits = _full_sequence(model, ids, cache['layers'], offset, resume)
+    cache['offset'] = offset + ids.shape[1]
     return logits, cache
 
 

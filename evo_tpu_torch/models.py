@@ -2,6 +2,7 @@
 
     model(input_ids)                          -> (logits, None)
     model(x, inference_params_dict=cache)     -> (logits, cache)
+    model(x, inference_params_dict=cache, donate_cache=True, resume=True)
     model.initialize_inference_params(b, t)   -> cache
 
 `Evo` keeps the reference's positional `device` argument and honours it:
@@ -47,21 +48,34 @@ class EvoModel:
     def device(self) -> torch.device:
         return self.module.device
 
-    def __call__(self, input_ids, inference_params_dict=None):
-        """No cache: forward, returns (logits, None). With a cache: decode
-        for a length-1 input, else a fresh prefill; returns (logits, cache),
-        the cache updated in place."""
+    def __call__(self, input_ids, inference_params_dict=None,
+                 donate_cache: bool = False, resume=None):
+        """No cache: forward, returns (logits, None). With a cache: a
+        decode step for a length-1 input, else a prefill; returns (logits,
+        cache).
+
+        resume: continue from a filled cache. None derives it from the
+        cache's offset (a Python int here, so nothing waits on the device);
+        segmented loops pass it as they do in the JAX package.
+
+        donate_cache: the port updates the passed cache in place whether or
+        not it is donated, and returns that same dict, so a caller that
+        wants the old state clones it first. The keyword keeps the
+        reference's routing: a donated length-1 input takes the prefill,
+        not the decode step."""
         ids = torch.as_tensor(input_ids, device=self.device).long()
         if ids.dim() == 1:
             ids = ids[None]
         if inference_params_dict is None:
             return model_lib.forward(self.module, ids), None
-        if ids.shape[1] == 1:
+        if ids.shape[1] == 1 and not donate_cache:
             logits, cache = model_lib.decode_step(self.module, ids[:, 0],
                                                   inference_params_dict)
             return logits[:, None], cache
+        if resume is None:
+            resume = inference_params_dict['offset'] > 0
         return model_lib.prefill(self.module, ids, inference_params_dict,
-                                 resume=inference_params_dict['offset'] > 0)
+                                 resume=bool(resume))
 
     def initialize_inference_params(self, batch_size: int, max_len: int):
         return model_lib.init_cache(self.config, batch_size, max_len,

@@ -28,7 +28,8 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG / 'build'
-SOURCES = ('rmsnorm.cu', 'fir_gate.cu', 'flash_attention.cu')
+SOURCES = ('rmsnorm.cu', 'fir_gate.cu', 'flash_attention.cu',
+           'flash_attention_buffer.cu')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -37,18 +38,22 @@ LAUNCHES: collections.Counter = collections.Counter()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # (x, w, y, rows, cols, eps, stream)
     'evo_rmsnorm_bf16': (_P, _P, _P, _I, _I, _F, _P),
-    # (z, w, b, x2, u, B, C, L, K, stream)
-    'evo_fir_gate_bf16': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # (z, w, b, tail, x2, u, B, C, L, K, stream)
+    'evo_fir_gate_bf16': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # (q, k, v, o, B, L, H, q/k/v batch, seq and head strides, scale, stream)
-    'evo_flash_attention_bf16': (_P, _P, _P, _P, _I, _I, _I,
-                                 ctypes.c_longlong, ctypes.c_longlong,
-                                 ctypes.c_longlong, ctypes.c_longlong,
-                                 ctypes.c_longlong, ctypes.c_longlong,
-                                 ctypes.c_longlong, ctypes.c_longlong,
-                                 ctypes.c_longlong, _F, _P),
+    'evo_flash_attention_bf16': (_P, _P, _P, _P, _I, _I, _I, *(_L,) * 9, _F,
+                                 _P),
+    # (q, k, v, offsets, o, B, Lq, T, H, q/k/v batch, position and head
+    # strides, scale, stream)
+    'evo_flash_attention_buffer_bf16': (_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                        *(_L,) * 9, _F, _P),
+    # (q, k, v, ks, vs, offsets, o, B, Lq, T, H, strides, scale, stream)
+    'evo_flash_attention_buffer_q8': (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                      _I, *(_L,) * 9, _F, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

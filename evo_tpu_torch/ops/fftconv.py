@@ -103,9 +103,11 @@ def conv_matmul_chunked(u: torch.Tensor, poles: torch.Tensor,
 
     Within a chunk: y_i = T @ u_i with the (C, C) Toeplitz of the first C
     taps. Across chunks: per-chunk injected modal states, a Hillis-Steele
-    weighted prefix over the K chunks, decayed into each chunk. L is
-    left-padded to a multiple of the chunk (leading zeros neither change
-    the outputs nor inject state).
+    weighted prefix over the K chunks, decayed into each chunk. A fresh
+    L is left-padded to a multiple of the chunk (leading zeros neither
+    change the outputs nor inject state); a continued one must be a
+    multiple already, or shorter than a chunk (`layers/hyena.py` splits a
+    ragged segment accordingly).
     """
     B, D, L = u.shape
     S = poles.shape[1]

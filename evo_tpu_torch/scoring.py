@@ -2,8 +2,9 @@
 
 Reference numerics: right padding with pad_id and NO mask inside the model;
 padding is harmless because every mixer is causal, and outputs are sliced
-to the true lengths afterwards. Segmented long-sequence scoring is not
-ported yet: its two entry points raise `NotImplementedError`.
+to the true lengths afterwards. The segmented entry points prefill a long
+sequence in pieces through the resumable cache, so activation memory is
+that of one segment; this is the one-device path to 131k-long sequences.
 """
 
 from __future__ import annotations
@@ -87,25 +88,97 @@ def positional_entropies(seqs: Sequence[str], model,
     return [ent[i][:n] for i, n in enumerate(seq_lengths)]
 
 
-_SEGMENTED_TODO = ('segmented scoring is not ported yet (ROADMAP.md, '
-                   'modules queue: resumed prefill with the '
-                   'flash_attention_buffer kernel)')
-
-
-def score_sequences_segmented(*args, **kwargs):
-    """Long-sequence scoring in segments through the resumed prefill."""
-    raise NotImplementedError(_SEGMENTED_TODO)
-
-
-def positional_entropies_segmented(*args, **kwargs):
-    """Long-sequence entropies in segments through the resumed prefill."""
-    raise NotImplementedError(_SEGMENTED_TODO)
-
-
 def _aligned_cache_len(L: int, align: int = 1024) -> int:
     """KV-buffer length for a sequence of L positions: L + 1, rounded up to
-    `align` for L >= 4096 and to 128 below, as in the JAX package."""
+    `align` for L >= 4096 and to 128 below, as in the JAX package (whose
+    kernel needs such lengths; the port's takes any, and keeps the rule so
+    both allocate the same buffers)."""
     T = L + 1
     if L >= 4096:
         return -(-T // align) * align
     return -(-T // 128) * 128
+
+
+def _cache_align(cfg) -> int:
+    return 4096 if cfg.kv_quant == 'int8' else 1024
+
+
+def _segment_bounds(L: int, segment_len: int) -> List[int]:
+    """Split points of a segmented prefill: the ragged remainder goes
+    FIRST (a fresh prefill takes any length; a remainder below 64 is
+    merged into it), every later segment is exactly `segment_len`."""
+    r = L % segment_len
+    if r and r < 64 and L > segment_len:
+        r += segment_len
+    bounds = [0, r or min(L, segment_len)]
+    while bounds[-1] < L:
+        bounds.append(min(bounds[-1] + segment_len, L))
+    return bounds
+
+
+def _segment_logits(seq: str, model, tokenizer: CharLevelTokenizer,
+                    segment_len: int, prepend_bos: bool):
+    """Prefill one sequence in segments through a cache of its own;
+    yields (ids of the segment (1, l), its logits (1, l, V))."""
+    ids, _ = prepare_batch([seq], tokenizer, prepend_bos=prepend_bos)
+    L = ids.shape[1]
+    cache = model.initialize_inference_params(
+        1, _aligned_cache_len(L, _cache_align(model.config)))
+    bounds = _segment_bounds(L, segment_len)
+    for s, e in zip(bounds[:-1], bounds[1:]):
+        logits, cache = model(ids[:, s:e], inference_params_dict=cache,
+                              donate_cache=True, resume=s > 0)
+        yield ids[:, s:e], logits
+
+
+def score_sequences_segmented(seqs: Sequence[str], model,
+                              tokenizer: CharLevelTokenizer,
+                              segment_len: int = 8192,
+                              reduce_method: str = 'mean',
+                              prepend_bos: bool = True) -> List[float]:
+    """`score_sequences` for long sequences: each is prefilled in segments
+    of `segment_len` (exact Hyena state carry, attention over the KV
+    buffer), one sequence at a time, so peak memory is one segment's
+    activations plus the KV buffers. Matches `score_sequences`."""
+    reduce_func = _reduce(reduce_method)
+    scores = []
+    for seq in seqs:
+        pieces = []
+        carry = None            # the previous segment's last logits
+        for seg, logits in _segment_logits(seq, model, tokenizer,
+                                           segment_len, prepend_bos):
+            # position t's logits score token t+1: within the segment
+            # logits[:, :-1] pair with seg[:, 1:], and the segment's first
+            # token is scored by the previous segment's last logits
+            if carry is not None:
+                pieces.append(logits_to_logprobs(carry, seg[:, :1],
+                                                 trim_bos=False))
+            pieces.append(logits_to_logprobs(logits, seg))
+            carry = logits[:, -1:]
+        logprobs = torch.cat(pieces, dim=1)[0].cpu().numpy()
+        scores.append(float(reduce_func(logprobs[:len(seq)])))
+    return scores
+
+
+def positional_entropies_segmented(seqs: Sequence[str], model,
+                                   tokenizer: CharLevelTokenizer,
+                                   segment_len: int = 8192,
+                                   prepend_bos: bool = True
+                                   ) -> List[np.ndarray]:
+    """`positional_entropies` for long sequences, prefilled in segments as
+    `score_sequences_segmented` does; the entropy is reduced per segment,
+    so the logits of the whole sequence are never held at once."""
+    out = []
+    for seq in seqs:
+        pieces = []
+        for _, logits in _segment_logits(seq, model, tokenizer,
+                                         segment_len, prepend_bos):
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            pieces.append(-torch.sum(torch.exp(logp) * logp, dim=-1))
+        ent = torch.cat(pieces, dim=1)[0].cpu().numpy()
+        # with BOS, position i's entropy describes the prediction OF
+        # sequence character i (the last position predicts nothing scored)
+        if prepend_bos:
+            ent = ent[:-1]
+        out.append(ent[:len(seq)])
+    return out

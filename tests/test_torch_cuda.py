@@ -10,8 +10,11 @@ GPU machine that has neither (tests/conftest.py imports JAX; skip it):
 import pytest
 import torch
 
+from evo_tpu_torch.layers.attention import kv_quantize
 from evo_tpu_torch.ops.attention import (attention_plain,
                                          flash_attention_causal)
+from evo_tpu_torch.ops.attention_buffer import (attention_buffer_plain,
+                                                flash_attention_buffer)
 from evo_tpu_torch.ops.fir_gate import fir_gate, fir_gate_plain
 from evo_tpu_torch.ops.rmsnorm import rmsnorm, rmsnorm_plain
 
@@ -54,6 +57,17 @@ def test_fir_gate_kernel(randn, B, L, bias):
         assert torch.equal(got, want)
 
 
+def _scaled_err(got, want):
+    """Largest |err| over the larger of |want| and the rms of its
+    (position, head) row. Attention outputs shrink along the sequence, so
+    no one absolute limit holds the late rows. Output rounding gives at
+    most one bf16 step (2^-7) of that, the kernels' bf16 P a few 2^-9; the
+    limit is four bf16 steps, 2^-5."""
+    got, want = got.float(), want.float()
+    rms = want.pow(2).mean(-1, keepdim=True).sqrt()
+    return ((got - want).abs() / want.abs().maximum(rms)).max()
+
+
 @pytest.mark.parametrize('B,L', [(1, 1), (1, 63), (1, 64), (2, 1000)])
 def test_flash_attention_kernel(randn, B, L):
     qkv = randn(B, L, 3, 32, 128)
@@ -61,17 +75,65 @@ def test_flash_attention_kernel(randn, B, L):
     got = flash_attention_causal(q, k, v)
     torch.cuda.synchronize()
     assert got.is_contiguous() and got.shape == q.shape
-    want = attention_plain(q, k, v).float()
-    # Output rows shrink along the sequence, so each error is scaled by the
-    # larger of |want| and its (position, head) row's rms. Output rounding
-    # gives at most one bf16 step (2^-7) of that, the kernel's bf16 P a few
-    # 2^-9; the limit is four bf16 steps.
-    rms = want.pow(2).mean(-1, keepdim=True).sqrt()
-    scaled = (got.float() - want).abs() / want.abs().maximum(rms)
-    assert scaled.max() <= 2 ** -5
+    assert _scaled_err(got, attention_plain(q, k, v)) <= 2 ** -5
+
+
+@pytest.mark.parametrize('B,L', [(1, 1), (1, 2), (2, 77), (1, 1000)])
+def test_fir_gate_kernel_with_carried_tail(randn, B, L):
+    z, w, b = randn(B, 3, 4096, L), randn(3, 4096, 3), randn(3, 4096)
+    tail = randn(B, 3, 4096, 2)
+    for got, want in zip(fir_gate(z, w, b, tail),
+                         fir_gate_plain(z, w, b, tail)):
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize('B,Lq,T,offset', [
+    (1, 128, 1024, 0),           # fresh, into a longer buffer
+    (1, 128, 1024, 731),         # an unaligned offset
+    (1, 100, 1024, 512),         # Lq not a multiple of the query tile
+    (1, 256, 2048, 1792),        # the segment fills the buffer to the brim
+    (2, 64, 1000, (100, 900)),   # per-row offsets, T not a multiple of 128
+    (2, 1, 777, (5, 776)),       # one query row (decode)
+])
+@pytest.mark.parametrize('quantized', [False, True])
+def test_flash_attention_buffer_kernels(randn, B, Lq, T, offset, quantized):
+    q, kb, vb = randn(B, Lq, 32, 128), randn(B, T, 32, 128), randn(
+        B, T, 32, 128)
+    if isinstance(offset, int):
+        ends, off = [offset + Lq] * B, offset
+    else:
+        ends = [o + Lq for o in offset]
+        off = torch.tensor(offset, dtype=torch.int32, device='cuda')
+    for b, end in enumerate(ends):      # a finite garbage tail, masked
+        kb[b, end:] *= 10
+        vb[b, end:] *= 10
+    args = (kb, vb, off)
+    if quantized:
+        (kq, ks), (vq, vs) = kv_quantize(kb), kv_quantize(vb)
+        args = (kq.transpose(1, 2).contiguous(),
+                vq.transpose(1, 2).contiguous(), off,
+                ks.transpose(1, 2).contiguous(),
+                vs.transpose(1, 2).contiguous())
+    got = flash_attention_buffer(q, *args)
+    torch.cuda.synchronize()
+    assert got.is_contiguous() and got.shape == q.shape
+    assert _scaled_err(got, attention_buffer_plain(q, *args)) <= 2 ** -5
 
 
 def test_kernels_refuse_what_they_do_not_take(randn):
+    buf = randn(1, 16, 2, 128)
+    with pytest.raises(ValueError, match='do not fit'):
+        flash_attention_buffer(randn(1, 8, 2, 128), buf, buf, 9)
+    with pytest.raises(TypeError):
+        flash_attention_buffer(randn(1, 8, 2, 128), buf.float(), buf.float(),
+                               0)
+    with pytest.raises(ValueError, match='head_dim'):
+        flash_attention_buffer(randn(1, 8, 2, 64), buf[..., :64],
+                               buf[..., :64], 0)
+    with pytest.raises(ValueError, match='one type'):
+        fir_gate(randn(1, 3, 8, 5), randn(3, 8, 3), None,
+                 randn(1, 3, 8, 2).float())
     q = randn(1, 8, 2, 64)
     with pytest.raises(ValueError, match='head_dim'):
         flash_attention_causal(q, q, q)
