@@ -13,7 +13,8 @@ for an H100: the kernels target sm_90a). It
      ragged ones (RMSNorm; FIR + gate, fresh and with a carried tail;
      causal flash attention; attention over a bf16 and an int8 KV buffer,
      up to a segment of 8,192 queries at offset 122,880 of a 131,072-long
-     buffer, and one query row for decode), and times kernel, plain
+     buffer, and one query row for decode; the weight-only int4 matmul at
+     1 to 128 rows for each projection of a layer), and times kernel, plain
      version, the roofline bound and a library yardstick with CUDA events;
   3. checks the whole port on a small bf16 model against the same model's
      plain PyTorch path on the CPU;
@@ -32,9 +33,24 @@ for an H100: the kernels target sm_90a). It
      against one pass, a generation resumed from the returned cache
      against one call, and the same under the int8 KV cache, whose decode
      steps must go through the int8 kernel;
-  8. profiles one forward at B=1, L=8192, a prefill with 8 decode steps and
-     one resumed segment at offset 122,880, and prints the device's idle
-     share and where its time goes.
+  8. quantizes evo-1-131k-base to int4 at full width with the int8 KV
+     cache, prints the memory it takes, and generates greedily from 2
+     prompts of 512 nt: every decode step must launch the int4 kernel 160
+     times and the prefill never, prefill + decode logits must agree with
+     one forward, and the decode step is timed beside the bf16 and the
+     int8 weight-only ones;
+  9. scores the ragged sequences of phase 4 under int8 weights, int8
+     weights with int8 activations, and int4, against the bf16 scores;
+ 10. writes the random-init evo-1-8k-base as a sharded reference snapshot
+     into a temporary directory, loads it with Evo(checkpoint_path=) and
+     requires bit-equal scores (8 layers at full width where the disk has
+     less than 40 GB free);
+ 11. runs `python -m evo_tpu_torch.cli.score` and `...cli.generate` with
+     --random-init --quant int4 in processes of their own;
+ 12. profiles one forward at B=1, L=8192, a prefill with 8 decode steps,
+     one resumed segment at offset 122,880 and single decode steps in bf16
+     and int4, and prints the device's idle share, the kernels launched
+     per decode step and where the time goes.
 
 Any failed check raises; nothing is caught. The last line of standard
 output is {"ok": true, "device": {...}}; the line before it holds the
@@ -44,9 +60,11 @@ limit.
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -99,6 +117,33 @@ def time_ms(torch, fn, reps=20, warmup=3):
     return statistics.median(a.elapsed_time(b) for a, b in evs)
 
 
+def time_graph_ms(torch, fns, rounds=5):
+    """Device milliseconds per call of the launches in `fns`, replayed from
+    a CUDA graph, for kernels shorter than the host takes to launch one.
+    Give it calls on different buffers, larger together than the 50 MB L2,
+    where the real caller finds its operands cold."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(rounds):
+            for fn in fns:
+                fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / (rounds * len(fns)))
+    return statistics.median(times)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -116,7 +161,8 @@ def main():
                                positional_entropies_segmented,
                                score_sequences, score_sequences_segmented)
     from evo_tpu_torch import model as model_lib
-    from evo_tpu_torch.config import tiny_config
+    from evo_tpu_torch.checkpoint import write_reference_snapshot
+    from evo_tpu_torch.config import cli_quant_overrides, tiny_config
     from evo_tpu_torch.generation import Generator
     from evo_tpu_torch.ops import _build
     from evo_tpu_torch.layers.attention import kv_quantize
@@ -125,7 +171,11 @@ def main():
     from evo_tpu_torch.ops.attention_buffer import (attention_buffer_plain,
                                                     flash_attention_buffer)
     from evo_tpu_torch.ops.fir_gate import fir_gate, fir_gate_plain
+    from evo_tpu_torch.ops.int4 import (int4_matmul, int4_matmul_plain,
+                                        pack_int4)
     from evo_tpu_torch.ops.rmsnorm import rmsnorm, rmsnorm_plain
+    from evo_tpu_torch.quant import (int4_dot, quantize_weight_int4,
+                                     quantized_bytes)
     from evo_tpu_torch.scoring import logits_to_logprobs, prepare_batch
 
     dev = torch.device('cuda')
@@ -369,6 +419,95 @@ def main():
               '(1, 32, 131072, 128), scales (1, 32, 131072); prefill_ms: '
               'q (1, 8192, 32, 128) at offset 122,880')
     del off, bf, i8, sc, mask, row, q1
+
+    # Weight-only int4 matmul. The kernel multiplies the same bf16 values
+    # as the plain version (nibbles are exact in bf16) and differs only in
+    # the order of the float32 sums inside a group of 128 (mma.sync) and
+    # in nothing after it: the scale multiply and the add across groups
+    # are rounded apart in both. Up to 11,008 terms at float32 epsilon:
+    # required |err| <= 1e-4 of the larger of |want| and its row's rms.
+    def int4_case(M, Kp, N):
+        x = randn(M, Kp)
+        q = torch.randint(-8, 8, (Kp, N), device=dev, generator=g,
+                          dtype=torch.int8)
+        s = torch.rand(Kp // 128, N, device=dev, generator=g) * 0.09 + 0.01
+        return x, pack_int4(q), s
+
+    layer_calls = ((4096, 10928), (11008, 4096), (4096, 12288),
+                   (4096, 4096))           # w1 / w2, w3, w_in / wqkv, w_out
+    err8 = scaled8 = 0.0
+    for M, Kp, N in (
+            [(8, 256, 512), (1, 4096, 688), (16, 1536, 512),
+             (128, 512, 1024), (5, 512, 1001)]
+            + [(M, Kp, N) for Kp, N in layer_calls for M in (1, 2, 7, 128)]):
+        x, packed, sc = int4_case(M, Kp, N)
+        got = int4_matmul(x, packed, sc)
+        torch.cuda.synchronize()
+        want = int4_matmul_plain(x, packed, sc)
+        e, r = float((got - want).abs().max()), scaled_err(got, want)
+        log(f'   int4_matmul M={M} Kp={Kp} N={N}: max abs err {e:.3e}, '
+            f'scaled {r:.3e}')
+        err8, scaled8 = max(err8, e), max(scaled8, r)
+    # K = 128 padded to Kp = 256 (the shape class of wo): zero rows
+    # interleave with real ones across the two nibbles, against the exact
+    # product with the dequantized weight
+    w = randn(2, 64, 384).float() * 0.05
+    x = randn(3, 2, 64)
+    qw = quantize_weight_int4(w, 2)
+    got = int4_dot(x, qw, nc=2).float()
+    want = int4_dot(x.cpu(), qw.cpu(), nc=2).float().to(dev)
+    r = scaled_err(got, want)
+    log(f'   int4_dot nc=2, K=128 padded to 256: scaled err {r:.3e} against '
+        f'the plain version on the CPU (bf16 outputs: limit 2^-7)')
+    check(scaled8 <= 1e-4 and r <= 2 ** -7,
+          f'int4 kernel disagrees: {scaled8}, padded {r}')
+    # Times at the widest call of a layer (4096 x 12288). A decode step
+    # reads each weight once, so the kernel finds it cold: four weights
+    # (104 MB together, past the 50 MB L2) taken in turns, replayed from a
+    # CUDA graph, because the kernel is shorter than a launch from the
+    # host takes. `ms_by_events` is the per-launch event time, as for the
+    # other kernels.
+    Kp, N = 4096, 12288
+    cases = [int4_case(128, Kp, N) for _ in range(4)]
+
+    def int4_bound_ms(M, Kp, N):
+        nbytes = Kp // 2 * N + (Kp // 128) * N * 4 + M * Kp * 2 + M * N * 4
+        return 1e3 * max(nbytes / peak['bytes_s'],
+                         2 * M * Kp * N / peak['bf16'])
+
+    by_rows = {}
+    for M in (1, 2, 128):
+        fns = [(lambda x=x[:M].contiguous(), p=p, sc=sc:
+                int4_matmul(x, p, sc)) for x, p, sc in cases]
+        wbf = [randn(Kp, N) for _ in range(2)]
+        xm = randn(M, Kp)
+        by_rows[M] = dict(
+            ms=time_graph_ms(torch, fns),
+            ms_by_events=time_ms(torch, fns[0]),
+            plain_ms=time_ms(torch, lambda: int4_matmul_plain(
+                cases[0][0][:M], *cases[0][1:]), reps=3, warmup=1),
+            bound_ms=int4_bound_ms(M, Kp, N),
+            # for orientation only: the bf16 product of the same (M, K, N),
+            # which reads four times the weight bytes; not this function
+            bf16_matmul_ms=time_graph_ms(
+                torch, [(lambda w=w: xm @ w) for w in wbf], rounds=10))
+        del wbf
+    per_layer = {f'{Kp}x{N}': time_graph_ms(
+        torch, [(lambda c=int4_case(2, Kp, N): int4_matmul(*c))
+                for _ in range(int(110e6 // (Kp // 2 * N)) + 1)])
+        for Kp, N in layer_calls}
+    kernels['int4_matmul'] = dict(
+        name='int4_matmul', route='cuda',
+        source='evo_tpu_torch/csrc/int4_matmul.cu',
+        replaces='evo_tpu/ops/pallas_int4.py:87', max_abs_err=err8,
+        max_scaled_err=scaled8, **by_rows[1], bound_by='bytes',
+        library_ms=None, by_rows=by_rows, ms_by_call_at_2_rows=per_layer,
+        shape='x (1, 4096) bf16, packed (2048, 12288) int8, scales '
+              '(32, 12288) fp32 (decode, M = 1; by_rows: M = 1, 2, 128); '
+              'no single PyTorch call computes this function')
+    log(f'   int4_matmul by rows at Kp=4096, N=12288: {by_rows}; by call of '
+        f'a layer at M=2: {per_layer}')
+    del cases, fns, packed, sc, qw, xm
     for kk in kernels.values():
         log(f"   {kk['name']}: {kk['ms']:.4f} ms (bound {kk['bound_ms']:.4f}"
             f" ms by {kk['bound_by']}, plain {kk['plain_ms']:.4f}, library "
@@ -694,7 +833,177 @@ def main():
         f'{step_ms[2]:.2f}, bf16 {step_ms[3]:.2f}')
     del evo8, toks8, steps8
 
-    # -- 8. where the device time goes (checks nothing; last, so the
+    # -- 8. quantized weights at full width: int4 + the int8 KV cache ------
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.time()
+    evo4 = Evo('evo-1-131k-base', random_init=True, seed=0, device='cuda',
+               config_overrides={'weight_quant': 'int4', 'kv_quant': 'int8'})
+    torch.cuda.synchronize()
+    log(f'== 8. evo-1-131k-base, int4 weights + int8 KV cache: made and '
+        f'quantized in {time.time() - t0:.1f} s; '
+        f'{(torch.cuda.memory_allocated() - base) / 1e9:.3f} GB allocated '
+        f'for it ({torch.cuda.memory_allocated() / 1e9:.3f} GB in all), '
+        f'quantized_bytes {quantized_bytes(evo4.model.module) / 1e9:.3f} GB, '
+        f'against {quantized_bytes(model.module) / 1e9:.3f} GB in bf16')
+    check(quantized_bytes(evo4.model.module) < 0.3 * quantized_bytes(
+        model.module), 'int4 weights take more than 0.3 of the bf16 ones')
+    prompt_ids = prompt_ids[:, :512]
+    n_new = 16
+    gen4 = Generator(evo4.model, tok, top_k=1, temperature=0.0)
+    gen4.generate(input_ids=prompt_ids, num_tokens=2)         # warm-up
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    cache4 = evo4.model.initialize_inference_params(2, 640)
+    evo4.model(prompt_ids, inference_params_dict=cache4)
+    check(_build.LAUNCHES['int4_matmul'] == 0,
+          'a prefill of 1,024 rows must not take the int4 kernel')
+    del cache4
+    _build.LAUNCHES.clear()
+    t0 = time.time()
+    toks4, steps4, _ = gen4.generate(input_ids=prompt_ids, num_tokens=n_new)
+    torch.cuda.synchronize()
+    gen4_s = time.time() - t0
+    launches['generate_int4'] = dict(_build.LAUNCHES)
+    # five quantized projections in each of 32 layers, every decode step
+    check(launches['generate_int4'] == {
+        'rmsnorm': 65 * n_new, 'fir_gate': 29, 'flash_attention': 3,
+        'flash_attention_buffer_q8': 3 * (n_new - 1),
+        'int4_matmul': 160 * (n_new - 1)},
+        f'launches {launches["generate_int4"]}')
+    # The seam under int4: prefill + decode logits against one forward
+    # over prompt + generation. The forward's 1,054 rows take the
+    # dequantized product, whose weights are rounded to bf16 after the
+    # scale, where the decode steps scale each group's float32 sum: a
+    # rounding of every weight on top of what phase 5 compares. Yardstick
+    # and limits as there: the drift of one bf16 rounding step at layer
+    # 0, and argmax agreement >= 0.75.
+    full = torch.cat([torch.as_tensor(prompt_ids, device=dev).long(),
+                      toks4], dim=1)
+    ref, _ = evo4.model(full)
+    floor4 = (nudged_forward(evo4.model, full) - ref).abs()[
+        :, 511:511 + n_new]
+    ref = ref[:, 511:511 + n_new]
+    diff = (steps4 - ref).abs()
+    agree = float((steps4.argmax(-1) == ref.argmax(-1)).float().mean())
+    log(f'   generate 2 x 512 nt + {n_new} under int4: {gen4_s:.3f} s; '
+        f'launches {launches["generate_int4"]}; seam: mean abs logit diff '
+        f'{float(diff.mean()):.5f} (max {float(diff.max()):.4f}), argmax '
+        f'agreement {agree:.4f}; one rounding step at layer 0 moves them '
+        f'by mean {float(floor4.mean()):.5f}; limit 1x')
+    check(bool(torch.isfinite(steps4).all())
+          and float(diff.mean()) <= float(floor4.mean())
+          and agree >= 0.75, 'int4 seam logits disagree')
+    del ref, full, diff, floor4, toks4, steps4
+    # decode steps of the three weight types, in turns (host-bound, so
+    # they vary from run to run): bf16, int8, int4, int4, int8, bf16
+    evo_i8 = Evo('evo-1-131k-base', random_init=True, seed=0, device='cuda',
+                 config_overrides={'weight_quant': 'int8'})
+    turns = (('bf16', model), ('int8', evo_i8.model), ('int4', evo4.model))
+    step_ms = [(name, 1e3 * prefill_and_decode(m, 16) / 16)
+               for name, m in turns + turns[::-1]]
+    log('   ms per decode step at B=2 after a 512-nt prompt, in turns: '
+        + ', '.join(f'{name} {ms:.2f}' for name, ms in step_ms)
+        + ' (int4 with the int8 KV cache, the others with a bf16 one)')
+    del evo_i8, turns
+
+    # -- 9. scoring under each quantized mode --------------------------------
+    # The four ragged sequences of phase 4, same weights (seed 0) quantized,
+    # against the bf16 scores of phase 4. A score is a mean over 1,000 to
+    # 4,000 log-likelihoods, so the noise of quantization largely averages
+    # out of it. Limits on |score - bf16 score|: 0.05 under int8 weights
+    # (per-channel codes, about 0.4 % a product), 0.1 with int8
+    # activations on top (one scale a token over 4,096 to 10,928 values is
+    # coarser), 0.15 under int4 (about 10 % a product on Gaussian weights;
+    # the JAX package's tests allow a mean logit drift of 0.15).
+    log('== 9. scoring under each quantized mode, evo-1-8k-base, against '
+        f'bf16 scores {scores}')
+    for quant, limit in (('int8', 0.05), ('int8x8', 0.1), ('int4', 0.15)):
+        evo_q = Evo('evo-1-8k-base', random_init=True, seed=0, device='cuda',
+                    config_overrides=cli_quant_overrides(quant))
+        _build.LAUNCHES.clear()
+        t0 = time.time()
+        scores_q = score_sequences(seqs, evo_q.model, evo_q.tokenizer)
+        dt = time.time() - t0
+        worst = max(abs(a - b) for a, b in zip(scores_q, scores))
+        log(f'   {quant}: {scores_q} in {dt:.3f} s, largest difference '
+            f'{worst:.4f} (limit {limit}); '
+            f'{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated with '
+            f'the bf16 131k model and the int4 one; launches '
+            f'{dict(_build.LAUNCHES)}')
+        check(all(np.isfinite(scores_q)) and worst <= limit,
+              f'{quant} scores {scores_q} against {scores}')
+        check(_build.LAUNCHES['int4_matmul'] == 0,
+              'a scoring forward must not take the int4 kernel')
+        del evo_q
+
+    # -- 10. checkpoint round trip at full width -----------------------------
+    tmp = tempfile.mkdtemp(prefix='evo_snapshot_')
+    try:
+        free_gb = shutil.disk_usage(tmp).free / 1e9
+        full_depth = free_gb >= 40
+        overrides = None if full_depth else dict(
+            num_layers=8, attn_layer_idxs=(7,), hyena_layer_idxs=())
+        src = Evo('evo-1-8k-base', random_init=True, seed=0, device='cuda',
+                  config_overrides=overrides)
+        want = score_sequences(seqs[:2], src.model, src.tokenizer)
+        t0 = time.time()
+        write_reference_snapshot(src.model.module, tmp, num_shards=4)
+        write_s = time.time() - t0
+        nbytes = sum(os.path.getsize(os.path.join(tmp, f))
+                     for f in os.listdir(tmp))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        loaded = Evo('evo-1-8k-base', checkpoint_path=tmp, device='cuda')
+        torch.cuda.synchronize()
+        load_s = time.time() - t0
+        got = score_sequences(seqs[:2], loaded.model, loaded.tokenizer)
+        log(f'== 10. checkpoint round trip, '
+            f'{"32 layers" if full_depth else "8 layers (7 Hyena, 1 attention)"}'
+            f' at full width ({free_gb:.0f} GB free on disk): '
+            f'{nbytes / 1e9:.2f} GB in {sorted(os.listdir(tmp))}; written '
+            f'in {write_s:.1f} s ({nbytes / 1e9 / write_s:.2f} GB/s), '
+            f'loaded in {load_s:.1f} s ({nbytes / 1e9 / load_s:.2f} GB/s); '
+            f'scores {got} against {want}')
+        check(loaded.config == src.config, 'the loaded config differs')
+        check(got == want, 'scores after the round trip are not bit-equal')
+        del src, loaded
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # -- 11. the command lines, each in a process of its own -----------------
+    with tempfile.TemporaryDirectory(prefix='evo_cli_') as tmp:
+        tsv = os.path.join(tmp, 'scores.tsv')
+        for label, cmd in (
+                ('score', ['evo_tpu_torch.cli.score', '--input-fasta',
+                           os.path.join(ROOT, 'examples',
+                                        'example_seqs.fasta'),
+                           '--output-tsv', tsv, '--random-init', '--quant',
+                           'int4']),
+                ('generate', ['evo_tpu_torch.cli.generate', '--random-init',
+                              '--quant', 'int4', '--kv-quant', 'int8',
+                              '--prompt', 'ACGT', '--n-tokens', '16',
+                              '--temperature', '0', '--top-k', '1'])):
+            t0 = time.time()
+            r = subprocess.run([sys.executable, '-m'] + cmd, cwd=ROOT,
+                               capture_output=True, text=True, timeout=600)
+            log(f'== 11. python -m {" ".join(cmd[:1])} ...: exit code '
+                f'{r.returncode} in {time.time() - t0:.1f} s; last lines: '
+                f'{r.stdout.strip().splitlines()[-2:]}')
+            check(r.returncode == 0, f'{label} CLI failed:\n{r.stderr[-3000:]}')
+            if label == 'generate':
+                outs = [ln for ln in r.stdout.splitlines()
+                        if ln.startswith('Prompt: "ACGT",\tOutput: "')]
+                check(len(outs) == 3 and len(set(outs)) == 1,
+                      f'generate CLI output: {r.stdout[-2000:]}')
+        with open(tsv) as f:
+            rows = [ln.rstrip('\n').split('\t') for ln in f]
+        check(rows[0] == ['seqs', 'scores'] and len(rows) == 4
+              and all(len(r) == 2 and np.isfinite(float(r[1]))
+                      and float(r[1]) < 0 for r in rows[1:]),
+              f'score CLI TSV: {rows}')
+
+    # -- 12. where the device time goes (checks nothing; last, so the
     # profiler's hooks cannot slow the timed phases) ----------------------
     from torch.profiler import ProfilerActivity, profile
 
@@ -714,7 +1023,8 @@ def main():
         busy_us = sum(e.self_device_time_total for e in ops)
         log(f'   profile of {label}: device busy {busy_us / 1e3:.1f} ms of '
             f'{wall_us / 1e3:.1f} ms wall (idle share '
-            f'{1 - busy_us / wall_us:.3f}); top kernels:')
+            f'{1 - busy_us / wall_us:.3f}); {sum(e.count for e in ops)} '
+            f'kernels and copies on the device; top kernels:')
         for e in ops[:10]:
             log(f'     {100 * e.self_device_time_total / max(busy_us, 1):5.1f}'
                 f'%  {e.self_device_time_total / 1e3:8.2f} ms  '
@@ -729,18 +1039,38 @@ def main():
         late_cache['offset'] = 122880
         model(ids, inference_params_dict=late_cache, resume=True)
 
-    log('== 8. profiles (evo-1-131k-base)')
-    prompt_ids = prompt_ids[:, :512]
+    def decode_steps(m, n_steps):
+        """A window of `n_steps` decode steps after a 512-nt prompt, whose
+        prefill runs now, outside the window."""
+        cache = m.initialize_inference_params(2, 640)
+        logits, cache = m(prompt_ids, inference_params_dict=cache)
+        state = [logits[:, -1].argmax(-1), cache]
+
+        def run():
+            for _ in range(n_steps):
+                step, state[1] = model_lib.decode_step(m.module, state[0],
+                                                       state[1])
+                state[0] = step.argmax(-1)
+        return run
+
+    log('== 12. profiles (evo-1-131k-base)')
     profile_window('one forward B=1 L=8192', lambda: model(ids))
     profile_window('prefill 2 x 512 + 8 decode steps',
                    lambda: prefill_and_decode(model, 8))
     late_segment()
     profile_window('one resumed segment B=1 L=8192 at offset 122,880',
                    late_segment)
+    del late_cache
+    # one decode step: what it launches, and where an int4 step's time goes
+    profile_window('4 decode steps at B=2, bf16 weights and cache (divide '
+                   'by 4 for a step)', decode_steps(model, 4))
+    profile_window('4 decode steps at B=2, int4 weights and int8 KV cache '
+                   '(divide by 4 for a step)', decode_steps(evo4.model, 4))
 
     # the phase that stands for each kernel's main path
     main_phase = {'flash_attention_buffer': 'score_segmented_131k',
-                  'flash_attention_buffer_q8': 'generate_int8'}
+                  'flash_attention_buffer_q8': 'generate_int8',
+                  'int4_matmul': 'generate_int4'}
     rows = []
     for kk in kernels.values():
         phase = main_phase.get(kk['name'], 'score_sequences')

@@ -4,9 +4,12 @@ The public calls of the JAX package, with the same contracts: `Evo`,
 `score_sequences`, `positional_entropies`, their `_segmented` twins for
 long sequences, and `generate`. Entry points run on the GPU ("cuda") unless
 the caller asks for the CPU. RMSNorm, the Hyena FIR + gate, causal flash
-attention and attention over the KV buffer (bf16 and int8) run as CUDA
-kernels written for sm_90a (`csrc/`); on a CPU tensor each takes its plain
-PyTorch version.
+attention, attention over the KV buffer (bf16 and int8) and the weight-only
+int4 matmul run as CUDA kernels written for sm_90a (`csrc/`); on a CPU
+tensor each takes its plain PyTorch version. Weights come from a seed or
+from a checkpoint on disk (`checkpoint.py`), optionally quantized
+(`quant.py`); `python -m evo_tpu_torch.cli.score` and `...cli.generate` are
+the command lines.
 
 This package imports neither JAX nor `evo_tpu`.
 """

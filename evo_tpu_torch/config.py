@@ -132,8 +132,9 @@ class ModelConfig:
     param_dtype: str = 'bfloat16'
     # chunk (= Toeplitz tile) of the long conv, ops/fftconv.py
     hyena_matmul_chunk: int = 64
-    # quantized modes: the int8 KV cache (kv_quant 'none' | 'int8') is
-    # ported, the weight and activation modes are not (see ROADMAP.md)
+    # opt-in quantized modes (quant.py): weight_quant 'none' | 'int8' |
+    # 'int4', act_quant 'none' | 'int8' (needs int8 weights), and the int8
+    # KV cache, kv_quant 'none' | 'int8'
     weight_quant: str = 'none'
     act_quant: str = 'none'
     kv_quant: str = 'none'
@@ -162,11 +163,11 @@ class ModelConfig:
             raise NotImplementedError(
                 'hyena_filter_groups > 1 is not implemented; reference '
                 'configs use 1')
-        for name in ('weight_quant', 'act_quant'):
-            if getattr(self, name) != 'none':
-                raise NotImplementedError(
-                    f'{name}={getattr(self, name)!r} is not ported yet '
-                    f'(ROADMAP.md, modules queue: quantized modes)')
+        if self.weight_quant not in ('none', 'int8', 'int4'):
+            raise ValueError(f'unknown weight_quant {self.weight_quant!r} '
+                             f"(expected 'none', 'int8' or 'int4')")
+        if self.act_quant not in ('none', 'int8'):
+            raise ValueError(f'unknown act_quant {self.act_quant!r}')
         if self.kv_quant not in ('none', 'int8'):
             raise ValueError(f"kv_quant must be 'none' or 'int8', got "
                              f'{self.kv_quant!r}')
@@ -174,7 +175,7 @@ class ModelConfig:
             raise NotImplementedError(
                 'param_dtype != compute_dtype is not ported: the port keeps '
                 'its weights in the activation type (ROADMAP.md, modules '
-                'queue: quantized modes)')
+                'queue: mixed parameter and activation types)')
 
     @property
     def head_dim(self) -> int:
@@ -238,6 +239,20 @@ def cli_tiny_overrides() -> dict:
         attn_layer_idxs=(1,), hyena_layer_idxs=(),
         num_attention_heads=4, state_size=4, compute_dtype='float32',
         param_dtype='float32')
+
+
+def cli_quant_overrides(quant: str) -> dict:
+    """The config overrides of the CLIs' `--quant` choice: 'int8' is
+    weight-only, 'int8x8' int8 weights with dynamic int8 activations,
+    'int4' the memory-fit mode, 'none' nothing (bf16)."""
+    if quant == 'none':
+        return {}
+    if quant not in ('int8', 'int8x8', 'int4'):
+        raise ValueError(f'unknown --quant {quant!r}')
+    ov = {'weight_quant': 'int8' if quant == 'int8x8' else quant}
+    if quant == 'int8x8':
+        ov['act_quant'] = 'int8'
+    return ov
 
 
 def tiny_config(**overrides) -> ModelConfig:

@@ -2,9 +2,11 @@
 `evo_tpu/layers/attention.py`).
 
 Weights keep the JAX layouts: wqkv (D, 3, H, Dh), wo (H, Dh, D), bqkv
-(3, H, Dh), bo (D,). The KV cache of a layer is a dict of preallocated,
-zero-filled buffers that this module writes in place at the cache offset,
-as the reference engine updates its `inference_params_dict`:
+(3, H, Dh), bo (D,); wqkv and wo may be `QuantizedWeight`s (`quant.py`),
+and the projections go through `project`. The KV cache of a layer is a
+dict of preallocated, zero-filled buffers that this module writes in place
+at the cache offset, as the reference engine updates its
+`inference_params_dict`:
 
   {'k', 'v'}              (B, T, H, Dh) in the activation type, or
   {'k', 'v', 'ks', 'vs'}  `kv_quant='int8'`: head-major int8 (B, H, T, Dh)
@@ -30,6 +32,7 @@ from evo_tpu_torch.config import ModelConfig
 from evo_tpu_torch.layers.rotary import apply_rotary, rotary_cos_sin
 from evo_tpu_torch.ops.attention import flash_attention_causal
 from evo_tpu_torch.ops.attention_buffer import flash_attention_buffer
+from evo_tpu_torch.quant import project
 
 
 class Attention(nn.Module):
@@ -37,6 +40,7 @@ class Attention(nn.Module):
                  device: torch.device):
         super().__init__()
         D, H, Dh = cfg.hidden_size, cfg.num_attention_heads, cfg.head_dim
+        self.act_quant = cfg.act_quant == 'int8'
 
         def param(make, *shape):
             return nn.Parameter(make(shape, dtype=dtype, device=device),
@@ -52,8 +56,7 @@ class Attention(nn.Module):
 def _qkv(p: Attention, x: torch.Tensor):
     """Fused QKV projection: x (B, L, D) -> q, k, v (B, L, H, Dh), views of
     one (B, L, 3, H, Dh) tensor."""
-    B, L, D = x.shape
-    qkv = (x @ p.wqkv.reshape(D, -1)).view(B, L, *p.wqkv.shape[1:])
+    qkv = project(x, p.wqkv, 1, p.act_quant)         # (B, L, 3, H, Dh)
     if p.bqkv is not None:
         qkv = qkv + p.bqkv
     return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
@@ -69,9 +72,8 @@ def _rotate(cfg: ModelConfig, q, k, offset: int):
 
 
 def _out(p: Attention, y: torch.Tensor) -> torch.Tensor:
-    """y (B, L, H, Dh) -> (B, L, D)."""
-    B, L = y.shape[:2]
-    o = y.reshape(B, L, -1) @ p.wo.reshape(-1, p.wo.shape[-1])
+    """y (B, L, H, Dh) -> (B, L, D): wo contracts the two axes (H, Dh)."""
+    o = project(y, p.wo, 2, p.act_quant)
     if p.bo is not None:
         o = o + p.bo
     return o

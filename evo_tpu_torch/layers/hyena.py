@@ -8,7 +8,8 @@
     out = out_proj(x2 * y)              post-gate
 
 Weights keep the JAX layouts: w_in (D, 3, C), fir_w (3, C, K), poles and
-residues (C, S, 2) float32, d_skip (C,), w_out (C, D).
+residues (C, S, 2) float32, d_skip (C,), w_out (C, D). w_in and w_out may
+be `QuantizedWeight`s (`quant.py`); the projections go through `project`.
 
 Decode state (`HyenaState`): fir (B, 3, C, K-1) trailing pre-FIR inputs
 and iir (B, C, S, 2) float32 modal state. Paths: a full sequence or a
@@ -26,6 +27,7 @@ from torch import nn
 from evo_tpu_torch.config import ModelConfig
 from evo_tpu_torch.ops import fftconv
 from evo_tpu_torch.ops.fir_gate import fir_gate
+from evo_tpu_torch.quant import project
 
 
 class HyenaState(NamedTuple):
@@ -39,6 +41,7 @@ class HyenaMixer(nn.Module):
         super().__init__()
         D = cfg.hidden_size
         K, S = cfg.short_filter_length, cfg.state_size
+        self.act_quant = cfg.act_quant == 'int8'
 
         def param(make, *shape, dt=dtype):
             return nn.Parameter(make(shape, dtype=dt, device=device),
@@ -59,7 +62,7 @@ class HyenaMixer(nn.Module):
 
 
 def _out_proj(p: HyenaMixer, y: torch.Tensor) -> torch.Tensor:
-    o = y @ p.w_out
+    o = project(y, p.w_out, 1, p.act_quant)
     if p.b_out is not None:
         o = o + p.b_out
     return o
@@ -76,10 +79,9 @@ def hyena_full(p: HyenaMixer, cfg: ModelConfig, x: torch.Tensor, *,
 
     The FIR + gate kernel runs when L >= short_filter_length; a shorter
     sequence takes `fir_causal_conv`, as in the JAX package."""
-    B, L, D = x.shape
-    C = p.w_in.shape[-1]
+    L = x.shape[1]
     K = cfg.short_filter_length
-    zl = (x @ p.w_in.reshape(D, 3 * C)).view(B, L, 3, C)
+    zl = project(x, p.w_in, 1, p.act_quant)          # (B, L, 3, C)
     if p.b_in is not None:
         zl = zl + p.b_in
     z = zl.permute(0, 2, 3, 1).contiguous()          # (B, 3, C, L)
@@ -118,9 +120,7 @@ def hyena_full(p: HyenaMixer, cfg: ModelConfig, x: torch.Tensor, *,
 def hyena_step(p: HyenaMixer, cfg: ModelConfig, x_t: torch.Tensor,
                state: HyenaState):
     """Single-token decode step: x_t (B, 1, D) -> (y (B, 1, D), state)."""
-    B, _, D = x_t.shape
-    C = p.w_in.shape[-1]
-    z_t = (x_t[:, 0] @ p.w_in.reshape(D, 3 * C)).view(B, 3, C)
+    z_t = project(x_t[:, 0], p.w_in, 1, p.act_quant)   # (B, 3, C)
     if p.b_in is not None:
         z_t = z_t + p.b_in
     z_t, fir = fftconv.fir_step(z_t, p.fir_w, p.fir_b, state.fir)

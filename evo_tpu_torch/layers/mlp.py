@@ -3,7 +3,10 @@
     y = w3( act(x @ w1) * (x @ w2) )
 
 with the exact-erf GELU of `mlp_activation: gelu`. Weights keep the JAX
-layouts: w1, w2 (D, I) and w3 (I, D).
+layouts: w1, w2 (D, I) and w3 (I, D). Each may be a `QuantizedWeight`
+(`quant.py`); `project` dispatches as the JAX package does: `qdot` under
+`act_quant` or for an int4 weight, else the product with the `wcast`
+weight.
 """
 
 from __future__ import annotations
@@ -11,6 +14,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from evo_tpu_torch.quant import project
 
 _ACTS = {
     'gelu': lambda x: F.gelu(x, approximate='none'),
@@ -23,11 +28,13 @@ _ACTS = {
 
 class GatedMLP(nn.Module):
     def __init__(self, dim: int, inner: int, activation: str, *,
-                 dtype: torch.dtype, device: torch.device):
+                 dtype: torch.dtype, device: torch.device,
+                 act_quant: bool = False):
         super().__init__()
         if activation not in _ACTS:
             raise ValueError(f'unknown mlp_activation {activation!r}')
         self.act = _ACTS[activation]
+        self.act_quant = act_quant
 
         def param(*shape):
             return nn.Parameter(torch.empty(shape, dtype=dtype,
@@ -39,4 +46,6 @@ class GatedMLP(nn.Module):
         self.w3 = param(inner, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return (self.act(x @ self.w1) * (x @ self.w2)) @ self.w3
+        aq = self.act_quant
+        g = self.act(project(x, self.w1, 1, aq)) * project(x, self.w2, 1, aq)
+        return project(g, self.w3, 1, aq)

@@ -21,6 +21,7 @@ attention kernels multiply masked keys by 0, which a NaN survives.
 
 from __future__ import annotations
 
+import itertools
 from typing import Any, Dict, Union
 
 import torch
@@ -60,7 +61,8 @@ class AttentionBlock(nn.Module):
         self.post_norm = RMSNorm(D, cfg.eps, dtype=dtype, device=device)
         self.attn = Attention(cfg, dtype=dtype, device=device)
         self.mlp = GatedMLP(D, cfg.inner_mlp_size_actual, cfg.mlp_activation,
-                            dtype=dtype, device=device)
+                            dtype=dtype, device=device,
+                            act_quant=cfg.act_quant == 'int8')
 
 
 class HyenaBlock(nn.Module):
@@ -71,7 +73,8 @@ class HyenaBlock(nn.Module):
         self.post_norm = RMSNorm(D, cfg.eps, dtype=dtype, device=device)
         self.hyena = HyenaMixer(cfg, dtype=dtype, device=device)
         self.mlp = GatedMLP(D, cfg.inner_mlp_size_actual, cfg.mlp_activation,
-                            dtype=dtype, device=device)
+                            dtype=dtype, device=device,
+                            act_quant=cfg.act_quant == 'int8')
 
 
 class StripedHyena(nn.Module):
@@ -144,7 +147,10 @@ def random_init(cfg: ModelConfig, generator: torch.Generator,
 
 
 def param_count(model: StripedHyena) -> int:
-    return sum(p.numel() for p in model.parameters())
+    """Elements of every parameter, and of the codes and scales that stand
+    in for a quantized one."""
+    return sum(t.numel() for t in itertools.chain(model.parameters(),
+                                                  model.buffers()))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -11,7 +11,7 @@ weights live on that device, "cuda" by default.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -26,6 +26,9 @@ MODEL_NAMES = [
     'evo-1-8k-crispr',
     'evo-1-8k-transposon',
 ]
+
+# the HF repositories of the published snapshots
+HF_MODEL_NAME_MAP = {name: 'evo-design/' + name for name in MODEL_NAMES}
 
 
 def config_for_model(model_name: str) -> ModelConfig:
@@ -86,6 +89,96 @@ class EvoModel:
         return model_lib.param_count(self.module)
 
 
+def load_checkpoint(
+    model_name: str = 'evo-1-8k-base',
+    checkpoint_path: Optional[str] = None,
+    random_init: bool = False,
+    seed: int = 0,
+    config_overrides: Optional[Dict[str, Any]] = None,
+    mesh=None,
+    device: Union[str, torch.device] = 'cuda',
+) -> Tuple[EvoModel, ModelConfig]:
+    """Build an `EvoModel` on `device`.
+
+    checkpoint_path: a native checkpoint directory of the port, or a
+    reference safetensors snapshot, which is converted on the fly with its
+    shapes as ground truth for the architecture fields. Without a path the
+    published snapshot is fetched through `huggingface_hub`.
+    random_init: random weights of the right schema, from `seed`.
+
+    Under `weight_quant` the loaded (unquantized) weights are quantized
+    layer by layer, each source weight freed as soon as its codes exist.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            'meshes (tensor, data and context parallelism) are not '
+            'ported yet (ROADMAP.md, modules queue: parallelism)')
+    device = model_lib.resolve_device(device)
+    config = config_for_model(model_name)
+    if config_overrides:
+        config = config.replace(**config_overrides)
+    if config.act_quant == 'int8' and config.weight_quant != 'int8':
+        raise ValueError('act_quant: int8 requires weight_quant: int8 (the '
+                         'int8 x int8 product needs quantized weights; '
+                         'evo_tpu_torch/quant.py)')
+    if random_init:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        module = model_lib.random_init(config, gen, device)
+    else:
+        if checkpoint_path is None:
+            checkpoint_path = snapshot_download(model_name)
+        from evo_tpu_torch import checkpoint as ckpt
+        if ckpt.is_native_checkpoint(checkpoint_path):
+            # the config saved WITH the checkpoint is ground truth for the
+            # architecture fields; runtime fields stay as requested
+            config = ckpt.reconcile_native_config(checkpoint_path, config)
+            module = ckpt.load_params_auto(checkpoint_path, config, device)
+        else:
+            module, config = ckpt.load_reference_checkpoint_adaptive(
+                checkpoint_path, config, device)
+    if config.weight_quant != 'none':
+        from evo_tpu_torch.quant import quantize_params
+        module = quantize_params(module, free_source=True,
+                                 mode=config.weight_quant)
+    return EvoModel(config, module), config
+
+
+def hf_revision(model_name: str) -> str:
+    """The pinned snapshot revision: `1.1_fix` for the evo-1 base models,
+    `main` otherwise."""
+    return ('1.1_fix' if model_name in ('evo-1-8k-base', 'evo-1-131k-base')
+            else 'main')
+
+
+def snapshot_download(model_name: str) -> str:
+    """Fetch the safetensors snapshot of `model_name`, or find it in the
+    local HF cache, through `huggingface_hub`. Raises a clear error that
+    points at `checkpoint_path=` and `random_init=True` when the package
+    is missing, or the hub cannot be reached and nothing is cached."""
+    repo = HF_MODEL_NAME_MAP[model_name]
+    rev = hf_revision(model_name)
+    try:
+        from huggingface_hub import snapshot_download as hf_fetch
+    except ImportError as e:
+        raise RuntimeError(
+            f'huggingface_hub is not installed; pass checkpoint_path= to a '
+            f'local snapshot of {repo} (revision {rev}) or random_init=True.'
+        ) from e
+    try:
+        return hf_fetch(repo, revision=rev)
+    except Exception:
+        # one retry against the local cache only (works fully offline)
+        try:
+            return hf_fetch(repo, revision=rev, local_files_only=True)
+        except Exception as e:
+            raise RuntimeError(
+                f'Could not download {repo}@{rev} from the HuggingFace hub '
+                f'and no cached copy exists. If this machine has no network '
+                f'access, stage the snapshot manually and pass '
+                f'checkpoint_path=<dir>, or use random_init=True for '
+                f'schema-only runs.') from e
+
+
 class Evo:
     """Top-level convenience class: validates the model name and yields
     `.model` (an `EvoModel`) and `.tokenizer`."""
@@ -97,23 +190,12 @@ class Evo:
                  seed: int = 0,
                  config_overrides: Optional[Dict[str, Any]] = None,
                  mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                'meshes (tensor, data and context parallelism) are not '
-                'ported yet (ROADMAP.md, modules queue: parallelism)')
-        self.device = model_lib.resolve_device(device)
-        config = config_for_model(model_name)
-        if config_overrides:
-            config = config.replace(**config_overrides)
-        if not random_init:
-            raise NotImplementedError(
-                f'loading checkpoint weights ({checkpoint_path or model_name}'
-                ') is not ported yet (ROADMAP.md, modules queue: checkpoint '
-                'and safetensors); use random_init=True, or build the model '
-                'from a state dict with evo_tpu_torch.checkpoint.'
-                'params_from_state_dict')
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        module = model_lib.random_init(config, gen, self.device)
-        self.config = config
-        self.model = EvoModel(config, module)
+        if model_name not in MODEL_NAMES:
+            raise ValueError(
+                f'Invalid model name {model_name}. Options: {MODEL_NAMES}')
+        self.model, self.config = load_checkpoint(
+            model_name, checkpoint_path=checkpoint_path,
+            random_init=random_init, seed=seed,
+            config_overrides=config_overrides, mesh=mesh, device=device)
+        self.device = self.model.device
         self.tokenizer = CharLevelTokenizer(512)

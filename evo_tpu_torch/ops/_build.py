@@ -29,7 +29,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG / 'build'
 SOURCES = ('rmsnorm.cu', 'fir_gate.cu', 'flash_attention.cu',
-           'flash_attention_buffer.cu')
+           'flash_attention_buffer.cu', 'int4_matmul.cu')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -54,6 +54,8 @@ _SIGNATURES = {
     # (q, k, v, ks, vs, offsets, o, B, Lq, T, H, strides, scale, stream)
     'evo_flash_attention_buffer_q8': (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                       _I, *(_L,) * 9, _F, _P),
+    # (x, packed, scales, y, M, Kp, N, stream)
+    'evo_int4_matmul_bf16': (_P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -9,7 +9,7 @@ that of one segment; this is the one-device path to 131k-long sequences.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Callable, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -17,12 +17,25 @@ import torch
 from evo_tpu_torch.tokenizer import CharLevelTokenizer
 
 
+def next_bucket(n: int, minimum: int = 32) -> int:
+    """The smallest power-of-two multiple of `minimum` that holds n."""
+    b = minimum
+    while b < n:
+        b *= 2
+    return b
+
+
 def prepare_batch(seqs: Sequence[str], tokenizer: CharLevelTokenizer,
-                  prepend_bos: bool = True) -> Tuple[np.ndarray, List[int]]:
+                  prepend_bos: bool = True, pad_to_bucket: bool = False
+                  ) -> Tuple[np.ndarray, List[int]]:
     """Tokenize, optionally prepend BOS (= eod id 0), right-pad with
-    pad_id. Returns (input_ids (B, L) int32, seq_lengths)."""
+    pad_id, with `pad_to_bucket` up to a power-of-two length. Every mixer
+    is causal, so the padding never changes earlier positions. Returns
+    (input_ids (B, L) int32, seq_lengths)."""
     seq_lengths = [len(s) for s in seqs]
     max_len = max(seq_lengths) + int(prepend_bos)
+    if pad_to_bucket:
+        max_len = next_bucket(max_len)
     batch = np.full((len(seqs), max_len), tokenizer.pad_id, dtype=np.int32)
     off = int(prepend_bos)
     for i, s in enumerate(seqs):
@@ -58,19 +71,56 @@ def _reduce(reduce_method: str):
 
 
 def score_sequences(seqs: Sequence[str], model, tokenizer: CharLevelTokenizer,
-                    reduce_method: str = 'mean',
-                    prepend_bos: bool = True) -> List[float]:
+                    reduce_method: str = 'mean', prepend_bos: bool = True,
+                    pad_to_bucket: bool = False) -> List[float]:
     """Mean (or summed) log-likelihood of each sequence. `model` follows the
     engine call contract `model(input_ids) -> (logits, None)`."""
     reduce_func = _reduce(reduce_method)
-    input_ids, seq_lengths = prepare_batch(seqs, tokenizer,
-                                           prepend_bos=prepend_bos)
+    input_ids, seq_lengths = prepare_batch(
+        seqs, tokenizer, prepend_bos=prepend_bos, pad_to_bucket=pad_to_bucket)
     logits, _ = model(input_ids)
     # the reference trims even without BOS: the trim pairs position t's
     # logits with the t+1 target
     logprobs = logits_to_logprobs(logits, input_ids).cpu().numpy()
     return [float(reduce_func(logprobs[i][:n]))
             for i, n in enumerate(seq_lengths)]
+
+
+def score_stream(seq_batches: Iterable[Sequence[str]], model,
+                 tokenizer: CharLevelTokenizer, reduce_method: str = 'mean',
+                 prepend_bos: bool = True, pad_to_bucket: bool = True,
+                 progress: Optional[Callable[[int], None]] = None
+                 ) -> List[float]:
+    """`score_sequences` over an iterable of batches, with the same
+    results as scoring them one by one. The log-likelihoods of batch i - 1
+    are read back only after batch i has been handed to the device (CUDA
+    launches return before the work is done), so the host's tokenizing
+    and reducing overlap the device. `progress`, if given, is called with
+    the running count of scored sequences."""
+    reduce_func = _reduce(reduce_method)
+    scores: List[float] = []
+
+    def finalize(pending):
+        logprobs, seq_lengths = pending
+        logprobs = logprobs.cpu().numpy()
+        scores.extend(float(reduce_func(logprobs[i][:n]))
+                      for i, n in enumerate(seq_lengths))
+        if progress is not None:
+            progress(len(scores))
+
+    pending = None
+    for batch in seq_batches:
+        input_ids, seq_lengths = prepare_batch(
+            batch, tokenizer, prepend_bos=prepend_bos,
+            pad_to_bucket=pad_to_bucket)
+        logits, _ = model(input_ids)
+        logprobs = logits_to_logprobs(logits, input_ids)
+        if pending is not None:
+            finalize(pending)
+        pending = (logprobs, seq_lengths)
+    if pending is not None:
+        finalize(pending)
+    return scores
 
 
 def positional_entropies(seqs: Sequence[str], model,

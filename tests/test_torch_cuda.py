@@ -15,7 +15,10 @@ from evo_tpu_torch.ops.attention import (attention_plain,
                                          flash_attention_causal)
 from evo_tpu_torch.ops.attention_buffer import (attention_buffer_plain,
                                                 flash_attention_buffer)
+from evo_tpu_torch.ops import _build
 from evo_tpu_torch.ops.fir_gate import fir_gate, fir_gate_plain
+from evo_tpu_torch.ops.int4 import (int4_matmul, int4_matmul_plain,
+                                    pack_int4)
 from evo_tpu_torch.ops.rmsnorm import rmsnorm, rmsnorm_plain
 
 torch.set_num_threads(2)
@@ -146,3 +149,89 @@ def test_kernels_refuse_what_they_do_not_take(randn):
         rmsnorm(randn(2, 16).float(), randn(16).float())
     with pytest.raises(TypeError):
         fir_gate(randn(1, 3, 8, 5).float(), randn(3, 8, 3).float())
+
+
+def _int4_case(M, Kp, N, seed=0):
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    x = torch.randn(M, Kp, device='cuda', generator=g).bfloat16()
+    q = torch.randint(-8, 8, (Kp, N), device='cuda', generator=g,
+                      dtype=torch.int8)
+    s = torch.rand(Kp // 128, N, device='cuda', generator=g) * 0.09 + 0.01
+    return x, pack_int4(q), s
+
+
+@pytest.mark.parametrize('M,Kp,N', [
+    (8, 256, 512), (1, 4096, 688), (16, 1536, 512), (128, 512, 1024),
+    (3, 256, 40), (5, 512, 1001),            # N off the 16-byte loads
+    (1, 4096, 10928), (2, 11008, 4096), (7, 4096, 12288),
+    (128, 4096, 4096), (33, 4096, 10928)])
+def test_int4_matmul_kernel(M, Kp, N):
+    """Kernel 8 against its plain version: the same bf16 products and
+    float32 group sums in another order, so 1e-4 of the larger of the value
+    and its row's rms."""
+    x, packed, s = _int4_case(M, Kp, N)
+    got = int4_matmul(x, packed, s)
+    torch.cuda.synchronize()
+    want = int4_matmul_plain(x, packed, s)
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    rms = want.pow(2).mean(-1, keepdim=True).sqrt()
+    assert ((got - want).abs() / want.abs().maximum(rms)).max() <= 1e-4
+
+
+def test_int4_matmul_padded_contraction():
+    """K = 128 padded to Kp = 256 (the wo case): zero rows interleave with
+    real ones across the two nibbles, which a wrong pairing of byte blocks
+    and scale groups would mix up."""
+    from evo_tpu_torch.quant import int4_dot, quantize_weight_int4
+    g = torch.Generator(device='cuda').manual_seed(1)
+    w = torch.randn(2, 64, 256, device='cuda', generator=g) * 0.05
+    x = torch.randn(2, 5, 2, 64, device='cuda', generator=g).bfloat16()
+    qw = quantize_weight_int4(w, 2)
+    before = _build.LAUNCHES['int4_matmul']
+    got = int4_dot(x, qw, nc=2)
+    assert _build.LAUNCHES['int4_matmul'] == before + 1
+    want = int4_dot(x.cpu(), qw.cpu(), nc=2)
+    assert got.shape == (2, 5, 256)
+    assert torch.allclose(got.float().cpu(), want.float(), rtol=2 ** -7,
+                          atol=1e-3)
+
+
+def test_int4_decode_step_launches():
+    """Five quantized projections a layer: a decode step launches kernel 8
+    that many times, a prefill of more than 128 rows never."""
+    from evo_tpu_torch import model as model_lib
+    from evo_tpu_torch.config import tiny_config
+    from evo_tpu_torch.quant import quantize_params
+    cfg = tiny_config(hidden_size=256, num_filters=256,
+                      num_attention_heads=2, compute_dtype='bfloat16',
+                      param_dtype='bfloat16', weight_quant='int4',
+                      kv_quant='int8')
+    g = torch.Generator(device='cuda').manual_seed(0)
+    model = quantize_params(model_lib.random_init(cfg, g, 'cuda'),
+                            free_source=True, mode='int4')
+    ids = torch.randint(0, 512, (2, 100), device='cuda', generator=g)
+    cache = model_lib.init_cache(cfg, 2, 128, 'cuda')
+    _build.LAUNCHES.clear()
+    logits, cache = model_lib.prefill(model, ids, cache)
+    assert _build.LAUNCHES['int4_matmul'] == 0
+    step, cache = model_lib.decode_step(model, logits[:, -1].argmax(-1),
+                                        cache)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES['int4_matmul'] == 5 * cfg.num_layers
+    assert torch.isfinite(step).all()
+    full = model_lib.forward(model, torch.cat(
+        [ids, logits[:, -1].argmax(-1)[:, None]], dim=1))
+    # bf16 activations round elsewhere on the two paths: 5% of the range
+    assert (step - full[:, -1]).abs().max() <= 0.05 * full.abs().max()
+
+
+def test_int4_kernel_refuses_what_it_does_not_take():
+    x, packed, s = _int4_case(4, 256, 64)
+    with pytest.raises(TypeError):
+        int4_matmul(x.float(), packed, s)
+    with pytest.raises(ValueError, match='M <= 128'):
+        int4_matmul(x.repeat(40, 1), packed, s)
+    with pytest.raises(ValueError, match='contiguous'):
+        int4_matmul(x, packed.T.contiguous().T, s)
+    with pytest.raises(ValueError, match='one device'):
+        int4_matmul(x, packed.cpu(), s)

@@ -58,7 +58,9 @@ def test_no_jax_imports(path):
 
 
 def test_import_leaves_jax_unloaded():
-    code = ('import sys, evo_tpu_torch, evo_tpu_torch.checkpoint; '
+    code = ('import sys, evo_tpu_torch, evo_tpu_torch.checkpoint, '
+            'evo_tpu_torch.quant, evo_tpu_torch.cli.score, '
+            'evo_tpu_torch.cli.generate, evo_tpu_torch.io.fasta; '
             'assert "jax" not in sys.modules and "evo_tpu" not in '
             'sys.modules, sorted(sys.modules)')
     subprocess.run([sys.executable, '-c', code], cwd=ROOT, check=True,

@@ -168,24 +168,32 @@ def test_forced_prompt_matches_full_prefill(setup):
 
 
 def test_unported_paths_raise(setup):
-    """What the port does not hold yet raises and names its ROADMAP item;
-    what it now holds (a filled cache continued, segments, the int8 KV
-    cache) no longer does."""
+    """What the port does not hold yet raises and names its ROADMAP item
+    (meshes, speculative decoding, weights kept in another type than the
+    activations); what it now holds (a filled cache continued, segments,
+    the int8 KV cache, quantized weights, weights from a file) no longer
+    does."""
     model, tok, _, _ = setup
     cache = model.initialize_inference_params(1, 32)
     model(np.zeros((1, 4), np.int32), inference_params_dict=cache)
     _, cache = model(np.zeros((1, 4), np.int32), inference_params_dict=cache)
     assert cache['offset'] == 8
     assert tiny_config(kv_quant='int8').kv_quant == 'int8'
+    for quant in ('int8', 'int4'):
+        assert tiny_config(weight_quant=quant).weight_quant == quant
+    assert tiny_config(weight_quant='int8', act_quant='int8').act_quant \
+        == 'int8'
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         Evo('evo-1-8k-base', 'cpu', random_init=True, mesh=object())
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        Evo('evo-1-8k-base', 'cpu')
-    for quant in ('weight_quant', 'act_quant'):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            tiny_config(**{quant: 'int8'})
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
         tiny_config(param_dtype='float32', compute_dtype='bfloat16')
+    from evo_tpu_torch.cli import generate as generate_cli
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        generate_cli.main(['--tiny', '--device', 'cpu', '--prompt', 'ACGT',
+                           '--speculative', '4'])
+    for field in ('weight_quant', 'act_quant', 'kv_quant'):
+        with pytest.raises(ValueError, match=field):
+            tiny_config(**{field: 'int2'})
 
 
 def test_random_init_distributions():
