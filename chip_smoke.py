@@ -14,8 +14,13 @@ for an H100: the kernels target sm_90a). It
      causal flash attention; attention over a bf16 and an int8 KV buffer,
      up to a segment of 8,192 queries at offset 122,880 of a 131,072-long
      buffer, and one query row for decode; the weight-only int4 matmul at
-     1 to 128 rows for each projection of a layer), and times kernel, plain
-     version, the roofline bound and a library yardstick with CUDA events;
+     1 to 128 rows for each projection of a layer; the fused Hyena mixer
+     at z (1, 3, 4096, 8192), fresh and with a carried state, at two batch
+     rows and at one chunk of odd width; the cross-chunk prefix at 128
+     chunks and at a count that is no power of two; the fused MLP gate at
+     8,192 and at 2 rows over (4096, 10928) weights), and times kernel,
+     plain version, the roofline bound and a library yardstick with CUDA
+     events;
   3. checks the whole port on a small bf16 model against the same model's
      plain PyTorch path on the CPU;
   4. scores with evo-1-8k-base at full width (32 layers, D=4096, random
@@ -49,8 +54,26 @@ for an H100: the kernels target sm_90a). It
      --random-init --quant int4 in processes of their own;
  12. profiles one forward at B=1, L=8192, a prefill with 8 decode steps,
      one resumed segment at offset 122,880 and single decode steps in bf16
-     and int4, and prints the device's idle share, the kernels launched
-     per decode step and where the time goes.
+     and int4, and one forward under the fused mixer, and prints the
+     device's idle share, the kernels launched per decode step and where
+     the time goes;
+ 13. (after phase 5, while its model is on the card) runs evo-1-8k-base
+     with `hyena_fused_mixer=True`, same seed: a ragged batch of four
+     sequences whose padded length is a multiple of the chunk and the one
+     of phase 4 whose is not, one forward at B=1, L=8192 and greedy
+     generation from the prompts of phase 5, checking the launch counts
+     that the shape rule gives (29 fused-mixer launches and no FIR + gate
+     launch where the length is a multiple of 64, the reverse where it is
+     not), the logits against the unfused forward and the prefill + decode
+     seam, with tokens/s and peak memory beside the unfused model's, timed
+     in turns; then one forward with `hyena_pallas_prefix=True` alone (29
+     prefix and 29 FIR + gate launches), and the fused MLP gate on a real
+     layer's weights and input against the first half of that layer's MLP;
+ 14. (after phase 6) the same with evo-1-131k-base: 12,000 nt in one pass
+     and in segments of 4,096, then 131,072 nt in segments of 8,192, with
+     the launch counts worked out from the segment bounds (a ragged first
+     segment falls through, the aligned ones take the fused kernel with a
+     carried state), time and peak memory beside the unfused run's.
 
 Any failed check raises; nothing is caught. The last line of standard
 output is {"ok": true, "device": {...}}; the line before it holds the
@@ -171,12 +194,18 @@ def main():
     from evo_tpu_torch.ops.attention_buffer import (attention_buffer_plain,
                                                     flash_attention_buffer)
     from evo_tpu_torch.ops.fir_gate import fir_gate, fir_gate_plain
+    from evo_tpu_torch.ops.hyena_mixer import (hyena_mixer, hyena_mixer_plain,
+                                               hyena_mixer_supported)
     from evo_tpu_torch.ops.int4 import (int4_matmul, int4_matmul_plain,
                                         pack_int4)
+    from evo_tpu_torch.ops.mlp_gate import fused_gate, fused_gate_plain
+    from evo_tpu_torch.ops.modal_prefix import (modal_prefix,
+                                                modal_prefix_plain)
     from evo_tpu_torch.ops.rmsnorm import rmsnorm, rmsnorm_plain
     from evo_tpu_torch.quant import (int4_dot, quantize_weight_int4,
                                      quantized_bytes)
-    from evo_tpu_torch.scoring import logits_to_logprobs, prepare_batch
+    from evo_tpu_torch.scoring import (_segment_bounds, logits_to_logprobs,
+                                       prepare_batch)
 
     dev = torch.device('cuda')
     smi = subprocess.run(
@@ -508,6 +537,182 @@ def main():
     log(f'   int4_matmul by rows at Kp=4096, N=12288: {by_rows}; by call of '
         f'a layer at M=2: {per_layer}')
     del cases, fns, packed, sc, qw, xm
+
+    # The fused Hyena mixer. Its FIR repeats the plain version's float32
+    # order (the raw-z tail must be equal); the long conv's float32 sums
+    # run in another order than the plain version's einsums, with powers
+    # of the poles from repeated squaring where the plain version takes a
+    # log-doubling range: y agrees to float32 rounding before it is
+    # rounded to bf16, so an output may land one bf16 step (2^-8 to 2^-7
+    # of its size) away. Required: |err| <= 2^-6 of the larger of |want|
+    # and its (batch, channel) row's rms, at least 99 % of the outputs
+    # equal, and the float32 modal state within 1e-4 of the same scale.
+    def modal_params(C, S):
+        mag = torch.rand(C, S, device=dev, generator=g) * 0.48 + 0.5
+        ang = (torch.rand(C, S, device=dev, generator=g) * 2 - 1) * 3.1
+        poles = torch.stack([mag * torch.cos(ang), mag * torch.sin(ang)], -1)
+        return poles, torch.randn(C, S, 2, device=dev, generator=g) * 0.3
+
+    S, chunk = 8, 64
+    err6 = scaled6 = state6 = 0.0
+    equal6 = 1.0
+    for B, L, carried in ((1, 8192, False), (1, 8192, True),
+                          (2, 512, False), (2, 512, True),
+                          (2, 37, True)):     # one chunk of odd width
+        z, fw, fb = randn(B, 3, D, L), randn(3, D, 3) * 0.5, randn(3, D) * 0.1
+        poles, residues = modal_params(D, S)
+        d_skip = randn(D)
+        st = (randn(B, 3, D, 2), randn(B, D, S, 2).float()) if carried \
+            else None
+        check(hyena_mixer_supported(z.shape, chunk, S, 3), 'support rule')
+        got = hyena_mixer(z, fw, fb, poles, residues, d_skip, chunk=chunk,
+                          state=st)
+        torch.cuda.synchronize()
+        want = hyena_mixer_plain(z, fw, fb, poles, residues, d_skip,
+                                 chunk=chunk, state=st)
+        e = float((got[0].float() - want[0].float()).abs().max())
+        r = scaled_err(got[0], want[0])
+        eq = float((got[0] == want[0]).float().mean())
+        rs = scaled_err(got[1].flatten(2), want[1].flatten(2))
+        log(f'   hyena_mixer B={B} L={L} carried state={carried}: max abs '
+            f'err {e:.3e}, scaled {r:.3e}, equal {eq:.6f}; modal state '
+            f'scaled {rs:.3e}; FIR tail equal {torch.equal(got[2], want[2])}')
+        check(torch.equal(got[2], want[2]), 'hyena_mixer FIR tail differs')
+        err6, scaled6 = max(err6, e), max(scaled6, r)
+        state6, equal6 = max(state6, rs), min(equal6, eq)
+        del got, want
+    check(scaled6 <= 2 ** -6 and equal6 >= 0.99 and state6 <= 1e-4,
+          f'hyena_mixer kernel disagrees: {scaled6}, {equal6}, {state6}')
+    z, fw, fb = randn(1, 3, D, 8192), randn(3, D, 3) * 0.5, randn(3, D) * 0.1
+    st = (randn(1, 3, D, 2), randn(1, D, S, 2).float())
+    n_pos = z.numel() // 3
+    # each input read once, each output written once
+    nbytes = (z.numel() + n_pos) * 2 + (fw.numel() + fb.numel() + D) * 2 \
+        + 2 * poles.numel() * 4 + D * S * 2 * 4
+    # per chunk of Ct: the lower triangle of the Toeplitz product,
+    # Ct (Ct + 1) (the kernel's dense product over zero-padded taps is its
+    # own choice, not the function's need), injection and decay 2 * 2 S Ct
+    # each (complex states, real u and y); per position the FIR and the
+    # two gates, 23
+    flops = (n_pos // chunk) * (chunk * (chunk + 1) + 8 * S * chunk) \
+        + 23 * n_pos
+    bound6 = (1e3 * nbytes / peak['bytes_s'], 1e3 * flops / peak['fp32'])
+    mixer_args = (z, fw, fb, poles, residues, d_skip)
+    kernels['hyena_mixer'] = dict(
+        name='hyena_mixer', route='cuda',
+        source='evo_tpu_torch/csrc/hyena_mixer.cu',
+        replaces='evo_tpu/ops/pallas_hyena.py:69', max_abs_err=err6,
+        max_scaled_err=scaled6, bit_equal_fraction=equal6,
+        max_scaled_err_state=state6,
+        ms=time_ms(torch, lambda: hyena_mixer(*mixer_args, chunk=chunk)),
+        carried_state_ms=time_ms(torch, lambda: hyena_mixer(
+            *mixer_args, chunk=chunk, state=st)),
+        plain_ms=time_ms(torch, lambda: hyena_mixer_plain(
+            *mixer_args, chunk=chunk), reps=5, warmup=1),
+        bound_ms=max(bound6),
+        bound_by='bytes' if bound6[0] > bound6[1] else 'operations',
+        library_ms=None, bound_bytes_ms=bound6[0],
+        bound_operations_ms=bound6[1],
+        shape='z (1, 3, 4096, 8192) bf16, chunk 64, 8 modal states; no '
+              'single PyTorch call computes this function')
+    del mixer_args, st, poles, residues, d_skip
+
+    # The cross-chunk prefix. The kernel walks the chunks in order, the
+    # plain version doubles (log2 K shifted passes): the same sums in
+    # another order. Required: |err| <= 2e-5 of the larger of |want| and
+    # the rms over its channel's chunks and states (the tolerance at which
+    # the JAX package's test holds its kernel to its loop).
+    def prefix_case(B, K):
+        inj = [torch.randn(B, D, K, S, device=dev, generator=g)
+               for _ in range(2)]
+        logmag = torch.log(torch.rand(D, S, device=dev, generator=g) * 0.48
+                           + 0.5)
+        theta = (torch.rand(D, S, device=dev, generator=g) * 2 - 1) * 3.1
+        return (*inj, logmag, theta, chunk)
+
+    err7 = scaled7 = 0.0
+    for B, K in ((1, 128), (1, 188), (2, 8), (1, 2)):
+        case = prefix_case(B, K)
+        got = modal_prefix(*case)
+        torch.cuda.synchronize()
+        want = modal_prefix_plain(*case)
+        e = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        r = max(scaled_err(a.flatten(2), b.flatten(2))
+                for a, b in zip(got, want))
+        log(f'   modal_prefix B={B} K={K}: max abs err {e:.3e}, scaled '
+            f'{r:.3e}')
+        err7, scaled7 = max(err7, e), max(scaled7, r)
+    check(scaled7 <= 2e-5, f'modal_prefix kernel disagrees: {scaled7}')
+    case = prefix_case(1, 128)
+    nbytes = (4 * case[0].numel() + 2 * D * S + 2 * D * S) * 4
+    kernels['modal_prefix'] = dict(
+        name='modal_prefix', route='cuda',
+        source='evo_tpu_torch/csrc/modal_prefix.cu',
+        replaces='evo_tpu/ops/pallas_prefix.py:50', max_abs_err=err7,
+        max_scaled_err=scaled7,
+        ms=time_ms(torch, lambda: modal_prefix(*case)),
+        plain_ms=time_ms(torch, lambda: modal_prefix_plain(*case)),
+        # 8 flops a complex multiply-add
+        bound_ms=1e3 * max(nbytes / peak['bytes_s'],
+                           8 * case[0].numel() / peak['fp32']),
+        bound_by='bytes', library_ms=None,
+        shape='inj (1, 4096, 128, 8) fp32 x 2 (a forward of 8,192 at chunk '
+              '64); ms includes the wrapper\'s p^chunk; no single PyTorch '
+              'call computes this function')
+    del case, got, want
+
+    # The fused MLP gate. Kernel and plain version both sum exact
+    # bf16 x bf16 products in float32 (in another order), apply the
+    # activation and the gate in float32 and round once to bf16, so an
+    # output may land one bf16 step away: required |err| <= 2^-6 of the
+    # larger of |want| and its row's rms.
+    I = 10928
+    w1, w2 = randn(D, I) * D ** -0.5, randn(D, I) * D ** -0.5
+    err9 = scaled9 = 0.0
+    for M, act in ((8192, 'gelu'), (2, 'gelu'), (1000, 'silu'),
+                   (77, 'gelu_tanh')):
+        x = randn(M, D)
+        got = fused_gate(x, w1, w2, act)
+        torch.cuda.synchronize()
+        want = fused_gate_plain(x, w1, w2, act)
+        e = float((got.float() - want.float()).abs().max())
+        r = scaled_err(got, want)
+        log(f'   mlp_gate M={M} {act}: max abs err {e:.3e}, scaled {r:.3e}')
+        err9, scaled9 = max(err9, e), max(scaled9, r)
+        del got, want
+    x = randn(37, 100)        # nothing aligned: element-wise loads
+    wa, wb = randn(100, 1001) * 0.1, randn(100, 1001) * 0.1
+    r = scaled_err(fused_gate(x, wa, wb), fused_gate_plain(x, wa, wb))
+    log(f'   mlp_gate M=37 D=100 I=1001 gelu: scaled {r:.3e}')
+    scaled9 = max(scaled9, r)
+    check(scaled9 <= 2 ** -6, f'mlp_gate kernel disagrees: {scaled9}')
+
+    def gate_bound_ms(M):
+        nbytes = (M * D + 2 * D * I + M * I) * 2
+        return (1e3 * nbytes / peak['bytes_s'],
+                1e3 * 4 * M * D * I / peak['bf16'])
+
+    by_rows9 = {}
+    for M in (8192, 2):
+        x = randn(M, D)
+        by_rows9[M] = dict(
+            ms=time_ms(torch, lambda: fused_gate(x, w1, w2), reps=10),
+            plain_ms=time_ms(torch, lambda: fused_gate_plain(x, w1, w2),
+                             reps=3, warmup=1),
+            library_ms=time_ms(torch, lambda: F.gelu(x @ w1) * (x @ w2),
+                               reps=10),
+            bound_ms=max(gate_bound_ms(M)),
+            bound_by='bytes' if gate_bound_ms(M)[0] > gate_bound_ms(M)[1]
+            else 'operations')
+    kernels['mlp_gate'] = dict(
+        name='mlp_gate', route='cuda', source='evo_tpu_torch/csrc/mlp_gate.cu',
+        replaces='evo_tpu/ops/pallas_mlp.py:55', max_abs_err=err9,
+        max_scaled_err=scaled9, **by_rows9[8192], by_rows=by_rows9,
+        shape='x (8192, 4096), w1, w2 (4096, 10928) bf16, gelu (by_rows: '
+              'M = 8192 and 2); library: F.gelu(x @ w1) * (x @ w2), which '
+              'rounds both products to bf16 first')
+    log(f'   mlp_gate by rows: {by_rows9}')
+    del w1, w2, wa, wb
     for kk in kernels.values():
         log(f"   {kk['name']}: {kk['ms']:.4f} ms (bound {kk['bound_ms']:.4f}"
             f" ms by {kk['bound_by']}, plain {kk['plain_ms']:.4f}, library "
@@ -581,6 +786,7 @@ def main():
           and bool(torch.isfinite(logits).all()), 'forward logits')
     log(f'   forward B=1 L=8192: {fwd_s:.3f} s, {8192 / fwd_s:.0f} tokens/s, '
         f'peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+    unfused_logits = logits
     del logits
 
     # -- 5. generation at full width ----------------------------------------
@@ -621,15 +827,6 @@ def main():
         f'{prefill_s:.3f} s; decode {1e3 * decode_s / 32:.2f} ms per step, '
         f'{2 * 32 / decode_s:.1f} tokens/s; launches {launches["generate"]}')
 
-    toks, step_logits, _ = Generator(evo.model, evo.tokenizer, top_k=1,
-                                     temperature=0.0).generate(
-        input_ids=prompt_ids, num_tokens=n_new)
-    full = torch.cat([torch.as_tensor(prompt_ids, device=dev).long(), toks],
-                     dim=1)
-    ref, _ = evo.model(full)
-    ref = ref[:, 511:511 + n_new]
-    diff = (step_logits - ref).abs()
-    agree = float((step_logits.argmax(-1) == ref.argmax(-1)).float().mean())
     # The decode path (GEMV, dense float32 attention, modal recurrence)
     # rounds its bf16 activations in other places than the full-sequence
     # path (GEMM, flash kernel, chunked conv), and 32 layers of random
@@ -646,21 +843,212 @@ def main():
         hook.remove()
         return logits
 
-    floor = (nudged_forward(evo.model, full)[:, 511:511 + n_new] - ref).abs()
-    steps = [0, 1, 2, 8, 32, n_new - 1]
-    log(f'   seam: prefill+decode vs forward logits: max abs diff '
-        f'{float(diff.max()):.4f}, mean {float(diff.mean()):.5f} (by step '
-        f'{[round(float(diff[:, s].mean()), 5) for s in steps]}), argmax '
-        f'agreement {agree:.4f}; logit std {float(ref.std()):.3f}; one '
-        f'rounding step at layer 0 moves them by max '
-        f'{float(floor.max()):.4f}, mean {float(floor.mean()):.5f}')
-    # a fault (a wrong position, cache slot or state) moves logits by
-    # their own spread and leaves argmax agreement near chance; the seam
-    # must stay within that one rounding step's drift
-    check(float(diff.mean()) <= float(floor.mean()) and agree >= 0.75,
-          'seam logits disagree')
+    def seam_check(model, label):
+        """Prefill + decode logits of a greedy generation against one
+        forward over prompt + generation. A fault (a wrong position, cache
+        slot or state) moves logits by their own spread and leaves argmax
+        agreement near chance; the seam must stay within the one rounding
+        step's drift."""
+        toks, step_logits, _ = Generator(model, evo.tokenizer, top_k=1,
+                                         temperature=0.0).generate(
+            input_ids=prompt_ids, num_tokens=n_new)
+        full = torch.cat([torch.as_tensor(prompt_ids, device=dev).long(),
+                          toks], dim=1)
+        ref, _ = model(full)
+        ref = ref[:, 511:511 + n_new]
+        diff = (step_logits - ref).abs()
+        agree = float((step_logits.argmax(-1) == ref.argmax(-1)).float()
+                      .mean())
+        floor = (nudged_forward(model, full)[:, 511:511 + n_new] - ref).abs()
+        steps = [0, 1, 2, 8, 32, n_new - 1]
+        log(f'   seam{label}: prefill+decode vs forward logits: max abs diff '
+            f'{float(diff.max()):.4f}, mean {float(diff.mean()):.5f} (by '
+            f'step {[round(float(diff[:, s].mean()), 5) for s in steps]}), '
+            f'argmax agreement {agree:.4f}; logit std '
+            f'{float(ref.std()):.3f}; one rounding step at layer 0 moves '
+            f'them by max {float(floor.max()):.4f}, mean '
+            f'{float(floor.mean()):.5f}')
+        check(float(diff.mean()) <= float(floor.mean()) and agree >= 0.75,
+              f'seam logits disagree{label}')
 
-    del evo, ref, full, toks, step_logits, diff, floor
+    seam_check(evo.model, '')
+
+    # -- 13. the fused-mixer configuration, evo-1-8k-base at full width ----
+    # Same seed, so the same weights; `hyena_fused_mixer` swaps the FIR +
+    # gate kernel and the plain long conv of every Hyena layer for the
+    # fused kernel wherever the length is a multiple of the chunk (64).
+    t0 = time.time()
+    evo_f = Evo('evo-1-8k-base', random_init=True, seed=0, device='cuda',
+                config_overrides=dict(hyena_fused_mixer=True))
+    torch.cuda.synchronize()
+    log(f'== 13. evo-1-8k-base with hyena_fused_mixer=True: made in '
+        f'{time.time() - t0:.1f} s')
+    check(torch.equal(evo_f.model.module.blocks[0].hyena.w_in,
+                      evo.model.module.blocks[0].hyena.w_in)
+          and evo_f.config == evo.config.replace(hyena_fused_mixer=True),
+          'the fused model is not the unfused one under another config')
+
+    def expect_fused(L):
+        """Launches a forward of length L makes under the fused mixer:
+        the shape rule of `hyena_full`, worked out here from L alone."""
+        fused = L >= 3 and L % min(64, L) == 0
+        return {'rmsnorm': 65, 'flash_attention': 3,
+                ('hyena_mixer' if fused else 'fir_gate'): 29}
+
+    # (a) ragged batches: the one of phase 4 pads to 4,001 tokens (with the
+    # BOS) and falls through; one whose longest sequence has 4,095 nt pads
+    # to 4,096 and takes the fused kernel. Both against the unfused model
+    # within 1e-2, the limit the padding check uses.
+    aligned = seqs[:3] + [seqs[3] + ''.join(
+        np.random.default_rng(13).choice(list('ACGT'), 95))]
+    for label, batch in (('ragged', seqs), ('aligned', aligned)):
+        L = prepare_batch(batch, evo.tokenizer)[0].shape[1]
+        want = score_sequences(batch, evo.model, evo.tokenizer)
+        score_sequences(batch[:1], evo_f.model, evo_f.tokenizer)  # warm-up
+        _build.LAUNCHES.clear()
+        t0 = time.time()
+        got = score_sequences(batch, evo_f.model, evo_f.tokenizer)
+        dt = time.time() - t0
+        launches[f'fused_score_sequences_{label}'] = dict(_build.LAUNCHES)
+        worst = max(abs(a - b) for a, b in zip(got, want))
+        log(f'   score_sequences, {label} batch padded to {L}: {got} in '
+            f'{dt:.3f} s ({sum(map(len, batch)) / dt:.0f} nt/s), largest '
+            f'difference from the unfused scores {worst:.2e}; launches '
+            f'{dict(_build.LAUNCHES)}')
+        check(dict(_build.LAUNCHES) == expect_fused(L),
+              f'launches {dict(_build.LAUNCHES)} for L={L}')
+        check(all(np.isfinite(got)) and worst <= 1e-2, f'fused scores {got}')
+    check(launches['fused_score_sequences_ragged'].get('hyena_mixer', 0) == 0
+          and launches['fused_score_sequences_aligned']['hyena_mixer'] == 29,
+          'the two batches must fall on both sides of the shape rule')
+
+    # (b) one forward at B=1, L=8192: launches, logits against the unfused
+    # forward of phase 4 within the one-rounding yardstick, and time and
+    # peak memory of the two models in turns
+    evo_f.model(ids)
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    fused_logits, _ = evo_f.model(ids)
+    torch.cuda.synchronize()
+    launches['fused_forward_8192'] = dict(_build.LAUNCHES)
+    check(launches['fused_forward_8192'] == expect_fused(8192),
+          f'launches {launches["fused_forward_8192"]}')
+    floor = (nudged_forward(evo.model, ids) - unfused_logits).abs()
+
+    def logit_drift(label, got):
+        diff = (got - unfused_logits).abs()
+        agree = float((got.argmax(-1) == unfused_logits.argmax(-1)).float()
+                      .mean())
+        log(f'   {label} vs unfused forward logits: mean abs diff '
+            f'{float(diff.mean()):.5f} (max {float(diff.max()):.4f}), '
+            f'argmax agreement {agree:.4f}; one rounding step at layer 0 '
+            f'moves them by mean {float(floor.mean()):.5f}; limit 1x')
+        check(bool(torch.isfinite(got).all())
+              and float(diff.mean()) <= float(floor.mean()),
+              f'{label}: logits disagree with the unfused forward')
+
+    logit_drift('fused forward B=1 L=8192', fused_logits)
+    del fused_logits
+
+    def timed_forward(model):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t = time.time()
+        model(ids)
+        torch.cuda.synchronize()
+        return (time.time() - t,
+                (torch.cuda.max_memory_allocated() - base) / 2**30)
+
+    turns = [(name, *timed_forward(m)) for name, m in (
+        ('unfused', evo.model), ('fused', evo_f.model),
+        ('fused', evo_f.model), ('unfused', evo.model))]
+    log('   forward B=1 L=8192 in turns (seconds, tokens/s, peak GiB above '
+        'what was allocated before): ' + ', '.join(
+            f'{name} {dt:.4f} s {8192 / dt:.0f} tok/s {gib:.2f} GiB'
+            for name, dt, gib in turns))
+
+    # (c) greedy generation from the prompts of phase 5: a prefill of 512
+    # (8 chunks) through the fused kernel, decode steps as before
+    generate(prompts, evo_f.model, evo_f.tokenizer, n_tokens=2, verbose=0)
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    t0 = time.time()
+    out_f, scores_f = generate(prompts, evo_f.model, evo_f.tokenizer,
+                               n_tokens=n_new, verbose=0)
+    gen_f_s = time.time() - t0
+    launches['fused_generate'] = dict(_build.LAUNCHES)
+    check(launches['fused_generate'] == {
+        'rmsnorm': 65 * n_new, 'hyena_mixer': 29, 'flash_attention': 3},
+        f'launches {launches["fused_generate"]}')
+    check(all(len(s) == n_new for s in out_f)
+          and all(np.isfinite(scores_f)), f'generation {scores_f}')
+    t0 = time.time()
+    decode_f_s = prefill_and_decode(evo_f.model, 32)
+    prefill_f_s = time.time() - t0 - decode_f_s
+    t0 = time.time()
+    decode_u_s = prefill_and_decode(evo.model, 32)
+    prefill_u_s = time.time() - t0 - decode_u_s
+    log(f'   generate 2 x 512 nt + {n_new} under the fused mixer: '
+        f'{gen_f_s:.3f} s ({2 * n_new / gen_f_s:.1f} tokens/s end to end; '
+        f'unfused in phase 5: {gen_s:.3f} s); prefill {prefill_f_s:.3f} s '
+        f'fused, {prefill_u_s:.3f} s unfused; decode '
+        f'{1e3 * decode_f_s / 32:.2f} ms per step after the fused prefill, '
+        f'{1e3 * decode_u_s / 32:.2f} after the unfused; launches '
+        f'{launches["fused_generate"]}')
+    seam_check(evo_f.model, ' under the fused mixer')
+
+    # (d) the fused MLP gate on a real layer: the input of layer 0's MLP
+    # for 8,192 tokens, through `fused_gate` with the layer's w1 and w2,
+    # against the first half of `layers/mlp.py` (two bf16 projections, the
+    # activation and the gate each rounded to bf16: up to four bf16 steps,
+    # so 2^-5 of the larger of the value and its row's rms) and against
+    # the plain version (2^-6 as in phase 2). No model path calls the
+    # kernel, in either package; this call stands for its main path.
+    mlp = evo.model.module.blocks[0].mlp
+    seen = []
+    hook = mlp.register_forward_hook(lambda mod, inp, out: seen.append(inp[0]))
+    evo.model(ids)
+    hook.remove()
+    h = seen[0]
+    _build.LAUNCHES.clear()
+    got = fused_gate(h, mlp.w1, mlp.w2, evo.config.mlp_activation)
+    torch.cuda.synchronize()
+    launches['mlp_gate_layer'] = dict(_build.LAUNCHES)
+    layer_half = mlp.act(h @ mlp.w1) * (h @ mlp.w2)
+    r_layer = scaled_err(got, layer_half)
+    r_plain = scaled_err(got, fused_gate_plain(
+        h, mlp.w1, mlp.w2, evo.config.mlp_activation))
+    log(f'   fused_gate on layer 0 (input {tuple(h.shape)}): scaled err '
+        f'{r_layer:.3e} against the layer\'s own first half (limit 2^-5), '
+        f'{r_plain:.3e} against the plain version (limit 2^-6); launches '
+        f'{launches["mlp_gate_layer"]}')
+    check(launches['mlp_gate_layer'] == {'mlp_gate': 1}
+          and r_layer <= 2 ** -5 and r_plain <= 2 ** -6,
+          'fused_gate disagrees with the layer')
+    del seen, h, got, layer_half, mlp, evo_f
+
+    # (e) `hyena_pallas_prefix=True` alone: the unfused path with the
+    # prefix kernel in the long conv
+    evo_p = Evo('evo-1-8k-base', random_init=True, seed=0, device='cuda',
+                config_overrides=dict(hyena_pallas_prefix=True))
+    evo_p.model(ids)
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    t0 = time.time()
+    prefix_logits, _ = evo_p.model(ids)
+    torch.cuda.synchronize()
+    prefix_s = time.time() - t0
+    launches['prefix_forward_8192'] = dict(_build.LAUNCHES)
+    check(launches['prefix_forward_8192'] == {
+        'rmsnorm': 65, 'fir_gate': 29, 'modal_prefix': 29,
+        'flash_attention': 3}, f'launches {launches["prefix_forward_8192"]}')
+    logit_drift(f'forward B=1 L=8192 under hyena_pallas_prefix '
+                f'({prefix_s:.4f} s, {8192 / prefix_s:.0f} tokens/s)',
+                prefix_logits)
+    del evo_p, prefix_logits, unfused_logits, floor
+
+    del evo
     torch.cuda.empty_cache()
 
     # -- 6. segmented scoring, evo-1-131k-base at full width ----------------
@@ -726,10 +1114,11 @@ def main():
     long_score = score_sequences_segmented([long_seq], model, tok,
                                            segment_len=8192)[0]
     long_s = time.time() - t0
+    long_peak_gib = torch.cuda.max_memory_allocated() / 2**30
     launches['score_segmented_131k'] = dict(_build.LAUNCHES)
     log(f'   131,072 nt in 16 segments: score {long_score:.6f} in '
         f'{long_s:.2f} s ({131072 / long_s:.0f} nt/s); peak '
-        f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ('
+        f'{long_peak_gib:.2f} GiB ('
         f'{base_gib:.2f} GiB of weights before); launches '
         f'{launches["score_segmented_131k"]}')
     check(np.isfinite(long_score) and long_score < 0, f'score {long_score}')
@@ -737,6 +1126,81 @@ def main():
         'rmsnorm': 16 * 65, 'fir_gate': 16 * 29, 'flash_attention': 3,
         'flash_attention_buffer': 15 * 3},
         f'launches {launches["score_segmented_131k"]}')
+
+    # -- 14. the fused-mixer configuration, evo-1-131k-base ------------------
+    # The segmented scorer puts the ragged remainder first: that segment
+    # falls through to the unfused kernels, and every later one (a multiple
+    # of the chunk) takes the fused kernel with the carried state. The
+    # counts are worked out from the bounds.
+    fused131 = Evo('evo-1-131k-base', random_init=True, seed=0,
+                   device='cuda',
+                   config_overrides=dict(hyena_fused_mixer=True)).model
+
+    def expect_segmented(n_tokens, segment_len):
+        bounds = _segment_bounds(n_tokens, segment_len)
+        lens = [e - s for s, e in zip(bounds[:-1], bounds[1:])]
+        fused = [L >= 3 and L % min(64, L) == 0 for L in lens]
+        want = {'rmsnorm': 65 * len(lens), 'flash_attention': 3,
+                'hyena_mixer': 29 * sum(fused),
+                'fir_gate': 29 * (len(lens) - sum(fused)),
+                'flash_attention_buffer': 3 * (len(lens) - 1)}
+        return lens, {k: v for k, v in want.items() if v}
+
+    _build.LAUNCHES.clear()
+    one_pass_f = score_sequences([seq], fused131, tok)[0]
+    launches['fused_score_12k_one_pass'] = dict(_build.LAUNCHES)
+    check(launches['fused_score_12k_one_pass'] == expect_fused(12001),
+          f'launches {launches["fused_score_12k_one_pass"]}')
+    lens, want = expect_segmented(12001, 4096)
+    _build.LAUNCHES.clear()
+    segmented_f = score_sequences_segmented([seq], fused131, tok,
+                                            segment_len=4096)[0]
+    launches['fused_score_segmented_12k'] = dict(_build.LAUNCHES)
+    ent_seg_f = positional_entropies_segmented([seq], fused131, tok,
+                                               segment_len=4096)[0]
+    ent_diff_f = float(np.abs(ent_seg_f - ent_one).mean())
+    log(f'== 14. evo-1-131k-base with hyena_fused_mixer=True, 12,000 nt: '
+        f'one pass {one_pass_f:.6f} (12,001 tokens fall through; unfused '
+        f'{one_pass:.6f}); segments of {lens} {segmented_f:.6f} (difference '
+        f'from the unfused one pass {abs(segmented_f - one_pass):.3e}, one '
+        f'rounding step {lp_floor:.3e}); entropies differ by '
+        f'{ent_diff_f:.3e} on average (one rounding step: {ent_floor:.3e}); '
+        f'launches {launches["fused_score_segmented_12k"]}')
+    check(launches['fused_score_segmented_12k'] == want
+          and want['hyena_mixer'] == 29 * 2 and want['fir_gate'] == 29,
+          f'launches {launches["fused_score_segmented_12k"]}, expected '
+          f'{want}')
+    check(abs(one_pass_f - one_pass) <= lp_floor
+          and abs(segmented_f - one_pass) <= lp_floor
+          and ent_diff_f <= ent_floor,
+          'fused segmented scoring disagrees with the unfused one pass')
+
+    lens, want = expect_segmented(131073, 8192)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_f_gib = torch.cuda.memory_allocated() / 2**30
+    _build.LAUNCHES.clear()
+    t0 = time.time()
+    long_score_f = score_sequences_segmented([long_seq], fused131, tok,
+                                             segment_len=8192)[0]
+    long_f_s = time.time() - t0
+    peak_f_gib = torch.cuda.max_memory_allocated() / 2**30
+    launches['fused_score_segmented_131k'] = dict(_build.LAUNCHES)
+    log(f'   131,072 nt in {len(lens)} segments ({lens[0]} then '
+        f'{len(lens) - 1} of {lens[-1]}): score {long_score_f:.6f} (unfused '
+        f'{long_score:.6f}) in {long_f_s:.2f} s ({131072 / long_f_s:.0f} '
+        f'nt/s; unfused {long_s:.2f} s); peak {peak_f_gib:.2f} GiB, '
+        f'{peak_f_gib - base_f_gib:.2f} GiB above what was allocated before '
+        f'(unfused: {long_peak_gib - base_gib:.2f} GiB above); launches '
+        f'{launches["fused_score_segmented_131k"]}')
+    check(launches['fused_score_segmented_131k'] == want
+          and want['hyena_mixer'] == 29 * 15,
+          f'launches {launches["fused_score_segmented_131k"]}, expected '
+          f'{want}')
+    check(np.isfinite(long_score_f)
+          and abs(long_score_f - long_score) <= lp_floor,
+          f'fused 131k score {long_score_f} against {long_score}')
+    del fused131
 
     # -- 7. generation: segments, resumed calls, the int8 KV cache ---------
     # Free-running greedy generations part ways at the first near-tie
@@ -1055,6 +1519,16 @@ def main():
 
     log('== 12. profiles (evo-1-131k-base)')
     profile_window('one forward B=1 L=8192', lambda: model(ids))
+    fused131 = Evo('evo-1-131k-base', random_init=True, seed=0,
+                   device='cuda',
+                   config_overrides=dict(hyena_fused_mixer=True)).model
+    fused131(ids)
+    # twice: the first window that meets a new kernel also pays for the
+    # profiler's set-up of it
+    for window in ('first', 'second'):
+        profile_window('one forward B=1 L=8192 under hyena_fused_mixer '
+                       f'({window} window)', lambda: fused131(ids))
+    del fused131
     profile_window('prefill 2 x 512 + 8 decode steps',
                    lambda: prefill_and_decode(model, 8))
     late_segment()
@@ -1070,7 +1544,10 @@ def main():
     # the phase that stands for each kernel's main path
     main_phase = {'flash_attention_buffer': 'score_segmented_131k',
                   'flash_attention_buffer_q8': 'generate_int8',
-                  'int4_matmul': 'generate_int4'}
+                  'int4_matmul': 'generate_int4',
+                  'hyena_mixer': 'fused_forward_8192',
+                  'modal_prefix': 'prefix_forward_8192',
+                  'mlp_gate': 'mlp_gate_layer'}
     rows = []
     for kk in kernels.values():
         phase = main_phase.get(kk['name'], 'score_sequences')

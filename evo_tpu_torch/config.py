@@ -2,10 +2,12 @@
 
 The port's own copy of `evo_tpu/config.py`: it cannot import that module,
 because importing anything under `evo_tpu` runs `evo_tpu/__init__.py`,
-which imports JAX. Field names match the reference YAML keys. The TPU-only
-fields of the JAX package (`use_pallas`, `hyena_fused_mixer`,
-`hyena_pallas_prefix`, `cp_attn`, and the FFT-backend knobs) are dropped:
-`from_dict` ignores unknown keys, so the published YAMLs still load.
+which imports JAX. Field names match the reference YAML keys. The fields
+of the JAX package that the port has no use for (`use_pallas`, `cp_attn`,
+and the FFT-backend knobs) are dropped: `from_dict` ignores unknown keys,
+so the published YAMLs still load. `hyena_fused_mixer` and
+`hyena_pallas_prefix` keep their JAX names: they select kernels that the
+port has too.
 
 The two published inference configs are held as dict constants below,
 transcribed from `evo_tpu/configs/*.yml`, because PyYAML is not a
@@ -132,6 +134,15 @@ class ModelConfig:
     param_dtype: str = 'bfloat16'
     # chunk (= Toeplitz tile) of the long conv, ops/fftconv.py
     hyena_matmul_chunk: int = 64
+    # opt-in: the whole mixer core between the two projections (FIR, gates,
+    # chunked conv, modal carry) as one kernel, ops/hyena_mixer.py, where
+    # its shape rule holds; the fields alone decide (there is no
+    # `use_pallas`): a CUDA tensor takes the kernel, a CPU tensor its plain
+    # version
+    hyena_fused_mixer: bool = False
+    # opt-in: the cross-chunk prefix of the unfused long conv as one
+    # kernel, ops/modal_prefix.py
+    hyena_pallas_prefix: bool = False
     # opt-in quantized modes (quant.py): weight_quant 'none' | 'int8' |
     # 'int4', act_quant 'none' | 'int8' (needs int8 weights), and the int8
     # KV cache, kv_quant 'none' | 'int8'
@@ -257,7 +268,8 @@ def cli_quant_overrides(quant: str) -> dict:
 
 def tiny_config(**overrides) -> ModelConfig:
     """A small CPU-runnable config with the schema of evo-1-8k-base (the
-    same values as `evo_tpu.config.tiny_config`, minus its TPU fields)."""
+    same values as `evo_tpu.config.tiny_config`, minus the fields the port
+    drops)."""
     base = dict(
         vocab_size=512,
         hidden_size=64,

@@ -48,31 +48,15 @@
 
 namespace {
 
+using evo::cp_async16;
+using evo::cp_async_commit;
+using evo::cp_async_wait;
 using evo::mma_bf16_16816;
 
 constexpr int kBN = 32;        // output columns per block
 constexpr int kBK = 128;       // byte rows per block step = scale group
 constexpr int kThreads = 128;  // one thread per byte row of a step
 constexpr int kStride = kBK + 8;  // smem row stride: conflict-free reads
-
-// 16 bytes from device memory into shared memory, without a register in
-// between; complete after cp_async_wait()
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most `kPending` of the committed groups are in flight
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
 
 // Stages of the ring by row tiles: what is in flight has to cover the
 // memory's latency (about 20 KB an SM at full rate), and a stage holds

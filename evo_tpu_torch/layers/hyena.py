@@ -14,7 +14,10 @@ be `QuantizedWeight`s (`quant.py`); the projections go through `project`.
 Decode state (`HyenaState`): fir (B, 3, C, K-1) trailing pre-FIR inputs
 and iir (B, C, S, 2) float32 modal state. Paths: a full sequence or a
 segment that continues from a carried state (`hyena_full`), and the decode
-step (`hyena_step`).
+step (`hyena_step`). Under `hyena_fused_mixer` the whole core between the
+projections is one kernel (`ops/hyena_mixer.py`) wherever its shape rule
+holds; under `hyena_pallas_prefix` the unfused long conv takes the prefix
+kernel (`ops/modal_prefix.py`).
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from torch import nn
 from evo_tpu_torch.config import ModelConfig
 from evo_tpu_torch.ops import fftconv
 from evo_tpu_torch.ops.fir_gate import fir_gate
+from evo_tpu_torch.ops.hyena_mixer import hyena_mixer, hyena_mixer_supported
 from evo_tpu_torch.quant import project
 
 
@@ -77,14 +81,28 @@ def hyena_full(p: HyenaMixer, cfg: ModelConfig, x: torch.Tensor, *,
     FIR reads the carried tail before t=0 and the long conv starts from
     the carried modal state, both exactly.
 
-    The FIR + gate kernel runs when L >= short_filter_length; a shorter
-    sequence takes `fir_causal_conv`, as in the JAX package."""
+    Under `cfg.hyena_fused_mixer` the fused kernel takes every shape it
+    supports, fresh or continued, with L >= short_filter_length (a
+    shorter one would return a truncated FIR state); the choice is made
+    from the flag and the shape alone. Otherwise the FIR + gate kernel
+    runs when L >= short_filter_length, and a shorter sequence takes
+    `fir_causal_conv`, as in the JAX package."""
     L = x.shape[1]
     K = cfg.short_filter_length
+    chunk = cfg.hyena_matmul_chunk
     zl = project(x, p.w_in, 1, p.act_quant)          # (B, L, 3, C)
     if p.b_in is not None:
         zl = zl + p.b_in
     z = zl.permute(0, 2, 3, 1).contiguous()          # (B, 3, C, L)
+    if (cfg.hyena_fused_mixer and L >= K
+            and hyena_mixer_supported(z.shape, chunk, cfg.state_size, K)):
+        y, iir, fir_state = hyena_mixer(
+            z, p.fir_w, p.fir_b, p.poles, p.residues, p.d_skip, chunk=chunk,
+            state=None if state is None else (state.fir, state.iir))
+        out = _out_proj(p, y.transpose(1, 2))
+        if not collect_state:
+            return out, None
+        return out, HyenaState(fir=fir_state.contiguous(), iir=iir)
     tail = None if state is None else state.fir.contiguous()
     if L >= K:
         x2, u = fir_gate(z, p.fir_w, p.fir_b, tail)
@@ -92,8 +110,8 @@ def hyena_full(p: HyenaMixer, cfg: ModelConfig, x: torch.Tensor, *,
     else:
         zf, fir_state = fftconv.fir_causal_conv(z, p.fir_w, p.fir_b, tail)
         x2, u = zf[:, 0], zf[:, 1] * zf[:, 2]
-    chunk = cfg.hyena_matmul_chunk
     iir = None if state is None else state.iir
+    prefix = cfg.hyena_pallas_prefix
     if state is not None and L > chunk and L % chunk:
         # a continued conv needs chunk | L: the aligned prefix runs
         # chunked, then the remainder (shorter than a chunk) from the
@@ -101,14 +119,15 @@ def hyena_full(p: HyenaMixer, cfg: ModelConfig, x: torch.Tensor, *,
         split = (L // chunk) * chunk
         y1, iir = fftconv.conv_matmul_chunked(
             u[..., :split], p.poles, p.residues, chunk, state=iir,
-            d_skip=p.d_skip)
+            d_skip=p.d_skip, pallas_prefix=prefix)
         y2, iir = fftconv.conv_matmul_chunked(
             u[..., split:], p.poles, p.residues, chunk, state=iir,
-            d_skip=p.d_skip)
+            d_skip=p.d_skip, pallas_prefix=prefix)
         y = torch.cat([y1, y2], dim=-1)
     else:
         y, iir = fftconv.conv_matmul_chunked(
-            u, p.poles, p.residues, chunk, state=iir, d_skip=p.d_skip)
+            u, p.poles, p.residues, chunk, state=iir, d_skip=p.d_skip,
+            pallas_prefix=prefix)
     y = x2 * y.to(x.dtype)
     out = _out_proj(p, y.transpose(1, 2))
     if not collect_state:

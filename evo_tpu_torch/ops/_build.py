@@ -29,7 +29,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG / 'build'
 SOURCES = ('rmsnorm.cu', 'fir_gate.cu', 'flash_attention.cu',
-           'flash_attention_buffer.cu', 'int4_matmul.cu')
+           'flash_attention_buffer.cu', 'int4_matmul.cu', 'hyena_mixer.cu',
+           'modal_prefix.cu', 'mlp_gate.cu')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -56,6 +57,13 @@ _SIGNATURES = {
                                       _I, *(_L,) * 9, _F, _P),
     # (x, packed, scales, y, M, Kp, N, stream)
     'evo_int4_matmul_bf16': (_P, _P, _P, _P, _I, _I, _I, _P),
+    # (z, fir_w, fir_b, poles, residues, d_skip, fir0, st0, y, iir, B, C, L,
+    # Ct, S, KF, stream)
+    'evo_hyena_mixer_bf16': (*(_P,) * 10, _I, _I, _L, _I, _I, _I, _P),
+    # (inj_r, inj_i, a_r, a_i, ent_r, ent_i, fin_r, fin_i, B, D, K, S, stream)
+    'evo_modal_prefix_f32': (*(_P,) * 8, _I, _I, _I, _I, _P),
+    # (x, w1, w2, out, M, D, I, act, stream)
+    'evo_mlp_gate_bf16': (_P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -18,6 +18,9 @@ from typing import Optional, Tuple
 
 import torch
 
+from evo_tpu_torch.ops import modal_prefix as prefix_ops
+from evo_tpu_torch.ops.modal_prefix import _pole_pow_tables
+
 _MIN_MAG = 1e-20
 
 
@@ -26,12 +29,6 @@ def _pole_log(poles: torch.Tensor):
     pr, pi = poles[..., 0], poles[..., 1]
     mag = torch.sqrt(pr * pr + pi * pi)
     return torch.log(torch.clamp(mag, min=_MIN_MAG)), torch.atan2(pi, pr)
-
-
-def _pole_pow_tables(logmag, theta, e: float):
-    """Re/Im of p^e for one scalar exponent e, (D, S) each."""
-    mag = torch.exp(e * logmag)
-    return mag * torch.cos(e * theta), mag * torch.sin(e * theta)
 
 
 def _pole_pow_range(logmag, theta, n: int):
@@ -92,7 +89,8 @@ def _toeplitz_from_taps(h_local: torch.Tensor, C: int,
 def conv_matmul_chunked(u: torch.Tensor, poles: torch.Tensor,
                         residues: torch.Tensor, chunk: int = 128,
                         state: Optional[torch.Tensor] = None,
-                        d_skip: Optional[torch.Tensor] = None
+                        d_skip: Optional[torch.Tensor] = None,
+                        pallas_prefix: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked causal long conv as matmuls (`fftconv.py:310`).
 
@@ -102,8 +100,10 @@ def conv_matmul_chunked(u: torch.Tensor, poles: torch.Tensor,
     term when d_skip is given, modal state (B, D, S, 2) at position L).
 
     Within a chunk: y_i = T @ u_i with the (C, C) Toeplitz of the first C
-    taps. Across chunks: per-chunk injected modal states, a Hillis-Steele
-    weighted prefix over the K chunks, decayed into each chunk. A fresh
+    taps. Across chunks: per-chunk injected modal states, a weighted
+    prefix over the K chunks (`ops/modal_prefix.py`: its kernel when
+    `pallas_prefix` is set, the name of the JAX argument, else the plain
+    Hillis-Steele loop), decayed into each chunk. A fresh
     L is left-padded to a multiple of the chunk (leading zeros neither
     change the outputs nor inject state); a continued one must be a
     multiple already, or shorter than a chunk (`layers/hyena.py` splits a
@@ -130,21 +130,17 @@ def conv_matmul_chunked(u: torch.Tensor, poles: torch.Tensor,
     inj_r = torch.einsum('bdkc,dsc->bdks', uc, pw_r)
     inj_i = torch.einsum('bdkc,dsc->bdks', uc, pw_i)
 
-    # inclusive prefix over chunks: s_k = sum_{j<=k} a^(k-j) inj_j, a = p^C
-    sr, si = inj_r, inj_i
-    step = 1
-    while step < K:
-        ar, ai = _pole_pow_tables(logmag, theta, float(C * step))
-        ar, ai = ar[None, :, None, :], ai[None, :, None, :]    # (1, D, 1, S)
-        z = sr.new_zeros(B, D, step, S)
-        sr_sh = torch.cat([z, sr[:, :, :-step]], dim=2)
-        si_sh = torch.cat([z, si[:, :, :-step]], dim=2)
-        sr, si = sr + ar * sr_sh - ai * si_sh, si + ar * si_sh + ai * sr_sh
-        step *= 2
-    # state entering chunk k: a^k s0 + incl_{k-1}
-    z1 = sr.new_zeros(B, D, 1, S)
-    br = torch.cat([z1, sr[:, :, :-1]], dim=2)
-    bi = torch.cat([z1, si[:, :, :-1]], dim=2)
+    # state entering chunk k: a^k s0 + incl_{k-1}, with the inclusive prefix
+    # incl_k = sum_{j<=k} a^(k-j) inj_j over chunks, a = p^C; final state
+    # a^K s0 + incl_{K-1}. The prefix is the kernel of `ops/modal_prefix.py`
+    # under `pallas_prefix` (for K >= 2), else its plain doubling loop; the
+    # terms of a carried state are added here in both cases.
+    if pallas_prefix and prefix_ops.modal_prefix_supported((B, D, K, S)):
+        br, bi, fr, fi = prefix_ops.modal_prefix(inj_r, inj_i, logmag, theta,
+                                                 C)
+    else:
+        br, bi, fr, fi = prefix_ops.modal_prefix_plain(inj_r, inj_i, logmag,
+                                                       theta, C)
     if state is not None:
         s0r, s0i = state[..., 0], state[..., 1]
         ak_r, ak_i = _pole_pow_range(C * logmag, C * theta, K + 1)
@@ -154,10 +150,8 @@ def conv_matmul_chunked(u: torch.Tensor, poles: torch.Tensor,
             ak_i[:, :, :K] * s0i[:, :, None]
         bi = bi + ak_r[:, :, :K] * s0i[:, :, None] + \
             ak_i[:, :, :K] * s0r[:, :, None]
-        fr = ak_r[:, :, K] * s0r - ak_i[:, :, K] * s0i + sr[:, :, -1]
-        fi = ak_r[:, :, K] * s0i + ak_i[:, :, K] * s0r + si[:, :, -1]
-    else:
-        fr, fi = sr[:, :, -1], si[:, :, -1]
+        fr = ak_r[:, :, K] * s0r - ak_i[:, :, K] * s0i + fr
+        fi = ak_r[:, :, K] * s0i + ak_i[:, :, K] * s0r + fi
 
     y_state = (torch.einsum('bdks,dsc->bdkc', br, tab_r)
                - torch.einsum('bdks,dsc->bdkc', bi, tab_i))

@@ -235,3 +235,243 @@ def test_int4_kernel_refuses_what_it_does_not_take():
         int4_matmul(x, packed.T.contiguous().T, s)
     with pytest.raises(ValueError, match='one device'):
         int4_matmul(x, packed.cpu(), s)
+
+
+def _modal(C, S, seed=0):
+    """Stable random poles (|p| in 0.5..0.98) and residues, (C, S, 2)."""
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    mag = torch.rand(C, S, device='cuda', generator=g) * 0.48 + 0.5
+    ang = (torch.rand(C, S, device='cuda', generator=g) * 2 - 1) * 3.1
+    poles = torch.stack([mag * torch.cos(ang), mag * torch.sin(ang)], -1)
+    residues = torch.randn(C, S, 2, device='cuda', generator=g) * 0.3
+    return poles, residues
+
+
+@pytest.mark.parametrize('B,C,L,chunk,S,Kf', [
+    (1, 4096, 512, 64, 8, 3),    # evo-1's widths
+    (2, 96, 1024, 64, 8, 3),     # two batch rows, a ragged last block
+    (1, 33, 64, 16, 4, 3),       # a small chunk, 4 states, odd C
+    (2, 8, 37, 64, 8, 3),        # L < chunk: one chunk of odd width
+    (1, 16, 63, 21, 8, 3),       # odd chunks
+    (1, 5, 48, 8, 2, 3),         # 2 states, a chunk of 8
+    (1, 7, 3, 64, 8, 3),         # L = short_filter_length
+    (2, 7, 1, 64, 8, 3),         # L below the FIR tail's width
+])
+@pytest.mark.parametrize('bias', [True, False])
+@pytest.mark.parametrize('carried', [False, True])
+def test_hyena_mixer_kernel(randn, B, C, L, chunk, S, Kf, bias, carried):
+    """Kernel 6 against the unfused composition. The FIR is bit-equal by
+    construction; the long conv's float32 sums run in another order, so y
+    agrees to float32 rounding before it is rounded to bf16 and an output
+    may land one bf16 step (2^-8..2^-7 of its size) away: at most 2^-6 of
+    the larger of the value and its row's rms, and 99 % of outputs equal.
+    The modal state stays float32: 1e-4 of the same scale."""
+    from evo_tpu_torch.ops.hyena_mixer import (hyena_mixer, hyena_mixer_plain,
+                                               hyena_mixer_supported)
+    z, w = randn(B, 3, C, L), randn(3, C, Kf) * 0.5
+    b = randn(3, C) * 0.1 if bias else None
+    poles, residues = _modal(C, S)
+    d_skip = randn(C)
+    state = None
+    if carried:
+        state = (randn(B, 3, C, Kf - 1), randn(B, C, S, 2).float())
+    assert hyena_mixer_supported(z.shape, chunk, S, Kf)
+    before = _build.LAUNCHES['hyena_mixer']
+    y, iir, fir = hyena_mixer(z, w, b, poles, residues, d_skip, chunk=chunk,
+                              state=state)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES['hyena_mixer'] == before + 1
+    y_want, iir_want, fir_want = hyena_mixer_plain(
+        z, w, b, poles, residues, d_skip, chunk=chunk, state=state)
+    assert y.dtype == z.dtype and y.shape == (B, C, L)
+    assert iir.dtype == torch.float32 and iir.shape == (B, C, S, 2)
+    assert torch.equal(fir, fir_want)
+    assert _scaled_err(y, y_want) <= 2 ** -6
+    assert (y == y_want).float().mean() >= 0.99
+    assert _scaled_err(iir.flatten(2), iir_want.flatten(2)) <= 1e-4
+
+
+def test_hyena_mixer_segments_continue(randn):
+    """Two halves with the carried (fir, iir) state against one pass."""
+    from evo_tpu_torch.ops.hyena_mixer import hyena_mixer
+    B, C, L, S = 2, 64, 1024, 8
+    z, w, b = randn(B, 3, C, L), randn(3, C, 3) * 0.5, randn(3, C) * 0.1
+    poles, residues = _modal(C, S, seed=1)
+    d_skip = randn(C)
+    y, iir, fir = hyena_mixer(z, w, b, poles, residues, d_skip, chunk=64)
+    h = L // 2
+    y1, iir1, fir1 = hyena_mixer(z[..., :h].contiguous(), w, b, poles,
+                                 residues, d_skip, chunk=64)
+    y2, iir2, fir2 = hyena_mixer(z[..., h:].contiguous(), w, b, poles,
+                                 residues, d_skip, chunk=64,
+                                 state=(fir1, iir1))
+    torch.cuda.synchronize()
+    assert torch.equal(fir2, fir)
+    assert _scaled_err(torch.cat([y1, y2], -1), y) <= 2 ** -6
+    assert _scaled_err(iir2.flatten(2), iir.flatten(2)) <= 1e-4
+
+
+@pytest.mark.parametrize('B,D,K,S,chunk', [
+    (1, 4096, 128, 8, 64),      # a forward of 8,192 at evo-1's width
+    (2, 32, 16, 4, 32),
+    (1, 16, 48, 8, 64),         # K no power of two
+    (1, 8, 2, 2, 128),          # the least K
+    (3, 7, 13, 5, 64),          # nothing a multiple of anything
+])
+def test_modal_prefix_kernel(B, D, K, S, chunk):
+    """Kernel 7 (a serial walk) against the doubling loop: the same sums
+    in another order, 2e-5 of the larger of the value and its channel's
+    rms (the JAX test's own tolerance for kernel against loop)."""
+    from evo_tpu_torch.ops.modal_prefix import (modal_prefix,
+                                                modal_prefix_plain)
+    g = torch.Generator(device='cuda').manual_seed(K)
+    inj_r = torch.randn(B, D, K, S, device='cuda', generator=g)
+    inj_i = torch.randn(B, D, K, S, device='cuda', generator=g)
+    logmag = torch.log(torch.rand(D, S, device='cuda', generator=g) * 0.48
+                       + 0.5)
+    theta = (torch.rand(D, S, device='cuda', generator=g) * 2 - 1) * 3.1
+    before = _build.LAUNCHES['modal_prefix']
+    got = modal_prefix(inj_r, inj_i, logmag, theta, chunk)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES['modal_prefix'] == before + 1
+    want = modal_prefix_plain(inj_r, inj_i, logmag, theta, chunk)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        # rms over a channel's chunks and states: ent[0] is all zeros
+        assert _scaled_err(a.flatten(2), b.flatten(2)) <= 2e-5
+
+
+def test_conv_matmul_chunked_prefix_kernel():
+    """`pallas_prefix=True` against False, fresh and with a carried
+    state (the kernel serves both; the state's terms are added outside)."""
+    from evo_tpu_torch.ops.fftconv import conv_matmul_chunked
+    g = torch.Generator(device='cuda').manual_seed(3)
+    B, D, L, S, chunk = 2, 24, 512, 8, 64
+    u = torch.randn(B, D, L, device='cuda', generator=g)
+    poles, residues = _modal(D, S, seed=3)
+    d_skip = torch.randn(D, device='cuda', generator=g)
+    for state in (None, torch.randn(B, D, S, 2, device='cuda', generator=g)):
+        before = _build.LAUNCHES['modal_prefix']
+        y1, s1 = conv_matmul_chunked(u, poles, residues, chunk, state=state,
+                                     d_skip=d_skip, pallas_prefix=True)
+        assert _build.LAUNCHES['modal_prefix'] == before + 1
+        y0, s0 = conv_matmul_chunked(u, poles, residues, chunk, state=state,
+                                     d_skip=d_skip)
+        assert _build.LAUNCHES['modal_prefix'] == before + 1
+        assert torch.allclose(y1, y0, rtol=2e-4, atol=2e-4)
+        assert torch.allclose(s1, s0, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize('M,D,I,act', [
+    (64, 128, 176, 'gelu'), (300, 256, 336, 'gelu'), (128, 384, 128, 'gelu'),
+    (80, 128, 144, 'silu'),          # the JAX tests' shapes
+    (2, 4096, 10928, 'gelu'),        # decode rows at evo-1's widths
+    (1000, 4096, 10928, 'gelu'),     # ragged M and I (10928 = 170 * 64 + 48)
+    (37, 100, 77, 'gelu_tanh'),      # nothing aligned: element-wise loads
+    (129, 72, 1001, 'relu'),
+    (5, 40, 24, 'identity'),
+])
+def test_mlp_gate_kernel(randn, M, D, I, act):
+    """Kernel 9 against float32 products: both sum exact bf16 x bf16
+    products in float32, in another order, and round once to bf16, so an
+    output may land one bf16 step away: 2^-6 of the larger of the value
+    and its row's rms."""
+    from evo_tpu_torch.ops.mlp_gate import fused_gate, fused_gate_plain
+    x = randn(M, D)
+    w1, w2 = randn(D, I) * D ** -0.5, randn(D, I) * D ** -0.5
+    before = _build.LAUNCHES['mlp_gate']
+    got = fused_gate(x, w1, w2, act)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES['mlp_gate'] == before + 1
+    want = fused_gate_plain(x, w1, w2, act)
+    assert got.dtype == x.dtype and got.shape == (M, I)
+    assert _scaled_err(got, want) <= 2 ** -6
+
+
+def test_mlp_gate_leading_dims(randn):
+    from evo_tpu_torch.ops.mlp_gate import fused_gate, fused_gate_plain
+    x, w1, w2 = randn(2, 40, 128), randn(128, 144) * 0.05, randn(128, 144) * 0.05
+    got = fused_gate(x, w1, w2, 'silu')
+    torch.cuda.synchronize()
+    assert got.shape == (2, 40, 144)
+    assert _scaled_err(got, fused_gate_plain(x, w1, w2, 'silu')) <= 2 ** -6
+
+
+def test_new_kernels_refuse_what_they_do_not_take(randn):
+    from evo_tpu_torch.ops.hyena_mixer import (hyena_mixer,
+                                               hyena_mixer_supported)
+    from evo_tpu_torch.ops.mlp_gate import fused_gate
+    from evo_tpu_torch.ops.modal_prefix import modal_prefix
+    poles, residues = _modal(8, 8)
+    z, w, d = randn(1, 3, 8, 100), randn(3, 8, 3), randn(8)
+    assert not hyena_mixer_supported(z.shape, 64)        # 100 % 64
+    with pytest.raises(ValueError, match='hyena_mixer_supported'):
+        hyena_mixer(z, w, None, poles, residues, d, chunk=64)
+    with pytest.raises(ValueError, match='hyena_mixer_supported'):
+        hyena_mixer(randn(1, 3, 8, 128), w, None, poles, residues, d,
+                    chunk=128)                           # a chunk above 64
+    assert not hyena_mixer_supported((1, 3, 8, 64), 64, 8, 4)
+    with pytest.raises(ValueError, match='hyena_mixer_supported'):
+        hyena_mixer(z[..., :64], randn(3, 8, 4), None, poles, residues, d,
+                    chunk=64)                            # a FIR of 4 taps
+    with pytest.raises(TypeError):
+        hyena_mixer(z[..., :64].float(), w.float(), None, poles, residues,
+                    d.float(), chunk=64)
+    with pytest.raises(ValueError, match='do not match'):
+        hyena_mixer(z[..., :64], w, None, poles[:4], residues, d, chunk=64)
+    x = randn(4, 64)
+    with pytest.raises(TypeError):
+        fused_gate(x.float(), randn(64, 32).float(), randn(64, 32).float())
+    with pytest.raises(ValueError, match='must both be'):
+        fused_gate(x, randn(64, 32), randn(64, 40))
+    with pytest.raises(ValueError, match='unknown activation'):
+        fused_gate(x, randn(64, 32), randn(64, 32), 'swish')
+    inj = torch.randn(1, 4, 6, 2, device='cuda')
+    with pytest.raises(TypeError):
+        modal_prefix(inj.double(), inj.double(), torch.zeros(4, 2).cuda(),
+                     torch.zeros(4, 2).cuda(), 64)
+    with pytest.raises(ValueError, match='pole logs'):
+        modal_prefix(inj, inj, torch.zeros(3, 2).cuda(),
+                     torch.zeros(3, 2).cuda(), 64)
+
+
+def test_fused_model_launches():
+    """With `hyena_fused_mixer` a forward launches the fused kernel once a
+    Hyena layer and the FIR + gate kernel never, where the shape rule
+    holds; a ragged length falls through, in both directions by the rule
+    alone. With `hyena_pallas_prefix` alone the prefix kernel runs once a
+    Hyena layer beside FIR + gate."""
+    from evo_tpu_torch import model as model_lib
+    from evo_tpu_torch.config import tiny_config
+    base = dict(hidden_size=256, num_filters=256, num_attention_heads=2,
+                compute_dtype='bfloat16', param_dtype='bfloat16')
+    cfg = tiny_config(**base)
+    model = model_lib.random_init(cfg, torch.Generator(device='cuda')
+                                  .manual_seed(0), 'cuda')
+    g = torch.Generator(device='cuda').manual_seed(1)
+    n_hyena = len(cfg.hyena_layer_idxs)
+    want = {}
+    for L in (128, 100):
+        ids = torch.randint(0, 512, (2, L), device='cuda', generator=g)
+        want[L] = model_lib.forward(model, ids)
+        for fields, counts in (
+                (dict(hyena_fused_mixer=True),
+                 {'hyena_mixer': n_hyena if L % 64 == 0 else 0,
+                  'fir_gate': 0 if L % 64 == 0 else n_hyena,
+                  'modal_prefix': 0}),
+                (dict(hyena_pallas_prefix=True),
+                 {'hyena_mixer': 0, 'fir_gate': n_hyena,
+                  'modal_prefix': n_hyena}),
+                (dict(hyena_fused_mixer=True, hyena_pallas_prefix=True),
+                 {'hyena_mixer': n_hyena if L % 64 == 0 else 0,
+                  'fir_gate': 0 if L % 64 == 0 else n_hyena,
+                  'modal_prefix': 0 if L % 64 == 0 else n_hyena})):
+            model.config = cfg.replace(**fields)
+            _build.LAUNCHES.clear()
+            got = model_lib.forward(model, ids)
+            torch.cuda.synchronize()
+            assert {k: _build.LAUNCHES[k] for k in counts} == counts, (
+                L, fields, dict(_build.LAUNCHES))
+            # bf16 activations round elsewhere on the two paths
+            assert (got - want[L]).abs().max() <= 0.05 * want[L].abs().max()
+        model.config = cfg

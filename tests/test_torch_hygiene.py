@@ -25,11 +25,12 @@ torch.set_num_threads(2)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, 'evo_tpu_torch')
 FORBIDDEN = ('jax', 'jaxlib', 'evo_tpu')
-# fields of the JAX config that the port drops: TPU-only switches and the
-# knobs of long-conv backends the port does not have
-TPU_FIELDS = {'use_pallas', 'hyena_fused_mixer', 'hyena_pallas_prefix',
-              'cp_attn', 'state_prefill_chunk', 'remat', 'hyena_fft_chunk',
-              'hyena_conv_backend', 'mlp_init_method',
+# fields of the JAX config that the port drops: the kernel on/off switch
+# (in the port a tensor's device decides), parallelism, training and the
+# knobs of long-conv backends the port does not have. The kernel selectors
+# `hyena_fused_mixer` and `hyena_pallas_prefix` are fields of both.
+TPU_FIELDS = {'use_pallas', 'cp_attn', 'state_prefill_chunk', 'remat',
+              'hyena_fft_chunk', 'hyena_conv_backend', 'mlp_init_method',
               'mlp_output_init_method'}
 
 
@@ -60,7 +61,9 @@ def test_no_jax_imports(path):
 def test_import_leaves_jax_unloaded():
     code = ('import sys, evo_tpu_torch, evo_tpu_torch.checkpoint, '
             'evo_tpu_torch.quant, evo_tpu_torch.cli.score, '
-            'evo_tpu_torch.cli.generate, evo_tpu_torch.io.fasta; '
+            'evo_tpu_torch.cli.generate, evo_tpu_torch.io.fasta, '
+            'evo_tpu_torch.ops.hyena_mixer, evo_tpu_torch.ops.modal_prefix, '
+            'evo_tpu_torch.ops.mlp_gate; '
             'assert "jax" not in sys.modules and "evo_tpu" not in '
             'sys.modules, sorted(sys.modules)')
     subprocess.run([sys.executable, '-c', code], cwd=ROOT, check=True,
@@ -105,6 +108,19 @@ def test_tiny_configs_agree_with_jax():
         if k not in TPU_FIELDS}
     assert {f.name for f in dataclasses.fields(JaxModelConfig)} - {
         f.name for f in dataclasses.fields(config.ModelConfig)} == TPU_FIELDS
+
+
+@pytest.mark.parametrize('field', ['hyena_fused_mixer', 'hyena_pallas_prefix'])
+def test_kernel_selectors_are_fields_of_both_packages(field):
+    """The two selectors keep the JAX names, types and defaults (off), so
+    `from_dict`, the YAMLs and `config_overrides` treat them alike."""
+    port = {f.name: f for f in dataclasses.fields(config.ModelConfig)}
+    ref = {f.name: f for f in dataclasses.fields(JaxModelConfig)}
+    assert field not in TPU_FIELDS
+    assert port[field].default is ref[field].default is False
+    assert port[field].type == ref[field].type
+    assert getattr(config.ModelConfig.from_dict({field: True}), field)
+    assert getattr(config.tiny_config().replace(**{field: True}), field)
 
 
 def test_from_yaml_reads_published_file():
