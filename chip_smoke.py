@@ -11,9 +11,11 @@ for an H100: the kernels target sm_90a). It
   2. builds the CUDA kernels from evo_tpu_torch/csrc and holds each
      against its plain PyTorch version at evo-1's full-width shapes and at
      ragged ones (RMSNorm; FIR + gate, fresh and with a carried tail;
-     causal flash attention; attention over a bf16 and an int8 KV buffer,
-     up to a segment of 8,192 queries at offset 122,880 of a 131,072-long
-     buffer, and one query row for decode; the weight-only int4 matmul at
+     causal flash attention, at the edges of its 128-row tiles too;
+     attention over a bf16 and an int8 KV buffer, up to a segment of 8,192
+     queries at offset 122,880 of a 131,072-long buffer, and one query row
+     for decode, with SDPA under the lower-right causal bias over the
+     live prefix as kernel 4's yardstick; the weight-only int4 matmul at
      1 to 128 rows for each projection of a layer; the fused Hyena mixer
      at z (1, 3, 4096, 8192), fresh and with a carried state, at two batch
      rows and at one chunk of odd width; the cross-chunk prefix at 128
@@ -121,6 +123,32 @@ def scaled_err(got, want):
     rms = want.pow(2).mean(-1, keepdim=True).sqrt()
     return float(((got - want).abs()
                   / want.abs().maximum(rms).clamp(min=1e-30)).max())
+
+
+def attention_flops(heads, head_dim, lq, offsets):
+    """Operations of causal attention for one batch row per entry of
+    `offsets`: query row r at offset o attends the o + r + 1 keys up to
+    its own position, and each (row, key) pair costs two products (Q K^T
+    and P V) of 2 operations a multiply-add over the head. Kernel 3 is
+    offset 0."""
+    return sum(4 * heads * head_dim * (lq * o + lq * (lq + 1) // 2)
+               for o in offsets)
+
+
+def sdpa_over_live_prefix(q, k_buf, v_buf, offset):
+    """Kernel 4's function in one PyTorch call, for a scalar offset:
+    SDPA over the live prefix `buf[:, :offset + Lq]` of the buffers with
+    the lower-right causal bias, so query row r sees the keys
+    <= offset + r. q (B, Lq, H, Dh), buffers (B, T, H, Dh); returns
+    (B, H, Lq, Dh). Timed beside the kernel as its yardstick; the port
+    never calls it."""
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+    lq, live = q.shape[1], offset + q.shape[1]
+    qt, kt, vt = (t.transpose(1, 2)
+                  for t in (q, k_buf[:, :live], v_buf[:, :live]))
+    return F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=causal_lower_right(lq, live))
 
 
 def time_ms(torch, fn, reps=20, warmup=3):
@@ -312,7 +340,10 @@ def main():
     # fails. The second half of the rows at L=8192, whose long chains of
     # key tiles and rescales only that shape reaches, is reported apart.
     err = scaled = 0.0
-    for B, L in ((1, 1), (1, 63), (2, 1000), (1, 8192)):
+    # (2, 127 to 129) and (2, 4097): the edges of the 128-row query tile
+    # and of the TMA boxes; L=8192 last, for `late`
+    for B, L in ((1, 1), (1, 63), (2, 127), (2, 128), (2, 129), (2, 1000),
+                 (2, 4097), (1, 8192)):
         qkv = randn(B, L, 3, H, Dh)       # strided views, as the model has
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         got, want = flash_attention_causal(q, k, v), attention_plain(q, k, v)
@@ -329,7 +360,7 @@ def main():
     qkv = randn(1, L, 3, H, Dh)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    flops = 4 * H * Dh * L * (L + 1) // 2
+    flops = attention_flops(H, Dh, L, [0])
     kernels['flash_attention'] = dict(
         name='flash_attention', route='cuda',
         source='evo_tpu_torch/csrc/flash_attention.cu',
@@ -372,6 +403,11 @@ def main():
             (1, 100, 1024, 512), (1, 256, 2048, 1792),
             (2, 64, 1000, (100, 900)),       # two offsets, T % 128 != 0
             (2, 1, 777, (5, 776)),           # decode: one query row
+            # the edges of the 128-row query tile and the key tiles
+            (1, 129, 1024, 127), (1, 129, 1024, 128),
+            (2, 129, 1000, (60, 300)),       # rows that cross a key tile
+            (2, 200, 1100, (127, 900)),      # keys end inside a tile
+            (1, 1, 1000, 999),               # one row at the last slot
             (1, 8192, 131072, 122880)):      # a late segment of a 131k run
         q, off, bf, i8, sc = buffers(B, Lq, T, offset)
         got = flash_attention_buffer(q, *bf, off)
@@ -397,8 +433,7 @@ def main():
     # positions before it.
     B, Lq, T, offset = 1, 8192, 131072, 122880
     live = offset + Lq
-    # row r attends offset + r + 1 keys; 2 products of 2 operations each
-    flops = 4 * H * Dh * (Lq * offset + Lq * (Lq + 1) // 2)
+    flops = attention_flops(H, Dh, Lq, [offset])
     qo_bytes = 2 * Lq * H * Dh * 2
     row = torch.arange(Lq, device=dev)[:, None]
     mask = torch.arange(T, device=dev)[None, :] <= offset + row
@@ -416,12 +451,16 @@ def main():
         bound_ms=1e3 * max((qo_bytes + 2 * live * H * Dh * 2)
                            / peak['bytes_s'], flops / peak['bf16']),
         bound_by='operations',
-        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+        library_ms=time_ms(torch, lambda: sdpa_over_live_prefix(
+            q, *bf, offset), reps=3, warmup=1),
+        library_mask_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask), reps=3, warmup=1),
         decode_ms=time_ms(torch, lambda: flash_attention_buffer(
             q1, *bf, offset - 1), reps=5, warmup=1),
         shape='q (1, 8192, 32, 128) at offset 122,880, bf16 buffers '
-              '(1, 131072, 32, 128); library: SDPA with a boolean mask')
+              '(1, 131072, 32, 128); library: SDPA with the lower-right '
+              'causal bias over the live prefix (library_mask_ms: SDPA with '
+              'a dense boolean mask over the whole buffer)')
     # every code and scale of the live prefix is read once
     def kv8_bytes(n):
         return 2 * H * n * (Dh + 4)

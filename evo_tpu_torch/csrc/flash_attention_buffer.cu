@@ -1,5 +1,6 @@
 // Flash attention of a query segment at an offset over a KV buffer: bf16
-// buffers, or int8 buffers with one fp32 scale per (position, head).
+// buffers (kernel 4), or int8 buffers with one fp32 scale per (position,
+// head) (kernel 5).
 //
 // Replaces: evo_tpu/ops/pallas_attention.py `_flash_buffer_kernel` and
 // `_flash_buffer_kernel_q8` (both called through `flash_attention_buffer`).
@@ -16,25 +17,34 @@
 // positions the kernel reads ~1.04 GB, 0.31 ms, and computes next to
 // nothing.
 //
-// Design: the arithmetic of `flash_attention.cu` (one block of 4 warps per
+// Kernel 4 (bf16 buffers) is the Hopper mainloop of `flash_sm90.cuh` with
+// the (B,) device offsets: TMA loads of the position-major (B, T, H, Dh)
+// cache through its strides, wgmma products, key tiles only up to
+// offset[b] + the tile's last row (capped at T), and only the tiles that
+// cross a row's limit or T masked. Its time at the prefill shape above
+// (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py): 26.7 ms, 1.55x its
+// bound, against 50.3 ms for SDPA under the lower-right causal bias; at
+// one query row 1.16 ms.
+//
+// Kernel 5 (int8 buffers) keeps the first design, because TMA cannot
+// dequantise on the way into shared memory: one block of 4 warps per
 // (batch*head, 64-row query tile), Q in registers as mma A fragments,
 // S = Q K^T and O += P V as mma.sync m16n8k16 bf16 with fp32 accumulation,
 // fp32 online-softmax state with the `finite` guard, P rounded to bf16
-// before P V), with the loop bound and the mask taken from the offset: a
+// before P V, with the loop bound and the mask taken from the offset: a
 // block walks key tiles only up to offset[b] + (its last query row), so
 // reads stop at the live prefix of the buffer, and only tiles that cross a
 // row's limit are masked. The offsets are a (B,) device array; nothing is
-// read back to the host. Buffers are read through their batch, position
-// and head strides, so the position-major bf16 cache (B, T, H, Dh) and the
-// head-major int8 cache (B, H, T, Dh) share the code; products of batch,
-// position and stride are 64-bit (B*T*H*Dh passes 2^31 at B=4, T=131,072).
-// The int8 variant loads 16 codes a thread, dequantises them as
+// read back to the host. The head-major int8 cache (B, H, T, Dh) is read
+// through its batch, position and head strides; products of batch,
+// position and stride are 64-bit (B*T*H*Dh passes 2^31 at B=4,
+// T=131,072). The kernel loads 16 codes a thread, dequantises them as
 // bf16(float(code) * scale) on the way into shared memory, and then runs
-// the same products: global memory sees one byte per element. Any T is
-// taken: keys past T load as zeros and are masked. A warp whose 16 query
-// rows all lie past Lq (3 of 4 at decode) skips the products. At Lq = 1
-// the grid is B*H blocks, each walking the whole live prefix alone;
-// splitting the key range across blocks is left to a later version.
+// the products: global memory sees one byte per element. Any T is taken:
+// keys past T load as zeros and are masked. A warp whose 16 query rows all
+// lie past Lq (3 of 4 at decode) skips the products. At Lq = 1 the grid is
+// B*H blocks, each walking the whole live prefix alone; splitting the key
+// range across blocks is left to a later version.
 //
 // A masked key still enters P V with p = 0, and 0 * NaN is NaN: buffers
 // must hold finite values everywhere (the cache is made of zeros).
@@ -43,6 +53,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
@@ -71,18 +82,18 @@ __device__ __forceinline__ void dequant16(const uint4 raw, const float sc,
   *reinterpret_cast<uint4*>(dst + 8) = make_uint4(w[4], w[5], w[6], w[7]);
 }
 
-template <bool kQuant>
 __global__ void __launch_bounds__(kThreads)
-    flash_buffer_kernel(const __nv_bfloat16* __restrict__ q,
-                        const void* __restrict__ kbuf,
-                        const void* __restrict__ vbuf,
-                        const float* __restrict__ kscale,
-                        const float* __restrict__ vscale,
-                        const int* __restrict__ offsets,
-                        __nv_bfloat16* __restrict__ o, int Lq, int T, int H,
-                        int64_t qsb, int64_t qsl, int64_t qsh, int64_t ksb,
-                        int64_t ksl, int64_t ksh, int64_t vsb, int64_t vsl,
-                        int64_t vsh, float scale) {
+    flash_buffer_q8_kernel(const __nv_bfloat16* __restrict__ q,
+                           const int8_t* __restrict__ kbuf,
+                           const int8_t* __restrict__ vbuf,
+                           const float* __restrict__ kscale,
+                           const float* __restrict__ vscale,
+                           const int* __restrict__ offsets,
+                           __nv_bfloat16* __restrict__ o, int Lq, int T,
+                           int H, int64_t qsb, int64_t qsl, int64_t qsh,
+                           int64_t ksb, int64_t ksl, int64_t ksh,
+                           int64_t vsb, int64_t vsl, int64_t vsh,
+                           float scale) {
   __shared__ __align__(16) __nv_bfloat16 Ks[kBlockK][kPad];
   __shared__ __align__(16) __nv_bfloat16 Vs[kBlockK][kPad];
 
@@ -93,8 +104,8 @@ __global__ void __launch_bounds__(kThreads)
   const __nv_bfloat16* qp = q + bb * qsb + hh * qsh;
   const int64_t kbase = bb * ksb + hh * ksh;
   const int64_t vbase = bb * vsb + hh * vsh;
-  const float* ksc = kQuant ? kscale + ((int64_t)bb * H + hh) * T : nullptr;
-  const float* vsc = kQuant ? vscale + ((int64_t)bb * H + hh) * T : nullptr;
+  const float* ksc = kscale + ((int64_t)bb * H + hh) * T;
+  const float* vsc = vscale + ((int64_t)bb * H + hh) * T;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tq = lane & 3;
   const int q_lo = qt * kBlockQ;
@@ -130,45 +141,24 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int kt = 0; kt < n_kt; ++kt) {
     __syncthreads();  // every warp is done with the previous tile
-    if constexpr (kQuant) {
-      const int8_t* kp = reinterpret_cast<const int8_t*>(kbuf) + kbase;
-      const int8_t* vp = reinterpret_cast<const int8_t*>(vbuf) + vbase;
-      for (int i = threadIdx.x; i < kBlockK * (kHeadDim / 16);
-           i += kThreads) {
-        const int r = i / (kHeadDim / 16);
-        const int cv = (i % (kHeadDim / 16)) * 16;
-        const int key = kt * kBlockK + r;
-        uint4 kv = make_uint4(0u, 0u, 0u, 0u);
-        uint4 vv = make_uint4(0u, 0u, 0u, 0u);
-        float ks = 0.f, vs = 0.f;
-        if (key < T) {
-          kv = *reinterpret_cast<const uint4*>(kp + key * ksl + cv);
-          vv = *reinterpret_cast<const uint4*>(vp + key * vsl + cv);
-          ks = ksc[key];
-          vs = vsc[key];
-        }
-        dequant16(kv, ks, &Ks[r][cv]);
-        dequant16(vv, vs, &Vs[r][cv]);
+    const int8_t* kp = kbuf + kbase;
+    const int8_t* vp = vbuf + vbase;
+    for (int i = threadIdx.x; i < kBlockK * (kHeadDim / 16);
+         i += kThreads) {
+      const int r = i / (kHeadDim / 16);
+      const int cv = (i % (kHeadDim / 16)) * 16;
+      const int key = kt * kBlockK + r;
+      uint4 kv = make_uint4(0u, 0u, 0u, 0u);
+      uint4 vv = make_uint4(0u, 0u, 0u, 0u);
+      float ks = 0.f, vs = 0.f;
+      if (key < T) {
+        kv = *reinterpret_cast<const uint4*>(kp + key * ksl + cv);
+        vv = *reinterpret_cast<const uint4*>(vp + key * vsl + cv);
+        ks = ksc[key];
+        vs = vsc[key];
       }
-    } else {
-      const __nv_bfloat16* kp =
-          reinterpret_cast<const __nv_bfloat16*>(kbuf) + kbase;
-      const __nv_bfloat16* vp =
-          reinterpret_cast<const __nv_bfloat16*>(vbuf) + vbase;
-      for (int i = threadIdx.x; i < kBlockK * (kHeadDim / 8);
-           i += kThreads) {
-        const int r = i / (kHeadDim / 8);
-        const int cv = (i % (kHeadDim / 8)) * 8;
-        const int key = kt * kBlockK + r;
-        uint4 kv = make_uint4(0u, 0u, 0u, 0u);
-        uint4 vv = make_uint4(0u, 0u, 0u, 0u);
-        if (key < T) {
-          kv = *reinterpret_cast<const uint4*>(kp + key * ksl + cv);
-          vv = *reinterpret_cast<const uint4*>(vp + key * vsl + cv);
-        }
-        *reinterpret_cast<uint4*>(&Ks[r][cv]) = kv;
-        *reinterpret_cast<uint4*>(&Vs[r][cv]) = vv;
-      }
+      dequant16(kv, ks, &Ks[r][cv]);
+      dequant16(vv, vs, &Vs[r][cv]);
     }
     __syncthreads();
     if (!active) continue;  // warp-uniform: these rows are never stored
@@ -276,44 +266,35 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <bool kQuant>
-int launch(const void* q, const void* k, const void* v, const void* ks,
-           const void* vs, const void* offsets, void* o, int B, int Lq,
-           int T, int H, long long qsb, long long qsl, long long qsh,
-           long long ksb, long long ksl, long long ksh, long long vsb,
-           long long vsl, long long vsh, float scale, void* stream) {
-  dim3 grid((Lq + kBlockQ - 1) / kBlockQ, B * H);
-  flash_buffer_kernel<kQuant><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, k, v, (const float*)ks, (const float*)vs,
-      (const int*)offsets, (__nv_bfloat16*)o, Lq, T, H, qsb, qsl, qsh, ksb,
-      ksl, ksh, vsb, vsl, vsh, scale);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // q: (B, Lq, H, 128) bf16; k, v: buffers of T positions, bf16; offsets:
 // (B,) int32; o: (B, Lq, H, 128) bf16, contiguous. q, k and v are read
-// through element strides (batch, position, head; the last axis
+// by TMA through element strides (batch, position, head; the last axis
 // contiguous; strides multiples of 8 and pointers 16-byte aligned).
 extern "C" int evo_flash_attention_buffer_bf16(
     const void* q, const void* k, const void* v, const void* offsets,
     void* o, int B, int Lq, int T, int H, long long qsb, long long qsl,
     long long qsh, long long ksb, long long ksl, long long ksh,
     long long vsb, long long vsl, long long vsh, float scale, void* stream) {
-  return launch<false>(q, k, v, nullptr, nullptr, offsets, o, B, Lq, T, H,
-                       qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh, scale,
-                       stream);
+  return evo_sm90::launch(q, k, v, (const int*)offsets, o, B, Lq, T, H, qsb,
+                          qsl, qsh, ksb, ksl, ksh, vsb, vsl, vsh, scale,
+                          (cudaStream_t)stream);
 }
 
 // As above with int8 k, v (strides multiples of 16) and contiguous fp32
-// scales ks, vs of shape (B, H, T).
+// scales ks, vs of shape (B, H, T), on the mma.sync design.
 extern "C" int evo_flash_attention_buffer_q8(
     const void* q, const void* k, const void* v, const void* ks,
     const void* vs, const void* offsets, void* o, int B, int Lq, int T,
     int H, long long qsb, long long qsl, long long qsh, long long ksb,
     long long ksl, long long ksh, long long vsb, long long vsl,
     long long vsh, float scale, void* stream) {
-  return launch<true>(q, k, v, ks, vs, offsets, o, B, Lq, T, H, qsb, qsl,
-                      qsh, ksb, ksl, ksh, vsb, vsl, vsh, scale, stream);
+  dim3 grid((Lq + kBlockQ - 1) / kBlockQ, B * H);
+  flash_buffer_q8_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const int8_t*)k, (const int8_t*)v,
+      (const float*)ks, (const float*)vs, (const int*)offsets,
+      (__nv_bfloat16*)o, Lq, T, H, qsb, qsl, qsh, ksb, ksl, ksh, vsb, vsl,
+      vsh, scale);
+  return (int)cudaGetLastError();
 }

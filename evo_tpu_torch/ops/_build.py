@@ -3,10 +3,13 @@
 The kernels live in `evo_tpu_torch/csrc/*.cu` with a plain C interface.
 At first use, each source is compiled by its own `nvcc` process (all
 started together) for `sm_90a`, the objects are linked into one shared
-library, and the library is loaded with ctypes. The library's file name
-carries a hash of the sources and flags, so a changed source rebuilds.
-Output goes to `evo_tpu_torch/build/`, which `.gitignore` lists. A failed
-build raises; nothing falls back.
+library, and the library is loaded with ctypes. The attention kernels'
+TMA tensor maps are encoded by `cuTensorMapEncodeTiled`, which they look
+up in libcuda at run time (`cudaGetDriverEntryPoint`), so nothing links
+`-lcuda`. The library's file name carries a hash of the sources and
+flags, so a changed source rebuilds. Output goes to
+`evo_tpu_torch/build/`, which `.gitignore` lists. A failed build raises;
+nothing falls back.
 
 Every wrapper adds one to `LAUNCHES[name]` where it launches its kernel
 and nowhere else, so a run can show that its path went through the
@@ -65,6 +68,10 @@ _SIGNATURES = {
     # (x, w1, w2, out, M, D, I, act, stream)
     'evo_mlp_gate_bf16': (_P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
+
+# an entry point returns this plus the CUresult of cuTensorMapEncodeTiled
+# when cuTensorMapEncodeTiled refuses a tensor map (`csrc/flash_sm90.cuh`)
+_ENCODE_ERROR = 1000
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -149,6 +156,9 @@ def launch(name: str, counter: str, *args) -> None:
     import torch
     fn = getattr(library(), name)
     err = fn(*args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if err >= _ENCODE_ERROR:
+        raise RuntimeError(f'{name}: cuTensorMapEncodeTiled refused a TMA '
+                           f'tensor map: CUresult {err - _ENCODE_ERROR}')
     if err:
         raise RuntimeError(f'{name} failed to launch: cudaError_t {err}')
     LAUNCHES[counter] += 1

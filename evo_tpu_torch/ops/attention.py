@@ -1,5 +1,5 @@
-"""Causal self-attention: the CUDA flash kernel (`csrc/flash_attention.cu`)
-and its plain version.
+"""Causal self-attention: the CUDA flash kernel (`csrc/flash_attention.cu`,
+on the Hopper mainloop of `csrc/flash_sm90.cuh`) and its plain version.
 
 Port of `evo_tpu/ops/pallas_attention.py:flash_attention_causal`; the
 plain version is the dense float32-softmax `sdpa_causal` of
@@ -48,9 +48,9 @@ def flash_attention_causal(q: torch.Tensor, k: torch.Tensor,
     A CUDA tensor launches the kernel (or raises on what it does not
     take); a CPU tensor takes the plain version.
 
-    The kernel reads q, k and v through their strides (the model passes
-    views of its fused QKV projection); only the head axis must be
-    contiguous."""
+    The kernel reads q, k and v by TMA through their strides (the model
+    passes views of its fused QKV projection); the head axis must be
+    contiguous and the other strides and the addresses 16-byte aligned."""
     if not _build.check_device(q, 'flash_attention_causal'):
         return attention_plain(q, k, v)
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
@@ -66,9 +66,11 @@ def flash_attention_causal(q: torch.Tensor, k: torch.Tensor,
             raise TypeError('flash kernel takes bf16 q, k, v on one device')
         sb, sl, sh, sd = t.stride()
         if sd != 1 or sb % 8 or sl % 8 or sh % 8 or t.data_ptr() % 16:
-            raise ValueError('flash kernel needs a contiguous head axis, '
-                             'strides that are multiples of 8 and 16-byte '
-                             f'aligned data, got strides {t.stride()}')
+            raise ValueError('flash kernel loads by TMA: it needs a '
+                             'contiguous head axis, strides that are '
+                             'multiples of 8 elements (16 bytes) and '
+                             '16-byte aligned data, got strides '
+                             f'{t.stride()} at address {t.data_ptr():#x}')
         strides += [sb, sl, sh]
     if B * H > 65535:
         raise ValueError(f'flash kernel grid: B*H={B * H} > 65535')

@@ -1,6 +1,7 @@
 """Attention of a query segment at an offset over a KV buffer: the CUDA
-kernels (`csrc/flash_attention_buffer.cu`, bf16 and int8 buffers) and
-their plain version.
+kernels (`csrc/flash_attention_buffer.cu`: bf16 buffers on the Hopper
+mainloop of `csrc/flash_sm90.cuh`, int8 buffers on an `mma.sync` kernel)
+and their plain version.
 
 Port of `evo_tpu/ops/pallas_attention.py:flash_attention_buffer`; the plain
 version is the chunked online softmax of `mha_full` in
@@ -151,7 +152,8 @@ def flash_attention_buffer(q: torch.Tensor, k_buf: torch.Tensor,
         raise TypeError(f'buffer-attention kernel takes bf16 q and '
                         f'{buf_dtype} buffers, got {q.dtype}, {k_buf.dtype} '
                         f'and {v_buf.dtype}')
-    # element strides as (batch, position, head); 16-byte loads
+    # element strides as (batch, position, head), 16-byte aligned: TMA
+    # loads (bf16) or 16-byte loads (int8)
     buf = (16, 2) if quantized else (8, 1)
     strides = []
     for t, unit, t_axis in ((q, 8, 1), (k_buf, *buf), (v_buf, *buf)):
@@ -162,8 +164,9 @@ def flash_attention_buffer(q: torch.Tensor, k_buf: torch.Tensor,
                 or t.data_ptr() % 16:
             raise ValueError(
                 'buffer-attention kernel needs a contiguous head axis, '
-                f'strides that are multiples of {unit} and 16-byte aligned '
-                f'data, got strides {t.stride()}')
+                f'strides that are multiples of {unit} elements (16 bytes) '
+                f'and 16-byte aligned data, got strides {t.stride()} at '
+                f'address {t.data_ptr():#x}')
         strides += [sb, sl, sh]
     if B * H > 65535:
         raise ValueError(f'buffer-attention kernel grid: B*H={B * H} > '

@@ -71,9 +71,12 @@ def _scaled_err(got, want):
     return ((got - want).abs() / want.abs().maximum(rms)).max()
 
 
-@pytest.mark.parametrize('B,L', [(1, 1), (1, 63), (1, 64), (2, 1000)])
+@pytest.mark.parametrize('B,L', [
+    (1, 1), (1, 63), (1, 64), (2, 1000),
+    # the edges of the 128-row query tile and of the TMA boxes
+    (2, 127), (2, 128), (2, 129), (2, 4097)])
 def test_flash_attention_kernel(randn, B, L):
-    qkv = randn(B, L, 3, 32, 128)
+    qkv = randn(B, L, 3, 32, 128)     # strided views, as the model has
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     got = flash_attention_causal(q, k, v)
     torch.cuda.synchronize()
@@ -98,6 +101,13 @@ def test_fir_gate_kernel_with_carried_tail(randn, B, L):
     (1, 256, 2048, 1792),        # the segment fills the buffer to the brim
     (2, 64, 1000, (100, 900)),   # per-row offsets, T not a multiple of 128
     (2, 1, 777, (5, 776)),       # one query row (decode)
+    (1, 129, 1024, 127),         # 129 rows: a second query tile of one row
+    (1, 129, 1024, 128),         # ... at a tile-aligned offset
+    (2, 129, 1000, (60, 300)),   # per-row offsets whose rows cross a key
+                                 # tile, T not a multiple of 128
+    (2, 200, 1100, (127, 900)),  # the second row fills the buffer: keys
+                                 # end 76 into the last tile
+    (1, 1, 1000, 999),           # one query row at the buffer's last slot
 ])
 @pytest.mark.parametrize('quantized', [False, True])
 def test_flash_attention_buffer_kernels(randn, B, Lq, T, offset, quantized):
@@ -149,6 +159,32 @@ def test_kernels_refuse_what_they_do_not_take(randn):
         rmsnorm(randn(2, 16).float(), randn(16).float())
     with pytest.raises(TypeError):
         fir_gate(randn(1, 3, 8, 5).float(), randn(3, 8, 3).float())
+
+
+def test_attention_kernels_refuse_misaligned_operands(randn):
+    """TMA takes 16-byte aligned bases and strides only: the wrappers
+    refuse anything else before any launch."""
+    _build.library()
+    before = dict(_build.LAUNCHES)
+    odd = randn(1, 8, 2, 132)[..., :128]             # head stride 132
+    shifted = randn(1 * 8 * 2 * 128 + 1)[1:].view(1, 8, 2, 128)
+    q = randn(1, 8, 2, 128)
+    for bad in (odd, shifted):
+        with pytest.raises(ValueError, match='16 bytes'):
+            flash_attention_causal(bad, q, q)
+        with pytest.raises(ValueError, match='16 bytes'):
+            flash_attention_causal(q, q, bad)
+    buf = randn(1, 16, 2, 132)[..., :128]
+    with pytest.raises(ValueError, match='16 bytes'):
+        flash_attention_buffer(q, buf, buf, 0)
+    assert dict(_build.LAUNCHES) == before
+    flash_attention_causal(q, q, q)
+    flash_attention_buffer(q, q.contiguous(), q.contiguous(), 0)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES['flash_attention'] == before.get(
+        'flash_attention', 0) + 1
+    assert _build.LAUNCHES['flash_attention_buffer'] == before.get(
+        'flash_attention_buffer', 0) + 1
 
 
 def _int4_case(M, Kp, N, seed=0):
