@@ -15,14 +15,17 @@ for an H100: the kernels target sm_90a). It
      attention over a bf16 and an int8 KV buffer, up to a segment of 8,192
      queries at offset 122,880 of a 131,072-long buffer, and one query row
      for decode, with SDPA under the lower-right causal bias over the
-     live prefix as kernel 4's yardstick; the weight-only int4 matmul at
-     1 to 128 rows for each projection of a layer; the fused Hyena mixer
-     at z (1, 3, 4096, 8192), fresh and with a carried state, at two batch
-     rows and at one chunk of odd width; the cross-chunk prefix at 128
-     chunks and at a count that is no power of two; the fused MLP gate at
-     8,192 and at 2 rows over (4096, 10928) weights), and times kernel,
-     plain version, the roofline bound and a library yardstick with CUDA
-     events;
+     live prefix as kernel 4's yardstick; kernel 5 at one query row at
+     offsets 8,191, 65,535 and 122,879 and in both its regimes at 1 to 8
+     rows, and the combine kernel of its split key range against its
+     plain twin (and bit-equal on a second run); the weight-only int4
+     matmul at 1 to 128 rows for each projection of a layer; the fused
+     Hyena mixer at z (1, 3, 4096, 8192), fresh and with a carried state,
+     at two batch rows and at one chunk of odd width; the cross-chunk
+     prefix at 128 chunks and at a count that is no power of two; the
+     fused MLP gate at 1 to 8,192 rows over (4096, 10928) weights, timed
+     at 8,192 and 2), and times kernel, plain version, the roofline bound
+     and a library yardstick with CUDA events;
   3. checks the whole port on a small bf16 model against the same model's
      plain PyTorch path on the CPU;
   4. scores with evo-1-8k-base at full width (32 layers, D=4096, random
@@ -30,7 +33,8 @@ for an H100: the kernels target sm_90a). It
      forward at B=1, L=8192, checking finite scores, padding invariance
      and the kernels' launch counts (65 / 29 / 3 per forward);
   5. generates greedily from 2 prompts of 512 nt, 64 new tokens, checking
-     the launch counts and that prefill + decode logits agree with one
+     the launch counts (kernel 4 three times a decode step) and that
+     prefill + decode logits agree with one
      forward over prompt + generation, and times prefill and decode steps;
   6. scores in segments with evo-1-131k-base at full width: a 12,000-nt
      sequence in one pass and in segments of 4,096 (scores and entropies
@@ -39,13 +43,19 @@ for an H100: the kernels target sm_90a). It
   7. generates with evo-1-131k-base: a prompt prefilled in segments
      against one pass, a generation resumed from the returned cache
      against one call, and the same under the int8 KV cache, whose decode
-     steps must go through the int8 kernel;
+     steps must go through the int8 kernel's split key range and the
+     combine kernel;
   8. quantizes evo-1-131k-base to int4 at full width with the int8 KV
      cache, prints the memory it takes, and generates greedily from 2
      prompts of 512 nt: every decode step must launch the int4 kernel 160
      times and the prefill never, prefill + decode logits must agree with
      one forward, and the decode step is timed beside the bf16 and the
      int8 weight-only ones;
+ 15. (after phase 8) times one decode step of evo-1-131k-base at B=1 over
+     a 131,072-slot cache of random values, bf16 and int8, at offsets
+     8,191, 65,535 and 122,879, through the kernels and through the dense
+     plain route they replaced, in turns, with the device ms (profiler)
+     and peak allocation of each step;
   9. scores the ragged sequences of phase 4 under int8 weights, int8
      weights with int8 activations, and int4, against the bf16 scores;
  10. writes the random-init evo-1-8k-base as a sharded reference snapshot
@@ -219,8 +229,12 @@ def main():
     from evo_tpu_torch.layers.attention import kv_quantize
     from evo_tpu_torch.ops.attention import (attention_plain,
                                              flash_attention_causal)
+    from evo_tpu_torch.ops import attention_buffer as attention_buffer_mod
     from evo_tpu_torch.ops.attention_buffer import (attention_buffer_plain,
-                                                    flash_attention_buffer)
+                                                    combine_partials,
+                                                    combine_partials_plain,
+                                                    flash_attention_buffer,
+                                                    key_splits)
     from evo_tpu_torch.ops.fir_gate import fir_gate, fir_gate_plain
     from evo_tpu_torch.ops.hyena_mixer import (hyena_mixer, hyena_mixer_plain,
                                                hyena_mixer_supported)
@@ -408,6 +422,10 @@ def main():
             (2, 129, 1000, (60, 300)),       # rows that cross a key tile
             (2, 200, 1100, (127, 900)),      # keys end inside a tile
             (1, 1, 1000, 999),               # one row at the last slot
+            # int8: the split key range at one query row, the two regimes
+            (2, 1, 65536, (5, 60000)),       # splits past row 0's prefix
+            (1, 1, 4096, 4095),              # the prefix ends on a split edge
+            (1, 4, 3000, 2000), (1, 5, 3000, 2000),
             (1, 8192, 131072, 122880)):      # a late segment of a 131k run
         q, off, bf, i8, sc = buffers(B, Lq, T, offset)
         got = flash_attention_buffer(q, *bf, off)
@@ -424,7 +442,7 @@ def main():
             f'{scaled_err(got8, got):.3e}')
         err4, err5 = max(err4, e4), max(err5, e5)
         scaled4, scaled5 = max(scaled4, r4), max(scaled5, r5)
-        del got, got8, want, want8
+        del got, got8, want
     check(scaled4 <= 2 ** -5, f'bf16 buffer kernel disagrees: {scaled4}')
     check(scaled5 <= 2 ** -5, f'int8 buffer kernel disagrees: {scaled5}')
 
@@ -457,36 +475,112 @@ def main():
             qt, kt, vt, attn_mask=mask), reps=3, warmup=1),
         decode_ms=time_ms(torch, lambda: flash_attention_buffer(
             q1, *bf, offset - 1), reps=5, warmup=1),
+        # one query row at offset 122,879 reads the live 122,880 positions
+        decode_bound_ms=1e3 * max(
+            (2 * offset * H * Dh * 2 + 2 * H * Dh * 2) / peak['bytes_s'],
+            attention_flops(H, Dh, 1, [offset - 1]) / peak['bf16']),
+        decode_library_ms=time_ms(torch, lambda: sdpa_over_live_prefix(
+            q1, *bf, offset - 1), reps=5, warmup=1),
         shape='q (1, 8192, 32, 128) at offset 122,880, bf16 buffers '
               '(1, 131072, 32, 128); library: SDPA with the lower-right '
               'causal bias over the live prefix (library_mask_ms: SDPA with '
-              'a dense boolean mask over the whole buffer)')
+              'a dense boolean mask over the whole buffer); decode: q (1, 1, '
+              '32, 128) at offset 122,879, SDPA over the live prefix beside '
+              'it')
     # every code and scale of the live prefix is read once
     def kv8_bytes(n):
         return 2 * H * n * (Dh + 4)
 
+    def decode8_bound_ms(o, rows=1):
+        return 1e3 * max((kv8_bytes(o + rows) + 2 * rows * H * Dh * 2)
+                         / peak['bytes_s'],
+                         attention_flops(H, Dh, rows, [o]) / peak['bf16'])
+
+    # kernel 5 at one query row over three live prefixes (the split key
+    # range and the combine kernel), and both of its regimes at 1 to 8
+    # rows at the end of the 131k buffer, the split one where it is built
+    by_offset5 = {}
+    for o in (8191, 65535, 122879):
+        by_offset5[o] = dict(
+            ms=time_ms(torch, lambda: flash_attention_buffer(
+                q1, *i8, o, *sc), reps=10, warmup=2),
+            bound_ms=decode8_bound_ms(o))
+    regimes5 = {}
+    split_rows = attention_buffer_mod.SPLIT_MAX_ROWS
+    for rows in (1, 2, 4, 8):
+        qr, o = randn(1, rows, H, Dh), offset - rows
+        entry = dict(bound_ms=decode8_bound_ms(o, rows))
+        if rows <= split_rows:
+            entry['split_ms'] = time_ms(torch, lambda: flash_attention_buffer(
+                qr, *i8, o, *sc), reps=10, warmup=2)
+        attention_buffer_mod.SPLIT_MAX_ROWS = 0
+        try:
+            entry['wgmma_ms'] = time_ms(torch, lambda: flash_attention_buffer(
+                qr, *i8, o, *sc), reps=5, warmup=1)
+        finally:
+            attention_buffer_mod.SPLIT_MAX_ROWS = split_rows
+        regimes5[rows] = entry
+    log(f'   flash_attention_buffer_q8 at one query row by offset: '
+        f'{by_offset5}; by regime at offset {offset} - rows: {regimes5}')
     kernels['flash_attention_buffer_q8'] = dict(
         name='flash_attention_buffer_q8', route='cuda',
         source='evo_tpu_torch/csrc/flash_attention_buffer.cu',
         replaces='evo_tpu/ops/pallas_attention.py:169', max_abs_err=err5,
-        max_scaled_err=scaled5,
-        ms=time_ms(torch, lambda: flash_attention_buffer(
-            q1, *i8, offset - 1, *sc), reps=5, warmup=1),
+        max_scaled_err=scaled5, **by_offset5[122879],
         plain_ms=time_ms(torch, lambda: attention_buffer_plain(
             q1, *i8, offset - 1, *sc), reps=1, warmup=0),
-        bound_ms=1e3 * max((kv8_bytes(offset) + 2 * H * Dh * 2)
-                           / peak['bytes_s'],
-                           4 * H * Dh * offset / peak['bf16']),
-        bound_by='bytes', library_ms=None,
+        bound_by='bytes', library_ms=None, by_offset=by_offset5,
+        regimes=regimes5,
         prefill_ms=time_ms(torch, lambda: flash_attention_buffer(
             q, *i8, offset, *sc), reps=3, warmup=1),
         prefill_bound_ms=1e3 * max(
             (qo_bytes + kv8_bytes(live)) / peak['bytes_s'],
             flops / peak['bf16']),
-        shape='q (1, 1, 32, 128) at offset 122,879 (decode), int8 buffers '
-              '(1, 32, 131072, 128), scales (1, 32, 131072); prefill_ms: '
-              'q (1, 8192, 32, 128) at offset 122,880')
-    del off, bf, i8, sc, mask, row, q1
+        shape='q (1, 1, 32, 128) at offset 122,879 (decode: the split key '
+              'range and the combine kernel; by_offset at 8,191, 65,535 and '
+              '122,879), int8 buffers (1, 32, 131072, 128), scales (1, 32, '
+              '131072); prefill_ms: q (1, 8192, 32, 128) at offset 122,880; '
+              'regimes: rows 1 to 8 at offset 122,880 - rows, each regime')
+
+    # The combine kernel merges a decode step's partials in a fixed order:
+    # against its plain twin within one bf16 rounding of the output (2^-7
+    # of the larger of the value and its row's rms), and the same bits
+    # twice. Partials as the split kernel leaves them at offset 122,879,
+    # some empty.
+    chunk5, S5 = key_splits(offset, H, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    pm = torch.randn(1, H, 1, S5, device=dev, generator=g) * 4
+    pm[..., S5 // 2:] = float('-inf')
+    pl = torch.rand(1, H, 1, S5, device=dev, generator=g) * 50 + 1
+    pl[torch.isinf(pm)] = 0
+    pacc = torch.randn(1, H, 1, S5, Dh, device=dev, generator=g) * 10
+    pacc[torch.isinf(pm)] = 0
+    got = combine_partials(pm, pl, pacc)
+    again = combine_partials(pm, pl, pacc)
+    torch.cuda.synchronize()
+    want = combine_partials_plain(pm, pl, pacc)
+    r = scaled_err(got, want)
+    log(f'   combine_partials S={S5} (chunk {chunk5}): scaled err {r:.3e}, '
+        f'bit-equal on a second run {torch.equal(got, again)}')
+    check(r <= 2 ** -7 and torch.equal(got, again),
+          f'combine kernel disagrees: {r}')
+    kernels['combine_partials'] = dict(
+        name='combine_partials', route='cuda',
+        source='evo_tpu_torch/csrc/flash_attention_buffer.cu',
+        replaces='evo_tpu/ops/pallas_attention.py:169',
+        max_abs_err=float((got.float() - want.float()).abs().max()),
+        max_scaled_err=r,
+        ms=time_graph_ms(torch, [lambda: combine_partials(pm, pl, pacc)]),
+        ms_by_events=time_ms(torch, lambda: combine_partials(pm, pl, pacc)),
+        plain_ms=time_ms(torch, lambda: combine_partials_plain(pm, pl, pacc)),
+        bound_ms=1e3 * (pacc.numel() + 2 * pm.numel()) * 4 / peak['bytes_s'],
+        bound_by='bytes', library_ms=None,
+        shape=f'partials of a decode step at offset 122,879: m, l (1, 32, '
+              f'1, {S5}), acc (1, 32, 1, {S5}, 128) fp32 -> (1, 1, 32, 128) '
+              f'bf16 (part of kernel 5\'s function; ms replayed from a CUDA '
+              f'graph, the kernel being shorter than a launch)')
+    del pm, pl, pacc, got, again, want
+    del off, bf, i8, sc, mask, row, q1, want8
 
     # Weight-only int4 matmul. The kernel multiplies the same bf16 values
     # as the plain version (nibbles are exact in bf16) and differs only in
@@ -708,8 +802,11 @@ def main():
     I = 10928
     w1, w2 = randn(D, I) * D ** -0.5, randn(D, I) * D ** -0.5
     err9 = scaled9 = 0.0
+    # both tile shapes (64 x 64 at M <= 64, 128 x 128 above) and their
+    # edges
     for M, act in ((8192, 'gelu'), (2, 'gelu'), (1000, 'silu'),
-                   (77, 'gelu_tanh')):
+                   (77, 'gelu_tanh'), (1, 'gelu'), (63, 'gelu'),
+                   (64, 'gelu'), (65, 'gelu'), (129, 'gelu')):
         x = randn(M, D)
         got = fused_gate(x, w1, w2, act)
         torch.cuda.synchronize()
@@ -719,7 +816,7 @@ def main():
         log(f'   mlp_gate M={M} {act}: max abs err {e:.3e}, scaled {r:.3e}')
         err9, scaled9 = max(err9, e), max(scaled9, r)
         del got, want
-    x = randn(37, 100)        # nothing aligned: element-wise loads
+    x = randn(37, 100)        # D and I padded to multiples of 8
     wa, wb = randn(100, 1001) * 0.1, randn(100, 1001) * 0.1
     r = scaled_err(fused_gate(x, wa, wb), fused_gate_plain(x, wa, wb))
     log(f'   mlp_gate M=37 D=100 I=1001 gelu: scaled {r:.3e}')
@@ -839,7 +936,9 @@ def main():
                                n_tokens=n_new, verbose=0)
     gen_s = time.time() - t0
     launches['generate'] = dict(_build.LAUNCHES)
-    want = {'rmsnorm': 65 * n_new, 'fir_gate': 29, 'flash_attention': 3}
+    # every decode step reads the bf16 cache through kernel 4 at one row
+    want = {'rmsnorm': 65 * n_new, 'fir_gate': 29, 'flash_attention': 3,
+            'flash_attention_buffer': 3 * (n_new - 1)}
     check(launches['generate'] == want, f'launches {launches["generate"]}')
     check(all(len(s) == n_new for s in out)
           and all(np.isfinite(gen_scores)), f'generation {gen_scores}')
@@ -1018,7 +1117,8 @@ def main():
     gen_f_s = time.time() - t0
     launches['fused_generate'] = dict(_build.LAUNCHES)
     check(launches['fused_generate'] == {
-        'rmsnorm': 65 * n_new, 'hyena_mixer': 29, 'flash_attention': 3},
+        'rmsnorm': 65 * n_new, 'hyena_mixer': 29, 'flash_attention': 3,
+        'flash_attention_buffer': 3 * (n_new - 1)},
         f'launches {launches["fused_generate"]}')
     check(all(len(s) == n_new for s in out_f)
           and all(np.isfinite(scores_f)), f'generation {scores_f}')
@@ -1302,7 +1402,9 @@ def main():
         model, 'bf16 cache')
     launches['generate_131k'] = counts
     check(counts == {'rmsnorm': 65 * n_new, 'fir_gate': 29,
-                     'flash_attention': 3}, f'launches {counts}')
+                     'flash_attention': 3,
+                     'flash_attention_buffer': 3 * (n_new - 1)},
+          f'launches {counts}')
     log(f'== 7. generate 2 x 1024 nt + {n_new}, bf16 cache: {gen_s:.3f} s; '
         f'launches {counts}')
 
@@ -1311,11 +1413,13 @@ def main():
     toks8, steps8, counts8, gen8_s, _ = generation_checks(
         evo8.model, 'int8 cache')
     launches['generate_int8'] = counts8
-    # every decode step reads the cache through the int8 kernel, once per
-    # attention layer; the fresh prefill attends its own unquantised k, v
+    # every decode step reads the cache through the int8 kernel's split
+    # key range and the combine kernel, once per attention layer; the
+    # fresh prefill attends its own unquantised k, v
     check(counts8 == {'rmsnorm': 65 * n_new, 'fir_gate': 29,
                       'flash_attention': 3,
-                      'flash_attention_buffer_q8': 3 * (n_new - 1)},
+                      'flash_attention_buffer_q8': 3 * (n_new - 1),
+                      'combine_partials': 3 * (n_new - 1)},
           f'launches {counts8}')
     check(torch.equal(steps8[:, 0], steps[:, 0]),
           'a fresh prefill must not depend on the cache type')
@@ -1372,6 +1476,7 @@ def main():
     check(launches['generate_int4'] == {
         'rmsnorm': 65 * n_new, 'fir_gate': 29, 'flash_attention': 3,
         'flash_attention_buffer_q8': 3 * (n_new - 1),
+        'combine_partials': 3 * (n_new - 1),
         'int4_matmul': 160 * (n_new - 1)},
         f'launches {launches["generate_int4"]}')
     # The seam under int4: prefill + decode logits against one forward
@@ -1409,6 +1514,99 @@ def main():
         + ', '.join(f'{name} {ms:.2f}' for name, ms in step_ms)
         + ' (int4 with the int8 KV cache, the others with a bf16 one)')
     del evo_i8, turns
+
+    # -- 15. decode steps at long offsets, bf16 and int8 KV caches ----------
+    # One evo-1-131k-base decode step at B=1 over a full 131,072-slot cache
+    # of random finite values, at three offsets, through the card's route
+    # (kernel 4, or kernel 5's split key range and the combine kernel, at
+    # one query row) and through the dense plain route it replaced (float32
+    # copies of the live bf16 prefix; the chunked plain version for int8),
+    # in turns: new, plain, plain, new. Device ms is the profiler's sum of
+    # kernel time of the step; peak is the allocation above what was held
+    # before it.
+    from evo_tpu_torch.layers import attention as attention_layer
+    from torch.profiler import ProfilerActivity, profile
+
+    def dense_route(q, k_buf, v_buf, off, ks=None, vs=None):
+        if ks is None:
+            return attention_layer.dense_step_attention(q, k_buf, v_buf, off)
+        return attention_buffer_plain(q, k_buf, v_buf, off, ks, vs)
+
+    def random_cache(kv_quant):
+        cache = model_lib.init_cache(model.config.replace(kv_quant=kv_quant),
+                                     1, 131072, 'cuda')
+        for layer in cache['layers']:
+            if isinstance(layer, dict):
+                for name, t in layer.items():
+                    if t.dtype == torch.int8:
+                        t.random_(-127, 128, generator=g)
+                    elif name in ('ks', 'vs'):
+                        t.uniform_(0.005, 0.02, generator=g)
+                    else:
+                        t.normal_(generator=g)
+        return cache
+
+    def timed_step(cache, o, plain):
+        cache['offset'] = o
+        tok = torch.full((1,), 65, dtype=torch.long, device=dev)
+        saved = attention_layer.flash_attention_buffer
+        if plain:
+            attention_layer.flash_attention_buffer = dense_route
+        try:
+            model_lib.decode_step(model.module, tok, cache)     # warm-up
+            cache['offset'] = o
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            _build.LAUNCHES.clear()
+            t = time.time()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                logits, _ = model_lib.decode_step(model.module, tok, cache)
+                torch.cuda.synchronize()
+            wall = 1e3 * (time.time() - t)
+        finally:
+            attention_layer.flash_attention_buffer = saved
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, 'is_user_annotation', False)) / 1e3
+        check(bool(torch.isfinite(logits).all()), 'decode step logits')
+        return dict(device_ms=busy, wall_ms=wall,
+                    peak_bytes=torch.cuda.max_memory_allocated() - held,
+                    launches=dict(_build.LAUNCHES))
+
+    log('== 15. decode steps at long offsets (evo-1-131k-base, B=1, a '
+        '131,072-slot cache of random values)')
+    long_decode = {}
+    for kv_quant in ('none', 'int8'):
+        cache = random_cache(kv_quant)
+        kernel = ({'flash_attention_buffer': 3} if kv_quant == 'none' else
+                  {'flash_attention_buffer_q8': 3, 'combine_partials': 3})
+        for o in (8191, 65535, 122879):
+            turns = [timed_step(cache, o, plain)
+                     for plain in (False, True, True, False)]
+            for tr, plain in zip(turns, (False, True, True, False)):
+                got = {k: tr['launches'].get(k, 0) for k in kernel}
+                check(got == (dict.fromkeys(kernel, 0) if plain else kernel),
+                      f'decode step launches {tr["launches"]}')
+            new, old = turns[0::3], turns[1:3]
+            long_decode[f'{kv_quant}@{o}'] = dict(
+                new_device_ms=[t['device_ms'] for t in new],
+                plain_device_ms=[t['device_ms'] for t in old],
+                new_wall_ms=[t['wall_ms'] for t in new],
+                plain_wall_ms=[t['wall_ms'] for t in old],
+                new_peak_bytes=max(t['peak_bytes'] for t in new),
+                plain_peak_bytes=max(t['peak_bytes'] for t in old))
+            log(f'   {"bf16" if kv_quant == "none" else "int8"} cache, '
+                f'offset {o}: {long_decode[f"{kv_quant}@{o}"]}')
+        del cache
+        torch.cuda.empty_cache()
+    gap = (long_decode['none@122879']['plain_peak_bytes']
+           - long_decode['none@122879']['new_peak_bytes'])
+    log(f'   bf16 step at offset 122,879: the dense route\'s peak is '
+        f'{gap / 1e9:.3f} GB above the kernel route\'s')
+    # the dense route's float32 copy of one layer's live k alone is
+    # 122,880 x 32 x 128 x 4 bytes
+    check(gap >= 122880 * 32 * 128 * 4, 'the bf16 decode step still copies')
 
     # -- 9. scoring under each quantized mode --------------------------------
     # The four ragged sequences of phase 4, same weights (seed 0) quantized,
@@ -1583,6 +1781,7 @@ def main():
     # the phase that stands for each kernel's main path
     main_phase = {'flash_attention_buffer': 'score_segmented_131k',
                   'flash_attention_buffer_q8': 'generate_int8',
+                  'combine_partials': 'generate_int8',
                   'int4_matmul': 'generate_int4',
                   'hyena_mixer': 'fused_forward_8192',
                   'modal_prefix': 'prefix_forward_8192',

@@ -1,7 +1,7 @@
 // Shared helpers of the port's kernels: element conversion for bf16, the
-// one activation type the kernels take, the tensor-core product and bf16
-// packing of the attention and matmul kernels, and the asynchronous copies
-// and matrix loads of the kernels that stage tiles in shared memory.
+// one activation type the kernels take, the mma.sync product of the int4
+// matmul, bf16 packing, and the asynchronous copies of the kernels that
+// stage tiles with cp.async (the Hopper ones are in `sm90.cuh`).
 #pragma once
 
 #include <cstdint>
@@ -38,12 +38,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo,
-                                             __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
 // 16 bytes from device memory into shared memory, without a register in
 // between; complete after cp_async_wait()
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -61,29 +55,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-// Four 8x8 bf16 matrices from shared memory into mma fragments. Lane l
-// gives the address of row l % 8 of matrix l / 8 (16 bytes, 16-byte
-// aligned). Plain: thread (g, tq) gets row g, columns 2tq and 2tq + 1 of
-// each matrix (an A fragment of a row-major tile). Transposed: it gets
-// rows 2tq and 2tq + 1 of column g (a B fragment of a tile stored with the
-// contraction index along its rows).
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* row) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(row);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  const void* row) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(row);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
 }
 
 }  // namespace evo

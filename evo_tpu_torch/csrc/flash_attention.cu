@@ -32,7 +32,7 @@ extern "C" int evo_flash_attention_bf16(const void* q, const void* k,
                                         long long vsb, long long vsl,
                                         long long vsh, float scale,
                                         void* stream) {
-  return evo_sm90::launch(q, k, v, nullptr, o, B, L, L, H, qsb, qsl, qsh,
-                          ksb, ksl, ksh, vsb, vsl, vsh, scale,
-                          (cudaStream_t)stream);
+  return evo_sm90::launch<false>(
+      q, k, v, nullptr, nullptr, nullptr, o, B, L, L, H, qsb, qsl, qsh, ksb,
+      ksl, ksh, vsb, vsl, vsh, scale, (cudaStream_t)stream);
 }

@@ -1,30 +1,52 @@
-// The Hopper attention mainloop of kernels 3 and 4: causal flash attention
-// (`flash_attention.cu`) and a query segment at an offset over a bf16 KV
-// buffer (`flash_attention_buffer.cu`), bf16 in and out.
+// The Hopper attention mainloop of kernels 3, 4 and 5: causal flash
+// attention (`flash_attention.cu`), and a query segment at an offset over
+// a bf16 KV buffer or an int8 one with fp32 scales
+// (`flash_attention_buffer.cu`), bf16 queries and output.
 //
 // Function: query row r of batch row b sits at absolute position
 // offset[b] + r (offset 0 for kernel 3) and attends the keys
 // col <= offset[b] + r, col < T, of T key and value positions, with fp32
 // scores and softmax state; P is rounded to bf16 before P V, as the TPU
-// kernels do, and the output is rounded to bf16. Head width 128.
+// kernels do, and the output is rounded to bf16. Head width 128. An int8
+// code is read as bf16(float(code) * scale), one scale per (position,
+// head).
 //
 // Design (sm_90a):
-//  - A block takes one 128-row query tile of one (batch, head) and runs
-//    three warpgroups. Warpgroup 0 is the producer: one of its threads
-//    issues every TMA load, and it gives its registers up (setmaxnreg 24).
-//    Warpgroups 1 and 2 are the consumers, 64 query rows each, with 240
-//    registers a thread.
+//  - A block takes one 128-row query tile of one (batch, head). Its
+//    first warpgroup (two for int8 buffers) produces: one thread issues
+//    every TMA load. The last two warpgroups are the consumers, 64 query
+//    rows each.
 //  - Q (128 x 128 bf16, 32 KB) is loaded once. K and V tiles of 128 keys
-//    (32 KB each) go through a ring of kStages stages, with full and free
-//    mbarriers for K and V apart: S can start before V lands, and a K
-//    slot is refilled as soon as its S product is done. Every tile is two
-//    boxes of 64 columns under the 128-byte swizzle: a 128-row tile is two
-//    16 KB atoms of 128 rows x 128 bytes.
+//    (32 KB each in bf16) go through a ring of kStages stages, with full
+//    and free mbarriers for K and V apart: S can start before V lands, and
+//    a K slot is refilled as soon as its S product is done. Every tile is
+//    two boxes of 64 columns under the 128-byte swizzle: a 128-row tile is
+//    two 16 KB atoms of 128 rows x 128 bytes.
+//  - bf16 buffers (kernels 3, 4): TMA writes K and V straight into the
+//    ring, and the producer gives its registers up (setmaxnreg 24; the
+//    consumers take 240).
+//  - int8 buffers (kernel 5): TMA cannot dequantise, so it loads the
+//    codes, 1 byte an element (16 KB a 128-key tile), into a second ring
+//    of kRawStages stages, unswizzled; the two producer warpgroups' 256
+//    threads (40 registers; the consumers take 216) take half a key row
+//    each, read its scale with an ordinary load (the scales' row stride
+//    T * 4 bytes is not always a multiple of 16, as TMA asks), turn its 64
+//    codes into bf16(float(code) * scale) four at a time (a byte permute
+//    builds the float 2^23 + code + 128, one subtraction makes it exact)
+//    and write them into the swizzled K or V slot the wgmma descriptors
+//    read. Each thread fences its writes for the async proxy and arrives
+//    on the slot's full barrier (256 arrivals). Only the raw ring costs
+//    shared memory beyond the bf16 kernel's: 64 KB. At Lq = 8192, offset
+//    122,880 (H100 80GB HBM3, 700 W) one producer warpgroup dequantising
+//    whole rows took 44.0-44.8 ms (chip_smoke.py, time_attention.py), two
+//    38.6-38.9 ms in turns with it, and the two consumer warpgroups
+//    dequantising between named barriers of theirs 51.1 ms.
 //  - TMA reads q, k and v through 4-d tensor maps over their real strides,
 //    axes ordered (Dh, H, sequence, B), so views of the fused QKV
-//    projection and the position-major cache need no copy. Rows past the
-//    end of a tensor arrive as zeros; the 16-byte rules of TMA (base and
-//    strides) are checked by the wrappers.
+//    projection, the position-major bf16 cache and the head-major int8
+//    cache need no copy. Rows past the end of a tensor arrive as zeros;
+//    the 16-byte rules of TMA (base and strides) are checked by the
+//    wrappers.
 //  - S = Q K^T is wgmma m64n128k16 with Q and K both K-major in shared
 //    memory, 8 steps over the head. O += P V takes P from registers (the
 //    S accumulator packed to bf16 is already wgmma's A fragment) and V
@@ -36,7 +58,7 @@
 //  - A block visits key tiles up to the one that holds offset + its last
 //    real row, capped at T. Only tiles whose last key passes offset + the
 //    warpgroup's first row, or T, are masked: the diagonal tile of
-//    kernel 3, about two of a segment's ~1,000 tiles in kernel 4.
+//    kernel 3, about two of a segment's ~1,000 tiles in kernels 4 and 5.
 //  - The online softmax runs in log2 units (scale * log2(e) folded into
 //    one FMA with the max, ex2.approx), with the guard that keeps a row
 //    with no visible key yet from computing -inf - -inf, and a floor on l.
@@ -50,13 +72,11 @@
 // Each source that includes this header compiles its own instance.
 #pragma once
 
-#include <cuda.h>
-#include <cuda_runtime.h>
-
 #include <cmath>
 #include <cstdint>
 
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace evo_sm90 {
 namespace {
@@ -67,193 +87,32 @@ constexpr int kHeadDim = 128;
 constexpr int kBlockQ = 128;                      // query rows a block
 constexpr int kBlockK = 128;                      // keys a tile
 constexpr int kStages = 2;                        // K/V ring depth
-constexpr int kThreads = 384;                     // 3 warpgroups
+constexpr int kRawStages = 2;                     // int8 code ring depth
+// warpgroups that produce: the bf16 kernel's one issues TMA loads; the
+// int8 kernel's two also dequantise, half a key row a thread
+template <bool kInt8>
+__host__ __device__ constexpr int producers() { return kInt8 ? 2 : 1; }
+template <bool kInt8>
+__host__ __device__ constexpr int threads() {
+  return 128 * (producers<kInt8>() + 2);
+}
 constexpr int kTileBytes = kBlockK * kHeadDim * 2;  // 32 KB
 constexpr int kAtomBytes = kTileBytes / 2;        // 128 rows x 128 bytes
-constexpr int kSmemBytes = (1 + 2 * kStages) * kTileBytes + 1024 + 128;
-constexpr int kEncodeError = 1000;  // launch() returns this + a CUresult
+constexpr int kRawBytes = kBlockK * kHeadDim;     // 16 KB of int8 codes
 
-// full barriers of Q, K and V (the producer's one arrival and the TMA
-// bytes) and free barriers of K and V (8 consumer warps)
+template <bool kInt8>
+constexpr int smem_bytes() {
+  return (1 + 2 * kStages) * kTileBytes +
+         (kInt8 ? 2 * kRawStages * kRawBytes : 0) + 1024 + 128;
+}
+
+// full barriers of Q, K and V (bf16: the producer's one arrival and the
+// TMA bytes; int8: the producers' 256 threads), free barriers of K and V
+// (8 consumer warps), and the int8 codes' full barriers (TMA bytes)
 struct Barriers {
-  uint64_t q, k[kStages], v[kStages], k_free[kStages], v_free[kStages];
+  uint64_t q, k[kStages], v[kStages], k_free[kStages], v_free[kStages],
+      raw[kRawStages];
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-// arrive once and expect `bytes` of TMA transactions in this phase
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// wait until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1,
-                                         int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(smem_u32(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store(const CUtensorMap* map,
-                                          const void* src, int c0, int c1,
-                                          int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
-      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// the shared memory of the stores issued so far may be reused (or freed)
-__device__ __forceinline__ void tma_store_wait() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
-// wgmma shared-memory descriptor of a tile under the 128-byte swizzle;
-// offsets in bytes
-__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
-                                               uint32_t sbo) {
-  return (uint64_t)((smem_u32(p) & 0x3ffff) >> 4) |
-         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// wait until at most `kPending` committed groups are in flight
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
-               : "memory");
-}
-
-// Registers that an asynchronous wgmma reads or writes: this keeps the
-// compiler from moving their other uses across the fence or the wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&d)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(d[i][j])::"memory");
-}
-
-// d (64 x 128 fp32) (+)= A (64 x 16, smem, K-major) B (16 x 128, smem,
-// K-major); d is overwritten when `accumulate` is 0
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 128 fp32) += A (64 x 16 bf16, registers) B (16 x 128, smem,
-// MN-major: the transpose bit is set)
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t* a,
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -261,14 +120,59 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// four int8 codes (one word) times `s`, each rounded to bf16: two bf16x2
+// words. The permute puts code + 128 into the low byte of the float
+// 2^23 = 0x4B000000; subtracting 2^23 + 128 leaves float(code) exactly.
+__device__ __forceinline__ uint2 dequant4(uint32_t w, float s) {
+  const uint32_t u = w ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __fmul_rn(
+        __fsub_rn(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + i)),
+                  8388736.f),
+        s);
+  return make_uint2(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]));
+}
+
+// Codes [64 half, 64 half + 64) of row `row` of a raw int8 tile (128
+// codes a row) times `s`, rounded to bf16, into row `row` of a swizzled
+// bf16 tile. Each thread starts at another 16-byte piece, so the rows of
+// a warp spread over the banks.
+__device__ __forceinline__ void dequant_half_row(const uint8_t* raw,
+                                                 uint8_t* tile, int row,
+                                                 int half, float s) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int j = 4 * half + ((i + row) & 3);  // codes 16 j .. 16 j + 15
+    const uint4 w =
+        *reinterpret_cast<const uint4*>(raw + row * kHeadDim + 16 * j);
+    const uint2 a = dequant4(w.x, s), b = dequant4(w.y, s);
+    const uint2 c = dequant4(w.z, s), d = dequant4(w.w, s);
+    // bf16 columns 16 j .. 16 j + 15: 16-byte pieces 2 j and 2 j + 1, in
+    // atom j / 4
+    uint8_t* const base = tile + (j / 4) * kAtomBytes + row * 128;
+    const int p = 2 * (j % 4);
+    *reinterpret_cast<uint4*>(base + ((p ^ (row & 7)) << 4)) =
+        make_uint4(a.x, a.y, b.x, b.y);
+    *reinterpret_cast<uint4*>(base + (((p + 1) ^ (row & 7)) << 4)) =
+        make_uint4(c.x, c.y, d.x, d.y);
+  }
+}
+
 // q: 128-row boxes over (B, Lq, H, 128); k, v: 128-row boxes over (B, T,
-// H, 128); o: 64-row boxes over the contiguous (B, Lq, H, 128) output.
-// offsets: (B,) int32 on the device, or null for offset 0.
-__global__ void __launch_bounds__(kThreads, 1)
+// H, 128), bf16 under the swizzle, or int8 codes unswizzled with scales
+// ks, vs (B, H, T) fp32 contiguous; o: 64-row boxes over the contiguous
+// (B, Lq, H, 128) output. offsets: (B,) int32 on the device, or null for
+// offset 0.
+template <bool kInt8>
+__global__ void __launch_bounds__(threads<kInt8>(), 1)
     flash_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                       const __grid_constant__ CUtensorMap kmap,
                       const __grid_constant__ CUtensorMap vmap,
                       const __grid_constant__ CUtensorMap omap,
+                      const float* __restrict__ ks,
+                      const float* __restrict__ vs,
                       const int* __restrict__ offsets, int Lq, int T, int H,
                       float scale_log2) {
   extern __shared__ uint8_t smem_raw[];
@@ -277,7 +181,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* const Ks = Qs + kTileBytes;
   uint8_t* const Vs = Ks + kStages * kTileBytes;
-  Barriers& bar = *reinterpret_cast<Barriers*>(Vs + kStages * kTileBytes);
+  uint8_t* const Raw = Vs + kStages * kTileBytes;  // int8: K then V codes
+  Barriers& bar = *reinterpret_cast<Barriers*>(
+      Raw + (kInt8 ? 2 * kRawStages * kRawBytes : 0));
 
   const int n_qt = (Lq + kBlockQ - 1) / kBlockQ;
   const int qt = n_qt - 1 - (int)blockIdx.x;  // longest key range first
@@ -293,40 +199,92 @@ __global__ void __launch_bounds__(kThreads, 1)
     mbar_init(&bar.q, 1);
 #pragma unroll
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(&bar.k[s], 1);
-      mbar_init(&bar.v[s], 1);
+      mbar_init(&bar.k[s], kInt8 ? 256 : 1);
+      mbar_init(&bar.v[s], kInt8 ? 256 : 1);
       mbar_init(&bar.k_free[s], 8);  // lane 0 of each consumer warp
       mbar_init(&bar.v_free[s], 8);
     }
+#pragma unroll
+    for (int s = 0; s < kRawStages; ++s) mbar_init(&bar.raw[s], 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (wg == 0) {
-    // producer: one thread keeps the ring full
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
-    if (t == 0) {
-      mbar_expect_tx(&bar.q, kTileBytes);
-      tma_load(Qs, &qmap, &bar.q, 0, hh, q_lo, bb);
-      tma_load(Qs + kAtomBytes, &qmap, &bar.q, 64, hh, q_lo, bb);
+  if (wg < producers<kInt8>()) {
+    if constexpr (!kInt8) {
+      // producer: one thread keeps the ring full
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+      if (t == 0) {
+        mbar_expect_tx(&bar.q, kTileBytes);
+        tma_load(Qs, &qmap, &bar.q, 0, hh, q_lo, bb);
+        tma_load(Qs + kAtomBytes, &qmap, &bar.q, 64, hh, q_lo, bb);
+        for (int kt = 0; kt < n_kt; ++kt) {
+          const int s = kt % kStages;
+          const uint32_t free_parity = ((kt / kStages) & 1) ^ 1;
+          uint8_t* const kd = Ks + s * kTileBytes;
+          uint8_t* const vd = Vs + s * kTileBytes;
+          mbar_wait(&bar.k_free[s], free_parity);
+          mbar_expect_tx(&bar.k[s], kTileBytes);
+          tma_load(kd, &kmap, &bar.k[s], 0, hh, kt * kBlockK, bb);
+          tma_load(kd + kAtomBytes, &kmap, &bar.k[s], 64, hh, kt * kBlockK, bb);
+          mbar_wait(&bar.v_free[s], free_parity);
+          mbar_expect_tx(&bar.v[s], kTileBytes);
+          tma_load(vd, &vmap, &bar.v[s], 0, hh, kt * kBlockK, bb);
+          tma_load(vd + kAtomBytes, &vmap, &bar.v[s], 64, hh, kt * kBlockK, bb);
+        }
+      }
+    } else {
+      // producers of int8 buffers: thread 0 keeps the code ring full, and
+      // every thread dequantises half a key of each tile into the bf16
+      // ring
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+      // two threads a key row, each half of its codes
+      const int row = threadIdx.x >> 1, half = threadIdx.x & 1;
+      const float* const ksc = ks + ((int64_t)bb * H + hh) * T;
+      const float* const vsc = vs + ((int64_t)bb * H + hh) * T;
+      auto issue_raw = [&](int kt) {
+        const int r = kt % kRawStages;
+        uint8_t* const dst = Raw + r * 2 * kRawBytes;
+        mbar_expect_tx(&bar.raw[r], 2 * kRawBytes);
+        tma_load(dst, &kmap, &bar.raw[r], 0, hh, kt * kBlockK, bb);
+        tma_load(dst + kRawBytes, &vmap, &bar.raw[r], 0, hh, kt * kBlockK, bb);
+      };
+      if (threadIdx.x == 0) {
+        mbar_expect_tx(&bar.q, kTileBytes);
+        tma_load(Qs, &qmap, &bar.q, 0, hh, q_lo, bb);
+        tma_load(Qs + kAtomBytes, &qmap, &bar.q, 64, hh, q_lo, bb);
+        for (int kt = 0; kt < min(n_kt, kRawStages); ++kt) issue_raw(kt);
+      }
       for (int kt = 0; kt < n_kt; ++kt) {
-        const int s = kt % kStages;
+        const int r = kt % kRawStages, s = kt % kStages;
         const uint32_t free_parity = ((kt / kStages) & 1) ^ 1;
-        uint8_t* const kd = Ks + s * kTileBytes;
-        uint8_t* const vd = Vs + s * kTileBytes;
+        const int key = kt * kBlockK + row;
+        // keys past T arrive as zero codes; a zero scale keeps them zero
+        const float sk = key < T ? ksc[key] : 0.f;
+        const float sv = key < T ? vsc[key] : 0.f;
+        const uint8_t* const src = Raw + r * 2 * kRawBytes;
+        mbar_wait(&bar.raw[r], (kt / kRawStages) & 1);
         mbar_wait(&bar.k_free[s], free_parity);
-        mbar_expect_tx(&bar.k[s], kTileBytes);
-        tma_load(kd, &kmap, &bar.k[s], 0, hh, kt * kBlockK, bb);
-        tma_load(kd + kAtomBytes, &kmap, &bar.k[s], 64, hh, kt * kBlockK, bb);
+        dequant_half_row(src, Ks + s * kTileBytes, row, half, sk);
+        fence_async_smem();
+        mbar_arrive(&bar.k[s]);
         mbar_wait(&bar.v_free[s], free_parity);
-        mbar_expect_tx(&bar.v[s], kTileBytes);
-        tma_load(vd, &vmap, &bar.v[s], 0, hh, kt * kBlockK, bb);
-        tma_load(vd + kAtomBytes, &vmap, &bar.v[s], 64, hh, kt * kBlockK, bb);
+        dequant_half_row(src + kRawBytes, Vs + s * kTileBytes, row, half,
+                         sv);
+        fence_async_smem();
+        mbar_arrive(&bar.v[s]);
+        // every producer thread has read code slot r: refill it
+        asm volatile("bar.sync 3, 256;\n" ::: "memory");
+        if (threadIdx.x == 0 && kt + kRawStages < n_kt)
+          issue_raw(kt + kRawStages);
       }
     }
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-    const int c = wg - 1;
+    if constexpr (kInt8)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 216;\n" ::: "memory");
+    else
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    const int c = wg - producers<kInt8>();
     const int warp = t / 32, lane = t % 32, g = lane / 4, tq = lane % 4;
     const int wq_lo = q_lo + 64 * c;       // this warpgroup's first row
     const int r0 = wq_lo + 16 * warp + g;  // this thread's rows: r0, r0 + 8
@@ -366,8 +324,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
         const int at = (k / 4) * kAtomBytes + (k % 4) * 32;
-        wgmma_ss(sc, sw128_desc(Qw + at, 16, 1024),
-                 sw128_desc(Kt + at, 16, 1024), k);
+        wgmma_ss<0>(sc, sw128_desc(Qw + at, 16, 1024),
+                    sw128_desc(Kt + at, 16, 1024), k);
       }
       wgmma_commit();
     };
@@ -491,7 +449,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             pack_bf16(o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
       }
     }
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    fence_async_smem();
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
     if (t == 0) {
       tma_store(&omap, Qw, 0, hh, wq_lo, bb);
@@ -501,82 +459,60 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up in libcuda at run time, so the
-// library links no -lcuda
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
-  }
-  return fn;
-}
-
-// A tensor map over a (B, rows, H, 128) bf16 tensor with element strides
-// (sb, sr, sh), axes ordered (Dh, H, rows, B), boxes of 64 columns x
-// `box_rows` rows of one head, the 128-byte swizzle, zeros past the end.
-// An axis of size 1 gets a packed stride: its coordinate is always 0.
-CUresult encode_map(CUtensorMap* map, const void* base, int B, int rows,
-                    int H, long long sb, long long sr, long long sh,
-                    int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return CUDA_ERROR_NOT_FOUND;
+// A tensor map over a (B, rows, H, 128) tensor with element strides
+// (sb, sr, sh), axes ordered (Dh, H, rows, B), boxes of `box_rows` rows of
+// one head: bf16 in 64-column boxes under the 128-byte swizzle, or int8
+// codes in whole 128-byte rows, unswizzled. An axis of size 1 gets a
+// packed stride: its coordinate is always 0.
+CUresult encode_map(CUtensorMap* map, const void* base, bool int8, int B,
+                    int rows, int H, long long sb, long long sr,
+                    long long sh, int box_rows) {
+  const int esize = int8 ? 1 : 2;
   cuuint64_t dims[4] = {(cuuint64_t)kHeadDim, (cuuint64_t)H,
                         (cuuint64_t)rows, (cuuint64_t)B};
-  cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)sr * 2,
-                           (cuuint64_t)sb * 2};
-  if (H == 1) strides[0] = kHeadDim * 2;
+  cuuint64_t strides[3] = {(cuuint64_t)(sh * esize), (cuuint64_t)(sr * esize),
+                           (cuuint64_t)(sb * esize)};
+  if (H == 1) strides[0] = kHeadDim * esize;
   if (rows == 1) strides[1] = strides[0] * H;
   if (B == 1) strides[2] = strides[1] * rows;
-  cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
-  cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const cuuint32_t box[4] = {int8 ? (cuuint32_t)kHeadDim : 64u, 1,
+                             (cuuint32_t)box_rows, 1};
+  return encode(map,
+                int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                4, base, dims, strides, box,
+                int8 ? CU_TENSOR_MAP_SWIZZLE_NONE
+                     : CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // Builds the four tensor maps and launches; returns a cudaError_t, or
 // kEncodeError + the CUresult of a tensor map cuTensorMapEncodeTiled
-// refused.
-int launch(const void* q, const void* k, const void* v, const int* offsets,
-           void* o, int B, int Lq, int T, int H, long long qsb,
-           long long qsl, long long qsh, long long ksb, long long ksl,
-           long long ksh, long long vsb, long long vsl, long long vsh,
-           float scale, cudaStream_t stream) {
+// refused. ks, vs: the int8 buffers' scales (null for bf16 buffers).
+template <bool kInt8>
+int launch(const void* q, const void* k, const void* v, const float* ks,
+           const float* vs, const int* offsets, void* o, int B, int Lq,
+           int T, int H, long long qsb, long long qsl, long long qsh,
+           long long ksb, long long ksl, long long ksh, long long vsb,
+           long long vsl, long long vsh, float scale, cudaStream_t stream) {
   CUtensorMap qm, km, vm, om;
-  CUresult r = encode_map(&qm, q, B, Lq, H, qsb, qsl, qsh, kBlockQ);
+  CUresult r = encode_map(&qm, q, false, B, Lq, H, qsb, qsl, qsh, kBlockQ);
   if (r == CUDA_SUCCESS)
-    r = encode_map(&km, k, B, T, H, ksb, ksl, ksh, kBlockK);
+    r = encode_map(&km, k, kInt8, B, T, H, ksb, ksl, ksh, kBlockK);
   if (r == CUDA_SUCCESS)
-    r = encode_map(&vm, v, B, T, H, vsb, vsl, vsh, kBlockK);
+    r = encode_map(&vm, v, kInt8, B, T, H, vsb, vsl, vsh, kBlockK);
   if (r == CUDA_SUCCESS)
-    r = encode_map(&om, o, B, Lq, H, (long long)Lq * H * kHeadDim,
+    r = encode_map(&om, o, false, B, Lq, H, (long long)Lq * H * kHeadDim,
                    (long long)H * kHeadDim, kHeadDim, 64);
   if (r != CUDA_SUCCESS) return kEncodeError + (int)r;
+  constexpr int bytes = smem_bytes<kInt8>();
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
+      flash_sm90_kernel<kInt8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((Lq + kBlockQ - 1) / kBlockQ, B * H);
-  flash_sm90_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
-      qm, km, vm, om, offsets, Lq, T, H, scale * 1.4426950408889634f);
+  flash_sm90_kernel<kInt8><<<grid, threads<kInt8>(), bytes, stream>>>(
+      qm, km, vm, om, ks, vs, offsets, Lq, T, H,
+      scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 

@@ -92,15 +92,28 @@ class Generator:
         self.temperature = temperature
 
     def generate(self, input_string: Optional[str] = None, input_ids=None,
-                 num_tokens: int = 32,
+                 num_tokens: int = 32, cached_generation: bool = True,
                  force_prompt_threshold: Optional[int] = None,
                  prefill_segment_len: Optional[int] = None,
-                 seed: int = 0, max_seqlen: Optional[int] = None,
+                 seed: int = 0, rng: Optional[torch.Generator] = None,
+                 verbose: bool = False, max_seqlen: Optional[int] = None,
                  inference_params_dict=None, cache_growth_align: int = 8192,
-                 donate_cache: bool = False, verbose: bool = False):
+                 donate_cache: bool = False, device: Optional[str] = None,
+                 print_generation: bool = False,
+                 skip_special_tokens: bool = False,
+                 stop_at_eos: bool = False):
         """Returns (generation (B, num_tokens), scores (B, num_tokens, V)
         float32 logits of each emitted step, cache). The cache has not
         consumed the last sampled token.
+
+        The parameters are the JAX package's, in its order.
+        `cached_generation`, `skip_special_tokens` and `device` are accepted
+        and unused (decode is always cached; the model's device is used).
+        `rng`, a `torch.Generator` on the model's device, replaces the one
+        made from `seed`. `stop_at_eos` only prints `Stopping generation at
+        EOS` where two EOS tokens follow each other in the first row; the
+        generation is never cut. `print_generation` prints the tokens under
+        `verbose` at B == 1.
 
         inference_params_dict: a cache returned by an earlier call; the
         input continues its sequence. Its KV buffers are grown when they
@@ -172,7 +185,8 @@ class Generator:
             prompt = prompt[:, head_len:]
             resume = True
 
-        rng = torch.Generator(device=device).manual_seed(seed)
+        if rng is None:
+            rng = torch.Generator(device=device).manual_seed(seed)
         module = self.model.module
         logits, cache = model_lib.prefill(module, prompt, cache,
                                           resume=resume)
@@ -188,6 +202,14 @@ class Generator:
                 last, cache = model_lib.decode_step(module, tok, cache)
         generation = torch.stack(toks[num_forced:], dim=1)
         scores = torch.stack(steps[num_forced:], dim=1)
+        if stop_at_eos or (print_generation and verbose and B == 1):
+            gen = generation[0].cpu().numpy()
+            eos = self.tokenizer.eos_id
+            if stop_at_eos and ((gen[:-1] == eos) & (gen[1:] == eos)).any():
+                print('Stopping generation at EOS')
+            if print_generation and verbose and B == 1:
+                print(' '.join(self.tokenizer.detokenize([int(t)])
+                               for t in gen), flush=True)
         if verbose and B == 1:
             print(f'Prompt: {input_string!r} -> '
                   f'{self.tokenizer.detokenize_batch(generation.cpu())}')
@@ -197,13 +219,15 @@ class Generator:
 def generate(prompt_seqs: List[str], model, tokenizer: CharLevelTokenizer,
              n_tokens: int = 100, temperature: float = 0.0, top_k: int = 1,
              top_p: float = 1.0, batched: bool = True,
-             prepend_bos: bool = False,
+             prepend_bos: bool = False, cached_generation: bool = True,
              force_prompt_threshold: Optional[int] = None,
              prefill_segment_len: Optional[int] = None,
-             verbose: int = 1, seed: int = 0
-             ) -> Tuple[List[str], List[float]]:
+             verbose: int = 1, seed: int = 0, device: Optional[str] = None,
+             **kwargs) -> Tuple[List[str], List[float]]:
     """Generate from a list of prompts. Equal-length prompts run as one
-    batch; ragged prompts run one at a time, as in the reference."""
+    batch; ragged prompts run one at a time, as in the reference. The
+    parameters are the JAX package's, in its order: `device` and any other
+    keyword are accepted and unused, `cached_generation` is passed on."""
     if not prompt_seqs:
         return [], []
     g = Generator(model, tokenizer, top_k=top_k, top_p=top_p,
@@ -224,6 +248,7 @@ def generate(prompt_seqs: List[str], model, tokenizer: CharLevelTokenizer,
     for bi, input_ids in enumerate(batches):
         output_ids, logits, _ = g.generate(
             input_ids=input_ids, num_tokens=n_tokens,
+            cached_generation=cached_generation,
             force_prompt_threshold=force_prompt_threshold,
             prefill_segment_len=prefill_segment_len, seed=seed + bi,
             verbose=verbose > 1)

@@ -16,8 +16,9 @@ at the cache offset, as the reference engine updates its
 Paths: a fresh full sequence (`mha_full`, the causal flash kernel), a
 segment that continues a filled cache (`mha_full(offset=,
 attend_buffer=True)`, the buffer-attention kernel), and the single-token
-decode step (`mha_step`: dense float32 softmax over a bf16 cache, the int8
-buffer-attention kernel over an int8 one).
+decode step (`mha_step`: the buffer-attention kernel at one query row on
+the card, for both caches; on the CPU a dense float32 softmax over an
+unquantised cache).
 """
 
 from __future__ import annotations
@@ -141,24 +142,35 @@ def mha_step(p: Attention, cfg: ModelConfig, x_t: torch.Tensor,
     """Single-token decode step: x_t (B, 1, D) at position `offset`. Writes
     its k, v into the cache and attends over positions [0, offset].
 
-    A bf16 cache: dots in float32 on the cache-typed values, softmax in
-    float32, the weights rounded to the cache type before A @ V, as the JAX
-    package does. An int8 cache goes through the buffer-attention kernel
-    with one query row, which reads one byte per element of the live
-    prefix."""
+    On the card both caches go through the buffer-attention kernel with
+    one query row, which reads the live prefix once, in the cache's own
+    type. On the CPU a bf16 or float32 cache takes the dense path: dots in
+    float32 on the cache-typed values, softmax in float32, the weights
+    rounded to the cache type before A @ V, as the JAX package does (the
+    same function as the kernel's plain version, in another order of
+    sums)."""
     q, k, v = _qkv(p, x_t)
     q, k = _rotate(cfg, q, k, offset)
     _kv_write(kv_buffers, k, v, offset)
-    if 'ks' in kv_buffers:
+    if 'ks' in kv_buffers or q.device.type == 'cuda':
         y = flash_attention_buffer(q, kv_buffers['k'], kv_buffers['v'],
-                                   offset, kv_buffers['ks'],
-                                   kv_buffers['vs'])
+                                   offset, kv_buffers.get('ks'),
+                                   kv_buffers.get('vs'))
         return _out(p, y), kv_buffers
-    kb = kv_buffers['k'][:, :offset + 1]
-    vb = kv_buffers['v'][:, :offset + 1]
+    y = dense_step_attention(q, kv_buffers['k'], kv_buffers['v'], offset)
+    return _out(p, y), kv_buffers
+
+
+def dense_step_attention(q: torch.Tensor, k_buf: torch.Tensor,
+                         v_buf: torch.Tensor, offset: int) -> torch.Tensor:
+    """The CPU's decode attention: q (B, 1, H, Dh) at position `offset`
+    over the unquantised buffers' positions [0, offset], with float32
+    copies of the live prefix. Returns (B, 1, H, Dh) in q.dtype."""
+    kb = k_buf[:, :offset + 1]
+    vb = v_buf[:, :offset + 1]
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum('bhd,bthd->bht', q[:, 0].to(kb.dtype).float(),
                      kb.float()) * scale
     a = torch.softmax(s, dim=-1)
     y = torch.einsum('bht,bthd->bhd', a.to(vb.dtype).float(), vb.float())
-    return _out(p, y.to(x_t.dtype)[:, None]), kv_buffers
+    return y.to(q.dtype)[:, None]

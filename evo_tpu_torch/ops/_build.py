@@ -58,6 +58,12 @@ _SIGNATURES = {
     # (q, k, v, ks, vs, offsets, o, B, Lq, T, H, strides, scale, stream)
     'evo_flash_attention_buffer_q8': (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                       _I, *(_L,) * 9, _F, _P),
+    # (q, k, v, ks, vs, offsets, m, l, acc, B, Lq, T, H, strides, chunk, S,
+    # scale, stream)
+    'evo_flash_attention_buffer_q8_split': (*(_P,) * 9, _I, _I, _I, _I,
+                                            *(_L,) * 9, _I, _I, _F, _P),
+    # (m, l, acc, o, B, H, Lq, S, stream)
+    'evo_combine_partials': (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # (x, packed, scales, y, M, Kp, N, stream)
     'evo_int4_matmul_bf16': (_P, _P, _P, _P, _I, _I, _I, _P),
     # (z, fir_w, fir_b, poles, residues, d_skip, fir0, st0, y, iir, B, C, L,
@@ -70,7 +76,7 @@ _SIGNATURES = {
 }
 
 # an entry point returns this plus the CUresult of cuTensorMapEncodeTiled
-# when cuTensorMapEncodeTiled refuses a tensor map (`csrc/flash_sm90.cuh`)
+# when cuTensorMapEncodeTiled refuses a tensor map (`csrc/sm90.cuh`)
 _ENCODE_ERROR = 1000
 
 _lib: Optional[ctypes.CDLL] = None

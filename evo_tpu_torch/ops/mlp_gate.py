@@ -44,8 +44,9 @@ def fused_gate_plain(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
 def fused_gate(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
                activation: str = 'gelu') -> torch.Tensor:
     """act(x @ w1) * (x @ w2), fused, for any number of rows and any inner
-    width. CUDA tensors launch the kernel (or raise on what it does not
-    take); CPU tensors take the plain version."""
+    width. CUDA tensors launch the kernel (`csrc/mlp_gate.cu`: TMA +
+    wgmma, a 64-row tile at M <= 64), or raise on what it does not take;
+    CPU tensors take the plain version."""
     code = _act(activation)[0]
     if not _build.check_device(x, 'fused_gate'):
         return fused_gate_plain(x, w1, w2, activation)
@@ -61,11 +62,29 @@ def fused_gate(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
             raise ValueError('fused_gate kernel needs contiguous weights of '
                              "x's type on x's device")
     I = w1.shape[1]
-    x2 = x.reshape(-1, D).contiguous()
+    x2 = x.reshape(-1, D)
     M = x2.shape[0]
     out = torch.empty((M, I), dtype=x.dtype, device=x.device)
-    if out.numel():
-        _build.launch('evo_mlp_gate_bf16', 'mlp_gate', x2.data_ptr(),
-                      w1.data_ptr(), w2.data_ptr(), out.data_ptr(), M, D, I,
-                      code)
+    if not out.numel():
+        return out.reshape(x.shape[:-1] + (I,))
+    # TMA takes 16-byte strides and bases: D and I padded to multiples of
+    # 8 with zeros, which add nothing to the products, as the JAX wrapper
+    # pads its blocks
+    Dp, Ip = -(-D // 8) * 8, -(-I // 8) * 8
+    x2 = _aligned(F.pad(x2, (0, Dp - D)) if Dp != D else x2)
+    w1p, w2p = (_aligned(F.pad(w, (0, Ip - I, 0, Dp - D))
+                         if (Dp, Ip) != (D, I) else w) for w in (w1, w2))
+    o = out if Ip == I else torch.empty((M, Ip), dtype=x.dtype,
+                                        device=x.device)
+    _build.launch('evo_mlp_gate_bf16', 'mlp_gate', x2.data_ptr(),
+                  w1p.data_ptr(), w2p.data_ptr(), o.data_ptr(), M, Dp, Ip,
+                  code)
+    if o is not out:
+        out.copy_(o[:, :I])
     return out.reshape(x.shape[:-1] + (I,))
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous at a 16-byte aligned address (a copy if need be)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()

@@ -89,6 +89,7 @@ def score_sequences(seqs: Sequence[str], model, tokenizer: CharLevelTokenizer,
 def score_stream(seq_batches: Iterable[Sequence[str]], model,
                  tokenizer: CharLevelTokenizer, reduce_method: str = 'mean',
                  prepend_bos: bool = True, pad_to_bucket: bool = True,
+                 prefetch_depth: int = 2,
                  progress: Optional[Callable[[int], None]] = None
                  ) -> List[float]:
     """`score_sequences` over an iterable of batches, with the same
@@ -96,7 +97,12 @@ def score_stream(seq_batches: Iterable[Sequence[str]], model,
     are read back only after batch i has been handed to the device (CUDA
     launches return before the work is done), so the host's tokenizing
     and reducing overlap the device. `progress`, if given, is called with
-    the running count of scored sequences."""
+    the running count of scored sequences.
+
+    `prefetch_depth` is the JAX package's parameter: there a thread
+    tokenizes that many batches ahead, and a depth below 1 runs in line.
+    Here every depth tokenizes in line (the prefetch thread is not ported),
+    with the same results."""
     reduce_func = _reduce(reduce_method)
     scores: List[float] = []
 

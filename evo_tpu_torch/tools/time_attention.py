@@ -1,20 +1,20 @@
-"""Time the port's attention kernels (3 and 4) and what they feed, on one
-CUDA card, for the checkout at --root:
+"""Time the port's attention kernels (3, 4 and 5), the MLP-gate kernel (9)
+and what they feed, on one CUDA card, for the checkout at --root:
 
     python3 evo_tpu_torch/tools/time_attention.py --root . [--model]
 
 Prints one JSON line: the card, kernel 3 at q/k/v (1, 8192, 32, 128)
-(views of one QKV tensor), kernel 4 at a segment of 8,192 queries at
-offset 122,880 of a 131,072-long bf16 buffer and at one query row, and
-SDPA at the same inputs (causal, and lower-right causal over the live
-prefix of the buffer); all medians of CUDA events. With --model also,
-random weights from seed 0 and the host clock around work that ends in a
-synchronize: one forward of evo-1-8k-base at B=1, L=8192, one resumed
-segment of evo-1-131k-base at offset 122,880, and the ms a decode step at
-B=2 after a 512-token prompt with evo-1-8k-base (bf16 cache, no
-attention kernel) and evo-1-131k-base under the int8 KV cache (kernel
-5), which this file's kernels do not run: they show that nothing else
-moved.
+(views of one QKV tensor), kernels 4 and 5 at a segment of 8,192 queries
+at offset 122,880 of a 131,072-long bf16 or int8 buffer and at one query
+row, SDPA at the same inputs (causal, and lower-right causal over the live
+prefix of the buffer), and kernel 9 at x (8192, 4096) and (2, 4096) with
+w1, w2 (4096, 10928) beside `F.gelu(x @ w1) * (x @ w2)`; all medians of
+CUDA events. With --model also, random weights from seed 0 and the host
+clock around work that ends in a synchronize: one forward of
+evo-1-8k-base at B=1, L=8192, one resumed segment of evo-1-131k-base at
+offset 122,880, and the ms a decode step at B=2 after a 512-token prompt
+with evo-1-8k-base (bf16 cache) and evo-1-131k-base under the int8 KV
+cache: the decode steps are host-bound, so they show what else moved.
 
 To compare two versions, run this once per checkout in turns (A, B, B, A)
 in one session on one card: the script imports `evo_tpu_torch` from
@@ -97,7 +97,31 @@ def main():
     out['sdpa_lower_right_ms'] = time_ms(
         torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=bias), reps=5)
-    del q, kb, vb, qt, kt, vt, q1
+    out['sdpa_decode_ms'] = time_ms(
+        torch, lambda: F.scaled_dot_product_attention(
+            q1.transpose(1, 2), kt[:, :, :offset], vt[:, :, :offset]),
+        reps=10)
+    from evo_tpu_torch.layers.attention import kv_quantize
+    (kq, ks), (vq, vs) = kv_quantize(kb), kv_quantize(vb)
+    i8 = [t.transpose(1, 2).contiguous() for t in (kq, vq, ks, vs)]
+    del kq, ks, vq, vs
+    out['kernel5_ms'] = time_ms(
+        torch, lambda: flash_attention_buffer(q, i8[0], i8[1], offset,
+                                              i8[2], i8[3]), reps=5)
+    out['kernel5_decode_ms'] = time_ms(
+        torch, lambda: flash_attention_buffer(q1, i8[0], i8[1], offset - 1,
+                                              i8[2], i8[3]), reps=10)
+    del q, kb, vb, qt, kt, vt, q1, i8
+
+    from evo_tpu_torch.ops.mlp_gate import fused_gate
+    w1, w2 = randn(4096, 10928), randn(4096, 10928)
+    for M in (8192, 2):
+        x = randn(M, 4096)
+        out[f'kernel9_m{M}_ms'] = time_ms(
+            torch, lambda: fused_gate(x, w1, w2), reps=10, warmup=2)
+        out[f'library9_m{M}_ms'] = time_ms(
+            torch, lambda: F.gelu(x @ w1) * (x @ w2), reps=10, warmup=2)
+    del w1, w2, x
 
     if args.model:
         from evo_tpu_torch import Evo

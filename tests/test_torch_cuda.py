@@ -108,9 +108,29 @@ def test_fir_gate_kernel_with_carried_tail(randn, B, L):
     (2, 200, 1100, (127, 900)),  # the second row fills the buffer: keys
                                  # end 76 into the last tile
     (1, 1, 1000, 999),           # one query row at the buffer's last slot
+    # int8: the split key range at one query row, and the two regimes
+    (2, 1, 65536, (5, 60000)),   # per-row offsets, most splits of row 0
+                                 # wholly past its live prefix
+    (1, 1, 4096, 4095),          # the live prefix ends on a split boundary
+    (1, 1, 4096, 512),           # the row's last key opens a split
+    (1, 4, 3000, 2000),          # the most rows of the split regime
+    (1, 5, 3000, 2000),          # the fewest of the wgmma regime
+    (1, 2, 1000, (700,)),        # two rows, a device offset
+    (1, 8192, 131072, 122880),   # a late segment of a 131k run
 ])
 @pytest.mark.parametrize('quantized', [False, True])
 def test_flash_attention_buffer_kernels(randn, B, Lq, T, offset, quantized):
+    q, args = _buffer_case(randn, B, Lq, T, offset, quantized)
+    got = flash_attention_buffer(q, *args)
+    torch.cuda.synchronize()
+    assert got.is_contiguous() and got.shape == q.shape
+    assert _scaled_err(got, attention_buffer_plain(q, *args)) <= 2 ** -5
+
+
+def _buffer_case(randn, B, Lq, T, offset, quantized):
+    """q and the buffer op's other arguments: random buffers whose tails
+    past each row's last query are finite garbage (x10) the mask must keep
+    out, as they are or quantised head-major."""
     q, kb, vb = randn(B, Lq, 32, 128), randn(B, T, 32, 128), randn(
         B, T, 32, 128)
     if isinstance(offset, int):
@@ -118,20 +138,83 @@ def test_flash_attention_buffer_kernels(randn, B, Lq, T, offset, quantized):
     else:
         ends = [o + Lq for o in offset]
         off = torch.tensor(offset, dtype=torch.int32, device='cuda')
-    for b, end in enumerate(ends):      # a finite garbage tail, masked
+    for b, end in enumerate(ends):
         kb[b, end:] *= 10
         vb[b, end:] *= 10
-    args = (kb, vb, off)
-    if quantized:
-        (kq, ks), (vq, vs) = kv_quantize(kb), kv_quantize(vb)
-        args = (kq.transpose(1, 2).contiguous(),
-                vq.transpose(1, 2).contiguous(), off,
-                ks.transpose(1, 2).contiguous(),
-                vs.transpose(1, 2).contiguous())
-    got = flash_attention_buffer(q, *args)
+    if not quantized:
+        return q, (kb, vb, off)
+    (kq, ks), (vq, vs) = kv_quantize(kb), kv_quantize(vb)
+    return q, (kq.transpose(1, 2).contiguous(),
+               vq.transpose(1, 2).contiguous(), off,
+               ks.transpose(1, 2).contiguous(),
+               vs.transpose(1, 2).contiguous())
+
+
+def test_combine_partials_kernel():
+    """The combine kernel against its plain twin on random partials, some
+    of them empty (m = -inf, l = 0), and the same bits on a second run: the
+    partials are merged in a fixed order, without atomics."""
+    from evo_tpu_torch.ops.attention_buffer import (combine_partials,
+                                                    combine_partials_plain)
+    g = torch.Generator(device='cuda').manual_seed(2)
+    B, H, Lq, S = 2, 32, 3, 17
+    m = torch.randn(B, H, Lq, S, device='cuda', generator=g) * 4
+    m[0, :, :, 5:] = float('-inf')
+    m[1, 3, 1, :] = float('-inf')           # a row with no key at all
+    l = torch.rand(B, H, Lq, S, device='cuda', generator=g) * 50 + 1
+    l[torch.isinf(m)] = 0
+    acc = torch.randn(B, H, Lq, S, 128, device='cuda', generator=g) * 10
+    acc[torch.isinf(m)] = 0
+    before = _build.LAUNCHES['combine_partials']
+    got = combine_partials(m, l, acc)
+    again = combine_partials(m, l, acc)
     torch.cuda.synchronize()
-    assert got.is_contiguous() and got.shape == q.shape
-    assert _scaled_err(got, attention_buffer_plain(q, *args)) <= 2 ** -5
+    assert _build.LAUNCHES['combine_partials'] == before + 2
+    want = combine_partials_plain(m, l, acc)
+    assert got.shape == (B, Lq, H, 128) and got.dtype == torch.bfloat16
+    assert torch.equal(got, again)
+    assert not got[1, 1, 3].any() and not want[1, 1, 3].any()
+    # one bf16 rounding of each output apart at most (the empty row, zeros
+    # on both sides, has no scale)
+    got[1, 1, 3] = want[1, 1, 3] = 1
+    assert _scaled_err(got, want) <= 2 ** -7
+
+
+def test_bf16_decode_step_takes_kernel_4():
+    """On the card a decode step over a bf16 cache launches the buffer
+    kernel once an attention layer, at one query row, and allocates no
+    float32 copy of the cache."""
+    from evo_tpu_torch import model as model_lib
+    from evo_tpu_torch.config import tiny_config
+    cfg = tiny_config(hidden_size=256, num_filters=256,
+                      num_attention_heads=2, compute_dtype='bfloat16',
+                      param_dtype='bfloat16')
+    g = torch.Generator(device='cuda').manual_seed(0)
+    model = model_lib.random_init(cfg, g, 'cuda')
+    ids = torch.randint(0, 512, (2, 100), device='cuda', generator=g)
+    T = 8192
+    cache = model_lib.init_cache(cfg, 2, T, 'cuda')
+    logits, cache = model_lib.prefill(model, ids, cache)
+    tok = logits[:, -1].argmax(-1)
+    _build.LAUNCHES.clear()
+    step, cache = model_lib.decode_step(model, tok, cache)
+    torch.cuda.synchronize()
+    n_attn = len(cfg.attn_layer_idxs)
+    assert _build.LAUNCHES['flash_attention_buffer'] == n_attn
+    full = model_lib.forward(model, torch.cat([ids, tok[:, None]], dim=1))
+    # bf16 activations round elsewhere on the two paths: 5% of the range
+    assert (step - full[:, -1]).abs().max() <= 0.05 * full.abs().max()
+    # at the end of the buffer: a float32 copy of one layer's live k alone
+    # would take B T H Dh 4 bytes
+    cache['offset'] = T - 2
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    step, cache = model_lib.decode_step(model, tok, cache)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES['flash_attention_buffer'] == 2 * n_attn
+    assert torch.cuda.max_memory_allocated() - base < 2 * T * 2 * 128 * 4
+    assert torch.isfinite(step).all()
 
 
 def test_kernels_refuse_what_they_do_not_take(randn):
@@ -399,6 +482,10 @@ def test_conv_matmul_chunked_prefix_kernel():
 
 
 @pytest.mark.parametrize('M,D,I,act', [
+    # both tile shapes (64 x 64 at M <= 64, 128 x 128 above) and their
+    # edges, at evo-1's widths
+    *[(M, 4096, 10928, 'gelu') for M in (1, 63, 64, 65, 129, 8192)],
+    (33, 4100, 10930, 'gelu'),       # D and I padded to multiples of 8
     (64, 128, 176, 'gelu'), (300, 256, 336, 'gelu'), (128, 384, 128, 'gelu'),
     (80, 128, 144, 'silu'),          # the JAX tests' shapes
     (2, 4096, 10928, 'gelu'),        # decode rows at evo-1's widths
