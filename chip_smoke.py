@@ -10,7 +10,9 @@ for an H100: the kernels target sm_90a). It
      and checks that float32 matmuls run in full float32 (no TF32);
   2. builds the CUDA kernels from evo_tpu_torch/csrc and holds each
      against its plain PyTorch version at evo-1's full-width shapes and at
-     ragged ones (RMSNorm; FIR + gate, fresh and with a carried tail;
+     ragged ones (RMSNorm; FIR + gate on the in-projection's (B, L, 3, C)
+     output read in place, fresh and with a carried tail, beside the
+     bias pass and layout copy the layer made before it;
      causal flash attention, at the edges of its 128-row tiles too;
      attention over a bf16 and an int8 KV buffer, up to a segment of 8,192
      queries at offset 122,880 of a 131,072-long buffer, and one query row
@@ -68,7 +70,9 @@ for an H100: the kernels target sm_90a). It
      one resumed segment at offset 122,880 and single decode steps in bf16
      and int4, and one forward under the fused mixer, and prints the
      device's idle share, the kernels launched per decode step and where
-     the time goes;
+     the time goes; the unfused forward and segment must run no bias pass
+     over the in-projection's (B, L, 3, C) output and no copy of it into
+     (B, 3, C, L) (the fused forward still runs both);
  13. (after phase 5, while its model is on the card) runs evo-1-8k-base
      with `hyena_fused_mixer=True`, same seed: a ragged batch of four
      sequences whose padded length is a multiple of the chunk and the one
@@ -309,38 +313,58 @@ def main():
         library_ms=time_ms(torch, lambda: F.rms_norm(x, (D,), w, 1e-6)),
         shape='x (8192, 4096) bf16')
 
-    # FIR + gate: the kernel repeats the plain version's fp32 arithmetic in
-    # the same order without FMA contraction, so outputs should be bitwise
-    # equal; required: max abs err <= 1e-2 and >= 99.9% of elements equal.
-    # The same with the carried tail of a resumed segment in the place of
-    # the zeros before t=0, against `fir_causal_conv(state=)` + gate.
+    # FIR + gate on the in-projection's (B, L, 3, C) output read in place,
+    # with the in-projection bias folded in: the kernel repeats the plain
+    # version's arithmetic in the same order without FMA contraction, so
+    # outputs must be bitwise equal. The same with the carried tail of a
+    # resumed segment in the place of the zeros before t=0, against
+    # `fir_causal_conv(state=)` + gate.
     err, worst_equal = 0.0, 1.0
     for B, L in ((1, 1), (1, 3), (1, 77), (2, 1000), (1, 1000), (1, 8192)):
-        z, fw, fb = randn(B, 3, D, L), randn(3, D, 3), randn(3, D)
+        zl, fw, fb, b_in = (randn(B, L, 3, D), randn(3, D, 3), randn(3, D),
+                            randn(3, D))
+        z = zl.permute(0, 2, 3, 1)
         for tail in (None, randn(B, 3, D, 2)):
-            for got, want in zip(fir_gate(z, fw, fb, tail),
-                                 fir_gate_plain(z, fw, fb, tail)):
+            for got, want in zip(fir_gate(z, fw, fb, tail, b_in=b_in),
+                                 fir_gate_plain(z, fw, fb, tail, b_in=b_in)):
                 torch.cuda.synchronize()
                 e = float((got.float() - want.float()).abs().max())
                 eq = float((got == want).float().mean())
                 err, worst_equal = max(err, e), min(worst_equal, eq)
             log(f'   fir_gate B={B} L={L} tail={tail is not None}: max abs '
                 f'err {e:.3e}, equal {eq:.6f}')
-    check(err <= 1e-2 and worst_equal >= 0.999,
+    check(err == 0 and worst_equal == 1.0,
           f'fir_gate kernel disagrees: err {err}, equal {worst_equal}')
-    z, fw, fb = randn(1, 3, D, 8192), randn(3, D, 3), randn(3, D)
-    nbytes = (z.numel() + 2 * z.numel() // 3 + fw.numel() + fb.numel()) * 2
+    zl, fw, fb, b_in = randn(1, 8192, 3, D), randn(3, D, 3), randn(3, D), \
+        randn(3, D)
+    z = zl.permute(0, 2, 3, 1)
+    n_in = zl.numel()
+    # each input read once (zl, taps, both biases), each output written once
+    nbytes = (n_in + 2 * n_in // 3 + fw.numel() + fb.numel()
+              + b_in.numel()) * 2
+    # six buffers of 201 MB in turns: each launch finds its input cold
+    zls = [zl] + [randn(1, 8192, 3, D) for _ in range(5)]
     kernels['fir_gate'] = dict(
         name='fir_gate', route='cuda', source='evo_tpu_torch/csrc/fir_gate.cu',
         replaces='evo_tpu/ops/pallas_fir.py:28', max_abs_err=err,
         bit_equal_fraction=worst_equal,
-        ms=time_ms(torch, lambda: fir_gate(z, fw, fb)),
-        plain_ms=time_ms(torch, lambda: fir_gate_plain(z, fw, fb)),
-        # per (b, c, t): 3 streams x (3 mul + 3 add + bias) + 1 gate mul
+        ms=time_graph_ms(torch, [
+            (lambda zz: lambda: fir_gate(zz.permute(0, 2, 3, 1), fw, fb,
+                                         b_in=b_in))(zz) for zz in zls]),
+        time_ms=time_ms(torch, lambda: fir_gate(z, fw, fb, b_in=b_in)),
+        plain_ms=time_ms(torch, lambda: fir_gate_plain(z, fw, fb,
+                                                       b_in=b_in)),
+        # per (b, c, t): the bias add, 3 streams x (3 mul + 3 add + bias)
+        # and the gate
         bound_ms=1e3 * max(nbytes / peak['bytes_s'],
-                           22 * (z.numel() // 3) / peak['fp32']),
+                           25 * (n_in // 3) / peak['fp32']),
         bound_by='bytes', library_ms=None,
-        shape='z (1, 3, 4096, 8192) bf16')
+        # what the layer no longer runs before the kernel: the bias pass
+        # and the (B, L, 3, C) -> (B, 3, C, L) copy
+        route_before_ms=time_ms(
+            torch, lambda: (zl + b_in).permute(0, 2, 3, 1).contiguous()),
+        shape='zl (1, 8192, 3, 4096) bf16 with b_in')
+    del zls
 
     # Causal flash attention. The kernel rounds P to bf16 before P @ V (as
     # the TPU kernel does) where the plain version keeps float32, and both
@@ -1708,13 +1732,30 @@ def main():
     # profiler's hooks cannot slow the timed phases) ----------------------
     from torch.profiler import ProfilerActivity, profile
 
-    def profile_window(label, fn):
+    def profile_window(label, fn, layout_ops=None):
+        """Profile fn(); with `layout_ops` = (B, L, C), also count the CPU
+        ops that add a bias over a (B, L, 3, C) tensor or copy into a
+        (B, 3, C, L) one (the Hyena layer's old route into kernel 2), and
+        return (adds, copies)."""
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA],
+                     record_shapes=layout_ops is not None) as prof:
             t = time.time()
             fn()
             torch.cuda.synchronize()
             wall_us = 1e6 * (time.time() - t)
+        counts = None
+        if layout_ops is not None:
+            B_, L_, C_ = layout_ops
+            counts = [0, 0]
+            for e in prof.events():
+                first = [list(sh) for sh in e.input_shapes if sh][:1]
+                if e.name == 'aten::add' and first == [[B_, L_, 3, C_]]:
+                    counts[0] += 1
+                if e.name == 'aten::copy_' and first == [[B_, 3, C_, L_]]:
+                    counts[1] += 1
+            log(f'   {label}: {counts[0]} bias adds over (B, L, 3, C), '
+                f'{counts[1]} copies into (B, 3, C, L)')
         # kernels only: the GPU-side op annotations (aten::mm, ...) span
         # the kernels they launch and would count them twice
         ops = sorted((e for e in prof.key_averages()
@@ -1730,6 +1771,7 @@ def main():
             log(f'     {100 * e.self_device_time_total / max(busy_us, 1):5.1f}'
                 f'%  {e.self_device_time_total / 1e3:8.2f} ms  '
                 f'x{e.count:<5d} {e.key[:90]}')
+        return counts
 
     late_cache = model.initialize_inference_params(1, 132096)
 
@@ -1755,7 +1797,11 @@ def main():
         return run
 
     log('== 12. profiles (evo-1-131k-base)')
-    profile_window('one forward B=1 L=8192', lambda: model(ids))
+    shape_ops = (1, ids.shape[1], D)
+    check(profile_window('one forward B=1 L=8192', lambda: model(ids),
+                         shape_ops) == [0, 0],
+          'the unfused forward still adds b_in over (B, L, 3, C) or copies '
+          'it into (B, 3, C, L)')
     fused131 = Evo('evo-1-131k-base', random_init=True, seed=0,
                    device='cuda',
                    config_overrides=dict(hyena_fused_mixer=True)).model
@@ -1764,13 +1810,16 @@ def main():
     # profiler's set-up of it
     for window in ('first', 'second'):
         profile_window('one forward B=1 L=8192 under hyena_fused_mixer '
-                       f'({window} window)', lambda: fused131(ids))
+                       f'({window} window)', lambda: fused131(ids),
+                       shape_ops if window == 'second' else None)
     del fused131
     profile_window('prefill 2 x 512 + 8 decode steps',
                    lambda: prefill_and_decode(model, 8))
     late_segment()
-    profile_window('one resumed segment B=1 L=8192 at offset 122,880',
-                   late_segment)
+    check(profile_window('one resumed segment B=1 L=8192 at offset 122,880',
+                         late_segment, shape_ops) == [0, 0],
+          'the resumed segment still adds b_in over (B, L, 3, C) or copies '
+          'it into (B, 3, C, L)')
     del late_cache
     # one decode step: what it launches, and where an int4 step's time goes
     profile_window('4 decode steps at B=2, bf16 weights and cache (divide '

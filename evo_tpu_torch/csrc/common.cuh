@@ -47,6 +47,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                : "memory");
 }
 
+// the same, reading `bytes` (0 or 16) and filling the rest with zeros
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 int bytes) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -17,7 +17,9 @@ segment that continues from a carried state (`hyena_full`), and the decode
 step (`hyena_step`). Under `hyena_fused_mixer` the whole core between the
 projections is one kernel (`ops/hyena_mixer.py`) wherever its shape rule
 holds; under `hyena_pallas_prefix` the unfused long conv takes the prefix
-kernel (`ops/modal_prefix.py`).
+kernel (`ops/modal_prefix.py`). On the unfused path the in-projection's
+output stays in its (B, L, 3, C) layout: the FIR + gate kernel reads it
+in place and adds the in-projection bias itself.
 """
 
 from __future__ import annotations
@@ -72,6 +74,16 @@ def _out_proj(p: HyenaMixer, y: torch.Tensor) -> torch.Tensor:
     return o
 
 
+def _streams(zl: torch.Tensor, b_in: Optional[torch.Tensor]) -> torch.Tensor:
+    """The in-projection's output (B, L, 3, C) plus its bias, as the
+    contiguous (B, 3, C, L) streams: a copy, for the branches whose code
+    reads that layout (the fused mixer, `fir_causal_conv`, the FIR
+    state)."""
+    if b_in is not None:
+        zl = zl + b_in
+    return zl.permute(0, 2, 3, 1).contiguous()
+
+
 def hyena_full(p: HyenaMixer, cfg: ModelConfig, x: torch.Tensor, *,
                collect_state: bool = False,
                state: Optional[HyenaState] = None):
@@ -91,13 +103,13 @@ def hyena_full(p: HyenaMixer, cfg: ModelConfig, x: torch.Tensor, *,
     K = cfg.short_filter_length
     chunk = cfg.hyena_matmul_chunk
     zl = project(x, p.w_in, 1, p.act_quant)          # (B, L, 3, C)
-    if p.b_in is not None:
-        zl = zl + p.b_in
-    z = zl.permute(0, 2, 3, 1).contiguous()          # (B, 3, C, L)
+    B, C = zl.shape[0], zl.shape[-1]
     if (cfg.hyena_fused_mixer and L >= K
-            and hyena_mixer_supported(z.shape, chunk, cfg.state_size, K)):
+            and hyena_mixer_supported((B, 3, C, L), chunk, cfg.state_size,
+                                      K)):
         y, iir, fir_state = hyena_mixer(
-            z, p.fir_w, p.fir_b, p.poles, p.residues, p.d_skip, chunk=chunk,
+            _streams(zl, p.b_in), p.fir_w, p.fir_b, p.poles, p.residues,
+            p.d_skip, chunk=chunk,
             state=None if state is None else (state.fir, state.iir))
         out = _out_proj(p, y.transpose(1, 2))
         if not collect_state:
@@ -105,10 +117,14 @@ def hyena_full(p: HyenaMixer, cfg: ModelConfig, x: torch.Tensor, *,
         return out, HyenaState(fir=fir_state.contiguous(), iir=iir)
     tail = None if state is None else state.fir.contiguous()
     if L >= K:
-        x2, u = fir_gate(z, p.fir_w, p.fir_b, tail)
-        fir_state = z[..., L - (K - 1):]
+        # the kernel reads zl where the product left it and adds b_in
+        x2, u = fir_gate(zl.permute(0, 2, 3, 1), p.fir_w, p.fir_b, tail,
+                         b_in=p.b_in)
+        fir_state = (_streams(zl[:, L - (K - 1):], p.b_in)
+                     if collect_state else None)
     else:
-        zf, fir_state = fftconv.fir_causal_conv(z, p.fir_w, p.fir_b, tail)
+        zf, fir_state = fftconv.fir_causal_conv(_streams(zl, p.b_in),
+                                                p.fir_w, p.fir_b, tail)
         x2, u = zf[:, 0], zf[:, 1] * zf[:, 2]
     iir = None if state is None else state.iir
     prefix = cfg.hyena_pallas_prefix
@@ -132,7 +148,7 @@ def hyena_full(p: HyenaMixer, cfg: ModelConfig, x: torch.Tensor, *,
     out = _out_proj(p, y.transpose(1, 2))
     if not collect_state:
         return out, None
-    # copy the FIR tail out of z, so z itself is freed with this layer
+    # a copy of the FIR tail, so the streams themselves are freed here
     return out, HyenaState(fir=fir_state.contiguous(), iir=iir)
 
 

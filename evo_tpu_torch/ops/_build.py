@@ -46,8 +46,8 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     # (x, w, y, rows, cols, eps, stream)
     'evo_rmsnorm_bf16': (_P, _P, _P, _I, _I, _F, _P),
-    # (z, w, b, tail, x2, u, B, C, L, K, stream)
-    'evo_fir_gate_bf16': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # (zl, w, fir_b, b_in, tail, x2, u, B, C, L, K, stream)
+    'evo_fir_gate_bf16': (*(_P,) * 7, _I, _I, _I, _I, _P),
     # (q, k, v, o, B, L, H, q/k/v batch, seq and head strides, scale, stream)
     'evo_flash_attention_bf16': (_P, _P, _P, _P, _I, _I, _I, *(_L,) * 9, _F,
                                  _P),

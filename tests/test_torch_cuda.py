@@ -50,14 +50,33 @@ def test_rmsnorm_kernel(randn, rows):
     assert ((got - want).abs() / want.abs().clamp(min=1)).max() <= 1e-2
 
 
-@pytest.mark.parametrize('B,L', [(1, 1), (1, 3), (2, 77), (1, 1000)])
-@pytest.mark.parametrize('bias', [True, False])
-def test_fir_gate_kernel(randn, B, L, bias):
-    z, w = randn(B, 3, 4096, L), randn(3, 4096, 3)
-    b = randn(3, 4096) if bias else None
-    for got, want in zip(fir_gate(z, w, b), fir_gate_plain(z, w, b)):
-        torch.cuda.synchronize()
-        assert torch.equal(got, want)
+def _fir_gate_cases(randn, B, C, L):
+    """The kernel against the plain version on the in-projection's
+    (B, L, 3, C) buffer viewed as (B, 3, C, L), with and without each of
+    b_in, fir_b and a carried tail: bit-equal, one launch each."""
+    z = randn(B, L, 3, C).permute(0, 2, 3, 1)
+    w = randn(3, C, 3)
+    for b_in in (None, randn(3, C)):
+        for fir_b in (None, randn(3, C)):
+            for tail in (None, randn(B, 3, C, 2)):
+                before = _build.LAUNCHES['fir_gate']
+                got = fir_gate(z, w, fir_b, tail, b_in=b_in)
+                torch.cuda.synchronize()
+                assert _build.LAUNCHES['fir_gate'] == before + 1
+                want = fir_gate_plain(z, w, fir_b, tail, b_in=b_in)
+                for g, wnt in zip(got, want):
+                    assert g.shape == (B, C, L) and g.is_contiguous()
+                    assert torch.equal(g, wnt), (
+                        B, C, L, b_in is not None, fir_b is not None,
+                        tail is not None)
+
+
+# the 64-position tile's edges, ragged rows (L % 8) and evo-1's 8192
+@pytest.mark.parametrize('L', [1, 2, 3, 63, 64, 65, 77, 1000, 8192])
+def test_fir_gate_kernel(randn, L):
+    for B in (1, 2):
+        for C in (256, 4096):
+            _fir_gate_cases(randn, B, C, L)
 
 
 def _scaled_err(got, want):
@@ -86,12 +105,34 @@ def test_flash_attention_kernel(randn, B, L):
 
 @pytest.mark.parametrize('B,L', [(1, 1), (1, 2), (2, 77), (1, 1000)])
 def test_fir_gate_kernel_with_carried_tail(randn, B, L):
-    z, w, b = randn(B, 3, 4096, L), randn(3, 4096, 3), randn(3, 4096)
-    tail = randn(B, 3, 4096, 2)
-    for got, want in zip(fir_gate(z, w, b, tail),
-                         fir_gate_plain(z, w, b, tail)):
-        torch.cuda.synchronize()
-        assert torch.equal(got, want)
+    """A resumed segment: the tail is the last two biased inputs of the
+    segment before; the outputs are those of the whole sequence."""
+    zl, w, b = randn(B, 20 + L, 3, 4096), randn(3, 4096, 3), randn(3, 4096)
+    b_in = randn(3, 4096)
+    whole = fir_gate(zl.permute(0, 2, 3, 1), w, b, b_in=b_in)
+    tail = (zl[:, 18:20] + b_in).permute(0, 2, 3, 1).contiguous()
+    seg = zl[:, 20:].contiguous().permute(0, 2, 3, 1)
+    got = fir_gate(seg, w, b, tail, b_in=b_in)
+    torch.cuda.synchronize()
+    for g, wh, want in zip(got, whole,
+                           fir_gate_plain(seg, w, b, tail, b_in=b_in)):
+        assert torch.equal(g, want)
+        assert torch.equal(g, wh[..., 20:])
+
+
+def test_fir_gate_kernel_refuses_other_layouts(randn):
+    """The kernel reads the in-projection's buffer in place and is built
+    for 3 taps: it raises, before any launch, on a contiguous (B, 3, C, L),
+    on C % 8 != 0 and on another filter length."""
+    _build.library()
+    before = _build.LAUNCHES['fir_gate']
+    with pytest.raises(ValueError, match='in place'):
+        fir_gate(randn(1, 3, 256, 64), randn(3, 256, 3))
+    with pytest.raises(ValueError, match='C % 8'):
+        fir_gate(randn(1, 64, 3, 260).permute(0, 2, 3, 1), randn(3, 260, 3))
+    with pytest.raises(ValueError, match='3 taps'):
+        fir_gate(randn(1, 64, 3, 256).permute(0, 2, 3, 1), randn(3, 256, 4))
+    assert _build.LAUNCHES['fir_gate'] == before
 
 
 @pytest.mark.parametrize('B,Lq,T,offset', [
