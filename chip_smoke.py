@@ -22,8 +22,10 @@ for an H100: the kernels target sm_90a). It
      rows, and the combine kernel of its split key range against its
      plain twin (and bit-equal on a second run); the weight-only int4
      matmul at 1 to 128 rows for each projection of a layer; the fused
-     Hyena mixer at z (1, 3, 4096, 8192), fresh and with a carried state,
-     at two batch rows and at one chunk of odd width; the cross-chunk
+     Hyena mixer on the in-projection's output zl (1, 8192, 3, 4096) read
+     in place with its bias, fresh and with a carried state, at two batch
+     rows and at one chunk of odd width, beside the bias pass and layout
+     copy the fused layer made before it; the cross-chunk
      prefix at 128 chunks and at a count that is no power of two; the
      fused MLP gate at 1 to 8,192 rows over (4096, 10928) weights, timed
      at 8,192 and 2), and times kernel, plain version, the roofline bound
@@ -70,9 +72,9 @@ for an H100: the kernels target sm_90a). It
      one resumed segment at offset 122,880 and single decode steps in bf16
      and int4, and one forward under the fused mixer, and prints the
      device's idle share, the kernels launched per decode step and where
-     the time goes; the unfused forward and segment must run no bias pass
-     over the in-projection's (B, L, 3, C) output and no copy of it into
-     (B, 3, C, L) (the fused forward still runs both);
+     the time goes; the unfused forward, the segment and the fused
+     forward must run no bias pass over the in-projection's (B, L, 3, C)
+     output and no copy of it into (B, 3, C, L);
  13. (after phase 5, while its model is on the card) runs evo-1-8k-base
      with `hyena_fused_mixer=True`, same seed: a ragged batch of four
      sequences whose padded length is a multiple of the chunk and the one
@@ -695,15 +697,17 @@ def main():
         f'a layer at M=2: {per_layer}')
     del cases, fns, packed, sc, qw, xm
 
-    # The fused Hyena mixer. Its FIR repeats the plain version's float32
-    # order (the raw-z tail must be equal); the long conv's float32 sums
-    # run in another order than the plain version's einsums, with powers
-    # of the poles from repeated squaring where the plain version takes a
-    # log-doubling range: y agrees to float32 rounding before it is
-    # rounded to bf16, so an output may land one bf16 step (2^-8 to 2^-7
-    # of its size) away. Required: |err| <= 2^-6 of the larger of |want|
-    # and its (batch, channel) row's rms, at least 99 % of the outputs
-    # equal, and the float32 modal state within 1e-4 of the same scale.
+    # The fused Hyena mixer on the in-projection's (B, L, 3, C) output read
+    # in place, with the in-projection bias folded in. Its bias add and FIR
+    # repeat the plain version's arithmetic (the biased tail must be
+    # equal); the long conv's float32 sums run in another order than the
+    # plain version's einsums, with powers of the poles from repeated
+    # squaring where the plain version takes a log-doubling range: y
+    # agrees to float32 rounding before it is rounded to bf16, so an output
+    # may land one bf16 step (2^-8 to 2^-7 of its size) away. Required:
+    # |err| <= 2^-6 of the larger of |want| and its (batch, channel) row's
+    # rms, at least 99 % of the outputs equal, and the float32 modal state
+    # within 1e-4 of the same scale.
     def modal_params(C, S):
         mag = torch.rand(C, S, device=dev, generator=g) * 0.48 + 0.5
         ang = (torch.rand(C, S, device=dev, generator=g) * 2 - 1) * 3.1
@@ -716,17 +720,21 @@ def main():
     for B, L, carried in ((1, 8192, False), (1, 8192, True),
                           (2, 512, False), (2, 512, True),
                           (2, 37, True)):     # one chunk of odd width
-        z, fw, fb = randn(B, 3, D, L), randn(3, D, 3) * 0.5, randn(3, D) * 0.1
+        zl, fw, fb = (randn(B, L, 3, D), randn(3, D, 3) * 0.5,
+                      randn(3, D) * 0.1)
+        z, b_in = zl.permute(0, 2, 3, 1), randn(3, D)
         poles, residues = modal_params(D, S)
         d_skip = randn(D)
         st = (randn(B, 3, D, 2), randn(B, D, S, 2).float()) if carried \
             else None
         check(hyena_mixer_supported(z.shape, chunk, S, 3), 'support rule')
         got = hyena_mixer(z, fw, fb, poles, residues, d_skip, chunk=chunk,
-                          state=st)
+                          state=st, b_in=b_in)
         torch.cuda.synchronize()
         want = hyena_mixer_plain(z, fw, fb, poles, residues, d_skip,
-                                 chunk=chunk, state=st)
+                                 chunk=chunk, state=st, b_in=b_in)
+        check(got[0].transpose(1, 2).is_contiguous(),
+              'hyena_mixer: y does not lie as (B, L, C)')
         e = float((got[0].float() - want[0].float()).abs().max())
         r = scaled_err(got[0], want[0])
         eq = float((got[0] == want[0]).float().mean())
@@ -740,39 +748,54 @@ def main():
         del got, want
     check(scaled6 <= 2 ** -6 and equal6 >= 0.99 and state6 <= 1e-4,
           f'hyena_mixer kernel disagrees: {scaled6}, {equal6}, {state6}')
-    z, fw, fb = randn(1, 3, D, 8192), randn(3, D, 3) * 0.5, randn(3, D) * 0.1
+    zl, fw, fb = randn(1, 8192, 3, D), randn(3, D, 3) * 0.5, \
+        randn(3, D) * 0.1
+    z, b_in = zl.permute(0, 2, 3, 1), randn(3, D)
     st = (randn(1, 3, D, 2), randn(1, D, S, 2).float())
-    n_pos = z.numel() // 3
-    # each input read once, each output written once
-    nbytes = (z.numel() + n_pos) * 2 + (fw.numel() + fb.numel() + D) * 2 \
+    n_pos = zl.numel() // 3
+    # each input read once (zl, taps, both biases, d_skip, poles and
+    # residues), each output written once (y and the modal state)
+    nbytes = (zl.numel() + n_pos) * 2 \
+        + (fw.numel() + fb.numel() + b_in.numel() + D) * 2 \
         + 2 * poles.numel() * 4 + D * S * 2 * 4
     # per chunk of Ct: the lower triangle of the Toeplitz product,
-    # Ct (Ct + 1) (the kernel's dense product over zero-padded taps is its
-    # own choice, not the function's need), injection and decay 2 * 2 S Ct
-    # each (complex states, real u and y); per position the FIR and the
-    # two gates, 23
+    # Ct (Ct + 1), injection and decay 2 * 2 S Ct each (complex states,
+    # real u and y); per position the bias add, the FIR and the two
+    # gates, 26
     flops = (n_pos // chunk) * (chunk * (chunk + 1) + 8 * S * chunk) \
-        + 23 * n_pos
+        + 26 * n_pos
     bound6 = (1e3 * nbytes / peak['bytes_s'], 1e3 * flops / peak['fp32'])
-    mixer_args = (z, fw, fb, poles, residues, d_skip)
+    mixer_args = (fw, fb, poles, residues, d_skip)
+    # six buffers of 201 MB in turns: each launch finds its input cold
+    zls = [zl] + [randn(1, 8192, 3, D) for _ in range(5)]
+
+    def mixer_on(zz, state=None):
+        return lambda: hyena_mixer(zz.permute(0, 2, 3, 1), *mixer_args,
+                                   chunk=chunk, state=state, b_in=b_in)
     kernels['hyena_mixer'] = dict(
         name='hyena_mixer', route='cuda',
         source='evo_tpu_torch/csrc/hyena_mixer.cu',
         replaces='evo_tpu/ops/pallas_hyena.py:69', max_abs_err=err6,
         max_scaled_err=scaled6, bit_equal_fraction=equal6,
         max_scaled_err_state=state6,
-        ms=time_ms(torch, lambda: hyena_mixer(*mixer_args, chunk=chunk)),
-        carried_state_ms=time_ms(torch, lambda: hyena_mixer(
-            *mixer_args, chunk=chunk, state=st)),
+        ms=time_graph_ms(torch, [mixer_on(zz) for zz in zls]),
+        carried_state_ms=time_graph_ms(torch,
+                                       [mixer_on(zz, st) for zz in zls]),
+        time_ms=time_ms(torch, mixer_on(zl)),
+        carried_state_time_ms=time_ms(torch, mixer_on(zl, st)),
         plain_ms=time_ms(torch, lambda: hyena_mixer_plain(
-            *mixer_args, chunk=chunk), reps=5, warmup=1),
+            z, *mixer_args, chunk=chunk, b_in=b_in), reps=5, warmup=1),
         bound_ms=max(bound6),
         bound_by='bytes' if bound6[0] > bound6[1] else 'operations',
         library_ms=None, bound_bytes_ms=bound6[0],
         bound_operations_ms=bound6[1],
-        shape='z (1, 3, 4096, 8192) bf16, chunk 64, 8 modal states; no '
-              'single PyTorch call computes this function')
-    del mixer_args, st, poles, residues, d_skip
+        # what the fused layer no longer runs before the kernel: the bias
+        # pass and the (B, L, 3, C) -> (B, 3, C, L) copy
+        route_before_ms=time_ms(
+            torch, lambda: (zl + b_in).permute(0, 2, 3, 1).contiguous()),
+        shape='zl (1, 8192, 3, 4096) bf16 with b_in, chunk 64, 8 modal '
+              'states; no single PyTorch call computes this function')
+    del mixer_args, st, poles, residues, d_skip, zls
 
     # The cross-chunk prefix. The kernel walks the chunks in order, the
     # plain version doubles (log2 K shifted passes): the same sums in
@@ -1808,10 +1831,13 @@ def main():
     fused131(ids)
     # twice: the first window that meets a new kernel also pays for the
     # profiler's set-up of it
-    for window in ('first', 'second'):
-        profile_window('one forward B=1 L=8192 under hyena_fused_mixer '
-                       f'({window} window)', lambda: fused131(ids),
-                       shape_ops if window == 'second' else None)
+    profile_window('one forward B=1 L=8192 under hyena_fused_mixer (first '
+                   'window)', lambda: fused131(ids))
+    check(profile_window('one forward B=1 L=8192 under hyena_fused_mixer '
+                         '(second window)', lambda: fused131(ids),
+                         shape_ops) == [0, 0],
+          'the fused forward still adds b_in over (B, L, 3, C) or copies '
+          'it into (B, 3, C, L)')
     del fused131
     profile_window('prefill 2 x 512 + 8 decode steps',
                    lambda: prefill_and_decode(model, 8))

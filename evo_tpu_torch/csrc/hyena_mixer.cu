@@ -1,58 +1,86 @@
-// The Hyena mixer between its two projections, in one pass over z:
+// The Hyena mixer between its two projections, in one pass over the
+// in-projection's output:
 //
+//   z  = zl + b_in                                   (bf16, one rounding)
 //   z' = depthwise causal FIR(z) + bias, each stream rounded to bf16
 //   x2, x1, v = z';  u = x1 * v                      (bf16)
 //   y  = chunked long conv(u) + d_skip * u           (float32, see below)
 //   out = x2 * bf16(y)                               (bf16)
 //
 // and the modal state after the last position. The long conv has the
-// modal filter h[t] = Re(sum_s R_s p_s^t). Per chunk of Ct positions:
+// modal filter h[t] = Re(sum_s R_s p_s^t). Per chunk of Ct positions, with
+// P_s[t] = p_s^t:
 //   y_local = T u      T the lower-triangular Toeplitz of h[0..Ct), with
 //                      d_skip on its diagonal
-//   y_state[t] = Re(sum_s ent_s * R_s p_s^(t+1))   ent: the state entering
-//   inj_s   = sum_c p_s^(Ct-1-c) u[c]
-//   state entering the next chunk = p^Ct * ent + inj
+//   y_state[t] = Re(sum_s E_s P_s[t])      E_s = R_s p_s ent_s, ent the
+//                                          state entering the chunk
+//   inj_s   = sum_c P_s[Ct-1-c] u[c]
+//   state entering the next chunk = p_s^Ct ent_s + inj_s
 //
 // Replaces: evo_tpu/ops/pallas_hyena.py `_mixer_kernel` (called through
 // `hyena_mixer_pallas`): one launch per Hyena layer of a forward or a
 // resumed segment under `hyena_fused_mixer`, 29 per forward of evo-1.
 //
-// Bound on the card: bytes, narrowly. At z (1, 3, 4096, 8192) bf16 it
+// Layouts: z is the in-projection's output zl (B, L, 3, C) where the
+// product left it (channel stride 1, stream stride C, position stride 3C),
+// so the layer makes no (B, 3, C, L) copy and no bias pass; y is written
+// as (B, L, C), the layout the out-projection reads.
+//
+// Bound on the card: bytes, narrowly. At zl (1, 8192, 3, 4096) bf16 it
 // reads 201 MB and writes 67 MB (0.080 ms at 3.35 TB/s). The function
 // needs 5.1 GFLOP of float32 (0.076 ms at 67 TFLOP/s): per chunk of 64 the
-// lower triangle of the Toeplitz product, 64 * 65, and 4,096 for injection
-// and decay, and 23 a position for the FIR and the gates. This kernel runs
-// the Toeplitz product dense over zero-padded taps, about twice the
-// triangle: its own choice, not the function's need. The products have to
-// be full float32: a single bf16 pass is 1e-3 off, TF32 keeps 10 bits, and
-// the tensor cores have no float32 mma, so they run as FFMA.
+// lower triangle of the Toeplitz product, 64 * 65, 4,096 for injection and
+// decay, and ~26 a position for the bias, the FIR and the gates. The
+// products have to be full float32: a single bf16 pass is 1e-3 off, TF32
+// keeps 10 bits, and the tensor cores have no float32 mma, so they run as
+// FFMA. In practice neither bound is reached: the loads hide behind the
+// arithmetic, which is held back by shared-memory reads (the powers of the
+// poles, the taps and u) and by the two barriers of every chunk (PERF.md,
+// kernel 6).
 //
-// Design: one warp owns one (batch, channel) row and walks its chunks in
-// order, so no result depends on how blocks are scheduled. Lane l owns
-// positions 2l and 2l + 1 of every chunk (Ct <= 64). Nothing of the TPU
-// kernel's tables crosses device memory: each lane computes the powers of
-// the channel's poles that its two positions need (p^t, R p^(t+1),
-// p^(Ct-1-t), and p^Ct) once, by binary exponentiation from six squarings
-// (a few float32 roundings each), and keeps them in registers; the Ct taps
-// go to shared memory behind a run of zeros, so the Toeplitz product needs
-// no triangle test. Per chunk a lane reads its 3 x 2 samples (the next
-// chunk's are requested before this one is computed), the FIR window comes
-// from a small shared-memory row that carries the previous chunk's tail
-// (or the carried tail of a resumed segment), u goes to shared memory and
-// the Toeplitz sum runs over it with one 8-byte tap load per four FMAs
-// and two partial sums an output; the injected state is a warp sum of
-// each lane's two terms (a reduce-scatter and 16 broadcasts), and the
-// modal state lives replicated in every lane's registers, advanced by
-// state = p^Ct * state + inj (a serial carry: the contribution of the
-// carried state is never formed as an explicit high power). The chunk of
-// 64 is also compiled in as a constant, so its loops unroll. The kernel
-// is bound by latency, not by instruction slots or bytes: its registers
-// leave 12 warps an SM, each a chain of dependent steps per chunk. The FIR
-// repeats the plain version's float32 order without FMA contraction, as
-// the FIR + gate kernel does. The sums of the long conv are ordered
-// differently from the plain version's einsums, so y agrees to float32
-// rounding before it is rounded to bf16, and an output may land one bf16
-// step away.
+// Design: a block owns one batch row and 16 channels (two blocks an SM,
+// 256 blocks at B=1, C=4096) and walks all of L in chunks, so the carry
+// from chunk to chunk is one complex multiply-add a state and the rest of
+// a chunk's work is spread over the block's 256 threads. Each chunk's
+// 64 x 3 x 16 bf16 tile of zl comes by 16-byte cp.async (zero-filled past
+// C) into a ring of three, so two chunks are in flight while one computes.
+// Sixteen threads a channel, lanes along the channels; thread g owns rows
+// 4g .. 4g + 3 of every chunk:
+//  - FIR: the bias add as one bf16 add, the 3 taps and the FIR bias in the
+//    plain version's float32 order (a product of two bf16 values is exact
+//    in float32, so a fused multiply-add rounds as product-then-add does),
+//    rounded, gated; u goes to shared memory, x2 stays in registers for
+//    the gate. The two inputs before a chunk come from a two-row halo the
+//    previous chunk left (chunk 0: the carried tail, already biased, or
+//    zeros).
+//  - Toeplitz: only the triangle, 16 FMAs a step of 4 columns from one
+//    16-byte load of u and one of taps, the tap window sliding in
+//    registers; the loop is unrolled with a guard that is uniform across a
+//    row of lanes. Taps sit behind 7 zeros, so the diagonal blocks need no
+//    test.
+//  - State: the powers P_s[0..64) are made once a block by binary
+//    exponentiation from six squarings and kept in shared memory. Thread g
+//    reads P_s[4g .. 4g + 3] of every state once a chunk and uses it
+//    twice: for y_state at its rows (16 FMAs a position) and, since
+//    P_s[63 - t] at the mirror rows 60 - 4g .. 63 - 4g is the same set,
+//    for its share of inj_s there. A shuffle adds the two rows of a warp;
+//    at the next chunk's first barrier the owner of state g (g < 8) adds
+//    the eight shares, carries state = p^Ct state + inj and writes E for
+//    the chunk. A chunk shorter than 64 has no mirror: its owner sums the
+//    injection by Horner's rule.
+//  - Output: y goes through a position-major bf16 tile and leaves as
+//    16-byte channel rows of (B, L, C) after the next chunk's barrier.
+// Two barriers a chunk. A chunk shorter than 64 (L < 64, or another chunk
+// size) runs the same code over zero-padded u; the state is carried with
+// p^Ct. No result depends on how blocks are scheduled.
+//
+// Numerics: the bias add, the FIR and the gates are bit-equal to the plain
+// version (the leading `0 +` of its FIR sum is skipped, which can only turn
+// a -0 into +0). The long conv's sums run in another order than the plain
+// version's einsums and its powers of the poles come from repeated
+// squaring where the plain version takes a log-doubling range, so y agrees
+// to float32 rounding before it is rounded to bf16 and an output may land
+// one bf16 step away.
 
 #include <cstdint>
 
@@ -60,21 +88,48 @@
 
 namespace {
 
-constexpr int kMaxChunk = 64;  // two positions a lane
-constexpr int kMaxS = 8;       // modal states a channel
-constexpr int kTaps = 3;       // FIR length: every published config's
-constexpr int kWarps = 4;
-constexpr int kSquares = 7;    // p^(2^j), j < 7: exponents up to 127
+using bf16 = __nv_bfloat16;
 
-constexpr int kTap0 = kMaxChunk - 1;  // hs[kTap0 + j] = h[j]: odd, so that
-                                      // the pair {h[t-1], h[t]} of an even
-                                      // t is one aligned 8-byte load
+constexpr int kMaxChunk = 64;
+constexpr int kMaxS = 8;     // modal states a channel
+constexpr int kCB = 16;      // channels a block
+constexpr int kTpc = 16;     // threads a channel
+constexpr int kThreads = kTpc * kCB;
+constexpr int kPieces = kCB / 8;        // 16-byte pieces of a channel row
+constexpr int kTaps = 3;     // FIR length: every published config's
+constexpr int kHalo = kTaps - 1;
+constexpr int kRun = kMaxChunk / kTpc;  // positions a thread
+constexpr int kStages = 3;   // chunks in the cp.async ring
+constexpr int kSquares = 7;  // p^(2^j), j < 7: exponents up to 127
+constexpr int kOff = 7;      // hs[kOff + j] = h[j]; zeros at j = -7..-1, 64
+constexpr int kHS = 76;      // floats a tap row; with kPS and kUS an odd
+constexpr int kPS = 68;      // number of 16-byte units, so the rows of 8
+constexpr int kUS = 68;      // channels fall in distinct bank groups
+constexpr int kES = 2 * kMaxS + 1;  // floats an E row (odd: no conflicts)
 
-struct WarpScratch {
-  __align__(16) float hs[2 * kMaxChunk];  // zeros below kTap0 and past h
-  __align__(16) float us[kMaxChunk];      // u of the current chunk
-  float zs[3][kMaxChunk + kTaps];         // raw z behind its kTaps - 1 tail
+struct Smem {
+  float pr[kMaxS][kCB][kPS];           // P_s[t] = p_s^t, real and
+  float pi[kMaxS][kCB][kPS];           // imaginary parts
+  float hs[kCB][kHS];                  // taps, d_skip on h[0]
+  float us[kCB][kUS];                  // u of the chunk, zeros past Ct
+  float e[kCB][kES];                   // E entering the chunk
+  float part[kTpc / 2][2 * kMaxS][kCB];  // shares of inj, two rows each
+  bf16 z[kStages][kMaxChunk][3][kCB];  // the ring of zl tiles
+  bf16 halo[2][kHalo][3][kCB];         // biased inputs before the chunk
+  bf16 yt[kMaxChunk][kCB];             // the gated output, position-major
 };
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return evo::to_float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float at(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
 
 // (r, i) = p^e from the squares q[j] = p^(2^j); e < 2^kSquares
 __device__ __forceinline__ void cpow(const float* qr, const float* qi, int e,
@@ -93,84 +148,105 @@ __device__ __forceinline__ void cpow(const float* qr, const float* qi, int e,
   *i = ai;
 }
 
-// Sums of v[0..16) over the 32 lanes, in every lane: a reduce-scatter (each
-// step a lane keeps one half of its values and sends the other to the lane
-// that keeps that half: 8 + 4 + 2 + 1 shuffles), one more exchange between
-// lane pairs, and 16 broadcasts, in place of 16 x 5 butterfly steps. Every
-// lane ends with the same bits, since each sum is formed once.
-template <int HALF>
-__device__ __forceinline__ void scatter_step(float* v, int lane) {
-  const bool up = (lane & (2 * HALF)) != 0;  // lane bits 4, 3, 2, 1
+// y[i] += sum_j h[t0 - cb + i - j] u[cb + j], i < 4, for one block of 4
+// columns; w holds h[t0 - cb - 3 .. t0 - cb + 4]
+__device__ __forceinline__ void toeplitz_step(float* y, const float* w,
+                                              const float4& u4) {
 #pragma unroll
-  for (int j = 0; j < HALF; ++j) {
-    const float send = up ? v[j] : v[j + HALF];
-    const float keep = up ? v[j + HALF] : v[j];
-    v[j] = keep + __shfl_xor_sync(0xffffffffu, send, 2 * HALF);
+  for (int j = 0; j < 4; ++j) {
+    const float uj = at(u4, j);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) y[i] = fmaf(w[i - j + 3], uj, y[i]);
   }
 }
 
-__device__ __forceinline__ void warp_sum16(float* v, int lane) {
-  scatter_step<8>(v, lane);
-  scatter_step<4>(v, lane);
-  scatter_step<2>(v, lane);
-  scatter_step<1>(v, lane);
-  // v[0] is now value (lane >> 1) & 15 summed over the 16 lanes of this
-  // lane's parity; add the other parity
-  const float total = v[0] + __shfl_xor_sync(0xffffffffu, v[0], 1);
+// slide the tap window 4 columns on: w = h[t0 - cb - 7 .. t0 - cb]
+__device__ __forceinline__ void slide(float* w, const float* src) {
 #pragma unroll
-  for (int k = 0; k < 16; ++k) v[k] = __shfl_sync(0xffffffffu, total, 2 * k);
+  for (int k = 0; k < 4; ++k) w[4 + k] = w[k];
+  const float4 v = ld4(src);
+  w[0] = v.x;
+  w[1] = v.y;
+  w[2] = v.z;
+  w[3] = v.w;
 }
 
-// CT: the chunk as a compile-time constant (the trip counts and the range
-// tests of the common chunk of 64 fold away), or 0 for a chunk given at run
-// time.
-template <int CT>
-__global__ void __launch_bounds__(kWarps * 32)
-    hyena_mixer_kernel(const __nv_bfloat16* __restrict__ z,
-                       const float* __restrict__ fir_w,
-                       const float* __restrict__ fir_b,
+__device__ __forceinline__ void load_window(float* w, const float* src) {
+  const float4 a = ld4(src), b = ld4(src + 4);
+  w[0] = a.x;
+  w[1] = a.y;
+  w[2] = a.z;
+  w[3] = a.w;
+  w[4] = b.x;
+  w[5] = b.y;
+  w[6] = b.z;
+  w[7] = b.w;
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+    hyena_mixer_kernel(const bf16* __restrict__ zl,
+                       const bf16* __restrict__ fir_w,
+                       const bf16* __restrict__ fir_b,
+                       const bf16* __restrict__ b_in,
                        const float* __restrict__ poles,
                        const float* __restrict__ residues,
-                       const float* __restrict__ d_skip,
-                       const __nv_bfloat16* __restrict__ fir0,
-                       const float* __restrict__ st0,
-                       __nv_bfloat16* __restrict__ y,
-                       float* __restrict__ iir, int64_t rows, int C,
-                       int64_t L, int ct, int S, int vec) {
-  static_assert(kMaxS == 8, "warp_sum16 takes 8 complex states");
-  const int Ct = CT > 0 ? CT : ct;
-  __shared__ WarpScratch scratch[kWarps];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int64_t row = (int64_t)blockIdx.x * kWarps + warp;  // b * C + c
-  if (row >= rows) return;  // whole warps leave; only __syncwarp below
-  WarpScratch& sm = scratch[warp];
-  const int64_t bi = row / C;
-  const int c = (int)(row % C);
-  const int t0 = 2 * lane, t1 = t0 + 1;
-  const bool in0 = CT == kMaxChunk || t0 < Ct;
-  const bool in1 = CT == kMaxChunk || t1 < Ct;
+                       const bf16* __restrict__ d_skip,
+                       const bf16* __restrict__ fir0,
+                       const float* __restrict__ st0, bf16* __restrict__ y,
+                       float* __restrict__ iir, int C, int64_t L, int Ct,
+                       int S) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  const int tid = threadIdx.x;
+  const int c0 = blockIdx.x * kCB;
+  const int64_t b = blockIdx.y;
+  const int64_t K = L / Ct;
 
-  // ---- per-channel constants, in registers ----
-  float tabr[kMaxS][2], tabi[kMaxS][2];  // R p^(t+1)
-  float pwr[kMaxS][2], pwi[kMaxS][2];    // p^(Ct-1-t)
-  float ar[kMaxS], ai[kMaxS];            // p^Ct
-  float sr[kMaxS], si[kMaxS];            // the modal state, in every lane
-  float h0 = 0.f, h1 = 0.f;              // taps h[t0], h[t1]
-#pragma unroll
-  for (int s = 0; s < kMaxS; ++s) {
-    float pr = 0.f, pi = 0.f, rr = 0.f, ri = 0.f;
-    sr[s] = si[s] = 0.f;
-    if (s < S) {
-      const int64_t o = ((int64_t)c * S + s) * 2;
-      pr = poles[o];
-      pi = poles[o + 1];
-      rr = residues[o];
-      ri = residues[o + 1];
-      if (st0 != nullptr) {
-        sr[s] = st0[(row * S + s) * 2];
-        si[s] = st0[(row * S + s) * 2 + 1];
+  // lanes run along the channels, so a half-warp shares its row g:
+  // positions t0 .. t0 + 3 for the FIR, the Toeplitz product, y_state and
+  // the gate, and state g (g < 8) for the injection and the carry
+  const int ch = tid % kCB, g = tid / kCB;
+  const int c = c0 + ch;
+  const bool cin = c < C;
+  const int t0 = kRun * g, tm = kMaxChunk - kRun - t0;
+  const int lane = tid % 32;
+  const bool owner = g < kMaxS && g < S;  // of state g
+
+  auto fetch = [&](int64_t q) {
+    if (q < K) {
+      const int slot = (int)(q % kStages);
+      for (int i = tid; i < Ct * 3 * kPieces; i += kThreads) {
+        const int j = i % kPieces, s = (i / kPieces) % 3,
+                  t = i / (3 * kPieces);
+        const int cc = c0 + 8 * j;
+        const bool in = cc < C;
+        evo::cp_async16_zfill(
+            &sm.z[slot][t][s][8 * j],
+            in ? zl + ((b * L + q * Ct + t) * 3 + s) * C + cc : zl,
+            in ? 16 : 0);
       }
     }
+    evo::cp_async_commit();
+  };
+  fetch(0);
+  fetch(1);
+
+  // ---- the channel's tables, once per block ----
+  float pr = 0.f, pi = 0.f, rr = 0.f, ri = 0.f, sr = 0.f, si = 0.f;
+  const int sp = g % kMaxS;  // the state whose powers this thread makes
+  if (cin && sp < S) {
+    const int64_t o = ((int64_t)c * S + sp) * 2;
+    pr = poles[o];
+    pi = poles[o + 1];
+    rr = residues[o];
+    ri = residues[o + 1];
+    if (st0 != nullptr) {
+      sr = st0[((b * C + c) * S + sp) * 2];
+      si = st0[((b * C + c) * S + sp) * 2 + 1];
+    }
+  }
+  float ar, ai;  // p^Ct
+  {
     float qr[kSquares], qi[kSquares];
     qr[0] = pr;
     qi[0] = pi;
@@ -179,244 +255,264 @@ __global__ void __launch_bounds__(kWarps * 32)
       qr[j] = qr[j - 1] * qr[j - 1] - qi[j - 1] * qi[j - 1];
       qi[j] = 2.f * qr[j - 1] * qi[j - 1];
     }
-    float er, ei;  // p^t0, then p^t1, then p^(t1+1)
-    cpow(qr, qi, t0, &er, &ei);
-    h0 += rr * er - ri * ei;
-    float nr = er * pr - ei * pi, ni = er * pi + ei * pr;
-    h1 += rr * nr - ri * ni;
-    tabr[s][0] = rr * nr - ri * ni;
-    tabi[s][0] = rr * ni + ri * nr;
-    er = nr * pr - ni * pi;
-    ei = nr * pi + ni * pr;
-    tabr[s][1] = rr * er - ri * ei;
-    tabi[s][1] = rr * ei + ri * er;
-    pwr[s][0] = pwi[s][0] = pwr[s][1] = pwi[s][1] = 0.f;
-    if (in1) {
-      cpow(qr, qi, Ct - 1 - t1, &er, &ei);
-      pwr[s][1] = er;
-      pwi[s][1] = ei;
-      pwr[s][0] = er * pr - ei * pi;
-      pwi[s][0] = er * pi + ei * pr;
-    } else if (in0) {  // t0 is the chunk's last position: p^0
-      pwr[s][0] = 1.f;
-    }
-    cpow(qr, qi, Ct, &ar[s], &ai[s]);
+    // rows g and g + 8 make the two halves of P_sp
+    const int half = kMaxChunk / 2 * (g / kMaxS);
+    for (int t = half; t < half + kMaxChunk / 2; ++t)
+      cpow(qr, qi, t, &sm.pr[sp][ch][t], &sm.pi[sp][ch][t]);
+    cpow(qr, qi, Ct, &ar, &ai);
   }
-  float w[3][kTaps], bias[3];
+  const float rpr = rr * pr - ri * pi, rpi = rr * pi + ri * pr;  // R p
+  if (g < kMaxS) {
+    sm.e[ch][g] = rpr * sr - rpi * si;
+    sm.e[ch][kMaxS + g] = rpr * si + rpi * sr;
+  }
+
+  float w[3][kTaps], fbv[3];
+  bf16 binv[3];
+  const bool has_fb = fir_b != nullptr, has_bin = b_in != nullptr;
 #pragma unroll
   for (int s = 0; s < 3; ++s) {
 #pragma unroll
     for (int j = 0; j < kTaps; ++j)
-      w[s][j] = fir_w[((int64_t)s * C + c) * kTaps + j];
-    bias[s] = fir_b == nullptr ? 0.f : fir_b[(int64_t)s * C + c];
+      w[s][j] =
+          cin ? evo::to_float(fir_w[((int64_t)s * C + c) * kTaps + j]) : 0.f;
+    fbv[s] = cin && has_fb ? evo::to_float(fir_b[s * C + c]) : 0.f;
+    binv[s] = cin && has_bin ? b_in[s * C + c] : __float2bfloat16_rn(0.f);
+    if (g == 0) {
+#pragma unroll
+      for (int k = 0; k < kHalo; ++k)
+        sm.halo[0][k][s][ch] = cin && fir0 != nullptr
+                                   ? fir0[((b * 3 + s) * C + c) * kHalo + k]
+                                   : __float2bfloat16_rn(0.f);
+    }
+  }
+  __syncthreads();  // the powers
+  {
+    // taps h[t0 .. t0 + 3], summed over the states
+    float h[kRun] = {0.f, 0.f, 0.f, 0.f};
+    for (int s = 0; s < S && cin; ++s) {
+      const float r0 = residues[((int64_t)c * S + s) * 2];
+      const float r1 = residues[((int64_t)c * S + s) * 2 + 1];
+#pragma unroll
+      for (int k = 0; k < kRun; ++k)
+        h[k] += r0 * sm.pr[s][ch][t0 + k] - r1 * sm.pi[s][ch][t0 + k];
+    }
+    if (g == 0 && cin) h[0] += evo::to_float(d_skip[c]);
+#pragma unroll
+    for (int k = 0; k < kRun; ++k) sm.hs[ch][kOff + t0 + k] = h[k];
+    if (g == 0) {
+      for (int j = 0; j < kOff; ++j) sm.hs[ch][j] = 0.f;
+      sm.hs[ch][kOff + kMaxChunk] = 0.f;
+    }
   }
 
-  for (int i = lane; i < 2 * kMaxChunk; i += 32) sm.hs[i] = 0.f;
-  __syncwarp();
-  if (in0) sm.hs[kTap0 + t0] = t0 == 0 ? h0 + d_skip[c] : h0;
-  if (in1) sm.hs[kTap0 + t1] = h1;
-  if (lane < kTaps - 1) {
-#pragma unroll
-    for (int s = 0; s < 3; ++s)
-      sm.zs[s][lane] =
-          fir0 == nullptr
-              ? 0.f
-              : evo::to_float(fir0[((bi * 3 + s) * C + c) *
-                                       (int64_t)(kTaps - 1) +
-                                   lane]);
-  }
-
-  const __nv_bfloat16* zrow[3];
-#pragma unroll
-  for (int s = 0; s < 3; ++s) zrow[s] = z + ((bi * 3 + s) * C + c) * L;
-  __nv_bfloat16* yrow = y + row * L;
-  const int64_t K = L / Ct;
-
-  auto fetch = [&](int64_t q, float (*dst)[2]) {
-#pragma unroll
-    for (int s = 0; s < 3; ++s) {
-      const __nv_bfloat16* p = zrow[s] + q * Ct + t0;
-      dst[s][0] = dst[s][1] = 0.f;
-      if (vec) {
-        if (in0) {
-          const __nv_bfloat162 v2 = *reinterpret_cast<const __nv_bfloat162*>(p);
-          dst[s][0] = __low2float(v2);
-          dst[s][1] = __high2float(v2);
-        }
-      } else {
-        if (in0) dst[s][0] = evo::to_float(p[0]);
-        if (in1) dst[s][1] = evo::to_float(p[1]);
-      }
+  auto store_tile = [&](int64_t q) {
+    for (int i = tid; i < Ct * kPieces; i += kThreads) {
+      const int t = i / kPieces, p = i % kPieces;
+      const int cc = c0 + 8 * p;
+      if (cc < C)
+        *reinterpret_cast<uint4*>(y + (b * L + q * Ct + t) * C + cc) =
+            *reinterpret_cast<const uint4*>(&sm.yt[t][8 * p]);
     }
   };
 
-  float cur[3][2], nxt[3][2];
-  fetch(0, cur);
+  // state g after the chunk whose shares of inj are in sm.part (or, for a
+  // shorter chunk, whose whole injection is hor + i hoi)
+  float hor = 0.f, hoi = 0.f;
+  auto carry = [&]() {
+    float jr = hor, ji = hoi;
+    if (Ct == kMaxChunk) {
+#pragma unroll
+      for (int k = 0; k < kTpc / 2; ++k) {
+        jr += sm.part[k][g][ch];
+        ji += sm.part[k][kMaxS + g][ch];
+      }
+    }
+    const float nr = ar * sr - ai * si + jr;
+    const float ni = ar * si + ai * sr + ji;
+    sr = nr;
+    si = ni;
+  };
+
   for (int64_t q = 0; q < K; ++q) {
-    if (q + 1 < K) fetch(q + 1, nxt);
-    // the previous chunk's readers of zs and us are done (a __syncwarp
-    // ends every iteration)
-#pragma unroll
-    for (int s = 0; s < 3; ++s) {
-      if (in0) sm.zs[s][kTaps - 1 + t0] = cur[s][0];
-      if (in1) sm.zs[s][kTaps - 1 + t1] = cur[s][1];
-    }
-    __syncwarp();
-
-    // ---- FIR + bias in the plain version's order, rounded, then gated ----
-    float f[3][2];
-#pragma unroll
-    for (int s = 0; s < 3; ++s) {
-      float win[kTaps + 1];  // raw z at positions t0 - (kTaps-1) .. t1
-#pragma unroll
-      for (int j = 0; j <= kTaps; ++j) win[j] = sm.zs[s][t0 + j];
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        float acc = 0.f;
-#pragma unroll
-        for (int j = 0; j < kTaps; ++j)
-          acc = __fadd_rn(acc, __fmul_rn(w[s][j], win[k + j]));
-        if (fir_b != nullptr) acc = __fadd_rn(acc, bias[s]);
-        f[s][k] = evo::to_float(__float2bfloat16_rn(acc));
+    fetch(q + 2);
+    evo::cp_async_wait<2>();
+    __syncthreads();  // chunk q's tile; the previous chunk's y tile and
+                      // shares of inj
+    const int par = (int)(q & 1);
+    const int slot = (int)(q % kStages);
+    if (q > 0) {
+      store_tile(q - 1);
+      if (owner) {
+        carry();
+        sm.e[ch][g] = rpr * sr - rpi * si;
+        sm.e[ch][kMaxS + g] = rpr * si + rpi * sr;
       }
     }
-    float u0 = evo::to_float(__float2bfloat16_rn(__fmul_rn(f[1][0], f[2][0])));
-    float u1 = evo::to_float(__float2bfloat16_rn(__fmul_rn(f[1][1], f[2][1])));
-    if (!in0) u0 = 0.f;
-    if (!in1) u1 = 0.f;
-    *reinterpret_cast<float2*>(&sm.us[t0]) = make_float2(u0, u1);
-    __syncwarp();
-    // the tail for the next chunk's FIR: this chunk's last kTaps - 1 samples
-    if (q + 1 < K && lane < kTaps - 1) {
-#pragma unroll
-      for (int s = 0; s < 3; ++s) sm.zs[s][lane] = sm.zs[s][Ct + lane];
-    }
 
-    // ---- y_local = T u: taps h[t - c], zeros where t < c. Two columns a
-    // step: {h[t0-c-1], h[t0-c]} is one 8-byte load (t0 and c even), and
-    // h[t1-c] = h[t0-(c-1)] is the previous step's value. Two partial sums
-    // an output keep the FMA chains short. ----
-    float ya[2] = {0.f, 0.f}, yb[2] = {0.f, 0.f};  // t0, t1: even, odd c
+    // ---- bias, FIR, gate: x2 (kept in registers for the gate) and u at
+    // t0 .. t0 + 3 ----
+    float xv[kRun];
     {
-      const float* hp = &sm.hs[kTap0 + t0];  // hp[-c] = h[t0 - c]
-      float hprev = hp[1];                   // h[t1 - 0]
-      auto pair = [&](float ue, float uo, int cc) {
-        const float2 h2 = *reinterpret_cast<const float2*>(hp - cc - 1);
-        ya[0] = fmaf(h2.y, ue, ya[0]);   // h[t0 - cc]
-        ya[1] = fmaf(hprev, ue, ya[1]);  // h[t1 - cc]
-        yb[0] = fmaf(h2.x, uo, yb[0]);   // h[t0 - cc - 1]
-        yb[1] = fmaf(h2.y, uo, yb[1]);   // h[t1 - cc - 1]
-        hprev = h2.x;
-      };
-      if (CT > 0) {
-        static_assert(CT % 4 == 0, "a compile-time chunk is a multiple of 4");
+      float uv[kRun];
 #pragma unroll
-        for (int cc = 0; cc < CT; cc += 4) {
-          const float4 u4 = *reinterpret_cast<const float4*>(&sm.us[cc]);
-          pair(u4.x, u4.y, cc);
-          pair(u4.z, u4.w, cc + 2);
+      for (int s = 0; s < 3; ++s) {
+        auto biased = [&](int t) {
+          const bf16 v = sm.z[slot][t][s][ch];
+          return has_bin ? __hadd(v, binv[s]) : v;
+        };
+        bf16 h2, h1;  // the inputs at t0 - 2, t0 - 1
+        if (g == 0) {
+          h2 = sm.halo[par][0][s][ch];
+          h1 = sm.halo[par][1][s][ch];
+        } else {
+          h2 = biased(t0 - 2);
+          h1 = biased(t0 - 1);
         }
-      } else {
-        int cc = 0;
-        for (; cc + 2 <= Ct; cc += 2) pair(sm.us[cc], sm.us[cc + 1], cc);
-        if (cc < Ct) {
-          const float uc = sm.us[cc];
-          ya[0] = fmaf(hp[-cc], uc, ya[0]);
-          ya[1] = fmaf(hprev, uc, ya[1]);
+        float z2 = evo::to_float(h2), z1 = evo::to_float(h1);
+#pragma unroll
+        for (int k = 0; k < kRun; ++k) {
+          const float z0 = evo::to_float(biased(t0 + k));
+          // taps and inputs are bf16, so each product is exact in float32
+          // and a fused multiply-add rounds as the plain version's
+          // product-then-add
+          float acc = w[s][0] * z2;
+          acc = fmaf(w[s][1], z1, acc);
+          acc = fmaf(w[s][2], z0, acc);
+          if (has_fb) acc = __fadd_rn(acc, fbv[s]);
+          const float f = bf16_round(acc);
+          if (s == 0) xv[k] = f;
+          else if (s == 1) uv[k] = f;
+          else uv[k] = bf16_round(uv[k] * f);
+          z2 = z1;
+          z1 = z0;
         }
       }
-    }
-    const float y0 = ya[0] + yb[0], y1 = ya[1] + yb[1];
-
-    // ---- decay of the entering state, injection, carry ----
-    float ys0 = 0.f, ys1 = 0.f;
-    float inj[2 * kMaxS];  // real parts, then imaginary parts
-#pragma unroll
-    for (int s = 0; s < kMaxS; ++s) {
-      ys0 += sr[s] * tabr[s][0] - si[s] * tabi[s][0];
-      ys1 += sr[s] * tabr[s][1] - si[s] * tabi[s][1];
-      inj[s] = pwr[s][0] * u0 + pwr[s][1] * u1;
-      inj[kMaxS + s] = pwi[s][0] * u0 + pwi[s][1] * u1;
-    }
-    warp_sum16(inj, lane);
-#pragma unroll
-    for (int s = 0; s < kMaxS; ++s) {
-      const float nr = ar[s] * sr[s] - ai[s] * si[s] + inj[s];
-      const float ni = ar[s] * si[s] + ai[s] * sr[s] + inj[kMaxS + s];
-      sr[s] = nr;
-      si[s] = ni;
-    }
-
-    const __nv_bfloat16 o0 = __float2bfloat16_rn(__fmul_rn(
-        f[0][0], evo::to_float(__float2bfloat16_rn(y0 + ys0))));
-    const __nv_bfloat16 o1 = __float2bfloat16_rn(__fmul_rn(
-        f[0][1], evo::to_float(__float2bfloat16_rn(y1 + ys1))));
-    __nv_bfloat16* yp = yrow + q * Ct + t0;
-    if (vec) {
-      if (in0) {
-        __nv_bfloat162 v2;
-        v2.x = o0;
-        v2.y = o1;
-        *reinterpret_cast<__nv_bfloat162*>(yp) = v2;
+      // the next chunk's halo: the biased inputs at Ct - 2, Ct - 1 (at a
+      // chunk of one position, the older one is this chunk's halo)
+      if (tid < kHalo * 3 * kCB) {
+        const int k = tid / (3 * kCB), s = (tid / kCB) % 3;
+        const int t = Ct - kHalo + k;
+        bf16 v;
+        if (t >= 0) {
+          v = sm.z[slot][t][s][ch];
+          if (has_bin)
+            v = __hadd(v, s == 0 ? binv[0] : s == 1 ? binv[1] : binv[2]);
+        } else {
+          v = sm.halo[par][kHalo + t][s][ch];
+        }
+        sm.halo[par ^ 1][k][s][ch] = v;
       }
-    } else {
-      if (in0) yp[0] = o0;
-      if (in1) yp[1] = o1;
-    }
 #pragma unroll
-    for (int s = 0; s < 3; ++s) {
-      cur[s][0] = nxt[s][0];
-      cur[s][1] = nxt[s][1];
+      for (int k = 0; k < kRun; ++k)
+        if (t0 + k >= Ct) xv[k] = uv[k] = 0.f;
+      *reinterpret_cast<float4*>(&sm.us[ch][t0]) =
+          make_float4(uv[0], uv[1], uv[2], uv[3]);
     }
-    __syncwarp();
-  }
+    __syncthreads();  // u, E
 
-  if (lane == 0) {
+    // ---- the long conv at t0 .. t0 + 3; shares of the injection ----
+    {
+      const float* h = &sm.hs[ch][kOff];
+      const float* u = sm.us[ch];
+      float ya[kRun] = {0.f, 0.f, 0.f, 0.f};
+      float wa[8];
+      load_window(wa, h + t0 - 3);
+      // unrolled, with a guard that is uniform across a warp (t0 is the
+      // warp's), so the window stays in registers and no lane idles
 #pragma unroll
-    for (int s = 0; s < kMaxS; ++s)
-      if (s < S) {
-        iir[(row * S + s) * 2] = sr[s];
-        iir[(row * S + s) * 2 + 1] = si[s];
+      for (int cb = 0; cb < kMaxChunk; cb += 4) {
+        if (cb > t0) break;
+        toeplitz_step(ya, wa, ld4(u + cb));
+        slide(wa, h + t0 - cb - 7);
       }
-  }
-}
 
-template <int CT>
-int launch(const void* z, const void* fir_w, const void* fir_b,
-           const void* poles, const void* residues, const void* d_skip,
-           const void* fir0, const void* st0, void* y, void* iir, int B,
-           int C, long long L, int Ct, int S, void* stream) {
-  const int64_t rows = (int64_t)B * C;
-  const int vec = (L % 2 == 0) && (Ct % 2 == 0) && ((uintptr_t)z % 4 == 0) &&
-                  ((uintptr_t)y % 4 == 0);
-  hyena_mixer_kernel<CT><<<(unsigned)((rows + kWarps - 1) / kWarps),
-                               kWarps * 32, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)z, (const float*)fir_w, (const float*)fir_b,
-      (const float*)poles, (const float*)residues, (const float*)d_skip,
-      (const __nv_bfloat16*)fir0, (const float*)st0, (__nv_bfloat16*)y,
-      (float*)iir, rows, C, (int64_t)L, Ct, S, vec);
-  return (int)cudaGetLastError();
+      // y_state = Re(sum_s E_s P_s[t])
+      // y_state = Re(sum_s E_s P_s[t]) at t0 .. t0 + 3; and, from the same
+      // powers, this row's share of inj_s over the mirror rows tm .. tm + 3
+      // (at Ct = 64, P_s[Ct-1-t] there is P_s[t0 + 3 - i]), summed with
+      // the other row of the warp and left for the owner
+      const float4 um = ld4(u + tm);
+      const bool shares = Ct == kMaxChunk;
+#pragma unroll
+      for (int s = 0; s < kMaxS; ++s) {
+        if (s < S) {
+          const float er = sm.e[ch][s], nei = -sm.e[ch][kMaxS + s];
+          const float4 pa = ld4(&sm.pr[s][ch][t0]);
+          const float4 qa = ld4(&sm.pi[s][ch][t0]);
+          float jr = 0.f, ji = 0.f;
+#pragma unroll
+          for (int i = 0; i < kRun; ++i) {
+            ya[i] = fmaf(nei, at(qa, i), fmaf(er, at(pa, i), ya[i]));
+            jr = fmaf(at(pa, kRun - 1 - i), at(um, i), jr);
+            ji = fmaf(at(qa, kRun - 1 - i), at(um, i), ji);
+          }
+          if (shares) {
+            jr += __shfl_xor_sync(0xffffffffu, jr, 16);
+            ji += __shfl_xor_sync(0xffffffffu, ji, 16);
+            if (lane < 16) {
+              sm.part[g / 2][s][ch] = jr;
+              sm.part[g / 2][kMaxS + s][ch] = ji;
+            }
+          }
+        }
+      }
+      if (!shares && owner) {
+        // a shorter chunk: state g's whole injection by Horner's rule
+        const float pr = sm.pr[g][ch][1], pi = sm.pi[g][ch][1];
+        float jr = 0.f, ji = 0.f;
+        for (int t = 0; t < Ct; ++t) {
+          const float nr = jr * pr - ji * pi + u[t];
+          ji = jr * pi + ji * pr;
+          jr = nr;
+        }
+        hor = jr;
+        hoi = ji;
+      }
+
+      // gate: out = x2 * bf16(y_local + y_state)
+#pragma unroll
+      for (int i = 0; i < kRun; ++i)
+        if (t0 + i < Ct)
+          sm.yt[t0 + i][ch] = __float2bfloat16_rn(xv[i] * bf16_round(ya[i]));
+    }
+  }
+  __syncthreads();
+  store_tile(K - 1);
+  if (cin && owner) {
+    carry();
+    iir[((b * C + c) * S + g) * 2] = sr;
+    iir[((b * C + c) * S + g) * 2 + 1] = si;
+  }
 }
 
 }  // namespace
 
-// z: (B, 3, C, L) bf16; fir_w: (3, C, 3) fp32; fir_b: (3, C) fp32 or null;
-// poles, residues: (C, S, 2) fp32; d_skip: (C,) fp32; fir0: (B, 3, C, 2)
-// bf16 or null; st0: (B, C, S, 2) fp32 or null; y: (B, C, L) bf16; iir:
-// (B, C, S, 2) fp32; all contiguous. Ct divides L, 1 <= Ct <= 64,
-// 1 <= S <= 8, KF = 3 taps; -1 for what it does not take.
-extern "C" int evo_hyena_mixer_bf16(const void* z, const void* fir_w,
-                                    const void* fir_b, const void* poles,
-                                    const void* residues, const void* d_skip,
-                                    const void* fir0, const void* st0,
-                                    void* y, void* iir, int B, int C,
-                                    long long L, int Ct, int S, int KF,
-                                    void* stream) {
-  if (Ct < 1 || Ct > kMaxChunk || L % Ct || S < 1 || S > kMaxS || KF != kTaps)
-    return -1;
-  return Ct == kMaxChunk
-             ? launch<kMaxChunk>(z, fir_w, fir_b, poles, residues, d_skip,
-                                 fir0, st0, y, iir, B, C, L, Ct, S, stream)
-             : launch<0>(z, fir_w, fir_b, poles, residues, d_skip, fir0, st0,
-                         y, iir, B, C, L, Ct, S, stream);
+// zl: the in-projection's output (B, L, 3, C), contiguous, 16-byte aligned;
+// fir_w: (3, C, 3); fir_b, b_in: (3, C) or null; d_skip: (C,); fir0:
+// (B, 3, C, 2) or null; all bf16. poles, residues: (C, S, 2) fp32; st0:
+// (B, C, S, 2) fp32 or null; y: (B, L, C) bf16; iir: (B, C, S, 2) fp32; all
+// contiguous. Ct divides L, 1 <= Ct <= 64, 1 <= S <= 8, KF = 3 taps,
+// C % 8 == 0.
+extern "C" int evo_hyena_mixer_bf16(const void* zl, const void* fir_w,
+                                    const void* fir_b, const void* b_in,
+                                    const void* poles, const void* residues,
+                                    const void* d_skip, const void* fir0,
+                                    const void* st0, void* y, void* iir,
+                                    int B, int C, long long L, int Ct, int S,
+                                    int KF, void* stream) {
+  if (Ct < 1 || Ct > kMaxChunk || L % Ct || S < 1 || S > kMaxS ||
+      KF != kTaps || C % 8)
+    return (int)cudaErrorInvalidValue;
+  const int smem = (int)sizeof(Smem);
+  const cudaError_t err = cudaFuncSetAttribute(
+      hyena_mixer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((C + kCB - 1) / kCB, B);
+  hyena_mixer_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const bf16*)zl, (const bf16*)fir_w, (const bf16*)fir_b,
+      (const bf16*)b_in, (const float*)poles, (const float*)residues,
+      (const bf16*)d_skip, (const bf16*)fir0, (const float*)st0, (bf16*)y,
+      (float*)iir, C, (int64_t)L, Ct, S);
+  return (int)cudaGetLastError();
 }

@@ -17,9 +17,9 @@ segment that continues from a carried state (`hyena_full`), and the decode
 step (`hyena_step`). Under `hyena_fused_mixer` the whole core between the
 projections is one kernel (`ops/hyena_mixer.py`) wherever its shape rule
 holds; under `hyena_pallas_prefix` the unfused long conv takes the prefix
-kernel (`ops/modal_prefix.py`). On the unfused path the in-projection's
-output stays in its (B, L, 3, C) layout: the FIR + gate kernel reads it
-in place and adds the in-projection bias itself.
+kernel (`ops/modal_prefix.py`). On both paths the in-projection's output
+stays in its (B, L, 3, C) layout: the FIR + gate kernel and the fused
+mixer read it in place and add the in-projection bias themselves.
 """
 
 from __future__ import annotations
@@ -76,9 +76,9 @@ def _out_proj(p: HyenaMixer, y: torch.Tensor) -> torch.Tensor:
 
 def _streams(zl: torch.Tensor, b_in: Optional[torch.Tensor]) -> torch.Tensor:
     """The in-projection's output (B, L, 3, C) plus its bias, as the
-    contiguous (B, 3, C, L) streams: a copy, for the branches whose code
-    reads that layout (the fused mixer, `fir_causal_conv`, the FIR
-    state)."""
+    contiguous (B, 3, C, L) streams: a copy, for what still reads that
+    layout (`fir_causal_conv` below the FIR width, and the FIR tail of the
+    unfused branch, over its last K-1 positions only)."""
     if b_in is not None:
         zl = zl + b_in
     return zl.permute(0, 2, 3, 1).contiguous()
@@ -107,10 +107,13 @@ def hyena_full(p: HyenaMixer, cfg: ModelConfig, x: torch.Tensor, *,
     if (cfg.hyena_fused_mixer and L >= K
             and hyena_mixer_supported((B, 3, C, L), chunk, cfg.state_size,
                                       K)):
+        # the kernel reads zl where the product left it, adds b_in and
+        # writes y as the (B, L, C) tensor the out-projection reads
         y, iir, fir_state = hyena_mixer(
-            _streams(zl, p.b_in), p.fir_w, p.fir_b, p.poles, p.residues,
+            zl.permute(0, 2, 3, 1), p.fir_w, p.fir_b, p.poles, p.residues,
             p.d_skip, chunk=chunk,
-            state=None if state is None else (state.fir, state.iir))
+            state=None if state is None else (state.fir, state.iir),
+            b_in=p.b_in)
         out = _out_proj(p, y.transpose(1, 2))
         if not collect_state:
             return out, None

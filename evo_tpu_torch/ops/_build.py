@@ -66,9 +66,9 @@ _SIGNATURES = {
     'evo_combine_partials': (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # (x, packed, scales, y, M, Kp, N, stream)
     'evo_int4_matmul_bf16': (_P, _P, _P, _P, _I, _I, _I, _P),
-    # (z, fir_w, fir_b, poles, residues, d_skip, fir0, st0, y, iir, B, C, L,
-    # Ct, S, KF, stream)
-    'evo_hyena_mixer_bf16': (*(_P,) * 10, _I, _I, _L, _I, _I, _I, _P),
+    # (zl, fir_w, fir_b, b_in, poles, residues, d_skip, fir0, st0, y, iir,
+    # B, C, L, Ct, S, KF, stream)
+    'evo_hyena_mixer_bf16': (*(_P,) * 11, _I, _I, _L, _I, _I, _I, _P),
     # (inj_r, inj_i, a_r, a_i, ent_r, ent_i, fin_r, fin_i, B, D, K, S, stream)
     'evo_modal_prefix_f32': (*(_P,) * 8, _I, _I, _I, _I, _P),
     # (x, w1, w2, out, M, D, I, act, stream)

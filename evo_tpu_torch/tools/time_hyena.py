@@ -1,21 +1,27 @@
-"""Time kernel 2 (FIR + gate) and the unfused Hyena layer's route into it,
-and what they feed, on one CUDA card, for the checkout at --root:
+"""Time kernels 2 (FIR + gate) and 6 (the fused mixer) and the Hyena
+layer's routes into them, and what they feed, on one CUDA card, for the
+checkout at --root:
 
-    python3 evo_tpu_torch/tools/time_hyena.py --root . [--model]
+    python3 evo_tpu_torch/tools/time_hyena.py --root . [--model] \
+        [--phases OUT_DIR]
 
 Prints one JSON line: the card; at zl (1, 8192, 3, 4096) bf16 with the
-in-projection bias, the kernel alone and the layer's whole route from the
-in-projection's output to (x2, u), each as device ms per call replayed
+in-projection bias, each kernel alone and the layer's whole route from the
+in-projection's output to the kernel's result ((x2, u) for kernel 2, y for
+kernel 6, chunk 64, 8 modal states), each as device ms per call replayed
 from a CUDA graph over six buffers (larger together than the L2, as a
 forward finds them) and as CUDA events around one call. A checkout whose
-`fir_gate` takes `b_in` reads zl in place; an older one takes the biased
-contiguous (B, 3, C, L) copy, whose bias pass and copy its route then
-includes. With --model also, random weights from seed 0 and the host
-clock around work that ends in a synchronize: forwards of evo-1-8k-base at
-B=1, L=8192, unfused (with the peak allocation above the weights) and
-under `hyena_fused_mixer`; decode steps at B=2 after a 512-token prompt;
-one resumed segment of evo-1-131k-base at offset 122,880; and 131,072 nt
-scored in segments of 8,192.
+`fir_gate` / `hyena_mixer` takes `b_in` reads zl in place; an older one
+takes the biased contiguous (B, 3, C, L) copy, whose bias pass and copy
+its route then includes. `--phases` also times kernel 6 in copies of the
+checkout's `evo_tpu_torch` written under OUT_DIR, each with one part of
+its work taken out (`PHASES`; the outputs are then wrong, only the time
+counts), to show where its time goes. With --model also, random weights from seed 0 and the host clock around work
+that ends in a synchronize: forwards of evo-1-8k-base at B=1, L=8192,
+unfused and under `hyena_fused_mixer` (each with the peak allocation
+above the weights); decode steps at B=2 after a 512-token prompt; one
+resumed segment of evo-1-131k-base at offset 122,880; and 131,072 nt
+scored in segments of 8,192, unfused and fused.
 
 To compare two versions, run this once per checkout in turns (A, B, B, A)
 in one call on one card: the script imports `evo_tpu_torch` from
@@ -91,6 +97,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument('--root', required=True)
     ap.add_argument('--model', action='store_true')
+    ap.add_argument('--phases', default='')
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -98,6 +105,7 @@ def main():
     if not torch.cuda.is_available():
         sys.stderr.write('time_hyena: no CUDA device\n')
         return 1
+    from evo_tpu_torch.ops import hyena_mixer as mixer_mod
     from evo_tpu_torch.ops.fir_gate import fir_gate
 
     dev = torch.device('cuda')
@@ -133,7 +141,45 @@ def main():
     out['kernel2_events_ms'] = time_ms(torch, kernels[0])
     out['route_graph_ms'] = time_graph_ms(torch, [route(z) for z in zls])
     out['route_events_ms'] = time_ms(torch, route(zls[0]))
-    del zls, kernels, zs
+
+    # kernel 6 and the fused layer's route from zl to y
+    hyena_mixer = mixer_mod.hyena_mixer
+    mixer_in_place = 'b_in' in inspect.signature(hyena_mixer).parameters
+    out['mixer_in_place'] = mixer_in_place
+    S = 8
+    mag = torch.rand(D, S, device=dev, generator=g) * 0.48 + 0.5
+    ang = (torch.rand(D, S, device=dev, generator=g) * 2 - 1) * 3.1
+    poles = torch.stack([mag * torch.cos(ang), mag * torch.sin(ang)], -1)
+    residues = torch.randn(D, S, 2, device=dev, generator=g) * 0.3
+    mixer_args = (fw * 0.5, fb * 0.1, poles, residues, randn(D))
+    state = (randn(1, 3, D, 2), randn(1, D, S, 2).float())
+
+    def mixer_route(zl, st=None):
+        """From the in-projection's output to y, as the fused layer goes."""
+        if mixer_in_place:
+            return lambda: hyena_mixer(zl.permute(0, 2, 3, 1), *mixer_args,
+                                       chunk=64, state=st, b_in=b_in)
+        return lambda: hyena_mixer(
+            (zl + b_in).permute(0, 2, 3, 1).contiguous(), *mixer_args,
+            chunk=64, state=st)
+
+    if mixer_in_place:
+        mixers = [mixer_route(zl) for zl in zls]
+        carried = [mixer_route(zl, state) for zl in zls]
+    else:
+        if not zs:
+            zs = [(zl + b_in).permute(0, 2, 3, 1).contiguous() for zl in zls]
+        mixers = [lambda z=z: hyena_mixer(z, *mixer_args, chunk=64)
+                  for z in zs]
+        carried = [lambda z=z: hyena_mixer(z, *mixer_args, chunk=64,
+                                           state=state) for z in zs]
+    out['kernel6_graph_ms'] = time_graph_ms(torch, mixers)
+    out['kernel6_carried_graph_ms'] = time_graph_ms(torch, carried)
+    out['kernel6_events_ms'] = time_ms(torch, mixers[0])
+    out['mixer_route_graph_ms'] = time_graph_ms(
+        torch, [mixer_route(zl) for zl in zls])
+    out['mixer_route_events_ms'] = time_ms(torch, mixer_route(zls[0]))
+    del zls, kernels, zs, mixers, carried
     torch.cuda.empty_cache()
 
     if args.model:
@@ -164,14 +210,14 @@ def main():
             model = Evo('evo-1-8k-base', random_init=True, seed=0,
                         device='cuda', config_overrides=overrides).model
             out[key] = wall_s(torch, lambda: model(ids), 3)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            model(ids)
+            torch.cuda.synchronize()
+            out[key[:-2] + '_peak_gib_above_weights'] = (
+                torch.cuda.max_memory_allocated() - base) / 2 ** 30
             if not overrides:
-                torch.cuda.synchronize()
-                base = torch.cuda.memory_allocated()
-                torch.cuda.reset_peak_memory_stats()
-                model(ids)
-                torch.cuda.synchronize()
-                out['forward_peak_gib_above_weights'] = (
-                    torch.cuda.max_memory_allocated() - base) / 2 ** 30
                 out['decode_step_ms'] = [decode_ms(model)
                                          for _ in range(3)][1:]
             del model
@@ -192,8 +238,78 @@ def main():
         out['score_131072_s'] = wall_s(
             torch, lambda: score_sequences_segmented([seq], model, tok,
                                                      segment_len=8192), 2)
+        del model
+        torch.cuda.empty_cache()
+        model = Evo('evo-1-131k-base', random_init=True, seed=0,
+                    device='cuda',
+                    config_overrides={'hyena_fused_mixer': True}).model
+        out['fused_score_131072_s'] = wall_s(
+            torch, lambda: score_sequences_segmented([seq], model, tok,
+                                                     segment_len=8192), 2)
+    if args.phases:
+        out['kernel6_phases_graph_ms'] = time_phases(root, args.phases)
     print(json.dumps(out), flush=True)
     return 0
+
+
+# Edits of csrc/hyena_mixer.cu that take one part of kernel 6's work out:
+# the loads of zl, the FIR arithmetic, the Toeplitz product, and the state
+# work (y_state and the injection)
+_NO_LOADS = ('    if (q < K) {\n      const int slot',
+             '    if (q < 0) {\n      const int slot')
+_NO_FIR = ('          const float z0 = evo::to_float(biased(t0 + k));\n'
+           '          // taps and inputs are bf16, so each product is exact '
+           'in float32\n'
+           "          // and a fused multiply-add rounds as the plain "
+           "version's\n"
+           '          // product-then-add\n'
+           '          float acc = w[s][0] * z2;\n'
+           '          acc = fmaf(w[s][1], z1, acc);\n'
+           '          acc = fmaf(w[s][2], z0, acc);\n'
+           '          if (has_fb) acc = __fadd_rn(acc, fbv[s]);\n'
+           '          const float f = bf16_round(acc);',
+           '          const float z0 = evo::to_float(sm.z[slot][t0 + k][s]'
+           '[ch]);\n          const float f = z0;')
+_NO_TOEPLITZ = ('        if (cb > t0) break;', '        if (cb >= 0) break;')
+_NO_STATE = [('        if (s < S) {', '        if (s < 0) {'),
+             ('      if (owner) {', '      if (S < 0) {')]
+PHASES = {
+    'without_loads': [_NO_LOADS],
+    'without_loads_fir': [_NO_LOADS, _NO_FIR],
+    'without_loads_toeplitz': [_NO_LOADS, _NO_TOEPLITZ],
+    'without_loads_state': [_NO_LOADS, *_NO_STATE],
+    'without_loads_fir_toeplitz_state': [_NO_LOADS, _NO_FIR, _NO_TOEPLITZ,
+                                         *_NO_STATE],
+}
+
+
+def time_phases(root, out_dir):
+    """Kernel 6's graph-replay ms in each variant of `PHASES`, each run in
+    a process of its own on a copy of the checkout's package."""
+    import shutil
+    times = {}
+    for name, edits in PHASES.items():
+        dst = os.path.join(os.path.abspath(out_dir), name)
+        shutil.rmtree(dst, ignore_errors=True)
+        shutil.copytree(os.path.join(root, 'evo_tpu_torch'),
+                        os.path.join(dst, 'evo_tpu_torch'),
+                        ignore=shutil.ignore_patterns('build', '__pycache__'))
+        src = os.path.join(dst, 'evo_tpu_torch', 'csrc', 'hyena_mixer.cu')
+        with open(src) as f:
+            text = f.read()
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise RuntimeError(f'time_hyena --phases: {name}: the '
+                                   f'kernel source no longer has {old!r}')
+            text = text.replace(old, new)
+        with open(src, 'w') as f:
+            f.write(text)
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              '--root', dst], capture_output=True,
+                             text=True, timeout=900, check=True)
+        times[name] = json.loads(res.stdout.strip().splitlines()[-1])[
+            'kernel6_graph_ms']
+    return times
 
 
 if __name__ == '__main__':

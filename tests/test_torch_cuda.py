@@ -407,29 +407,43 @@ def _modal(C, S, seed=0):
     return poles, residues
 
 
+def _in_place(zl):
+    """The (B, 3, C, L) streams as the layer passes them: the view of the
+    in-projection's (B, L, 3, C) output."""
+    return zl.permute(0, 2, 3, 1)
+
+
+# C a multiple of 8 throughout: the kernel's rule, and the JAX package's
 @pytest.mark.parametrize('B,C,L,chunk,S,Kf', [
-    (1, 4096, 512, 64, 8, 3),    # evo-1's widths
-    (2, 96, 1024, 64, 8, 3),     # two batch rows, a ragged last block
-    (1, 33, 64, 16, 4, 3),       # a small chunk, 4 states, odd C
-    (2, 8, 37, 64, 8, 3),        # L < chunk: one chunk of odd width
+    (1, 4096, 8192, 64, 8, 3),   # evo-1's widths and length
+    (2, 4096, 512, 64, 8, 3),
+    (2, 64, 64, 64, 8, 3),       # one whole chunk
+    (2, 104, 1024, 64, 8, 3),    # a channel tile of 16 half full
+    (1, 40, 64, 16, 4, 3),       # a small chunk, 4 states
+    (2, 64, 37, 64, 8, 3),       # L < chunk: one chunk of odd width
     (1, 16, 63, 21, 8, 3),       # odd chunks
-    (1, 5, 48, 8, 2, 3),         # 2 states, a chunk of 8
-    (1, 7, 3, 64, 8, 3),         # L = short_filter_length
-    (2, 7, 1, 64, 8, 3),         # L below the FIR tail's width
+    (1, 8, 48, 8, 2, 3),         # 2 states, a chunk of 8
+    (1, 16, 8, 1, 8, 3),         # chunks of one position
+    (1, 8, 3, 64, 8, 3),         # L = short_filter_length
+    (2, 8, 1, 64, 8, 3),         # L below the FIR tail's width
 ])
 @pytest.mark.parametrize('bias', [True, False])
+@pytest.mark.parametrize('b_in', [True, False])
 @pytest.mark.parametrize('carried', [False, True])
-def test_hyena_mixer_kernel(randn, B, C, L, chunk, S, Kf, bias, carried):
-    """Kernel 6 against the unfused composition. The FIR is bit-equal by
-    construction; the long conv's float32 sums run in another order, so y
-    agrees to float32 rounding before it is rounded to bf16 and an output
-    may land one bf16 step (2^-8..2^-7 of its size) away: at most 2^-6 of
-    the larger of the value and its row's rms, and 99 % of outputs equal.
-    The modal state stays float32: 1e-4 of the same scale."""
+def test_hyena_mixer_kernel(randn, B, C, L, chunk, S, Kf, bias, b_in,
+                            carried):
+    """Kernel 6 on the in-place view against the unfused composition. The
+    bias add and the FIR are bit-equal by construction; the long conv's
+    float32 sums run in another order, so y agrees to float32 rounding
+    before it is rounded to bf16 and an output may land one bf16 step
+    (2^-8..2^-7 of its size) away: at most 2^-6 of the larger of the value
+    and its row's rms, and 99 % of outputs equal. The modal state stays
+    float32: 1e-4 of the same scale. y lies as (B, L, C)."""
     from evo_tpu_torch.ops.hyena_mixer import (hyena_mixer, hyena_mixer_plain,
                                                hyena_mixer_supported)
-    z, w = randn(B, 3, C, L), randn(3, C, Kf) * 0.5
+    z, w = _in_place(randn(B, L, 3, C)), randn(3, C, Kf) * 0.5
     b = randn(3, C) * 0.1 if bias else None
+    bi = randn(3, C) * 0.3 if b_in else None
     poles, residues = _modal(C, S)
     d_skip = randn(C)
     state = None
@@ -438,12 +452,13 @@ def test_hyena_mixer_kernel(randn, B, C, L, chunk, S, Kf, bias, carried):
     assert hyena_mixer_supported(z.shape, chunk, S, Kf)
     before = _build.LAUNCHES['hyena_mixer']
     y, iir, fir = hyena_mixer(z, w, b, poles, residues, d_skip, chunk=chunk,
-                              state=state)
+                              state=state, b_in=bi)
     torch.cuda.synchronize()
     assert _build.LAUNCHES['hyena_mixer'] == before + 1
     y_want, iir_want, fir_want = hyena_mixer_plain(
-        z, w, b, poles, residues, d_skip, chunk=chunk, state=state)
+        z, w, b, poles, residues, d_skip, chunk=chunk, state=state, b_in=bi)
     assert y.dtype == z.dtype and y.shape == (B, C, L)
+    assert y.transpose(1, 2).is_contiguous()
     assert iir.dtype == torch.float32 and iir.shape == (B, C, S, 2)
     assert torch.equal(fir, fir_want)
     assert _scaled_err(y, y_want) <= 2 ** -6
@@ -455,16 +470,18 @@ def test_hyena_mixer_segments_continue(randn):
     """Two halves with the carried (fir, iir) state against one pass."""
     from evo_tpu_torch.ops.hyena_mixer import hyena_mixer
     B, C, L, S = 2, 64, 1024, 8
-    z, w, b = randn(B, 3, C, L), randn(3, C, 3) * 0.5, randn(3, C) * 0.1
+    zl, w, b = randn(B, L, 3, C), randn(3, C, 3) * 0.5, randn(3, C) * 0.1
+    bi = randn(3, C) * 0.3
     poles, residues = _modal(C, S, seed=1)
     d_skip = randn(C)
-    y, iir, fir = hyena_mixer(z, w, b, poles, residues, d_skip, chunk=64)
+    y, iir, fir = hyena_mixer(_in_place(zl), w, b, poles, residues, d_skip,
+                              chunk=64, b_in=bi)
     h = L // 2
-    y1, iir1, fir1 = hyena_mixer(z[..., :h].contiguous(), w, b, poles,
-                                 residues, d_skip, chunk=64)
-    y2, iir2, fir2 = hyena_mixer(z[..., h:].contiguous(), w, b, poles,
-                                 residues, d_skip, chunk=64,
-                                 state=(fir1, iir1))
+    y1, iir1, fir1 = hyena_mixer(_in_place(zl[:, :h].contiguous()), w, b,
+                                 poles, residues, d_skip, chunk=64, b_in=bi)
+    y2, iir2, fir2 = hyena_mixer(_in_place(zl[:, h:].contiguous()), w, b,
+                                 poles, residues, d_skip, chunk=64,
+                                 state=(fir1, iir1), b_in=bi)
     torch.cuda.synchronize()
     assert torch.equal(fir2, fir)
     assert _scaled_err(torch.cat([y1, y2], -1), y) <= 2 ** -6
@@ -567,22 +584,42 @@ def test_new_kernels_refuse_what_they_do_not_take(randn):
     from evo_tpu_torch.ops.mlp_gate import fused_gate
     from evo_tpu_torch.ops.modal_prefix import modal_prefix
     poles, residues = _modal(8, 8)
-    z, w, d = randn(1, 3, 8, 100), randn(3, 8, 3), randn(8)
+    z, w, d = _in_place(randn(1, 100, 3, 8)), randn(3, 8, 3), randn(8)
+    z64 = _in_place(randn(1, 64, 3, 8))
     assert not hyena_mixer_supported(z.shape, 64)        # 100 % 64
     with pytest.raises(ValueError, match='hyena_mixer_supported'):
         hyena_mixer(z, w, None, poles, residues, d, chunk=64)
     with pytest.raises(ValueError, match='hyena_mixer_supported'):
-        hyena_mixer(randn(1, 3, 8, 128), w, None, poles, residues, d,
-                    chunk=128)                           # a chunk above 64
+        hyena_mixer(_in_place(randn(1, 128, 3, 8)), w, None, poles,
+                    residues, d, chunk=128)              # a chunk above 64
     assert not hyena_mixer_supported((1, 3, 8, 64), 64, 8, 4)
     with pytest.raises(ValueError, match='hyena_mixer_supported'):
-        hyena_mixer(z[..., :64], randn(3, 8, 4), None, poles, residues, d,
+        hyena_mixer(z64, randn(3, 8, 4), None, poles, residues, d,
                     chunk=64)                            # a FIR of 4 taps
+    p12, r12 = _modal(12, 8)
+    with pytest.raises(ValueError, match='hyena_mixer_supported'):
+        hyena_mixer(_in_place(randn(1, 64, 3, 12)), randn(3, 12, 3), None,
+                    p12, r12, randn(12), chunk=64)       # C % 8 != 0
     with pytest.raises(TypeError):
-        hyena_mixer(z[..., :64].float(), w.float(), None, poles, residues,
+        hyena_mixer(z64.float(), w.float(), None, poles, residues,
                     d.float(), chunk=64)
+    with pytest.raises(TypeError):                       # weights in fp32
+        hyena_mixer(z64, w.float(), None, poles, residues, d, chunk=64)
     with pytest.raises(ValueError, match='do not match'):
-        hyena_mixer(z[..., :64], w, None, poles[:4], residues, d, chunk=64)
+        hyena_mixer(z64, w, None, poles[:4], residues, d, chunk=64)
+    # the contiguous (B, 3, C, L) streams, and a base off 16 bytes: the
+    # kernel reads the in-projection's output in place and copies nothing
+    with pytest.raises(ValueError, match='in place'):
+        hyena_mixer(randn(1, 3, 8, 64), w, None, poles, residues, d,
+                    chunk=64)
+    flat = randn(64 * 3 * 8 + 1)
+    with pytest.raises(ValueError, match='in place'):
+        hyena_mixer(_in_place(flat[1:].view(1, 64, 3, 8)), w, None, poles,
+                    residues, d, chunk=64)
+    before = _build.LAUNCHES['hyena_mixer']
+    hyena_mixer(_in_place(flat[:-1].view(1, 64, 3, 8)), w, None, poles,
+                residues, d, chunk=64)
+    assert _build.LAUNCHES['hyena_mixer'] == before + 1
     x = randn(4, 64)
     with pytest.raises(TypeError):
         fused_gate(x.float(), randn(64, 32).float(), randn(64, 32).float())

@@ -306,23 +306,24 @@ def _layout_ops(fn, B, L, C):
 
 def test_no_bias_pass_and_no_layout_copy(models):
     """The profiler sees neither the bias pass nor the (B, 3, C, L) copy
-    on the unfused path; the fused branch still makes both (its kernel
-    reads the contiguous streams)."""
+    on the unfused path, nor on the fused branch (its kernel reads the
+    in-projection's output in place too)."""
     _, tp, _, cfg = models
     x = torch.randn(2, 32, 64, generator=torch.Generator().manual_seed(5))
     assert _layout_ops(lambda: hyena.hyena_full(tp, cfg, x), 2, 32, 64) \
         == (0, 0)
     fused = cfg.replace(hyena_fused_mixer=True, hyena_matmul_chunk=16)
     assert _layout_ops(lambda: hyena.hyena_full(tp, fused, x), 2, 32, 64) \
-        == (1, 1)
+        == (0, 0)
 
 
 @pytest.mark.parametrize('L,calls', [(32, (1, 0)), (40, (0, 1)), (2, (0, 0))])
 def test_fused_flag_keeps_its_branches(models, recorded, L, calls):
-    """Under `hyena_fused_mixer` the fused mixer gets the contiguous
-    biased streams where its shape rule holds; a ragged length falls
-    through to the in-place FIR + gate, a length below the FIR width to
-    `fir_causal_conv`; outputs agree with the unfused layer."""
+    """Under `hyena_fused_mixer` the fused mixer gets the in-place view
+    of the in-projection's output where its shape rule holds; a ragged
+    length falls through to the in-place FIR + gate, a length below the
+    FIR width to `fir_causal_conv`; outputs agree with the unfused
+    layer."""
     _, tp, _, cfg = models
     fused = cfg.replace(hyena_fused_mixer=True, hyena_matmul_chunk=16)
     x = torch.randn(2, L, 64, generator=torch.Generator().manual_seed(L))
@@ -330,7 +331,8 @@ def test_fused_flag_keeps_its_branches(models, recorded, L, calls):
     got, _ = hyena.hyena_full(tp, fused, x)
     assert dict(_build.LAUNCHES) == before      # CPU: plain versions
     assert (len(recorded['hyena_mixer']), len(recorded['fir_gate'])) == calls
-    for z in recorded['hyena_mixer']:
-        assert z.is_contiguous() and z.shape == (2, 3, 64, L)
+    for z, zl in zip(recorded['hyena_mixer'], recorded['zl']):
+        assert z.shape == (2, 3, 64, L) and in_projection_layout(z)
+        assert z.data_ptr() == zl.data_ptr()
     want, _ = hyena.hyena_full(tp, cfg, x)
     np.testing.assert_allclose(_np(got), _np(want), rtol=2e-4, atol=2e-4)
