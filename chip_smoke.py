@@ -21,12 +21,15 @@ for an H100: the kernels target sm_90a). It
      offsets 8,191, 65,535 and 122,879 and in both its regimes at 1 to 8
      rows, and the combine kernel of its split key range against its
      plain twin (and bit-equal on a second run); the weight-only int4
-     matmul at 1 to 128 rows for each projection of a layer; the fused
+     matmul at 1 to 128 rows for each projection of a layer, x of K <= Kp
+     columns, float32 and bf16 output, bit-equal run to run, beside
+     torch._weight_int4pack_mm; the fused
      Hyena mixer on the in-projection's output zl (1, 8192, 3, 4096) read
      in place with its bias, fresh and with a carried state, at two batch
      rows and at one chunk of odd width, beside the bias pass and layout
      copy the fused layer made before it; the cross-chunk
-     prefix at 128 chunks and at a count that is no power of two; the
+     prefix at 128 chunks and at a count that is no power of two, with
+     and without a carried state; the
      fused MLP gate at 1 to 8,192 rows over (4096, 10928) weights, timed
      at 8,192 and 2), and times kernel, plain version, the roofline bound
      and a library yardstick with CUDA events;
@@ -245,7 +248,7 @@ def main():
     from evo_tpu_torch.ops.hyena_mixer import (hyena_mixer, hyena_mixer_plain,
                                                hyena_mixer_supported)
     from evo_tpu_torch.ops.int4 import (int4_matmul, int4_matmul_plain,
-                                        pack_int4)
+                                        pack_int4, unpack_int4)
     from evo_tpu_torch.ops.mlp_gate import fused_gate, fused_gate_plain
     from evo_tpu_torch.ops.modal_prefix import (modal_prefix,
                                                 modal_prefix_plain)
@@ -609,11 +612,15 @@ def main():
     del off, bf, i8, sc, mask, row, q1, want8
 
     # Weight-only int4 matmul. The kernel multiplies the same bf16 values
-    # as the plain version (nibbles are exact in bf16) and differs only in
-    # the order of the float32 sums inside a group of 128 (mma.sync) and
-    # in nothing after it: the scale multiply and the add across groups
-    # are rounded apart in both. Up to 11,008 terms at float32 epsilon:
-    # required |err| <= 1e-4 of the larger of |want| and its row's rms.
+    # as the plain version (bf16 x int4 is exact in float32) and differs
+    # only in the order of the float32 sums inside a group of 128 (FMAs
+    # down the rows at up to 4 rows of x, mma.sync above) and, in the
+    # streaming design, in the order in which the groups' scaled sums are
+    # added (split by split): up to 11,008 terms at float32 epsilon.
+    # Required |err| <= 1e-4 of the larger of |want| and its row's rms; x
+    # of K <= Kp columns (the kernel reads zeros past K); the bf16 output
+    # the float32 one rounded once, bit for bit; and a second run
+    # bit-equal to the first.
     def int4_case(M, Kp, N):
         x = randn(M, Kp)
         q = torch.randint(-8, 8, (Kp, N), device=dev, generator=g,
@@ -621,20 +628,28 @@ def main():
         s = torch.rand(Kp // 128, N, device=dev, generator=g) * 0.09 + 0.01
         return x, pack_int4(q), s
 
-    layer_calls = ((4096, 10928), (11008, 4096), (4096, 12288),
-                   (4096, 4096))           # w1 / w2, w3, w_in / wqkv, w_out
+    # (K, Kp, N): w1 / w2, w3 (K padded to Kp), w_in / wqkv, w_out
+    layer_calls = ((4096, 4096, 10928), (10928, 11008, 4096),
+                   (4096, 4096, 12288), (4096, 4096, 4096))
     err8 = scaled8 = 0.0
-    for M, Kp, N in (
-            [(8, 256, 512), (1, 4096, 688), (16, 1536, 512),
-             (128, 512, 1024), (5, 512, 1001)]
-            + [(M, Kp, N) for Kp, N in layer_calls for M in (1, 2, 7, 128)]):
+    for M, K, Kp, N in (
+            [(8, 256, 256, 512), (1, 4096, 4096, 688), (16, 1536, 1536, 512),
+             (128, 512, 512, 1024), (5, 500, 512, 1001), (3, 130, 256, 40)]
+            + [(M, K, Kp, N) for K, Kp, N in layer_calls
+               for M in (1, 2, 7, 8, 128)]):
         x, packed, sc = int4_case(M, Kp, N)
+        x = x[:, :K].contiguous()
         got = int4_matmul(x, packed, sc)
+        got16 = int4_matmul(x, packed, sc, torch.bfloat16)
+        again = int4_matmul(x, packed, sc)
         torch.cuda.synchronize()
         want = int4_matmul_plain(x, packed, sc)
         e, r = float((got - want).abs().max()), scaled_err(got, want)
-        log(f'   int4_matmul M={M} Kp={Kp} N={N}: max abs err {e:.3e}, '
-            f'scaled {r:.3e}')
+        log(f'   int4_matmul M={M} K={K} Kp={Kp} N={N}: max abs err '
+            f'{e:.3e}, scaled {r:.3e}')
+        check(torch.equal(got, again), 'int4_matmul differs run to run')
+        check(torch.equal(got16, got.bfloat16()),
+              'int4_matmul bf16 output is not the float32 one rounded')
         err8, scaled8 = max(err8, e), max(scaled8, r)
     # K = 128 padded to Kp = 256 (the shape class of wo): zero rows
     # interleave with real ones across the two nibbles, against the exact
@@ -649,53 +664,75 @@ def main():
         f'the plain version on the CPU (bf16 outputs: limit 2^-7)')
     check(scaled8 <= 1e-4 and r <= 2 ** -7,
           f'int4 kernel disagrees: {scaled8}, padded {r}')
-    # Times at the widest call of a layer (4096 x 12288). A decode step
-    # reads each weight once, so the kernel finds it cold: four weights
-    # (104 MB together, past the 50 MB L2) taken in turns, replayed from a
-    # CUDA graph, because the kernel is shorter than a launch from the
-    # host takes. `ms_by_events` is the per-launch event time, as for the
-    # other kernels.
-    Kp, N = 4096, 12288
-    cases = [int4_case(128, Kp, N) for _ in range(4)]
 
-    def int4_bound_ms(M, Kp, N):
-        nbytes = Kp // 2 * N + (Kp // 128) * N * 4 + M * Kp * 2 + M * N * 4
+    # Times as a decode step calls the kernel: x of K columns in bf16, y in
+    # bf16. A decode step reads each weight once, so the kernel finds it
+    # cold: enough weights (past the 50 MB L2) taken in turns, replayed
+    # from a CUDA graph, because the kernel is shorter than a launch from
+    # the host takes. `ms_by_events` is the event time around one call,
+    # wrapper included. `library_ms`: `torch._weight_int4pack_mm`
+    # (tinygemm) on the same int4 values and group-128 scales, repacked
+    # into its layout (uint8 (N, Kp/2) of q = v + 8, even k in the high
+    # nibble; bf16 scales with zero points 0): bf16 scales and output, so
+    # another rounding of the same function; its scaled error is logged as
+    # a yardstick only. The port never calls it.
+    def int4_bound_ms(M, K, Kp, N):
+        nbytes = Kp // 2 * N + (Kp // 128) * N * 4 + M * K * 2 + M * N * 2
         return 1e3 * max(nbytes / peak['bytes_s'],
-                         2 * M * Kp * N / peak['bf16'])
+                         2 * M * K * N / peak['bf16'])
 
-    by_rows = {}
-    for M in (1, 2, 128):
-        fns = [(lambda x=x[:M].contiguous(), p=p, sc=sc:
-                int4_matmul(x, p, sc)) for x, p, sc in cases]
-        wbf = [randn(Kp, N) for _ in range(2)]
-        xm = randn(M, Kp)
-        by_rows[M] = dict(
-            ms=time_graph_ms(torch, fns),
-            ms_by_events=time_ms(torch, fns[0]),
-            plain_ms=time_ms(torch, lambda: int4_matmul_plain(
-                cases[0][0][:M], *cases[0][1:]), reps=3, warmup=1),
-            bound_ms=int4_bound_ms(M, Kp, N),
-            # for orientation only: the bf16 product of the same (M, K, N),
-            # which reads four times the weight bytes; not this function
-            bf16_matmul_ms=time_graph_ms(
-                torch, [(lambda w=w: xm @ w) for w in wbf], rounds=10))
-        del wbf
-    per_layer = {f'{Kp}x{N}': time_graph_ms(
-        torch, [(lambda c=int4_case(2, Kp, N): int4_matmul(*c))
-                for _ in range(int(110e6 // (Kp // 2 * N)) + 1)])
-        for Kp, N in layer_calls}
+    def tinygemm(packed, sc):
+        q = (unpack_int4(packed).to(torch.int32) + 8).t().contiguous()
+        w4 = torch._convert_weight_to_int4pack(
+            ((q[:, 0::2] << 4) | q[:, 1::2]).to(torch.uint8), 8)
+        return w4, torch.stack([sc.bfloat16(), torch.zeros_like(
+            sc).bfloat16()], -1).contiguous()
+
+    def int4_times(M, K, Kp, N, plain=False):
+        ws = [int4_case(M, Kp, N) for _ in range(int(110e6 // (Kp // 2 * N))
+                                                  + 1)]
+        ws = [(x[:, :K].contiguous(), p, s) for x, p, s in ws]
+        fns = [(lambda c=c: int4_matmul(*c, torch.bfloat16)) for c in ws]
+        out = dict(ms=time_graph_ms(torch, fns),
+                   ms_by_events=time_ms(torch, fns[0]),
+                   bound_ms=int4_bound_ms(M, K, Kp, N))
+        if plain:
+            out['plain_ms'] = time_ms(torch, lambda: int4_matmul_plain(
+                *ws[0], torch.bfloat16), reps=3, warmup=1)
+        try:
+            tg = [tinygemm(p, s) for _x, p, s in ws]
+            xs = [F.pad(x, (0, Kp - K)) for x, _p, _s in ws]
+            out['library_ms'] = time_graph_ms(torch, [
+                (lambda xx=xx, t=t: torch._weight_int4pack_mm(xx, t[0], 128,
+                                                               t[1]))
+                for xx, t in zip(xs, tg)])
+            out['library_scaled_err'] = scaled_err(
+                torch._weight_int4pack_mm(xs[0], tg[0][0], 128, tg[0][1]),
+                int4_matmul_plain(*ws[0]))
+        except (RuntimeError, NotImplementedError) as exc:
+            # the yardstick only: say why it is missing
+            out['library_ms'] = None
+            out['library_error'] = f'{type(exc).__name__}: {exc}'[:200]
+        del ws, fns
+        return out
+
+    by_rows = {M: int4_times(M, 4096, 4096, 12288, plain=True)
+               for M in (1, 2, 4, 8, 128)}
+    per_layer = {f'{K}x{N}': int4_times(2, K, Kp, N)
+                 for K, Kp, N in layer_calls}
     kernels['int4_matmul'] = dict(
         name='int4_matmul', route='cuda',
         source='evo_tpu_torch/csrc/int4_matmul.cu',
         replaces='evo_tpu/ops/pallas_int4.py:87', max_abs_err=err8,
         max_scaled_err=scaled8, **by_rows[1], bound_by='bytes',
-        library_ms=None, by_rows=by_rows, ms_by_call_at_2_rows=per_layer,
+        by_rows=by_rows, by_call_at_2_rows=per_layer,
         shape='x (1, 4096) bf16, packed (2048, 12288) int8, scales '
-              '(32, 12288) fp32 (decode, M = 1; by_rows: M = 1, 2, 128); '
-              'no single PyTorch call computes this function')
-    log(f'   int4_matmul by rows at Kp=4096, N=12288: {by_rows}; by call of '
+              '(32, 12288) fp32 -> y bf16 (decode, M = 1; by_rows: M = 1, 2, '
+              '4, 8, 128; by_call_at_2_rows: each weight of a layer); '
+              'library: torch._weight_int4pack_mm')
+    log(f'   int4_matmul by rows at 4096 x 12288: {by_rows}; by call of '
         f'a layer at M=2: {per_layer}')
-    del cases, fns, packed, sc, qw, xm
+    del qw
 
     # The fused Hyena mixer on the in-projection's (B, L, 3, C) output read
     # in place, with the in-projection bias folded in. Its bias add and FIR
@@ -797,11 +834,13 @@ def main():
               'states; no single PyTorch call computes this function')
     del mixer_args, st, poles, residues, d_skip, zls
 
-    # The cross-chunk prefix. The kernel walks the chunks in order, the
-    # plain version doubles (log2 K shifted passes): the same sums in
-    # another order. Required: |err| <= 2e-5 of the larger of |want| and
-    # the rms over its channel's chunks and states (the tolerance at which
-    # the JAX package's test holds its kernel to its loop).
+    # The cross-chunk prefix. The kernel walks the chunks in segments (a
+    # serial walk in each, the segments' end states handed on in order),
+    # the plain version doubles (log2 K shifted passes) and adds a carried
+    # state's a^k s0 terms after: the same sums in another order. Required:
+    # |err| <= 2e-5 of the larger of |want| and the rms over its channel's
+    # chunks and states (the tolerance at which the JAX package's test
+    # holds its kernel to its loop), with and without a carried state.
     def prefix_case(B, K):
         inj = [torch.randn(B, D, K, S, device=dev, generator=g)
                for _ in range(2)]
@@ -813,33 +852,42 @@ def main():
     err7 = scaled7 = 0.0
     for B, K in ((1, 128), (1, 188), (2, 8), (1, 2)):
         case = prefix_case(B, K)
-        got = modal_prefix(*case)
-        torch.cuda.synchronize()
-        want = modal_prefix_plain(*case)
-        e = max(float((a - b).abs().max()) for a, b in zip(got, want))
-        r = max(scaled_err(a.flatten(2), b.flatten(2))
-                for a, b in zip(got, want))
-        log(f'   modal_prefix B={B} K={K}: max abs err {e:.3e}, scaled '
-            f'{r:.3e}')
-        err7, scaled7 = max(err7, e), max(scaled7, r)
+        for s0 in (None, torch.randn(B, D, S, 2, device=dev, generator=g)):
+            got = modal_prefix(*case, s0)
+            torch.cuda.synchronize()
+            want = modal_prefix_plain(*case, s0)
+            e = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            r = max(scaled_err(a.flatten(2), b.flatten(2))
+                    for a, b in zip(got, want))
+            log(f'   modal_prefix B={B} K={K} carried state '
+                f'{s0 is not None}: max abs err {e:.3e}, scaled {r:.3e}')
+            err7, scaled7 = max(err7, e), max(scaled7, r)
     check(scaled7 <= 2e-5, f'modal_prefix kernel disagrees: {scaled7}')
-    case = prefix_case(1, 128)
-    nbytes = (4 * case[0].numel() + 2 * D * S + 2 * D * S) * 4
+    # a forward of 8,192 at chunk 64; five cases in turns, each 33.6 MB of
+    # input, so that a launch finds its input cold
+    cases = [prefix_case(1, 128) for _ in range(5)]
+    s0 = torch.randn(1, D, S, 2, device=dev, generator=g)
+    nbytes = (4 * cases[0][0].numel() + 2 * D * S + 2 * D * S) * 4
     kernels['modal_prefix'] = dict(
         name='modal_prefix', route='cuda',
         source='evo_tpu_torch/csrc/modal_prefix.cu',
         replaces='evo_tpu/ops/pallas_prefix.py:50', max_abs_err=err7,
         max_scaled_err=scaled7,
-        ms=time_ms(torch, lambda: modal_prefix(*case)),
-        plain_ms=time_ms(torch, lambda: modal_prefix_plain(*case)),
+        ms=time_graph_ms(torch, [(lambda c=c: modal_prefix(*c))
+                                 for c in cases]),
+        ms_by_events=time_ms(torch, lambda: modal_prefix(*cases[0])),
+        carried_state_ms=time_graph_ms(
+            torch, [(lambda c=c: modal_prefix(*c, s0)) for c in cases]),
+        plain_ms=time_ms(torch, lambda: modal_prefix_plain(*cases[0])),
         # 8 flops a complex multiply-add
         bound_ms=1e3 * max(nbytes / peak['bytes_s'],
-                           8 * case[0].numel() / peak['fp32']),
+                           8 * cases[0][0].numel() / peak['fp32']),
         bound_by='bytes', library_ms=None,
         shape='inj (1, 4096, 128, 8) fp32 x 2 (a forward of 8,192 at chunk '
-              '64); ms includes the wrapper\'s p^chunk; no single PyTorch '
-              'call computes this function')
-    del case, got, want
+              '64); ms replayed from a CUDA graph over five cold inputs, '
+              'ms_by_events around one call with its wrapper; no single '
+              'PyTorch call computes this function')
+    del cases, s0, got, want
 
     # The fused MLP gate. Kernel and plain version both sum exact
     # bf16 x bf16 products in float32 (in another order), apply the

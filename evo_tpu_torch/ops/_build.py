@@ -64,13 +64,15 @@ _SIGNATURES = {
                                             *(_L,) * 9, _I, _I, _F, _P),
     # (m, l, acc, o, B, H, Lq, S, stream)
     'evo_combine_partials': (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # (x, packed, scales, y, M, Kp, N, stream)
-    'evo_int4_matmul_bf16': (_P, _P, _P, _P, _I, _I, _I, _P),
+    # (x, packed, scales, y, partials, tickets, M, K, Kp, N, bf16 output,
+    # streaming design, stream)
+    'evo_int4_matmul_bf16': (*(_P,) * 6, _I, _I, _I, _I, _I, _I, _P),
     # (zl, fir_w, fir_b, b_in, poles, residues, d_skip, fir0, st0, y, iir,
     # B, C, L, Ct, S, KF, stream)
     'evo_hyena_mixer_bf16': (*(_P,) * 11, _I, _I, _L, _I, _I, _I, _P),
-    # (inj_r, inj_i, a_r, a_i, ent_r, ent_i, fin_r, fin_i, B, D, K, S, stream)
-    'evo_modal_prefix_f32': (*(_P,) * 8, _I, _I, _I, _I, _P),
+    # (inj_r, inj_i, logmag, theta, s0, ent_r, ent_i, fin_r, fin_i, B, D,
+    # K, S, batch and channel strides, chunk, stream)
+    'evo_modal_prefix_f32': (*(_P,) * 9, _I, _I, _I, _I, _L, _L, _F, _P),
     # (x, w1, w2, out, M, D, I, act, stream)
     'evo_mlp_gate_bf16': (_P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
@@ -158,10 +160,16 @@ def library() -> ctypes.CDLL:
 
 def launch(name: str, counter: str, *args) -> None:
     """Call kernel entry `name` with `args` on the current CUDA stream,
-    raise on a non-zero cudaError_t, and count the launch."""
+    raise on a non-zero cudaError_t, and count the launch. The stream's
+    handle comes from `torch._C._cuda_getCurrentRawStream` where the build
+    has it, which makes no Stream object: the host's time around a short
+    kernel is part of its callers' time."""
     import torch
     fn = getattr(library(), name)
-    err = fn(*args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    raw = getattr(torch._C, '_cuda_getCurrentRawStream', None)
+    stream = (raw(torch.cuda.current_device()) if raw is not None
+              else torch.cuda.current_stream().cuda_stream)
+    err = fn(*args, ctypes.c_void_p(stream))
     if err >= _ENCODE_ERROR:
         raise RuntimeError(f'{name}: cuTensorMapEncodeTiled refused a TMA '
                            f'tensor map: CUresult {err - _ENCODE_ERROR}')

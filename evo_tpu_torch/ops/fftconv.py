@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 import torch
 
 from evo_tpu_torch.ops import modal_prefix as prefix_ops
-from evo_tpu_torch.ops.modal_prefix import _pole_pow_tables
+from evo_tpu_torch.ops.modal_prefix import _pole_pow_range
 
 _MIN_MAG = 1e-20
 
@@ -29,25 +29,6 @@ def _pole_log(poles: torch.Tensor):
     pr, pi = poles[..., 0], poles[..., 1]
     mag = torch.sqrt(pr * pr + pi * pi)
     return torch.log(torch.clamp(mag, min=_MIN_MAG)), torch.atan2(pi, pr)
-
-
-def _pole_pow_range(logmag, theta, n: int):
-    """{p^0 .. p^(n-1)} re/im as (D, S, n) float32 by log-doubling: only
-    the powers p^(2^j) are transcendental, each further entry is one
-    complex product of exact lower powers."""
-    rng_r = torch.ones_like(logmag)[..., None]
-    rng_i = torch.zeros_like(logmag)[..., None]
-    m = 1
-    while m < n:
-        k = min(m, n - m)
-        ar, ai = _pole_pow_tables(logmag, theta, float(m))
-        ar, ai = ar[..., None], ai[..., None]
-        new_r = ar * rng_r[..., :k] - ai * rng_i[..., :k]
-        new_i = ar * rng_i[..., :k] + ai * rng_r[..., :k]
-        rng_r = torch.cat([rng_r, new_r], dim=-1)
-        rng_i = torch.cat([rng_i, new_i], dim=-1)
-        m += k
-    return rng_r, rng_i
 
 
 def _conv_chunk_tables(poles, residues, C: int):
@@ -133,25 +114,14 @@ def conv_matmul_chunked(u: torch.Tensor, poles: torch.Tensor,
     # state entering chunk k: a^k s0 + incl_{k-1}, with the inclusive prefix
     # incl_k = sum_{j<=k} a^(k-j) inj_j over chunks, a = p^C; final state
     # a^K s0 + incl_{K-1}. The prefix is the kernel of `ops/modal_prefix.py`
-    # under `pallas_prefix` (for K >= 2), else its plain doubling loop; the
-    # terms of a carried state are added here in both cases.
+    # under `pallas_prefix` (for K >= 2), seeded by the carried state, else
+    # its plain doubling loop, which adds the state's terms after it.
     if pallas_prefix and prefix_ops.modal_prefix_supported((B, D, K, S)):
         br, bi, fr, fi = prefix_ops.modal_prefix(inj_r, inj_i, logmag, theta,
-                                                 C)
+                                                 C, state)
     else:
         br, bi, fr, fi = prefix_ops.modal_prefix_plain(inj_r, inj_i, logmag,
-                                                       theta, C)
-    if state is not None:
-        s0r, s0i = state[..., 0], state[..., 1]
-        ak_r, ak_i = _pole_pow_range(C * logmag, C * theta, K + 1)
-        ak_r = ak_r.movedim(-1, 1)[None]                      # (1, D, K+1, S)
-        ak_i = ak_i.movedim(-1, 1)[None]
-        br = br + ak_r[:, :, :K] * s0r[:, :, None] - \
-            ak_i[:, :, :K] * s0i[:, :, None]
-        bi = bi + ak_r[:, :, :K] * s0i[:, :, None] + \
-            ak_i[:, :, :K] * s0r[:, :, None]
-        fr = ak_r[:, :, K] * s0r - ak_i[:, :, K] * s0i + fr
-        fi = ak_r[:, :, K] * s0i + ak_i[:, :, K] * s0r + fi
+                                                       theta, C, state)
 
     y_state = (torch.einsum('bdks,dsc->bdkc', br, tab_r)
                - torch.einsum('bdks,dsc->bdkc', bi, tab_i))

@@ -137,12 +137,16 @@ def int4_dot(x: torch.Tensor, w: QuantizedWeight, nc: int = 1
     lead, x2 = _flatten(x, nc)
     M, K = x2.shape
     x2 = x2.bfloat16()
-    if Kp > K:
-        x2 = torch.cat([x2, x2.new_zeros((M, Kp - K))], dim=1)
     s2 = s4.reshape(G, N)
     if int4_ops.int4_matmul_supported(M, Kp):
-        y2 = int4_ops.int4_matmul(x2.contiguous(), q4, s2)
+        # x of K columns (the kernel reads zeros past K), y rounded once to
+        # bf16 inside the kernel for a bf16 caller
+        y2 = int4_ops.int4_matmul(
+            x2.contiguous(), q4, s2,
+            torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32)
     else:
+        if Kp > K:
+            x2 = torch.cat([x2, x2.new_zeros((M, Kp - K))], dim=1)
         wd = (int4_ops.unpack_int4(q4).bfloat16().reshape(G, 128, N)
               * s2[:, None].bfloat16()).reshape(Kp, N)
         if x.dtype == torch.bfloat16:

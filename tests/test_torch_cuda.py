@@ -385,6 +385,66 @@ def test_int4_decode_step_launches():
     assert (step - full[:, -1]).abs().max() <= 0.05 * full.abs().max()
 
 
+# evo-1's four weight shapes as (K, Kp, N): w1 / w2, w3 (K padded to Kp),
+# w_in / wqkv, w_out
+_LAYER_SHAPES = [(4096, 4096, 10928), (10928, 11008, 4096),
+                 (4096, 4096, 12288), (4096, 4096, 4096)]
+
+
+@pytest.mark.parametrize('M,K,Kp,N', [
+    *[(M, K, Kp, N) for K, Kp, N in _LAYER_SHAPES
+      for M in (1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 128)],
+    *[(M, 1000, 1024, 1001) for M in (1, 2, 5, 8, 9, 33)],  # ragged N, K
+    # 17 steps: two a block, the last block's one
+    *[(M, 4300, 4352, 600) for M in (1, 3, 4)],
+    (1, 40, 256, 24), (8, 130, 512, 136)])
+def test_int4_matmul_rows_and_outputs(M, K, Kp, N):
+    """Kernel 8 on an x of K <= Kp columns (the rest read as zeros) at every
+    row count of its two designs: within 1e-4 of the plain version in
+    float32, bit-equal from run to run (the splits' parts are added in a
+    fixed order), and its bf16 output the float32 one rounded once."""
+    x, packed, s = _int4_case(M, Kp, N, seed=M + K)
+    x = x[:, :K].contiguous()
+    before = _build.LAUNCHES['int4_matmul']
+    got = int4_matmul(x, packed, s)
+    again = int4_matmul(x, packed, s)
+    got16 = int4_matmul(x, packed, s, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES['int4_matmul'] == before + 3
+    want = int4_matmul_plain(x, packed, s)
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    assert got16.dtype == torch.bfloat16 and got16.shape == (M, N)
+    assert torch.equal(got, again)
+    assert torch.equal(got16, got.bfloat16())
+    rms = want.pow(2).mean(-1, keepdim=True).sqrt()
+    assert ((got - want).abs() / want.abs().maximum(rms)).max() <= 1e-4
+    assert torch.equal(int4_matmul_plain(x, packed, s, torch.bfloat16),
+                       want.bfloat16())
+
+
+def test_int4_matmul_in_a_cuda_graph():
+    """Kernel 8's streaming design replayed from a CUDA graph (as a
+    captured decode step would run it): the splits are summed in order, so
+    every replay is bit-equal to the eager call, and the tickets (one a
+    column tile) are back at zero after each launch."""
+    from evo_tpu_torch.ops import int4 as int4_mod
+    x, packed, s = _int4_case(2, 4096, 12288)
+    splits, tiles = int4_mod.gemv_plan(4096, 12288)
+    assert splits > 1
+    first = int4_matmul(x, packed, s, torch.bfloat16)
+    torch.cuda.synchronize()
+    tickets = int4_mod._TICKETS[x.device]
+    assert int(tickets[:tiles].abs().sum()) == 0
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = int4_matmul(x, packed, s, torch.bfloat16)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, first)
+    assert int(tickets[:tiles].abs().sum()) == 0
+
+
 def test_int4_kernel_refuses_what_it_does_not_take():
     x, packed, s = _int4_case(4, 256, 64)
     with pytest.raises(TypeError):
@@ -516,6 +576,76 @@ def test_modal_prefix_kernel(B, D, K, S, chunk):
         assert a.shape == b.shape and a.dtype == torch.float32
         # rms over a channel's chunks and states: ent[0] is all zeros
         assert _scaled_err(a.flatten(2), b.flatten(2)) <= 2e-5
+
+
+def _prefix_inputs(B, D, K, S, seed):
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    inj_r = torch.randn(B, D, K, S, device='cuda', generator=g)
+    inj_i = torch.randn(B, D, K, S, device='cuda', generator=g)
+    logmag = torch.log(torch.rand(D, S, device='cuda', generator=g) * 0.48
+                       + 0.5)
+    theta = (torch.rand(D, S, device='cuda', generator=g) * 2 - 1) * 3.1
+    s0 = torch.randn(B, D, S, 2, device='cuda', generator=g)
+    return inj_r, inj_i, logmag, theta, s0
+
+
+@pytest.mark.parametrize('K', [2, 3, 127, 128, 188, 256])
+@pytest.mark.parametrize('B', [1, 2])
+@pytest.mark.parametrize('S', [8, 5])
+def test_modal_prefix_kernel_segments_and_state(K, B, S):
+    """Kernel 7's segments (16 a warp at S = 8, 6 at S = 5) against the
+    doubling loop, with and without a carried state s0 (ent[0] = s0, the
+    later terms a^k s0): 2e-5 of the larger of the value and its
+    channel's rms."""
+    from evo_tpu_torch.ops.modal_prefix import (modal_prefix,
+                                                modal_prefix_plain)
+    inj_r, inj_i, logmag, theta, s0 = _prefix_inputs(B, 96, K, S, K + S)
+    for state in (None, s0):
+        before = _build.LAUNCHES['modal_prefix']
+        got = modal_prefix(inj_r, inj_i, logmag, theta, 64, state)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES['modal_prefix'] == before + 1
+        want = modal_prefix_plain(inj_r, inj_i, logmag, theta, 64, state)
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and a.dtype == torch.float32
+            assert _scaled_err(a.flatten(2), b.flatten(2)) <= 2e-5
+        if state is not None:
+            assert torch.equal(got[0][:, :, 0], s0[..., 0])
+            assert torch.equal(got[1][:, :, 0], s0[..., 1])
+
+
+def test_modal_prefix_kernel_reads_the_einsum_layout():
+    """The injection einsum leaves (B, D, K, S) with the batch inside the
+    channel; the kernel reads that layout in place, writes ent in it, and
+    agrees with the contiguous call bit for bit."""
+    from evo_tpu_torch.ops.modal_prefix import modal_prefix
+    inj_r, inj_i, logmag, theta, s0 = _prefix_inputs(2, 64, 128, 8, 5)
+    pr = inj_r.transpose(0, 1).contiguous().transpose(0, 1)
+    pi = inj_i.transpose(0, 1).contiguous().transpose(0, 1)
+    assert not pr.is_contiguous()
+    got = modal_prefix(pr, pi, logmag, theta, 64, s0)
+    want = modal_prefix(inj_r, inj_i, logmag, theta, 64, s0)
+    assert got[0].stride() == pr.stride()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_modal_prefix_kernel_decay_within_two_ulp():
+    """a = p^chunk computed inside the kernel (expf, sincosf) against
+    torch's `_pole_pow_tables` on the card: with inj[0] = 1 and inj[1] = 0
+    over K = 2 chunks the final state is a itself, exactly."""
+    from evo_tpu_torch.ops.modal_prefix import _pole_pow_tables, modal_prefix
+    _, _, logmag, theta, _ = _prefix_inputs(1, 4096, 2, 8, 9)
+    inj_r = torch.zeros(1, 4096, 2, 8, device='cuda')
+    inj_r[:, :, 0] = 1
+    inj_i = torch.zeros_like(inj_r)
+    for chunk in (64, 16, 1):
+        _, _, fr, fi = modal_prefix(inj_r, inj_i, logmag, theta, chunk)
+        want = _pole_pow_tables(logmag, theta, float(chunk))
+        for got, w in zip((fr[0], fi[0]), want):
+            ulp = (torch.nextafter(w.abs(), torch.full_like(w, float('inf')))
+                   - w.abs())
+            assert ((got - w).abs() <= 2 * ulp).all()
 
 
 def test_conv_matmul_chunked_prefix_kernel():
