@@ -70,7 +70,8 @@ for an H100: the kernels target sm_90a). It
      requires bit-equal scores (8 layers at full width where the disk has
      less than 40 GB free);
  11. runs `python -m evo_tpu_torch.cli.score` and `...cli.generate` with
-     --random-init --quant int4 in processes of their own;
+     --random-init --quant int4 in processes of their own, and
+     `...cli.serve` the same way in JSONL mode on three requests;
  12. profiles one forward at B=1, L=8192, a prefill with 8 decode steps,
      one resumed segment at offset 122,880 and single decode steps in bf16
      and int4, and one forward under the fused mixer, and prints the
@@ -90,6 +91,23 @@ for an H100: the kernels target sm_90a). It
      in turns; then one forward with `hyena_pallas_prefix=True` alone (29
      prefix and 29 FIR + gate launches), and the fused MLP gate on a real
      layer's weights and input against the first half of that layer's MLP;
+ 16. (after phase 13, while evo-1-8k-base is on the card) serves ten
+     ragged requests (96-1,500 nt prompts, 48-96 new tokens, three
+     sampled, two arriving late) through `GenerationServer` on 4 slots of
+     2,048 positions, decode chunks of 8 steps, prompts in chunks of 128,
+     a same-length pair as one batched prefill: every request ends with
+     its token count, the recorded log-probs agree with one forward over
+     prompt + generation (teacher forcing, phase 5's yardstick), the
+     launch counts follow from the schedule (kernel 4 at one row with
+     per-row offsets three times a decode step), and a profiled step()
+     makes no scalar read and one readback; prints aggregate tokens/s,
+     ms a chunk and a step, the idle share, kernel 4 at B=4 with per-row
+     offsets and the peak memory;
+ 17. (after phase 8) the same under int4 weights and the int8 KV cache: 3
+     ragged prompts on 2 slots, 32 tokens each, kernel 8 160 times and
+     kernel 5's split + combine 3 times a decode step, teacher forcing
+     within phase 8's yardstick, and kernel 5 with device offsets beside
+     an int offset;
  14. (after phase 6) the same with evo-1-131k-base: 12,000 nt in one pass
      and in segments of 4,096, then 131,072 nt in segments of 8,192, with
      the launch counts worked out from the segment bounds (a ragged first
@@ -102,6 +120,7 @@ per-kernel numbers, and the one before that the card's name and power
 limit.
 """
 
+import collections
 import json
 import os
 import shutil
@@ -168,6 +187,16 @@ def sdpa_over_live_prefix(q, k_buf, v_buf, offset):
                   for t in (q, k_buf[:, :live], v_buf[:, :live]))
     return F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=causal_lower_right(lq, live))
+
+
+def live_kv_bound_ms(peak, offsets, quantized, heads=32, head_dim=128):
+    """The least time attention at one query row takes over each row's
+    live prefix [0, offset] of a KV cache: its K and V bytes (int8 codes
+    with a float32 scale per position and head, or bf16) over the card's
+    memory rate."""
+    per_pos = heads * (2 * head_dim * (1 if quantized else 2)
+                       + (8 if quantized else 0))
+    return 1e3 * per_pos * sum(o + 1 for o in offsets) / peak['bytes_s']
 
 
 def time_ms(torch, fn, reps=20, warmup=3):
@@ -257,6 +286,8 @@ def main():
                                      quantized_bytes)
     from evo_tpu_torch.scoring import (_segment_bounds, logits_to_logprobs,
                                        prepare_batch)
+    from evo_tpu_torch import serving as serving_mod
+    from evo_tpu_torch.serving import GenerationServer
 
     dev = torch.device('cuda')
     smi = subprocess.run(
@@ -1282,6 +1313,199 @@ def main():
                 prefix_logits)
     del evo_p, prefix_logits, unfused_logits, floor
 
+    # -- 16. continuous-batching serving, evo-1-8k-base at full width -------
+    # `GenerationServer` over the unfused bf16 model: 4 slots of 2,048
+    # positions, decode chunks of 8 steps, prompts prefilled in chunks of
+    # 128 (a fresh first chunk through kernel 3, the rest resumed through
+    # kernel 4), a pair of same-length prompts in one batched prefill.
+    # Ten requests: eight queued before the first step (the 512-nt pair
+    # first, so it fills as a pair), two more after the second step; three
+    # sampled (temperature 1, top-k 4, seeds of their own).
+    log(f'== 16. serving, evo-1-8k-base ({smi})')
+    rng16 = np.random.default_rng(16)
+    plens = [512, 512, 96, 200, 333, 700, 1000, 1500, 300, 900]
+    news = [int(n) for n in rng16.integers(48, 97, len(plens))]
+    sampled16 = (1, 3, 8)
+    prompts16 = [''.join(rng16.choice(list('ACGT'), n)) for n in plens]
+    chunk_events = []
+
+    def timed_chunk(*a, **kw):
+        """`serving._decode_chunk` between two CUDA events (no sync)."""
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = real_chunk(*a, **kw)
+        ev[1].record()
+        chunk_events.append(ev)
+        return out
+
+    real_chunk = serving_mod._decode_chunk
+    serving_mod._decode_chunk = timed_chunk
+
+    def submit16(server, idxs):
+        return {i: server.submit(
+            prompt=prompts16[i], num_tokens=news[i],
+            temperature=1.0 if i in sampled16 else 0.0,
+            top_k=4 if i in sampled16 else None, seed=1000 + i)
+            for i in idxs}
+
+    def new_server16():
+        return GenerationServer(evo.model, evo.tokenizer, max_slots=4,
+                                max_len=2048, steps_per_sync=8,
+                                prompt_chunk=128, prefill_batch=2)
+
+    warm = new_server16()                   # cuBLAS's first calls
+    for i in (0, 1, 2):
+        warm.submit(prompt=prompts16[i][:300], num_tokens=9)
+    warm.run()
+    del warm
+    server16 = new_server16()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.LAUNCHES.clear()
+    chunk_events.clear()
+    t0 = time.time()
+    rids16 = submit16(server16, range(8))
+    server16.step()
+    server16.step()
+    rids16.update(submit16(server16, (8, 9)))
+    results16 = server16.run()
+    torch.cuda.synchronize()
+    serve_s = time.time() - t0
+    serve_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches['serve_8k'] = dict(_build.LAUNCHES)
+    chunk_ms = [a.elapsed_time(b) for a, b in chunk_events]
+    check(all(len(results16[r].token_ids) == news[i]
+              and not results16[r].cancelled for i, r in rids16.items()),
+          'a request of phase 16 did not end with its token count')
+    check(2 in server16._prefill_caches, 'the 512-nt pair did not fill as '
+          'one batched prefill')
+
+    def fill_launches(P):
+        """Launches of one fill of P-token prompts: a fresh first chunk
+        (kernel 3), resumed chunks (kernel 4), each a forward's RMSNorms
+        and FIR + gates."""
+        n = server16._head_len(P) // 128 + 1
+        return collections.Counter({
+            'rmsnorm': 65 * n, 'fir_gate': 29 * n, 'flash_attention': 3,
+            'flash_attention_buffer': 3 * (n - 1)})
+
+    n_steps16 = 8 * len(chunk_ms)
+    want16 = collections.Counter({'rmsnorm': 65 * n_steps16,
+                                  'flash_attention_buffer': 3 * n_steps16})
+    for P in plens[1:]:                     # the pair is one fill
+        want16 += fill_launches(P)
+    check(launches['serve_8k'] == dict(want16),
+          f'launches {launches["serve_8k"]}, expected {dict(want16)}')
+    # Teacher forcing: one forward over each prompt + generation. The
+    # log-prob the server recorded for each token against that forward's
+    # log_softmax at the same position, within the drift of one bf16
+    # rounding step at layer 0 (phase 5's yardstick); greedy tokens
+    # against the forward's argmax, agreement >= 0.75 as in phase 5.
+
+    def teacher_forced(model, tokenizer, prompts, results, rids, greedy):
+        diffs, floors, agree = [], [], []
+        for i, rid in rids.items():
+            res = results[rid]
+            P = len(prompts[i])
+            full = torch.as_tensor(np.concatenate([
+                tokenizer.tokenize(prompts[i]), res.token_ids]),
+                device=dev).long()[None]
+            toks = full[0, P:]
+            ref = torch.log_softmax(model(full)[0][0, P - 1:-1].float(), -1)
+            nud = torch.log_softmax(
+                nudged_forward(model, full)[0, P - 1:-1].float(), -1)
+            lp_ref = ref.gather(-1, toks[:, None])[:, 0]
+            diffs.append((torch.as_tensor(res.logps, device=dev)
+                          - lp_ref).abs())
+            floors.append((nud.gather(-1, toks[:, None])[:, 0]
+                           - lp_ref).abs())
+            if i in greedy:
+                agree.append((ref.argmax(-1) == toks).float())
+        d, f = torch.cat(diffs), torch.cat(floors)
+        return (float(d.mean()), float(d.max()), float(f.mean()),
+                float(torch.cat(agree).mean()))
+
+    d16, dmax16, f16, agree16 = teacher_forced(
+        evo.model, evo.tokenizer, prompts16, results16, rids16,
+        [i for i in range(10) if i not in sampled16])
+    total16 = sum(news)
+    log(f'   10 requests ({plens} nt, {total16} new tokens, 3 sampled) on 4 '
+        f'slots: {serve_s:.3f} s, {total16 / serve_s:.1f} generated tokens/s '
+        f'aggregate; {len(chunk_ms)} decode chunks of 8 steps, median '
+        f'{statistics.median(chunk_ms):.2f} ms a chunk, '
+        f'{statistics.median(chunk_ms) / 8:.2f} ms a step (CUDA events); '
+        f'peak {serve_peak:.2f} GiB; launches {launches["serve_8k"]}')
+    log(f'   teacher forcing: recorded log-probs vs one forward: mean abs '
+        f'diff {d16:.5f} (max {dmax16:.4f}); one rounding step at layer 0 '
+        f'moves them by mean {f16:.5f} (limit 1x); greedy argmax agreement '
+        f'{agree16:.4f} (limit 0.75)')
+    check(d16 <= f16 and agree16 >= 0.75,
+          'served log-probs disagree with teacher forcing')
+    del results16
+    # Kernel 4 at one query row over the slot batch's cache (B=4, T=2,048)
+    # with per-row device offsets, beside the same batch with every row at
+    # the longest offset and one row alone: the kernel's grid is a block a
+    # (row, head), each walking its own row's key tiles.
+    attn_idx = evo.config.attn_layer_idxs[0]
+    kb16 = server16._cache['layers'][attn_idx]['k']
+    vb16 = server16._cache['layers'][attn_idx]['v']
+    q16 = torch.randn((4, 1, 32, 128), device=dev,
+                      generator=g).bfloat16()
+    k4 = {}
+    for label, qq, kk_, vv, off, offs in (
+            ('per-row (95, 699, 1499, 2047)', q16, kb16, vb16,
+             torch.tensor([95, 699, 1499, 2047], dtype=torch.int32,
+                          device=dev), (95, 699, 1499, 2047)),
+            ('every row at 2047', q16, kb16, vb16,
+             torch.full((4,), 2047, dtype=torch.int32, device=dev),
+             (2047,) * 4),
+            ('one row at 2047', q16[:1], kb16[:1], vb16[:1], 2047,
+             (2047,))):
+        k4[label] = (time_graph_ms(torch, [lambda: flash_attention_buffer(
+            qq, kk_, vv, off)]), live_kv_bound_ms(peak, offs, False))
+    log('   kernel 4 at one query row, T=2,048 (graph replay; bound by the '
+        'live K, V bytes): ' + ', '.join(
+            f'{k} {v[0]:.4f} ms (bound {v[1]:.4f})' for k, v in k4.items()))
+    # one step() with no fill pending, in the profiler: no host read
+    # inside the decode chunk, one readback of the chunk
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(4):
+        server16.submit(prompt=prompts16[9][64 * i:64 * i + 64],
+                        num_tokens=40)
+    server16.step()
+    check(server16._fill is None and not server16._queue
+          and all(r is not None for r in server16._slots),
+          'the profiled step would run a fill')
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.time()
+        server16.step()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.time() - t)
+    scalar_reads = sum(e.name == 'aten::_local_scalar_dense'
+                       for e in prof.events())
+    readbacks = sum('DtoH' in e.name or 'Device -> Pageable' in e.name
+                    for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, 'is_user_annotation', False))
+    log(f'   profile of one step() (a chunk of 8 decode steps at B=4, no '
+        f'fill): device busy {busy_us / 1e3:.1f} ms of {wall_us / 1e3:.1f} '
+        f'ms wall under the profiler (idle share '
+        f'{1 - busy_us / wall_us:.3f}; against the median chunk of the run '
+        f'without it, {statistics.median(chunk_ms):.1f} ms: '
+        f'{1 - busy_us / 1e3 / statistics.median(chunk_ms):.3f}); '
+        f'{scalar_reads} aten::_local_scalar_dense, {readbacks} '
+        f'device-to-host copies')
+    check(scalar_reads == 0 and readbacks == 1,
+          f'the decode chunk read the device: {scalar_reads} scalar reads, '
+          f'{readbacks} device-to-host copies')
+    server16.run()
+    del server16, kb16, vb16, q16
+
     del evo
     torch.cuda.empty_cache()
 
@@ -1610,6 +1834,87 @@ def main():
         + ' (int4 with the int8 KV cache, the others with a bf16 one)')
     del evo_i8, turns
 
+    # -- 17. serving under int4 weights and the int8 KV cache ---------------
+    # The model of phase 8 behind `GenerationServer`: 2 slots, 3 ragged
+    # greedy prompts (the third waits for a slot), 32 new tokens each,
+    # decode chunks of 8 steps, each prompt prefilled in one pass (> 128
+    # rows, so the dequantized product, not kernel 8). Every decode step
+    # runs kernel 8 on the five quantized projections of 32 layers and
+    # kernel 5's split + combine on the 3 attention layers at B=2 with
+    # per-row device offsets.
+    rng17 = np.random.default_rng(17)
+    plens17 = [200, 520, 1100]
+    prompts17 = [''.join(rng17.choice(list('ACGT'), n)) for n in plens17]
+
+    def new_server17():
+        return GenerationServer(evo4.model, tok, max_slots=2, max_len=2048,
+                                steps_per_sync=8)
+
+    warm = new_server17()
+    warm.submit(prompt=prompts17[0], num_tokens=9)
+    warm.run()
+    del warm
+    server17 = new_server17()
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    chunk_events.clear()
+    t0 = time.time()
+    rids17 = {i: server17.submit(prompt=p, num_tokens=32)
+              for i, p in enumerate(prompts17)}
+    results17 = server17.run()
+    torch.cuda.synchronize()
+    serve17_s = time.time() - t0
+    launches['serve_int4'] = dict(_build.LAUNCHES)
+    chunk17_ms = [a.elapsed_time(b) for a, b in chunk_events]
+    n_steps17 = 8 * len(chunk17_ms)
+    want17 = {'rmsnorm': 65 * (n_steps17 + 3), 'fir_gate': 29 * 3,
+              'flash_attention': 3 * 3, 'int4_matmul': 160 * n_steps17,
+              'flash_attention_buffer_q8': 3 * n_steps17,
+              'combine_partials': 3 * n_steps17}
+    check(launches['serve_int4'] == want17,
+          f'launches {launches["serve_int4"]}, expected {want17}')
+    check(all(len(results17[r].token_ids) == 32 for r in rids17.values()),
+          'a request of phase 17 did not end with its token count')
+    d17, dmax17, f17, agree17 = teacher_forced(
+        evo4.model, tok, prompts17, results17, rids17, list(rids17))
+    log(f'== 17. serving, evo-1-131k-base int4 + int8 KV ({smi}): 3 '
+        f'requests ({plens17} nt, 96 new tokens) on 2 slots: '
+        f'{serve17_s:.3f} s, {96 / serve17_s:.1f} generated tokens/s; '
+        f'{len(chunk17_ms)} chunks, median '
+        f'{statistics.median(chunk17_ms) / 8:.2f} ms a step (CUDA events); '
+        f'launches {launches["serve_int4"]}; teacher forcing: mean abs '
+        f'log-prob diff {d17:.5f} (max {dmax17:.4f}), one rounding step '
+        f'{f17:.5f} (limit 1x), argmax agreement {agree17:.4f} (limit '
+        f'0.75)')
+    check(d17 <= f17 and agree17 >= 0.75,
+          'served int4 log-probs disagree with teacher forcing')
+    # Kernel 5's split at one query row over this cache (B=2, T=2,048):
+    # with device offsets the wrapper sizes the split over the whole
+    # cache; with an int offset over the live prefix only.
+    attn_idx = evo4.config.attn_layer_idxs[0]
+    st17 = server17._cache['layers'][attn_idx]
+    q17 = torch.randn((2, 1, 32, 128), device=dev, generator=g).bfloat16()
+    k5 = {}
+    for label, off, offs in (
+            ('per-row (199, 1099)', torch.tensor([199, 1099],
+                                                 dtype=torch.int32,
+                                                 device=dev), (199, 1099)),
+            ('device (1099, 1099)', torch.full((2,), 1099,
+                                               dtype=torch.int32,
+                                               device=dev), (1099, 1099)),
+            ('int 1099', 1099, (1099, 1099)),
+            ('device (199, 199)', torch.full((2,), 199, dtype=torch.int32,
+                                             device=dev), (199, 199)),
+            ('int 199', 199, (199, 199))):
+        k5[label] = (time_graph_ms(torch, [lambda: flash_attention_buffer(
+            q17, st17['k'], st17['v'], off, st17['ks'], st17['vs'])]),
+            live_kv_bound_ms(peak, offs, True))
+    log('   kernel 5 (split + combine) at one query row, B=2, T=2,048 (graph '
+        'replay; bound by the live bytes): ' + ', '.join(
+            f'{k} {v[0]:.4f} ms (bound {v[1]:.4f})' for k, v in k5.items()))
+    serving_mod._decode_chunk = real_chunk
+    del server17, results17, st17, q17
+
     # -- 15. decode steps at long offsets, bf16 and int8 KV caches ----------
     # One evo-1-131k-base decode step at B=1 over a full 131,072-slot cache
     # of random finite values, at three offsets, through the card's route
@@ -1672,8 +1977,11 @@ def main():
     log('== 15. decode steps at long offsets (evo-1-131k-base, B=1, a '
         '131,072-slot cache of random values)')
     long_decode = {}
+    q1 = torch.randn((1, 1, 32, 128), device=dev, generator=g).bfloat16()
     for kv_quant in ('none', 'int8'):
         cache = random_cache(kv_quant)
+        layer = next(t for t in cache['layers'] if isinstance(t, dict))
+        bufs = [layer[n] for n in ('k', 'v', 'ks', 'vs') if n in layer]
         kernel = ({'flash_attention_buffer': 3} if kv_quant == 'none' else
                   {'flash_attention_buffer_q8': 3, 'combine_partials': 3})
         for o in (8191, 65535, 122879):
@@ -1691,6 +1999,17 @@ def main():
                 plain_wall_ms=[t['wall_ms'] for t in old],
                 new_peak_bytes=max(t['peak_bytes'] for t in new),
                 plain_peak_bytes=max(t['peak_bytes'] for t in old))
+            # the layer's kernel alone at this offset, as an int (the
+            # wrapper may trim the key range on the host) and as a device
+            # tensor (the serving path: it may not), by graph replay
+            for name, off in (
+                    ('int', o),
+                    ('device', torch.full((1,), o, dtype=torch.int32,
+                                          device=dev))):
+                long_decode[f'{kv_quant}@{o}'][f'kernel_ms_{name}_offset'] = \
+                    time_graph_ms(torch, [
+                        lambda: flash_attention_buffer(q1, bufs[0], bufs[1],
+                                                       off, *bufs[2:])])
             log(f'   {"bf16" if kv_quant == "none" else "int8"} cache, '
                 f'offset {o}: {long_decode[f"{kv_quant}@{o}"]}')
         del cache
@@ -1798,6 +2117,31 @@ def main():
               and all(len(r) == 2 and np.isfinite(float(r[1]))
                       and float(r[1]) < 0 for r in rows[1:]),
               f'score CLI TSV: {rows}')
+        # the serve command line in JSONL mode on three requests
+        reqs = os.path.join(tmp, 'requests.jsonl')
+        outs = os.path.join(tmp, 'results.jsonl')
+        with open(reqs, 'w') as f:
+            for i, n in enumerate((64, 150, 300)):
+                f.write(json.dumps({'id': f'r{i}',
+                                    'prompt': 'ACGT' * (n // 4),
+                                    'num_tokens': 16 + 8 * i}) + '\n')
+        cmd = ['evo_tpu_torch.cli.serve', '--random-init', '--quant',
+               'int4', '--requests-jsonl', reqs, '--output-jsonl', outs,
+               '--max-slots', '4', '--max-len', '1024']
+        t0 = time.time()
+        r = subprocess.run([sys.executable, '-m'] + cmd, cwd=ROOT,
+                           capture_output=True, text=True, timeout=600)
+        log(f'== 11. python -m {cmd[0]} ...: exit code {r.returncode} in '
+            f'{time.time() - t0:.1f} s')
+        check(r.returncode == 0, f'serve CLI failed:\n{r.stderr[-3000:]}')
+        with open(outs) as f:
+            lines = [json.loads(ln) for ln in f]
+        log('   results: '
+            f'{[(x["id"], x["num_tokens"], x["score"]) for x in lines]}')
+        check([(x['id'], x['num_tokens']) for x in lines]
+              == [('r0', 16), ('r1', 24), ('r2', 32)]
+              and all(np.isfinite(x['score']) for x in lines),
+              f'serve CLI output: {lines}')
 
     # -- 12. where the device time goes (checks nothing; last, so the
     # profiler's hooks cannot slow the timed phases) ----------------------

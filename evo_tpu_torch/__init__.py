@@ -8,8 +8,10 @@ attention, attention over the KV buffer (bf16 and int8) and the weight-only
 int4 matmul run as CUDA kernels written for sm_90a (`csrc/`); on a CPU
 tensor each takes its plain PyTorch version. Weights come from a seed or
 from a checkpoint on disk (`checkpoint.py`), optionally quantized
-(`quant.py`); `python -m evo_tpu_torch.cli.score` and `...cli.generate` are
-the command lines.
+(`quant.py`). `GenerationServer` and `serve_requests` serve ragged,
+staggered generation requests by continuous batching (`serving.py`);
+`python -m evo_tpu_torch.cli.score`, `...cli.generate` and `...cli.serve`
+are the command lines.
 
 This package imports neither JAX nor `evo_tpu`.
 """
@@ -20,3 +22,5 @@ from evo_tpu_torch.scoring import (positional_entropies,  # noqa: F401
                                    positional_entropies_segmented,
                                    score_sequences,
                                    score_sequences_segmented)
+from evo_tpu_torch.serving import (GenerationServer,  # noqa: F401
+                                   serve_requests)

@@ -236,7 +236,8 @@ def cache_from_jax(cache: Dict[str, Any], cfg: ModelConfig,
     (`ModelConfig.layer_segments`): the KV dict of an attention layer, in
     either layout, or the (fir, iir) states of a Hyena run stacked on a
     leading layer axis. Here it has one entry per layer and a Python int
-    offset. Arrays are copied."""
+    offset; a (B,) vector of per-slot offsets (the JAX server's cache)
+    becomes an int32 (B,) tensor on `device`. Arrays are copied."""
     layers = []
     for (kind, idxs), seg in zip(cfg.layer_segments(), cache['layers']):
         if kind == 'attn':
@@ -248,7 +249,10 @@ def cache_from_jax(cache: Dict[str, Any], cfg: ModelConfig,
             layers.append(HyenaState(
                 fir=_as_tensor(np.array(fir[j])).to(device),
                 iir=_as_tensor(np.array(iir[j])).to(device)))
-    return {'offset': int(cache['offset']), 'layers': layers}
+    offset = np.asarray(cache['offset'])
+    return {'offset': (int(offset) if offset.ndim == 0 else
+                       torch.from_numpy(offset.astype(np.int32)).to(device)),
+            'layers': layers}
 
 
 def _as_numpy(t: torch.Tensor) -> np.ndarray:
@@ -261,7 +265,9 @@ def _as_numpy(t: torch.Tensor) -> np.ndarray:
 
 def cache_to_jax(cache: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
     """Inverse of `cache_from_jax`: numpy arrays in the JAX package's
-    layout, a Hyena run as a (fir, iir) pair stacked over its layers."""
+    layout, a Hyena run as a (fir, iir) pair stacked over its layers, the
+    offset an np.int32 scalar or, from a (B,) tensor, an int32 (B,)
+    array."""
     layers = []
     for kind, idxs in cfg.layer_segments():
         if kind == 'attn':
@@ -271,7 +277,11 @@ def cache_to_jax(cache: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
             run = [cache['layers'][i] for i in idxs]
             layers.append((np.stack([_as_numpy(s.fir) for s in run]),
                            np.stack([_as_numpy(s.iir) for s in run])))
-    return {'offset': np.int32(cache['offset']), 'layers': layers}
+    offset = cache['offset']
+    return {'offset': (_as_numpy(offset).astype(np.int32)
+                       if isinstance(offset, torch.Tensor)
+                       else np.int32(offset)),
+            'layers': layers}
 
 
 # ---------------------------------------------------------------------------

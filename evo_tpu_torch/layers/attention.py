@@ -18,7 +18,9 @@ segment that continues a filled cache (`mha_full(offset=,
 attend_buffer=True)`, the buffer-attention kernel), and the single-token
 decode step (`mha_step`: the buffer-attention kernel at one query row on
 the card, for both caches; on the CPU a dense float32 softmax over an
-unquantised cache).
+unquantised cache). The decode step takes a Python int offset or an
+int32 (B,) tensor of per-row offsets; the full-sequence paths take an
+int.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from torch import nn
 from evo_tpu_torch.config import ModelConfig
 from evo_tpu_torch.layers.rotary import apply_rotary, rotary_cos_sin
 from evo_tpu_torch.ops.attention import flash_attention_causal
-from evo_tpu_torch.ops.attention_buffer import flash_attention_buffer
+from evo_tpu_torch.ops.attention_buffer import Offset, flash_attention_buffer
 from evo_tpu_torch.quant import project
 
 
@@ -63,8 +65,15 @@ def _qkv(p: Attention, x: torch.Tensor):
     return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
 
-def _rotate(cfg: ModelConfig, q, k, offset: int):
-    positions = torch.arange(offset, offset + q.shape[1], device=q.device)
+def _rotate(cfg: ModelConfig, q, k, offset: Offset):
+    """Rotary positions [offset, offset + L), shared by the batch, or from
+    row b's own offset[b] for an int32 (B,) tensor."""
+    if isinstance(offset, torch.Tensor):
+        positions = offset[:, None] + torch.arange(q.shape[1],
+                                                   device=q.device)
+    else:
+        positions = torch.arange(offset, offset + q.shape[1],
+                                 device=q.device)
     scaling = (cfg.rotary_emb_scaling_factor
                if cfg.use_interpolated_rotary_pos_emb else 1.0)
     cos, sin = rotary_cos_sin(positions, cfg.head_dim, cfg.rotary_base,
@@ -91,10 +100,30 @@ def kv_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q, s
 
 
-def _kv_write(st: Dict[str, torch.Tensor], k, v, offset: int) -> None:
+def _kv_write(st: Dict[str, torch.Tensor], k, v, offset: Offset) -> None:
     """Write k, v (B, L, H, Dh) into the layer cache at positions [offset,
-    offset + L): as they are, or quantised and head-major."""
+    offset + L): as they are, or quantised and head-major.
+
+    An int32 (B,) tensor offset writes one position (L = 1) of each row b
+    at offset[b], by an index write on the device. It reads nothing back
+    and checks no bound on the device: the caller keeps every offset
+    inside the buffer (`serving.GenerationServer` does, on the host)."""
     quantized = 'ks' in st
+    if isinstance(offset, torch.Tensor):
+        if k.shape[1] != 1:
+            raise ValueError('per-row offsets write one position a row, '
+                             f'got {k.shape[1]}')
+        rows = torch.arange(k.shape[0], device=k.device)
+        pos = offset.long()
+        if not quantized:
+            st['k'][rows, pos] = k[:, 0]
+            st['v'][rows, pos] = v[:, 0]
+            return
+        for name, x in (('k', k), ('v', v)):
+            codes, scales = kv_quantize(x[:, 0])       # (B, H, Dh), (B, H)
+            st[name][rows, :, pos] = codes
+            st[name + 's'][rows, :, pos] = scales
+        return
     T = st['k'].shape[2 if quantized else 1]
     end = offset + k.shape[1]
     if end > T:
@@ -124,6 +153,9 @@ def mha_full(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     whole buffer under the mask `key <= offset + query`."""
     if attend_buffer and kv_buffers is None:
         raise ValueError('attend_buffer needs the kv_buffers to attend')
+    if isinstance(offset, torch.Tensor):
+        raise ValueError('mha_full takes a Python int offset; per-row '
+                         '(B,) offsets are for the decode step (mha_step)')
     q, k, v = _qkv(p, x)
     q, k = _rotate(cfg, q, k, offset)
     if kv_buffers is not None:
@@ -138,9 +170,12 @@ def mha_full(p: Attention, cfg: ModelConfig, x: torch.Tensor,
 
 
 def mha_step(p: Attention, cfg: ModelConfig, x_t: torch.Tensor,
-             kv_buffers: Dict[str, torch.Tensor], offset: int):
+             kv_buffers: Dict[str, torch.Tensor], offset: Offset):
     """Single-token decode step: x_t (B, 1, D) at position `offset`. Writes
     its k, v into the cache and attends over positions [0, offset].
+    `offset` is a Python int shared by the batch, or an int32 (B,) tensor
+    on the cache's device with one offset a row (continuous batching,
+    `serving.py`), which the kernels take as it is.
 
     On the card both caches go through the buffer-attention kernel with
     one query row, which reads the live prefix once, in the cache's own
@@ -162,15 +197,23 @@ def mha_step(p: Attention, cfg: ModelConfig, x_t: torch.Tensor,
 
 
 def dense_step_attention(q: torch.Tensor, k_buf: torch.Tensor,
-                         v_buf: torch.Tensor, offset: int) -> torch.Tensor:
+                         v_buf: torch.Tensor, offset: Offset) -> torch.Tensor:
     """The CPU's decode attention: q (B, 1, H, Dh) at position `offset`
     over the unquantised buffers' positions [0, offset], with float32
-    copies of the live prefix. Returns (B, 1, H, Dh) in q.dtype."""
-    kb = k_buf[:, :offset + 1]
-    vb = v_buf[:, :offset + 1]
+    copies of the live prefix. Returns (B, 1, H, Dh) in q.dtype.
+
+    With an int32 (B,) tensor of offsets it takes the whole buffer under
+    the mask `key <= offset[b]`, as the JAX package's step does."""
+    per_row = isinstance(offset, torch.Tensor)
+    kb = k_buf if per_row else k_buf[:, :offset + 1]
+    vb = v_buf if per_row else v_buf[:, :offset + 1]
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum('bhd,bthd->bht', q[:, 0].to(kb.dtype).float(),
                      kb.float()) * scale
+    if per_row:
+        keys = torch.arange(kb.shape[1], device=kb.device)
+        s = s.masked_fill((keys[None, :] > offset[:, None])[:, None],
+                          float('-inf'))
     a = torch.softmax(s, dim=-1)
     y = torch.einsum('bht,bthd->bhd', a.to(vb.dtype).float(), vb.float())
     return y.to(q.dtype)[:, None]

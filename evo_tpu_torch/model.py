@@ -13,10 +13,14 @@ The decode cache is a dict {'offset': int, 'layers': [...]}, one entry per
 layer in layer order: the KV buffers of `layers/attention.py` for
 attention ({'k', 'v'}, or with `kv_quant='int8'` {'k', 'v', 'ks', 'vs'}),
 a `HyenaState` for Hyena. The offset is a Python int, so no entry point
-reads the device to learn it. The entry points update the cache in place
-and return it: a caller that wants to keep a cache as it was clones it
-first (`generation._grow_cache`). Every buffer is made of zeros: the
-attention kernels multiply masked keys by 0, which a NaN survives.
+reads the device to learn it. `decode_step` also takes an int32 (B,)
+tensor of per-row offsets on the cache's device (the slot batch of
+`serving.py`, whose rows hold sequences of different lengths) and
+advances it on the device; the prefill takes an int only. The entry
+points update the cache in place and return it: a caller that wants to
+keep a cache as it was clones it first (`generation._grow_cache`). Every
+buffer is made of zeros: the attention kernels multiply masked keys by 0,
+which a NaN survives.
 """
 
 from __future__ import annotations
@@ -248,7 +252,9 @@ def prefill(model: StripedHyena, ids: torch.Tensor, cache: Cache,
 
 def decode_step(model: StripedHyena, token: torch.Tensor, cache: Cache):
     """One autoregressive step. token (B,) or (B, 1) -> (logits (B, vocab)
-    float32, cache with offset + 1)."""
+    float32, cache with offset + 1). `cache['offset']` is an int, or an
+    int32 (B,) tensor of per-row offsets that the step advances on the
+    device without reading it."""
     cfg = model.config
     if token.dim() == 1:
         token = token[:, None]

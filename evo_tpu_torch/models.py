@@ -59,7 +59,10 @@ class EvoModel:
 
         resume: continue from a filled cache. None derives it from the
         cache's offset (a Python int here, so nothing waits on the device);
-        segmented loops pass it as they do in the JAX package.
+        segmented loops pass it as they do in the JAX package. A cache
+        whose offset is an int32 (B,) tensor of per-row offsets (the slot
+        batch of `serving.py`) takes decode steps only: a length-1 input
+        goes to `decode_step`, a longer one raises.
 
         donate_cache: the port updates the passed cache in place whether or
         not it is donated, and returns that same dict, so a caller that
@@ -71,10 +74,14 @@ class EvoModel:
             ids = ids[None]
         if inference_params_dict is None:
             return model_lib.forward(self.module, ids), None
-        if ids.shape[1] == 1 and not donate_cache:
+        per_row = isinstance(inference_params_dict['offset'], torch.Tensor)
+        if ids.shape[1] == 1 and (per_row or not donate_cache):
             logits, cache = model_lib.decode_step(self.module, ids[:, 0],
                                                   inference_params_dict)
             return logits[:, None], cache
+        if per_row:
+            raise ValueError('a cache with per-row (B,) offsets takes '
+                             'decode steps only, not a prefill')
         if resume is None:
             resume = inference_params_dict['offset'] > 0
         return model_lib.prefill(self.module, ids, inference_params_dict,

@@ -806,3 +806,106 @@ def test_fused_model_launches():
             # bf16 activations round elsewhere on the two paths
             assert (got - want[L]).abs().max() <= 0.05 * want[L].abs().max()
         model.config = cfg
+
+
+# -- continuous batching: per-row decode offsets --------------------------------
+
+@pytest.mark.parametrize('T', [2048, 8192])
+@pytest.mark.parametrize('quantized', [False, True])
+def test_buffer_kernels_one_row_per_row_offsets(randn, T, quantized):
+    """Kernels 4 and 5 at one query row over a slot batch of four rows at
+    offsets (0, 17, T - 129, T - 1), read from the device, against their
+    plain versions."""
+    q, args = _buffer_case(randn, 4, 1, T, (0, 17, T - 129, T - 1),
+                           quantized)
+    name = 'flash_attention_buffer_q8' if quantized else \
+        'flash_attention_buffer'
+    before = _build.LAUNCHES[name]
+    got = flash_attention_buffer(q, *args)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == before + 1
+    assert _scaled_err(got, attention_buffer_plain(q, *args)) <= 2 ** -5
+
+
+@pytest.mark.parametrize('quantized', [False, True])
+def test_kv_write_per_row_offsets(randn, quantized):
+    """The per-row index write of one decode position a row, into a bf16
+    (B, T, H, Dh) cache and a head-major int8 (B, H, T, Dh) one with
+    (B, H, T) scales, against a plain loop over the rows."""
+    from evo_tpu_torch.layers.attention import _kv_write
+    B, T, H = 4, 300, 32
+    k, v = randn(B, 1, H, 128), randn(B, 1, H, 128)
+    offsets = [0, 17, T - 129, T - 1]
+    off = torch.tensor(offsets, dtype=torch.int32, device='cuda')
+    if quantized:
+        st = {'k': torch.zeros(B, H, T, 128, dtype=torch.int8, device='cuda'),
+              'v': torch.zeros(B, H, T, 128, dtype=torch.int8, device='cuda'),
+              'ks': torch.zeros(B, H, T, device='cuda'),
+              'vs': torch.zeros(B, H, T, device='cuda')}
+    else:
+        st = {'k': randn(B, T, H, 128), 'v': randn(B, T, H, 128)}
+    want = {n: t.clone() for n, t in st.items()}
+    _kv_write(st, k, v, off)
+    for b, o in enumerate(offsets):
+        for name, x in (('k', k), ('v', v)):
+            if quantized:
+                codes, scales = kv_quantize(x[b:b + 1, 0])
+                want[name][b, :, o] = codes[0]
+                want[name + 's'][b, :, o] = scales[0]
+            else:
+                want[name][b, o] = x[b, 0]
+    torch.cuda.synchronize()
+    for name in st:
+        assert torch.equal(st[name], want[name]), name
+
+
+def test_greedy_server_on_the_card_matches_the_cpu():
+    """A greedy server run of ragged, staggered requests (more than its
+    slots) on a small bf16 model: on the card (kernels 1-4 on its path,
+    kernel 4 at one row with per-row offsets every decode step) the
+    tokens equal the same run on the CPU and the card's B=1 Generator."""
+    import numpy as np
+
+    from evo_tpu_torch import model as model_lib
+    from evo_tpu_torch.config import tiny_config
+    from evo_tpu_torch.generation import Generator
+    from evo_tpu_torch.models import EvoModel
+    from evo_tpu_torch.serving import GenerationServer
+    from evo_tpu_torch.tokenizer import CharLevelTokenizer
+    cfg = tiny_config(hidden_size=256, num_filters=256,
+                      num_attention_heads=2, compute_dtype='bfloat16',
+                      param_dtype='bfloat16')
+    module = model_lib.random_init(cfg, torch.Generator(device='cuda')
+                                   .manual_seed(0), 'cuda')
+    tok = CharLevelTokenizer(512)
+    prompts = ['ACGTACGTAGGCTTAC' * 9, 'TTGGCCAATTGGA' * 3, 'GATTACA' * 20,
+               'CCGTAAGT' * 4, 'ACGT' * 33]
+    lens = [12, 7, 9, 10, 8]
+
+    def serve(m):
+        server = GenerationServer(m, tok, max_slots=2, max_len=256,
+                                  steps_per_sync=4, prompt_chunk=64)
+        rids = [server.submit(prompt=p, num_tokens=n)
+                for p, n in zip(prompts[:3], lens[:3])]
+        server.step()
+        rids += [server.submit(prompt=p, num_tokens=n)
+                 for p, n in zip(prompts[3:], lens[3:])]
+        results = server.run()
+        return [results[r].token_ids for r in rids]
+
+    card = EvoModel(cfg, module)
+    _build.LAUNCHES.clear()
+    got = serve(card)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES['flash_attention_buffer'] > 0
+    assert _build.LAUNCHES['rmsnorm'] > 0 and _build.LAUNCHES['fir_gate'] > 0
+    cpu = EvoModel(cfg, module.to('cpu'))
+    for g, w in zip(got, serve(cpu)):
+        np.testing.assert_array_equal(g, w)
+    module.to('cuda')
+    gen = Generator(card, tok, top_k=1, temperature=0.0)
+    for g, p, n in zip(got, prompts, lens):
+        want, _, _ = gen.generate(
+            input_ids=np.asarray(tok.tokenize(p))[None], num_tokens=n,
+            prefill_segment_len=64)
+        np.testing.assert_array_equal(g, want[0].cpu().numpy())
