@@ -108,6 +108,24 @@ for an H100: the kernels target sm_90a). It
      kernel 5's split + combine 3 times a decode step, teacher forcing
      within phase 8's yardstick, and kernel 5 with device offsets beside
      an int offset;
+ 18. (after phase 16, while evo-1-8k-base is on the card) generates
+     with n-gram speculative decoding (`generate_speculative`, g = 8, 128
+     new tokens from a repetitive and a random 512-nt prompt) beside the
+     port's greedy `generate` on the same prompts, in turns: tokens/s,
+     acceptance, tokens a device call, the launch counts of the run's own
+     schedule of calls, the log-probs against one forward over prompt +
+     generation (phase 5's yardstick, argmax agreement >= 0.75), the ms
+     and device time of one verify pass beside a decode step; kernels 4,
+     5 and 8 at the verify pass's shapes (4 and 9 query rows at offsets
+     512 and 8,000, 9 rows of a 4096 x 12288 int4 weight) against their
+     plain versions, timed beside their bounds and the library calls;
+     that the native FASTA scanner builds; and after phase 17 the same
+     under int4 weights and the int8 KV cache at g = 3 and 8, 32 tokens
+     (kernel 5's split and mainloop, kernel 8's two designs). For each
+     model, one run at g = 8 whose drafter proposes the greedy
+     continuation made wrong at set places (full, partial and no
+     acceptance; replays of 3 positions and more) is held to the same
+     checks and to the branches of its schedule;
  14. (after phase 6) the same with evo-1-131k-base: 12,000 nt in one pass
      and in segments of 4,096, then 131,072 nt in segments of 8,192, with
      the launch counts worked out from the segment bounds (a ragged first
@@ -121,6 +139,8 @@ limit.
 """
 
 import collections
+import contextlib
+import dataclasses
 import json
 import os
 import shutil
@@ -143,7 +163,13 @@ def check(cond, what):
         raise AssertionError(what)
 
 
+T0 = time.time()
+
+
 def log(*a):
+    """print, with the seconds since the start on each phase's heading."""
+    if a and isinstance(a[0], str) and a[0].startswith('== '):
+        a = (*a, f'[{time.time() - T0:.1f} s]')
     print(*a, flush=True)
 
 
@@ -1506,6 +1532,342 @@ def main():
     server16.run()
     del server16, kb16, vb16, q16
 
+    # -- 18. n-gram speculative decoding, evo-1-8k-base at full width ------
+    # `generate_speculative` at B=1, g = 8, 128 new tokens from a 512-nt
+    # prompt, a tandem repeat of a 64-nt unit and a random one, beside the
+    # port's greedy `generate` on the same prompt (in turns: greedy, spec,
+    # spec, greedy over the two prompts). Every engine call is recorded by
+    # its length, so the launch counts follow from the run's own schedule:
+    # 65 RMSNorms a call, kernel 3 at the fresh prefill, kernel 4 at every
+    # resumed call (verify passes and replays), FIR + gate at every call
+    # of 3 positions or more. The log-probs against one forward over
+    # prompt + generation (teacher forcing), within phase 5's yardstick.
+    from evo_tpu_torch import generate_speculative, runtime
+    from evo_tpu_torch.tools.spec_agreement import OracleDrafter
+    from evo_tpu_torch.io import fasta as fasta_mod
+    from evo_tpu_torch.io import fastio
+    log(f'== 18. speculative decoding, evo-1-8k-base ({smi}); '
+        f'{runtime.device_memory_report()}')
+    check('GiB' in runtime.device_memory_report(), 'device memory report')
+    rng18 = np.random.default_rng(18)
+    unit18 = ''.join(rng18.choice(list('ACGT'), 64))
+    prompts18 = {'repetitive': unit18 * 8,
+                 'non-repetitive': ''.join(rng18.choice(list('ACGT'), 512))}
+
+    class CallLog:
+        """The engine facade with each call's length recorded."""
+
+        def __init__(self, model):
+            self.model, self.lengths = model, []
+
+        def initialize_inference_params(self, b, t):
+            return self.model.initialize_inference_params(b, t)
+
+        def __call__(self, ids, **kw):
+            self.lengths.append(np.shape(ids)[-1])
+            return self.model(ids, **kw)
+
+    def spec_run(model, prompt, n, gamma, oracle=None):
+        """(tokens, log-probs, stats, seconds, launches, call lengths).
+        With an `OracleDrafter`, its proposals replace the n-gram
+        index's, and its own launches and seconds are left out of the
+        run's."""
+        calls = CallLog(model)
+        with (oracle.installed() if oracle is not None
+              else contextlib.nullcontext()):
+            torch.cuda.synchronize()
+            _build.LAUNCHES.clear()
+            t = time.time()
+            toks, logps, stats = generate_speculative(
+                calls, tok, prompt=prompt, num_tokens=n, gamma=gamma)
+            torch.cuda.synchronize()
+            secs = time.time() - t
+        counts = collections.Counter(_build.LAUNCHES)
+        if oracle is not None:
+            secs -= oracle.seconds
+            counts.subtract(oracle.launches)
+        return (toks, logps, stats, secs, {k: v for k, v in counts.items()
+                                           if v}, calls.lengths)
+
+    def check_schedule_ran(lengths, gamma, stats, what):
+        """The branches an oracle run must take: a cycle accepted in
+        full (a verify pass straight after a verify pass), a replay after
+        a partial acceptance (2 positions or more) and one of 3 or more
+        (kernel 2 on a replay)."""
+        verify = [i for i, L in enumerate(lengths) if i and L == gamma + 1]
+        replays = [L for i, L in enumerate(lengths) if i and L <= gamma]
+        full = sum(i + 1 in verify for i in verify) + (
+            lengths[-1] == gamma + 1)
+        check(stats.accepted > 0 and full > 0 and max(replays) >= 3,
+              f'{what}: the oracle schedule did not run its branches '
+              f'(lengths {lengths})')
+        return full, collections.Counter(replays)
+
+    def spec_launches(lengths, quantized=False, int4=False):
+        """The launches a run of calls of these lengths makes."""
+        n_calls = len(lengths)
+        want = collections.Counter({
+            'rmsnorm': 65 * n_calls, 'flash_attention': 3,
+            'fir_gate': 29 * sum(L >= 3 for L in lengths)})
+        if quantized:
+            want['flash_attention_buffer_q8'] = 3 * (n_calls - 1)
+            want['combine_partials'] = 3 * sum(
+                L <= attention_buffer_mod.SPLIT_MAX_ROWS for L in lengths[1:])
+        else:
+            want['flash_attention_buffer'] = 3 * (n_calls - 1)
+        if int4:
+            want['int4_matmul'] = 160 * sum(L <= 128 for L in lengths)
+        return {k: v for k, v in want.items() if v}
+
+    def spec_teacher_forced(model, prompt, toks, logps):
+        """(mean and max |log-prob - forward's|, the one-rounding
+        yardstick's mean, greedy argmax agreement) for one run."""
+        P = len(prompt)
+        full = torch.as_tensor(np.concatenate([tok.tokenize(prompt), toks]),
+                               device=dev).long()[None]
+        nxt = full[0, P:]
+        ref = torch.log_softmax(model(full)[0][0, P - 1:-1].float(), -1)
+        nud = torch.log_softmax(nudged_forward(model, full)[0, P - 1:-1]
+                                .float(), -1)
+        lp_ref = ref.gather(-1, nxt[:, None])[:, 0]
+        d = (torch.as_tensor(logps, device=dev) - lp_ref).abs()
+        f = (nud.gather(-1, nxt[:, None])[:, 0] - lp_ref).abs()
+        return (float(d.mean()), float(d.max()), float(f.mean()),
+                float((ref.argmax(-1) == nxt).float().mean()))
+
+    tok = evo.tokenizer
+    n18, g18 = 128, 8
+    spec_run(evo.model, prompts18['non-repetitive'][:200], 12, g18)  # warm
+    generate([prompts18['non-repetitive'][:200]], evo.model, tok,
+             n_tokens=4, verbose=0)
+    spec18 = {}
+    greedy_s = {}
+
+    def greedy_run(prompt):
+        torch.cuda.synchronize()
+        t = time.time()
+        seqs_, _ = generate([prompt], evo.model, tok, n_tokens=n18,
+                            verbose=0)
+        return seqs_[0], time.time() - t
+
+    for label, spec_first in (('repetitive', False),
+                              ('non-repetitive', True)):
+        prompt = prompts18[label]
+        if spec_first:
+            runs = spec_run(evo.model, prompt, n18, g18)
+        gseq, greedy_s[label] = greedy_run(prompt)
+        if not spec_first:
+            runs = spec_run(evo.model, prompt, n18, g18)
+        toks, logps, stats, secs, counts, lengths = runs
+        launches[f'speculative_8k_{label}'] = counts
+        want18 = spec_launches(lengths)
+        check(counts == want18, f'speculative launches {counts}, expected '
+              f'{want18}')
+        check(len(toks) == n18 and len(logps) == n18, 'speculative length')
+        d18, dmax18, f18, agree18 = spec_teacher_forced(evo.model, prompt,
+                                                        toks, logps)
+        spec18[label] = dict(
+            seconds=secs, tokens_per_s=n18 / secs,
+            greedy_seconds=greedy_s[label],
+            greedy_tokens_per_s=n18 / greedy_s[label],
+            acceptance=stats.acceptance_rate,
+            tokens_per_call=stats.tokens_per_call,
+            stats=dataclasses.asdict(stats), calls_of_3_or_more=sum(
+                L >= 3 for L in lengths),
+            same_tokens_as_greedy=float(np.mean(
+                np.asarray(list(gseq)) ==
+                np.asarray(list(tok.detokenize(toks.tolist()))))),
+            teacher_forcing=dict(mean_abs=d18, max_abs=dmax18,
+                                 yardstick=f18, argmax_agreement=agree18))
+        log(f'   {label} 512 nt + {n18}, g = {g18}: speculative {secs:.3f} s '
+            f'({n18 / secs:.1f} tokens/s), greedy generate '
+            f'{greedy_s[label]:.3f} s ({n18 / greedy_s[label]:.1f} tokens/s); '
+            f'acceptance {stats.acceptance_rate:.3f}, '
+            f'{stats.tokens_per_call:.2f} tokens a device call, {stats}; '
+            f'launches {counts}; teacher forcing: mean abs log-prob diff '
+            f'{d18:.5f} (max {dmax18:.4f}), one rounding step {f18:.5f} '
+            f'(limit 1x), argmax agreement {agree18:.4f} (limit 0.75)')
+        check(d18 <= f18 and agree18 >= 0.75,
+              f'speculative log-probs disagree with teacher forcing '
+              f'({label})')
+
+    def oracle_run(model, prompt, n, gamma, schedule, what, **kw):
+        """A run with `OracleDrafter` (the greedy continuation, made wrong
+        at set places), held to the launch counts of its schedule, to its
+        branches and to teacher forcing."""
+        oracle = OracleDrafter(model, tok, len(prompt), schedule)
+        toks, logps, stats, secs, counts, lengths = spec_run(
+            model, prompt, n, gamma, oracle)
+        want = spec_launches(lengths, **kw)
+        check(counts == want, f'{what} launches {counts}, expected {want}')
+        check(len(toks) == n and len(logps) == n, f'{what} length')
+        full, replays = check_schedule_ran(lengths, gamma, stats, what)
+        d, dmax, f, agree = spec_teacher_forced(model, prompt, toks, logps)
+        res = dict(
+            seconds=secs, tokens_per_s=n / secs, oracle_seconds=oracle.seconds,
+            oracle_anchors=oracle.anchors, schedule=schedule,
+            acceptance=stats.acceptance_rate,
+            tokens_per_call=stats.tokens_per_call,
+            stats=dataclasses.asdict(stats), full_cycles=full,
+            replays_by_length=dict(sorted(replays.items())),
+            teacher_forcing=dict(mean_abs=d, max_abs=dmax, yardstick=f,
+                                 argmax_agreement=agree))
+        log(f'   {what}, oracle drafter (schedule {schedule}), {n} tokens: '
+            f'{secs:.3f} s without the drafter\'s {oracle.seconds:.3f} s '
+            f'({n / secs:.1f} tokens/s; {oracle.anchors} greedy '
+            f'continuations); acceptance {stats.acceptance_rate:.3f}, '
+            f'{stats.tokens_per_call:.2f} tokens a device call, {stats}; '
+            f'{full} cycles accepted in full, replays by length '
+            f'{res["replays_by_length"]}; launches {counts}; teacher '
+            f'forcing: mean abs log-prob diff {d:.5f} (max {dmax:.4f}), one '
+            f'rounding step {f:.5f} (limit 1x), argmax agreement '
+            f'{agree:.4f} (limit 0.75)')
+        check(d <= f and agree >= 0.75,
+              f'{what}: oracle-drafted log-probs disagree with teacher '
+              f'forcing')
+        return res, counts
+
+    # the branches that acceptance 0 never takes: a cycle accepted in
+    # full keeps the verified cache, a partial one restores the saved
+    # state and replays 3-6 positions (kernel 2 on a replay)
+    spec18['oracle'], launches['speculative_8k_oracle'] = oracle_run(
+        evo.model, prompts18['non-repetitive'], 64, g18,
+        [8, 8, 5, 8, 2, 0, 8, 3], f'bf16, g = {g18}')
+
+    # one verify pass (9 positions at offset 512) and one decode step,
+    # restoring the cache between calls; and a verify pass in the
+    # profiler, for its device time
+    ids18 = np.asarray(tok.tokenize(prompts18['repetitive']))[None]
+    cache18 = evo.model.initialize_inference_params(1, 512 + n18 + g18 + 2)
+    _, cache18 = evo.model(ids18, inference_params_dict=cache18,
+                           donate_cache=True, resume=False)
+    saved18 = (cache18['offset'], list(cache18['layers']))
+    x18 = ids18[:, :g18 + 1]
+
+    def restored():
+        cache18['offset'], cache18['layers'] = saved18[0], list(saved18[1])
+        return cache18
+
+    verify_ms = time_ms(torch, lambda: evo.model(
+        x18, inference_params_dict=restored(), donate_cache=False,
+        resume=True), reps=10, warmup=2)
+    tok18 = torch.as_tensor(x18[:, 0], device=dev).long()
+    step_ms = time_ms(torch, lambda: model_lib.decode_step(
+        evo.model.module, tok18, restored()), reps=10, warmup=2)
+    from torch.profiler import ProfilerActivity, profile
+    restored()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof18:
+        t = time.time()
+        evo.model(x18, inference_params_dict=cache18, donate_cache=False,
+                  resume=True)
+        torch.cuda.synchronize()
+        verify_wall = 1e3 * (time.time() - t)
+    verify_busy = sum(e.self_device_time_total for e in prof18.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not getattr(e, 'is_user_annotation', False)) / 1e3
+    del cache18, saved18
+    log(f'   one verify pass (9 positions at offset 512): {verify_ms:.2f} ms '
+        f'(CUDA events; device busy {verify_busy:.2f} ms of '
+        f'{verify_wall:.2f} ms in the profiler), one decode step '
+        f'{step_ms:.2f} ms: at full acceptance a verify pass would emit '
+        f'{(g18 + 1) / verify_ms * 1e3:.1f} tokens/s, a decode step '
+        f'{1e3 / step_ms:.1f}')
+    spec18['verify_pass'] = dict(
+        ms=verify_ms, device_busy_ms=verify_busy,
+        profiled_wall_ms=verify_wall, decode_step_ms=step_ms,
+        tokens_per_s_at_full_acceptance=(g18 + 1) / verify_ms * 1e3)
+
+    # Kernels 4, 5 and 8 at the shapes a verify pass gives them, against
+    # their plain versions (limits as in phase 2) and timed by graph
+    # replay over buffers larger together than L2, beside the bound and
+    # the library call.
+    def spec_buffers(Lq, offset):
+        """Sets of buffers (q, bf16 k, v, int8 k, v, scales) of length
+        offset + 16, as many as 110 MB of live keys and values take."""
+        T = offset + 16
+        n = int(110e6 // (2 * (offset + Lq) * H * Dh * 2)) + 1
+        return [buffers(1, Lq, T, offset) for _ in range(n)]
+
+    def graph_or_events_ms(fns):
+        """time_graph_ms, or CUDA events around the first call where the
+        library's kernels refuse the graph capture."""
+        try:
+            return time_graph_ms(torch, fns)
+        except RuntimeError as exc:
+            log(f'   (no graph capture: {str(exc)[:120]}; CUDA events)')
+            torch.cuda.synchronize()
+            return time_ms(torch, fns[0])
+
+    spec_k4, spec_k5 = {}, {}
+    err18 = {'flash_attention_buffer': 0.0, 'flash_attention_buffer_q8': 0.0}
+    for Lq in (4, 9):
+        for offset in (512, 8000):
+            sets = spec_buffers(Lq, offset)
+            q, _off, bf, i8, sc = sets[0]
+            err18['flash_attention_buffer'] = max(
+                err18['flash_attention_buffer'], scaled_err(
+                    flash_attention_buffer(q, *bf, offset),
+                    attention_buffer_plain(q, *bf, offset)))
+            err18['flash_attention_buffer_q8'] = max(
+                err18['flash_attention_buffer_q8'], scaled_err(
+                    flash_attention_buffer(q, *i8, offset, *sc),
+                    attention_buffer_plain(q, *i8, offset, *sc)))
+            flops = attention_flops(H, Dh, Lq, [offset])
+            qo = 2 * Lq * H * Dh * 2
+            key = f'Lq={Lq} offset={offset}'
+            if Lq == 9:
+                spec_k4[key] = dict(
+                    ms=time_graph_ms(torch, [
+                        (lambda s=s: flash_attention_buffer(
+                            s[0], *s[2], offset)) for s in sets]),
+                    plain_ms=time_ms(torch, lambda: attention_buffer_plain(
+                        q, *bf, offset), reps=3, warmup=1),
+                    bound_ms=1e3 * max(
+                        (qo + 2 * (offset + Lq) * H * Dh * 2)
+                        / peak['bytes_s'], flops / peak['bf16']),
+                    library_ms=graph_or_events_ms([
+                        (lambda s=s: sdpa_over_live_prefix(
+                            s[0], *s[2], offset)) for s in sets]))
+            spec_k5[key] = dict(
+                ms=time_graph_ms(torch, [
+                    (lambda s=s: flash_attention_buffer(
+                        s[0], *s[3], offset, *s[4])) for s in sets]),
+                plain_ms=time_ms(torch, lambda: attention_buffer_plain(
+                    q, *i8, offset, *sc), reps=3, warmup=1),
+                bound_ms=decode8_bound_ms(offset, Lq),
+                design=('split + combine'
+                        if Lq <= attention_buffer_mod.SPLIT_MAX_ROWS
+                        else 'mainloop'))
+            del sets, q, bf, i8, sc
+    int4_err18 = 0.0
+    for M in (4, 9):
+        for K, Kp, N in layer_calls:
+            x, packed, sc = int4_case(M, Kp, N)
+            x = x[:, :K].contiguous()
+            int4_err18 = max(int4_err18, scaled_err(
+                int4_matmul(x, packed, sc), int4_matmul_plain(x, packed, sc)))
+    spec_k8 = {9: int4_times(9, 4096, 4096, 12288, plain=True)}
+    log(f'   kernel 4 at a verify pass (graph replay): {spec_k4}; kernel 5: '
+        f'{spec_k5}; kernel 8 at M=9, 4096 x 12288: {spec_k8}; scaled '
+        f'errors against the plain versions: {err18}, kernel 8 '
+        f'{int4_err18:.3e}')
+    check(max(err18.values()) <= 2 ** -5 and int4_err18 <= 1e-4,
+          f'a kernel disagrees at the verify shapes: {err18}, {int4_err18}')
+    kernels['flash_attention_buffer']['speculative'] = spec_k4
+    kernels['flash_attention_buffer_q8']['speculative'] = spec_k5
+    kernels['int4_matmul']['speculative'] = spec_k8
+
+    # the port's native FASTA scanner builds here and reads as the
+    # Python parser does
+    check(fastio.available(), 'the native FASTA scanner did not build')
+    fasta_path = os.path.join(ROOT, 'examples', 'example_seqs.fasta')
+    with open(fasta_path) as f:
+        check(fasta_mod.read_fasta(fasta_path) == tuple(
+            map(list, zip(*fasta_mod.iter_fasta(f)))), 'fastio disagrees')
+    log(f'   fastio: {fastio.library_path().name} built and read '
+        f'{fasta_path} as the Python parser does')
+
     del evo
     torch.cuda.empty_cache()
 
@@ -1914,6 +2276,60 @@ def main():
             f'{k} {v[0]:.4f} ms (bound {v[1]:.4f})' for k, v in k5.items()))
     serving_mod._decode_chunk = real_chunk
     del server17, results17, st17, q17
+
+    # -- 18 (continued). speculative decoding under int4 weights and the
+    # int8 KV cache: the model of phase 8, 32 tokens from the repetitive
+    # prompt at g = 3 (verify passes of 4 rows: kernel 5's split + combine
+    # and kernel 8's streaming design) and g = 8 (9 rows: kernel 5's
+    # mainloop and kernel 8's mma.sync design), launch counts from the
+    # run's schedule, teacher forcing within phase 8's yardstick.
+    spec_int4 = {}
+    spec_run(evo4.model, prompts18['non-repetitive'][:200], 12, 8)  # warm
+    for gamma in (3, 8):
+        toks, logps, stats, secs, counts, lengths = spec_run(
+            evo4.model, prompts18['repetitive'], 32, gamma)
+        launches[f'speculative_int4_g{gamma}'] = counts
+        want18 = spec_launches(lengths, quantized=True, int4=True)
+        check(counts == want18, f'int4 speculative launches {counts}, '
+              f'expected {want18}')
+        # g = 3 verifies through the split, g = 8 through the mainloop
+        check(counts['combine_partials'] > 0 if gamma == 3 else
+              counts['flash_attention_buffer_q8']
+              > counts.get('combine_partials', 0), f'lengths {lengths}')
+        d18, dmax18, f18, agree18 = spec_teacher_forced(evo4.model,
+                                                        prompts18['repetitive'],
+                                                        toks, logps)
+        spec_int4[gamma] = dict(
+            seconds=secs, tokens_per_s=32 / secs,
+            acceptance=stats.acceptance_rate,
+            tokens_per_call=stats.tokens_per_call,
+            stats=dataclasses.asdict(stats),
+            teacher_forcing=dict(mean_abs=d18, max_abs=dmax18,
+                                 yardstick=f18, argmax_agreement=agree18))
+        log(f'== 18. speculative, evo-1-131k-base int4 + int8 KV, g = '
+            f'{gamma}, 512 nt + 32: {secs:.3f} s ({32 / secs:.1f} tokens/s); '
+            f'acceptance {stats.acceptance_rate:.3f}, '
+            f'{stats.tokens_per_call:.2f} tokens a device call, {stats}; '
+            f'launches {counts}; teacher forcing: mean abs log-prob diff '
+            f'{d18:.5f} (max {dmax18:.4f}), one rounding step {f18:.5f} '
+            f'(limit 1x), argmax agreement {agree18:.4f} (limit 0.75)')
+        check(d18 <= f18 and agree18 >= 0.75,
+              f'int4 speculative log-probs disagree (g = {gamma})')
+    # one run with the oracle drafter at g = 8: full, partial and no
+    # acceptance; replays of 1 and 3 positions (kernel 5's split, kernel
+    # 8's streaming design) and of 6 and 7 (kernel 5's mainloop, kernel
+    # 8's mma.sync design)
+    res, counts = oracle_run(
+        evo4.model, prompts18['non-repetitive'], 32, 8, [5, 8, 6, 2, 0, 8],
+        'int4 + int8 KV, g = 8', quantized=True, int4=True)
+    check(max(res['replays_by_length']) > attention_buffer_mod.SPLIT_MAX_ROWS
+          and min(res['replays_by_length'])
+          <= attention_buffer_mod.SPLIT_MAX_ROWS,
+          f'the replays did not reach both designs of kernel 5: {res}')
+    spec_int4['oracle'] = res
+    launches['speculative_int4_oracle'] = counts
+    spec18['int4_int8kv'] = spec_int4
+    log(f'   phase 18 summary: {json.dumps(spec18)}')
 
     # -- 15. decode steps at long offsets, bf16 and int8 KV caches ----------
     # One evo-1-131k-base decode step at B=1 over a full 131,072-slot cache

@@ -2,7 +2,8 @@
 
 The public calls of the JAX package, with the same contracts: `Evo`,
 `score_sequences`, `positional_entropies`, their `_segmented` twins for
-long sequences, and `generate`. Entry points run on the GPU ("cuda") unless
+long sequences, `generate`, `generate_speculative` (n-gram speculative
+decoding, `speculative.py`) and `__version__`. Entry points run on the GPU ("cuda") unless
 the caller asks for the CPU. RMSNorm, the Hyena FIR + gate, causal flash
 attention, attention over the KV buffer (bf16 and int8) and the weight-only
 int4 matmul run as CUDA kernels written for sm_90a (`csrc/`); on a CPU
@@ -11,7 +12,9 @@ from a checkpoint on disk (`checkpoint.py`), optionally quantized
 (`quant.py`). `GenerationServer` and `serve_requests` serve ragged,
 staggered generation requests by continuous batching (`serving.py`);
 `python -m evo_tpu_torch.cli.score`, `...cli.generate` and `...cli.serve`
-are the command lines.
+are the command lines. `runtime.py` holds the debug and tracing controls,
+`io/` the FASTA reader (with its native scanner) and the prefetch thread
+of `score_stream`.
 
 This package imports neither JAX nor `evo_tpu`.
 """
@@ -24,3 +27,5 @@ from evo_tpu_torch.scoring import (positional_entropies,  # noqa: F401
                                    score_sequences_segmented)
 from evo_tpu_torch.serving import (GenerationServer,  # noqa: F401
                                    serve_requests)
+from evo_tpu_torch.speculative import generate_speculative  # noqa: F401
+from evo_tpu_torch.version import version as __version__  # noqa: F401

@@ -6,7 +6,9 @@
         --model-name evo-1-8k-base --checkpoint-path /path/to/snapshot
 
 `--device` is honoured and defaults to `cuda`; `--tiny --device cpu` runs a
-tiny model of the same schema on the CPU.
+tiny model of the same schema on the CPU. `--speculative G` generates each
+sample by n-gram speculative decoding (`speculative.py`) with G proposed
+tokens a verify pass, seed `--seed + i` for sample i.
 """
 
 from __future__ import annotations
@@ -15,8 +17,11 @@ import argparse
 from typing import List, Optional
 
 from evo_tpu_torch.cli.score import build_overrides, refuse_parallelism
+import numpy as np
+
 from evo_tpu_torch.generation import generate
 from evo_tpu_torch.models import Evo
+from evo_tpu_torch.speculative import generate_speculative
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -55,8 +60,7 @@ def build_parser() -> argparse.ArgumentParser:
                              'tried (read only with --speculative)')
     parser.add_argument('--speculative', type=int, default=0, metavar='G',
                         help='n-gram speculative decoding with G proposed '
-                             'tokens per verify pass (not ported yet); '
-                             '0 = off')
+                             'tokens per verify pass; 0 = off')
     parser.add_argument('--quant', default='none',
                         choices=['none', 'int8', 'int8x8', 'int4'],
                         help='opt-in serving precision: int8 = weight-only; '
@@ -74,14 +78,25 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[List[str]] = None):
     args = build_parser().parse_args(argv)
     refuse_parallelism(args)
-    if args.speculative:
-        raise NotImplementedError(
-            '--speculative (n-gram speculative decoding) is not ported yet '
-            '(ROADMAP.md, modules queue: serving and speculative decoding)')
     overrides = build_overrides(args)
     evo = Evo(args.model_name, args.device,
               checkpoint_path=args.checkpoint_path,
               random_init=args.random_init, config_overrides=overrides)
+    if args.speculative:
+        seqs, scores = [], []
+        for i in range(args.n_samples):
+            toks, logps, stats = generate_speculative(
+                evo.model, evo.tokenizer, prompt=args.prompt,
+                num_tokens=args.n_tokens, gamma=args.speculative,
+                ngram=args.ngram, temperature=args.temperature,
+                top_k=args.top_k, top_p=args.top_p, seed=args.seed + i)
+            seqs.append(evo.tokenizer.detokenize(toks.tolist()))
+            scores.append(float(np.mean(logps)))
+            if args.verbose:
+                print(f'Output: "{seqs[-1]}", Score: {scores[-1]:.4f} '
+                      f'(acceptance {stats.acceptance_rate:.2f}, '
+                      f'{stats.tokens_per_call:.2f} tokens/device-call)')
+        return seqs, scores
     prompts = [args.prompt] * args.n_samples
     return generate(
         prompts, evo.model, evo.tokenizer,

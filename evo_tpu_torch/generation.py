@@ -28,6 +28,7 @@ import torch
 from evo_tpu_torch import model as model_lib
 from evo_tpu_torch.layers.hyena import HyenaState
 from evo_tpu_torch.ops.sampling import sample
+from evo_tpu_torch.runtime import device_memory_report
 from evo_tpu_torch.scoring import (_aligned_cache_len, _cache_align,
                                    logits_to_logprobs, prepare_batch)
 from evo_tpu_torch.tokenizer import CharLevelTokenizer
@@ -110,7 +111,8 @@ class Generator:
         `cached_generation`, `skip_special_tokens` and `device` are accepted
         and unused (decode is always cached; the model's device is used).
         `rng`, a `torch.Generator` on the model's device, replaces the one
-        made from `seed`. `stop_at_eos` only prints `Stopping generation at
+        made from `seed`. `verbose` prints the device memory before and
+        after generation (`runtime.device_memory_report`). `stop_at_eos` only prints `Stopping generation at
         EOS` where two EOS tokens follow each other in the first row; the
         generation is never cut. `print_generation` prints the tokens under
         `verbose` at B == 1.
@@ -187,6 +189,10 @@ class Generator:
 
         if rng is None:
             rng = torch.Generator(device=device).manual_seed(seed)
+        if verbose:
+            # the reference prints device memory under verbose
+            print(f'Memory before generation: {device_memory_report()}',
+                  flush=True)
         module = self.model.module
         logits, cache = model_lib.prefill(module, prompt, cache,
                                           resume=resume)
@@ -202,6 +208,9 @@ class Generator:
                 last, cache = model_lib.decode_step(module, tok, cache)
         generation = torch.stack(toks[num_forced:], dim=1)
         scores = torch.stack(steps[num_forced:], dim=1)
+        if verbose:
+            print(f'Memory after generation: {device_memory_report()}',
+                  flush=True)
         if stop_at_eos or (print_generation and verbose and B == 1):
             gen = generation[0].cpu().numpy()
             eos = self.tokenizer.eos_id

@@ -1,11 +1,12 @@
 """FASTA reading and writing (the port's own copy of
-`evo_tpu/io/fasta.py`, without that module's optional native scanner):
-a dependency-free parser with the observable behaviour of BioPython's
-`SeqIO.parse`, and a writer.
+`evo_tpu/io/fasta.py`): a dependency-free parser with the observable
+behaviour of BioPython's `SeqIO.parse`, the native scanner of
+`io/fastio.py` under `read_fasta` where it builds, and a writer.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Iterable, Iterator, List, Tuple
 
 
@@ -43,7 +44,18 @@ def iter_fasta(path_or_handle) -> Iterator[Tuple[str, str]]:
 
 
 def read_fasta(path) -> Tuple[List[str], List[str]]:
-    """Return (names, seqs) lists, in file order."""
+    """Return (names, seqs) lists, in file order.
+
+    A path is read by the native scanner (`io/fastio.py`, one C++ pass
+    over the file) when its library is available, as in the JAX package;
+    a handle, or a buffer the scanner refuses, takes the Python parser."""
+    if not hasattr(path, 'read'):
+        from evo_tpu_torch.io import fastio
+        if fastio.available():
+            try:
+                return fastio.read_fasta_fast(os.fspath(path))
+            except RuntimeError:        # a record count it cannot size
+                pass
     names, seqs = [], []
     for n, s in iter_fasta(path):
         names.append(n)

@@ -8,12 +8,16 @@ Modal parametrization, as in the JAX package:
 
 Poles and residues are float32 (D, S, 2) real/imag pairs. The long conv is
 plain tensor code (einsums on float32); every float32 product here needs
-full float32, so `torch.backends.cuda.matmul.allow_tf32` must stay False
-(its default), as the JAX package runs these at `Precision.HIGH`.
+full float32, as the JAX package pins `Precision.HIGHEST` inside its conv.
+So `conv_matmul_chunked` runs at the 'highest' float32 matmul precision
+whatever the global setting (`runtime.configure(highest_matmul_precision=
+False)` lowers it for every other product), and restores that setting.
 """
 
 from __future__ import annotations
 
+import functools
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -67,6 +71,38 @@ def _toeplitz_from_taps(h_local: torch.Tensor, C: int,
     return toep
 
 
+_PIN_LOCK = threading.Lock()
+_PIN = {'depth': 0, 'saved': None}
+
+
+def full_float32(fn):
+    """Run fn at the 'highest' float32 matmul precision (no TF32 on the
+    card, no reduced precision in oneDNN on the CPU), and restore the
+    caller's setting after it.
+
+    The setting is process-wide. Calls that overlap, from any threads,
+    share one pin: the first to enter saves the caller's setting and the
+    last to leave restores it, so no conv restores it under another. A
+    thread that sets the precision itself while a conv runs is not held
+    off: it can still put that conv under TF32."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with _PIN_LOCK:
+            if _PIN['depth'] == 0:
+                _PIN['saved'] = torch.get_float32_matmul_precision()
+                torch.set_float32_matmul_precision('highest')
+            _PIN['depth'] += 1
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            with _PIN_LOCK:
+                _PIN['depth'] -= 1
+                if _PIN['depth'] == 0:
+                    torch.set_float32_matmul_precision(_PIN['saved'])
+    return wrapped
+
+
+@full_float32
 def conv_matmul_chunked(u: torch.Tensor, poles: torch.Tensor,
                         residues: torch.Tensor, chunk: int = 128,
                         state: Optional[torch.Tensor] = None,

@@ -93,18 +93,21 @@ def score_stream(seq_batches: Iterable[Sequence[str]], model,
                  progress: Optional[Callable[[int], None]] = None
                  ) -> List[float]:
     """`score_sequences` over an iterable of batches, with the same
-    results as scoring them one by one. The log-likelihoods of batch i - 1
-    are read back only after batch i has been handed to the device (CUDA
-    launches return before the work is done), so the host's tokenizing
-    and reducing overlap the device. `progress`, if given, is called with
-    the running count of scored sequences.
+    results as scoring them one by one, and the host's work overlapped
+    with the device's: a worker thread tokenizes and pads
+    `prefetch_depth` batches ahead (`io/prefetch.py`; a depth below 1
+    runs in line), and the log-likelihoods of batch i - 1 are read back
+    only after batch i has been handed to the device (CUDA launches
+    return before the work is done). `progress`, if given, is called with
+    the running count of scored sequences."""
+    from evo_tpu_torch.io.prefetch import prefetch_map
 
-    `prefetch_depth` is the JAX package's parameter: there a thread
-    tokenizes that many batches ahead, and a depth below 1 runs in line.
-    Here every depth tokenizes in line (the prefetch thread is not ported),
-    with the same results."""
     reduce_func = _reduce(reduce_method)
     scores: List[float] = []
+
+    def prep(batch):
+        return prepare_batch(batch, tokenizer, prepend_bos=prepend_bos,
+                             pad_to_bucket=pad_to_bucket)
 
     def finalize(pending):
         logprobs, seq_lengths = pending
@@ -115,10 +118,8 @@ def score_stream(seq_batches: Iterable[Sequence[str]], model,
             progress(len(scores))
 
     pending = None
-    for batch in seq_batches:
-        input_ids, seq_lengths = prepare_batch(
-            batch, tokenizer, prepend_bos=prepend_bos,
-            pad_to_bucket=pad_to_bucket)
+    for input_ids, seq_lengths in prefetch_map(prep, seq_batches,
+                                               depth=prefetch_depth):
         logits, _ = model(input_ids)
         logprobs = logits_to_logprobs(logits, input_ids)
         if pending is not None:

@@ -102,11 +102,42 @@ def test_generate_cli_matches_jax_cli(monkeypatch, jax_weights, capsys):
     assert lines(out) == lines(want_out) and len(lines(out)) == 2
 
 
+@pytest.mark.parametrize('temperature,top_k', [('0', '1'), ('1.0', '4')],
+                         ids=['greedy', 'sampled'])
+def test_speculative_cli_matches_jax_cli(monkeypatch, jax_weights, capsys,
+                                         temperature, top_k):
+    """`--speculative 4 --ngram 3` through both scripts: one
+    `generate_speculative` call a sample with seed `--seed + i`, the same
+    sequences, scores within 1e-5 and the same verbose lines (acceptance
+    and tokens a device call); a sampled run draws from
+    np.random.default_rng in both packages."""
+    args = ['--prompt', 'ACGTACGTACGT', '--n-samples', '2', '--n-tokens',
+            '10', '--temperature', temperature, '--top-k', top_k,
+            '--seed', '3', '--speculative', '4', '--ngram', '3']
+    seqs, scores = generate_cli.main(TINY + args)
+    out = capsys.readouterr().out
+    monkeypatch.setattr(sys, 'argv', ['generate', '--tiny'] + args)
+    want_seqs, want = jax_generate_cli.main()
+    want_out = capsys.readouterr().out
+    assert seqs == want_seqs and all(len(s) == 10 for s in seqs)
+    np.testing.assert_allclose(scores, want, rtol=1e-5)
+
+    def lines(text):   # 'Output: "...", Score: x (acceptance a, t ...)'
+        got = [re.match(r'Output: "(.*)", Score: (\S+) (\(.*\))$', ln)
+               for ln in text.splitlines() if ln.startswith('Output: ')]
+        return [(m[1], float(m[2]), m[3]) for m in got]
+
+    ours, theirs = lines(out), lines(want_out)
+    assert len(ours) == 2
+    assert [(a, c) for a, _, c in ours] == [(a, c) for a, _, c in theirs]
+    np.testing.assert_allclose([b for _, b, _ in ours],
+                               [b for _, b, _ in theirs], atol=1e-4)
+
+
 @pytest.mark.parametrize('cli,flag', [
     (score_cli, ['--dp', '2']), (score_cli, ['--tp', '2']),
     (score_cli, ['--cp', '2']), (generate_cli, ['--dp', '2']),
-    (generate_cli, ['--tp', '2']), (generate_cli, ['--cp', '2']),
-    (generate_cli, ['--speculative', '4'])],
+    (generate_cli, ['--tp', '2']), (generate_cli, ['--cp', '2'])],
     ids=lambda v: v[0] if isinstance(v, list) else v.__name__.rsplit('.')[-1])
 def test_unported_flags_raise(tmp_path, cli, flag):
     base = (['--input-fasta', FASTA, '--output-tsv', str(tmp_path / 'x')]

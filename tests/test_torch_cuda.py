@@ -909,3 +909,124 @@ def test_greedy_server_on_the_card_matches_the_cpu():
             input_ids=np.asarray(tok.tokenize(p))[None], num_tokens=n,
             prefill_segment_len=64)
         np.testing.assert_array_equal(g, want[0].cpu().numpy())
+
+
+# -- speculative decoding -------------------------------------------------------
+
+@pytest.mark.parametrize('kv_quant', ['none', 'int8'])
+@pytest.mark.parametrize('gamma', [3, 8])
+def test_greedy_speculative_on_the_card(gamma, kv_quant):
+    """Greedy speculative decoding on a small bf16 model on the card, over
+    a cache of unaligned length (T % 4 != 0, so the int8 cache's scale
+    rows are not 16-byte aligned). The drafter proposes the card's own
+    greedy Generator stream, so cycles accept in full and in part. Held
+    against the card's own verify logits: every emitted token, accepted
+    count and log-prob follows from the logits each call returned; each
+    verify pass starts from the offset of what was emitted before it (a
+    restored cache after a partial acceptance); and each call launched
+    the kernels its length gives (kernel 4, or kernel 5's split at
+    <= 4 rows and its mainloop above, at every resumed call)."""
+    import numpy as np
+
+    from evo_tpu_torch import model as model_lib
+    from evo_tpu_torch import speculative as spec
+    from evo_tpu_torch.config import tiny_config
+    from evo_tpu_torch.generation import Generator
+    from evo_tpu_torch.models import EvoModel
+    from evo_tpu_torch.tokenizer import CharLevelTokenizer
+    cfg = tiny_config(hidden_size=256, num_filters=256,
+                      num_attention_heads=2, compute_dtype='bfloat16',
+                      param_dtype='bfloat16', kv_quant=kv_quant)
+    model = EvoModel(cfg, model_lib.random_init(
+        cfg, torch.Generator(device='cuda').manual_seed(0), 'cuda'))
+    tok = CharLevelTokenizer(512)
+    prompt, n = 'ACGTTGCAAGT' * 4, 24                    # P = 44
+    P = len(prompt)
+    stream, _, _ = Generator(model, tok, top_k=1, temperature=0.0).generate(
+        input_ids=np.asarray(tok.tokenize(prompt))[None],
+        num_tokens=n + gamma + 1)
+    stream = stream[0].cpu().numpy()
+    flip = [0]
+
+    def propose(self, g):
+        # the card's greedy stream, wrong at one place every third cycle
+        pos = len(self.tokens) - P
+        props = [int(t) for t in stream[pos:pos + g]]
+        props += [props[-1] if props else 0] * (g - len(props))
+        flip[0] += 1
+        if flip[0] % 3 == 0:
+            props[flip[0] % g] = (props[flip[0] % g] + 1) % 512
+        return np.asarray(props, np.int32)
+
+    calls = []
+
+    class Recorder:
+        def initialize_inference_params(self, b, t):
+            return model.initialize_inference_params(b, t)
+
+        def __call__(self, ids, inference_params_dict=None, **kw):
+            offset = inference_params_dict['offset']
+            before = dict(_build.LAUNCHES)
+            logits, cache = model(ids, inference_params_dict, **kw)
+            torch.cuda.synchronize()
+            launched = {k: v - before.get(k, 0)
+                        for k, v in _build.LAUNCHES.items()
+                        if v != before.get(k, 0)}
+            calls.append((np.asarray(ids), offset, kw, logits.float().cpu(),
+                          launched))
+            return logits, cache
+
+    real = spec.NGramIndex.propose
+    spec.NGramIndex.propose = propose
+    try:
+        toks, logps, stats = spec.generate_speculative(
+            Recorder(), tok, prompt=prompt, num_tokens=n, gamma=gamma)
+    finally:
+        spec.NGramIndex.propose = real
+    T = P + n + gamma + 2
+    assert T % 4 != 0
+    assert stats.device_calls == len(calls)
+    assert 0 < stats.accepted < stats.proposed
+    # replay every decision from the recorded logits
+    ids0, off0, _, lg0, _ = calls[0]
+    out = [int(lg0[0, -1].argmax())]
+    want_lp = [float(torch.log_softmax(lg0[0, -1].double(), -1)[out[0]])]
+    accepted, i = 0, 1
+    while i < len(calls):
+        x, offset, kw, lg, _ = calls[i]
+        assert not kw['donate_cache'] and x.shape == (1, gamma + 1)
+        assert offset == P + len(out) - 1 and x[0, 0] == out[-1]
+        greedy = lg[0].argmax(-1).numpy()
+        a = 0
+        while a < gamma and x[0, a + 1] == greedy[a]:
+            a += 1
+        emitted = [int(t) for t in x[0, 1:a + 1]] + [int(greedy[a])]
+        lsm = torch.log_softmax(lg[0].double(), -1)
+        want_lp += [float(lsm[j, t]) for j, t in enumerate(emitted)]
+        out += emitted
+        accepted += a
+        i += 1
+        if a < gamma:                           # the replay
+            xr, offr, kwr, _, _ = calls[i]
+            assert kwr['donate_cache'] and offr == offset
+            np.testing.assert_array_equal(xr, x[:, :a + 1])
+            i += 1
+    np.testing.assert_array_equal(toks, out[:n])
+    assert accepted == stats.accepted
+    np.testing.assert_allclose(logps, want_lp[:n], rtol=0, atol=1e-4)
+    n_attn = len(cfg.attn_layer_idxs)
+    n_hyena = cfg.num_layers - n_attn
+    for x, offset, _, _, launched in calls:
+        L = x.shape[1]
+        want = {'rmsnorm': 2 * cfg.num_layers + 1}
+        if offset == 0:
+            want['flash_attention'] = n_attn
+        elif kv_quant == 'none':
+            want['flash_attention_buffer'] = n_attn
+        else:
+            want['flash_attention_buffer_q8'] = n_attn
+            if L <= 4:
+                want['combine_partials'] = n_attn
+        if L >= 3:
+            want['fir_gate'] = n_hyena
+        assert launched == want, (L, offset, launched)

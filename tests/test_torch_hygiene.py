@@ -63,7 +63,9 @@ def test_import_leaves_jax_unloaded():
             'evo_tpu_torch.quant, evo_tpu_torch.cli.score, '
             'evo_tpu_torch.cli.generate, evo_tpu_torch.io.fasta, '
             'evo_tpu_torch.ops.hyena_mixer, evo_tpu_torch.ops.modal_prefix, '
-            'evo_tpu_torch.ops.mlp_gate; '
+            'evo_tpu_torch.ops.mlp_gate, evo_tpu_torch.speculative, '
+            'evo_tpu_torch.runtime, evo_tpu_torch.io.fastio, '
+            'evo_tpu_torch.io.prefetch; '
             'assert "jax" not in sys.modules and "evo_tpu" not in '
             'sys.modules, sorted(sys.modules)')
     subprocess.run([sys.executable, '-c', code], cwd=ROOT, check=True,

@@ -169,10 +169,10 @@ def test_forced_prompt_matches_full_prefill(setup):
 
 def test_unported_paths_raise(setup):
     """What the port does not hold yet raises and names its ROADMAP item
-    (meshes, speculative decoding, weights kept in another type than the
-    activations); what it now holds (a filled cache continued, segments,
-    the int8 KV cache, quantized weights, weights from a file) no longer
-    does."""
+    (meshes, weights kept in another type than the activations); what it
+    now holds (a filled cache continued, segments, the int8 KV cache,
+    quantized weights, weights from a file, speculative decoding) no
+    longer does."""
     model, tok, _, _ = setup
     cache = model.initialize_inference_params(1, 32)
     model(np.zeros((1, 4), np.int32), inference_params_dict=cache)
@@ -188,9 +188,11 @@ def test_unported_paths_raise(setup):
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         tiny_config(param_dtype='float32', compute_dtype='bfloat16')
     from evo_tpu_torch.cli import generate as generate_cli
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        generate_cli.main(['--tiny', '--device', 'cpu', '--prompt', 'ACGT',
-                           '--speculative', '4'])
+    seqs, scores = generate_cli.main(['--tiny', '--device', 'cpu', '--prompt',
+                                      'ACGT', '--n-samples', '1',
+                                      '--n-tokens', '6', '--speculative', '4',
+                                      '--verbose', '0'])
+    assert len(seqs) == 1 and len(seqs[0]) == 6 and np.isfinite(scores[0])
     for field in ('weight_quant', 'act_quant', 'kv_quant'):
         with pytest.raises(ValueError, match=field):
             tiny_config(**{field: 'int2'})
