@@ -126,6 +126,23 @@ for an H100: the kernels target sm_90a). It
      continuation made wrong at set places (full, partial and no
      acceptance; replays of 3 positions and more) is held to the same
      checks and to the branches of its schedule;
+ 19. (after phase 18, while evo-1-8k-base is on the card) training:
+     the gradients of a Hyena and an attention block of evo-1 width (B=1,
+     L=2048, bf16) through kernels 1-3 against the all-plain forward's,
+     each within one bf16 rounding step's yardstick, and each kernel's
+     backward (its plain version's gradient, recomputed) timed beside its
+     forward at L=8192; then LoRA fine-tuning of the model itself, rank 8
+     on the seven default targets, B=1, L=8,192 (a window packed by
+     `PackedFastaDataset`), remat on, 4 steps at lr 1e-3 on one batch:
+     fresh adapters leave the logits bit-equal, the loss falls, the base
+     weights do not move, every step launches kernels 1-3 in its forward
+     and its recompute, the merged model agrees with the attached
+     adapters within phase 5's yardstick and generates greedily; step
+     time, tokens/s and peak memory;
+ 20. (after phase 19 frees the 7B model) full fine-tuning of the first 9
+     layers of evo-1-8k-base at full width (1.8 B parameters, float32
+     masters and AdamW), B=1, L=2,048, 3 steps at lr 1e-4, under the same
+     checks;
  14. (after phase 6) the same with evo-1-131k-base: 12,000 nt in one pass
      and in segments of 4,096, then 131,072 nt in segments of 8,192, with
      the launch counts worked out from the segment bounds (a ragged first
@@ -267,6 +284,414 @@ def time_graph_ms(torch, fns, rounds=5):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b) / (rounds * len(fns)))
     return statistics.median(times)
+
+
+# -- training (phases 19 and 20) ---------------------------------------------
+
+def train_corpus(np, directory):
+    """A FASTA of the example sequences and 16 random ones of 1,000 nt
+    (seed 19): enough to pack a window of 8,193 tokens with no padding."""
+    rng = np.random.default_rng(19)
+    with open(os.path.join(ROOT, 'examples', 'example_seqs.fasta')) as f:
+        text = f.read()
+    for i in range(16):
+        text += f'>random_{i}\n' + ''.join(rng.choice(list('ACGT'), 1000)) \
+            + '\n'
+    path = os.path.join(directory, 'train.fasta')
+    with open(path, 'w') as f:
+        f.write(text)
+    return path
+
+
+@contextlib.contextmanager
+def plain_route():
+    """The three kernels of the training forward replaced by their plain
+    versions where the layers call them (on the card a wrapper always
+    launches its kernel): the all-plain forward that the gradient check
+    compares with."""
+    from evo_tpu_torch.layers import attention as att_layer
+    from evo_tpu_torch.layers import hyena as hyena_layer
+    from evo_tpu_torch.layers import norms
+    from evo_tpu_torch.ops.attention import attention_plain
+    from evo_tpu_torch.ops.fir_gate import fir_gate_plain
+    from evo_tpu_torch.ops.rmsnorm import rmsnorm_plain
+    saved = (norms.rmsnorm, hyena_layer.fir_gate,
+             att_layer.flash_attention_causal)
+    norms.rmsnorm, hyena_layer.fir_gate, att_layer.flash_attention_causal = (
+        rmsnorm_plain, fir_gate_plain, attention_plain)
+    try:
+        yield
+    finally:
+        (norms.rmsnorm, hyena_layer.fir_gate,
+         att_layer.flash_attention_causal) = saved
+
+
+def profile_step(torch, label, fn, layout_ops=None, top=10):
+    """Profile fn(): the device's busy time (kernels only) against the wall
+    time, and the kernels that take the most of it. With `layout_ops` =
+    (B, L, C), also count the CPU ops that add a bias over a (B, L, 3, C)
+    tensor or copy into a (B, 3, C, L) one (the Hyena layer's old route
+    into kernel 2), as `layout` = [adds, copies]."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=layout_ops is not None) as prof:
+        t = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.time() - t)
+    counts = None
+    if layout_ops is not None:
+        B_, L_, C_ = layout_ops
+        counts = [0, 0]
+        for e in prof.events():
+            first = [list(sh) for sh in e.input_shapes if sh][:1]
+            if e.name == 'aten::add' and first == [[B_, L_, 3, C_]]:
+                counts[0] += 1
+            if e.name == 'aten::copy_' and first == [[B_, 3, C_, L_]]:
+                counts[1] += 1
+        log(f'   {label}: {counts[0]} bias adds over (B, L, 3, C), '
+            f'{counts[1]} copies into (B, 3, C, L)')
+    # kernels only: the GPU-side op annotations (aten::mm, ...) span the
+    # kernels they launch and would count them twice
+    ops = sorted((e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, 'is_user_annotation', False)),
+                 key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in ops) / 1e3
+    log(f'   profile of {label}: device busy {busy_ms:.1f} ms of '
+        f'{wall_ms:.1f} ms wall (idle share {1 - busy_ms / wall_ms:.3f}); '
+        f'{sum(e.count for e in ops)} kernels and copies on the device; top '
+        f'kernels:')
+    rows = []
+    for e in ops[:top]:
+        ms = e.self_device_time_total / 1e3
+        rows.append(dict(kernel=e.key[:120], ms=ms, count=e.count))
+        log(f'     {100 * ms / max(busy_ms, 1e-9):5.1f}%  {ms:8.2f} ms  '
+            f'x{e.count:<5d} {e.key[:90]}')
+    return dict(busy_ms=busy_ms, wall_ms=wall_ms, top=rows, layout=counts)
+
+
+def train_launches(steps, layers, attn_layers):
+    """Launches of `steps` train steps under remat: a forward (two norms
+    a block and the final one, FIR + gate a Hyena layer, flash attention
+    an attention layer) and the backward's recompute of every block."""
+    hyena = layers - attn_layers
+    return {'rmsnorm': steps * (4 * layers + 1),
+            'fir_gate': steps * 2 * hyena,
+            'flash_attention': steps * 2 * attn_layers}
+
+
+def check_kernel_grads(torch, np, kernels, smi):
+    """Kernels 1-3 under autograd on the card. (a) A Hyena block and an
+    attention block of evo-1 width (D=4096, 32 heads x 128, inner MLP
+    10,928, bf16) at B=1, L=2048: the gradient of the next-token loss to
+    every parameter through the kernels against the all-plain forward.
+    The kernel forward rounds differently from the plain one (RMSNorm's
+    sum order, P in bf16 before P @ V) and each backward is the plain
+    version's at the inputs the forward saw, so the gradients part by
+    what those roundings move downstream. The yardstick: the all-plain
+    gradient after one bf16 rounding step (2^-8 of random sign) on the
+    output of layer 0's first norm. Required, for every parameter: the
+    relative Frobenius distance of the kernel route's gradient from the
+    plain one at most the yardstick's. (b) Each kernel's backward (the
+    plain version's gradient recomputed from the saved inputs) timed
+    beside its forward at the training shapes of phase 19, with the
+    gradient of the plain forward (autograd's own backward) beside it."""
+    from evo_tpu_torch import model as model_lib
+    from evo_tpu_torch import training
+    from evo_tpu_torch.models import config_for_model
+    from evo_tpu_torch.ops import _build
+    from evo_tpu_torch.ops.attention import (attention_plain,
+                                             flash_attention_causal)
+    from evo_tpu_torch.ops.fir_gate import fir_gate, fir_gate_plain
+    from evo_tpu_torch.ops.rmsnorm import rmsnorm, rmsnorm_plain
+    dev = torch.device('cuda')
+    g = torch.Generator(device=dev).manual_seed(19)
+    cfg = config_for_model('evo-1-8k-base').replace(
+        num_layers=2, attn_layer_idxs=(1,), hyena_layer_idxs=())
+    m = model_lib.random_init(cfg, g, dev)
+    ids = torch.from_numpy(np.random.default_rng(19).choice(
+        np.frombuffer(b'ACGT', np.uint8), (1, 2048)).astype(np.int64)).to(dev)
+    params = dict(m.named_parameters())
+    sign = torch.randint(0, 2, (1, 1, cfg.hidden_size), device=dev,
+                         generator=g)
+
+    def grads(nudge=False):
+        hook = m.blocks[0].pre_norm.register_forward_hook(
+            lambda mod, inp, out: out * (1 + (2 * sign - 1) * 2.0 ** -8).to(
+                out.dtype)) if nudge else None
+        training.set_trainable(params.values(), True)
+        training.next_token_loss(m, None, ids).backward()
+        training.set_trainable(params.values(), False)
+        if hook is not None:
+            hook.remove()
+        out = {}
+        for n, p in params.items():
+            out[n], p.grad = p.grad, None
+        return out
+
+    _build.LAUNCHES.clear()
+    got = grads()
+    launched = dict(_build.LAUNCHES)
+    check(launched == {'rmsnorm': 5, 'fir_gate': 1, 'flash_attention': 1},
+          f'the training forward did not launch kernels 1-3: {launched}')
+    with plain_route():
+        _build.LAUNCHES.clear()
+        want, nudged = grads(), grads(nudge=True)
+        check(not _build.LAUNCHES, f'the plain route launched '
+              f'{dict(_build.LAUNCHES)}')
+    rows, worst = {}, 0.0
+    for n in params:
+        check(got[n] is not None and bool(torch.isfinite(got[n]).all())
+              and float(got[n].abs().max()) > 0,
+              f'{n}: no finite, nonzero gradient through the kernels')
+        ref = want[n].float()
+        k = float((got[n].float() - ref).norm() / ref.norm())
+        y = float((nudged[n].float() - ref).norm() / ref.norm())
+        rows[n] = dict(kernel=k, yardstick=y, scaled=scaled_err(got[n],
+                                                                 want[n]))
+        worst = max(worst, k / y)
+    log(f'   gradients of a Hyena and an attention block of evo-1 width, '
+        f'B=1 L=2048 bf16, kernel route against the all-plain route '
+        f'(relative Frobenius distance; one bf16 rounding step at layer 0 '
+        f'as the yardstick; largest ratio {worst:.3f}, limit 1):')
+    for n, r in rows.items():
+        log(f'     {n:32s} {r["kernel"]:.3e} yardstick {r["yardstick"]:.3e}'
+            f' scaled max {r["scaled"]:.3e}')
+    check(worst <= 1.0, f'a kernel-route gradient moved past the yardstick: '
+          f'{worst}')
+    del m, got, want, nudged, params
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=g).bfloat16()
+
+    def timed(fwd, plain, inputs, grad_out, reps):
+        """(forward ms, backward ms, plain backward ms, backward scaled
+        error against the plain gradient) for a forward with inputs
+        `inputs` (requires grad)."""
+        out = fwd()
+        out = out if isinstance(out, tuple) else (out,)
+        ref = plain()
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        gk = torch.autograd.grad(out, inputs, grad_out, retain_graph=True)
+        gp = torch.autograd.grad(ref, inputs, grad_out, retain_graph=True)
+        err = max(scaled_err(a, b) for a, b in zip(gk, gp))
+        return dict(
+            forward_ms=time_ms(torch, fwd, reps=reps),
+            backward_ms=time_ms(torch, lambda: torch.autograd.grad(
+                out, inputs, grad_out, retain_graph=True), reps=reps),
+            plain_backward_ms=time_ms(torch, lambda: torch.autograd.grad(
+                ref, inputs, grad_out, retain_graph=True), reps=reps),
+            grad_scaled_err=err)
+
+    D, H, Dh, L = 4096, 32, 128, 8192
+    x, w = randn(L, D).requires_grad_(), randn(D).requires_grad_()
+    kernels['rmsnorm']['training'] = dict(
+        shape='x (8192, 4096) bf16, grads to x and w', **timed(
+            lambda: rmsnorm(x, w), lambda: rmsnorm_plain(x, w), (x, w),
+            (randn(L, D),), 10))
+    zl = randn(1, L, 3, D).requires_grad_()
+    fw, fb, b_in = (randn(3, D, 3).requires_grad_(),
+                    randn(3, D).requires_grad_(), randn(3, D).requires_grad_())
+
+    def z():
+        return zl.permute(0, 2, 3, 1)
+    kernels['fir_gate']['training'] = dict(
+        shape='zl (1, 8192, 3, 4096) bf16 in place, grads to zl, taps and '
+              'both biases', **timed(
+            lambda: fir_gate(z(), fw, fb, b_in=b_in),
+            lambda: fir_gate_plain(z(), fw, fb, b_in=b_in), (zl, fw, fb, b_in),
+            (randn(1, D, L), randn(1, D, L)), 10))
+    qkv = randn(1, L, 3, H, Dh).requires_grad_()
+
+    def qkv_views():
+        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    kernels['flash_attention']['training'] = dict(
+        shape='q, k, v (1, 8192, 32, 128) bf16 views of one QKV tensor, '
+              'grad to it', **timed(
+            lambda: flash_attention_causal(*qkv_views()),
+            lambda: attention_plain(*qkv_views()), (qkv,),
+            (randn(1, L, H, Dh),), 3))
+    # The backward is the plain version's gradient at the same inputs, so
+    # bit-equal to autograd's through the plain forward, but for attention:
+    # its blocks' float32 gradients are added in another order than
+    # autograd adds them, which may move the bf16 result by one rounding
+    # step (2^-7 of the larger of the value and its row's rms)
+    for name, limit in (('rmsnorm', 0.0), ('fir_gate', 0.0),
+                        ('flash_attention', 2 ** -7)):
+        log(f'   {name} under autograd ({smi}): '
+            f'{kernels[name]["training"]}')
+        check(kernels[name]['training']['grad_scaled_err'] <= limit,
+              f'{name}: backward disagrees with the plain gradient')
+    del x, w, zl, fw, fb, b_in, qkv
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase19_lora(torch, np, evo, smi, launches, nudged_forward, corpus):
+    """LoRA fine-tuning of the model on the card at full width and depth:
+    rank 8 on the seven default targets, B=1, L=8,192 (a window of 8,193
+    tokens packed by `PackedFastaDataset`), remat on, 4 steps at lr 1e-3
+    on one fixed batch."""
+    from evo_tpu_torch import generate, lora, training
+    from evo_tpu_torch.io.dataset import PackedFastaDataset
+    from evo_tpu_torch.ops import _build
+    module, tok = evo.model.module, evo.tokenizer
+    module.config = module.config.replace(remat=True)
+    ds = PackedFastaDataset([corpus], tok, seq_len=8192, batch_size=1,
+                            seed=0)
+    ids, mask = next(ds.iter_batches())
+    check(ids.shape == (1, 8193) and float(mask.min()) == 1.0,
+          f'packed batch {ids.shape}, mask {mask.min()}')
+    ids_t = torch.as_tensor(ids, device='cuda').long()
+    adapters = lora.init_lora(torch.Generator(device='cuda').manual_seed(19),
+                              evo.model, rank=8)
+    n_adapter = sum(t.numel() for t in lora.named_adapters(adapters)
+                    .values())
+
+    def checksum():
+        return torch.stack([p.float().sum() for p in module.parameters()])
+
+    before = checksum()
+    base = evo.model(ids_t)[0]
+    lora.attach_lora(evo.model, adapters, 16.0)
+    fresh = evo.model(ids_t)[0]
+    lora.detach_lora(evo.model)
+    check(torch.equal(fresh, base), 'freshly attached adapters (B = 0) '
+          'changed the logits')
+    del base, fresh
+    named = lora.named_adapters(adapters)
+
+    def loss_and_grads():
+        """A step's loss and backward with no update (a warm-up too)."""
+        training.set_trainable(named.values(), True)
+        lora.attach_lora(evo.model, adapters, 16.0)
+        training.next_token_loss(
+            evo.model, training.train_config(evo.model, adapters=True),
+            ids, mask).backward()
+        lora.detach_lora(evo.model)
+        training.set_trainable(named.values(), False)
+        for t in named.values():
+            t.grad = None
+    prof = profile_step(torch, 'a LoRA forward + backward (B=1, L=8,193, '
+                        'remat)', loss_and_grads)
+    opt = training.make_optimizer(learning_rate=1e-3)
+    state = lora.init_lora_train_state(adapters, opt)
+    step = lora.make_lora_train_step(evo.model, opt, alpha=16.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.LAUNCHES.clear()
+    losses, secs = [], []
+    for _ in range(4):
+        t = time.time()
+        state, loss = step(state, ids, mask)
+        losses.append(float(loss))
+        secs.append(time.time() - t)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches['lora_train_8192'] = counts = dict(_build.LAUNCHES)
+    want = train_launches(4, 32, 3)
+    check(counts == want, f'LoRA train steps launched {counts}, expected '
+          f'{want} (forward and remat recompute)')
+    lora.attach_lora(evo.model, state.lora, 16.0)
+    attached = evo.model(ids_t)[0]
+    floor = (nudged_forward(evo.model, ids_t) - attached).abs()
+    after = float(training.next_token_loss(evo.model, None, ids, mask))
+    lora.detach_lora(evo.model)
+    check(all(np.isfinite(losses)) and np.isfinite(after)
+          and after < losses[0], f'LoRA losses {losses}, after {after}')
+    check(torch.equal(checksum(), before), 'LoRA training moved base weights')
+    lora.merge_lora(evo.model, state.lora, 16.0, donate=True)
+    merged = evo.model(ids_t)[0]
+    diff = (merged - attached).abs()
+    agree = float((merged.argmax(-1) == attached.argmax(-1)).float().mean())
+    del merged, attached
+    step_s = statistics.median(secs)
+    res = dict(losses=losses, loss_after=after, step_s=secs,
+               step_median_s=step_s, tokens_per_s=ids.size / step_s,
+               peak_gib=peak, adapter_params=n_adapter,
+               merge_mean_abs=float(diff.mean()),
+               merge_max_abs=float(diff.max()),
+               yardstick_mean=float(floor.mean()), merge_agreement=agree,
+               profile=prof)
+    log(f'== 19. LoRA fine-tuning of evo-1-8k-base ({smi}): rank 8 on '
+        f'{len(lora.DEFAULT_TARGETS)} targets ({n_adapter:,} adapter '
+        f'parameters), B=1, L=8,193, remat: losses {losses}, after '
+        f'{after:.4f}; step {1e3 * step_s:.1f} ms median {secs}, '
+        f'{ids.size / step_s:.0f} tokens/s, peak {peak:.2f} GiB; launches '
+        f'{counts}; merged against attached logits: mean abs '
+        f'{res["merge_mean_abs"]:.5f} (max {res["merge_max_abs"]:.4f}, '
+        f'argmax agreement {agree:.4f}), one rounding step at layer 0 '
+        f'{res["yardstick_mean"]:.5f} (limit 1x)')
+    check(res['merge_mean_abs'] <= res['yardstick_mean'],
+          'the merged model disagrees with the attached adapters')
+    out, gen_scores = generate(['ACGT' * 64], evo.model, tok, n_tokens=16,
+                               verbose=0)
+    check(len(out[0]) == 16 and np.isfinite(gen_scores[0]),
+          f'generation from the merged model: {out}, {gen_scores}')
+    log(f'   greedy generate from the merged model: {out[0]!r}, score '
+        f'{gen_scores[0]:.4f}')
+    return res
+
+
+def phase20_full(torch, np, smi, launches, corpus):
+    """Full fine-tuning at full width over the first 9 layers of
+    evo-1-8k-base (8 Hyena layers and the attention layer at 8): float32
+    masters, both Adam moments, B=1, L=2,048, remat on, 3 steps at lr
+    1e-4 on one fixed batch."""
+    from evo_tpu_torch import model as model_lib
+    from evo_tpu_torch import training
+    from evo_tpu_torch.io.dataset import PackedFastaDataset
+    from evo_tpu_torch.models import config_for_model
+    from evo_tpu_torch.ops import _build
+    from evo_tpu_torch.tokenizer import CharLevelTokenizer
+    cfg = config_for_model('evo-1-8k-base').replace(
+        num_layers=9, attn_layer_idxs=(8,), hyena_layer_idxs=(), remat=True)
+    torch.cuda.reset_peak_memory_stats()
+    module = model_lib.random_init(
+        cfg, torch.Generator(device='cuda').manual_seed(20), 'cuda')
+    n_params = model_lib.param_count(module)
+    ds = PackedFastaDataset([corpus], CharLevelTokenizer(512), seq_len=2048,
+                            batch_size=1, seed=0)
+    ids, mask = next(ds.iter_batches())
+    opt = training.make_optimizer(learning_rate=1e-4)
+    state = training.init_train_state(module, opt)
+    step = training.make_train_step(module, opt)
+    first = {n: t.clone() for n, t in list(state.params.items())[:4]}
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    losses, secs = [], []
+    for _ in range(3):
+        t = time.time()
+        state, loss = step(state, ids, mask)
+        losses.append(float(loss))
+        secs.append(time.time() - t)
+    launches['full_train_2048'] = counts = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with torch.no_grad():
+        after = float(training.next_token_loss(module, None, ids, mask))
+    finite = all(bool(torch.isfinite(m).all()) for m in state.params.values())
+    moved = all(not torch.equal(first[n], state.params[n]) for n in first)
+    step_s = statistics.median(secs)
+    want = train_launches(3, 9, 1)
+    log(f'== 20. full fine-tuning, the first 9 layers of evo-1-8k-base at '
+        f'full width ({n_params:,} parameters; {smi}): B=1, L=2,049, remat, '
+        f'float32 masters + AdamW: losses {losses}, after {after:.4f}; step '
+        f'{1e3 * step_s:.1f} ms median {secs}, {ids.size / step_s:.0f} '
+        f'tokens/s, peak {peak:.2f} GiB; launches {counts}')
+    check(counts == want, f'full train steps launched {counts}, expected '
+          f'{want}')
+    check(all(np.isfinite(losses)) and np.isfinite(after) and finite
+          and moved and after < losses[0],
+          f'full fine-tuning: losses {losses}, after {after}, finite '
+          f'masters {finite}, moved {moved}')
+    res = dict(params=n_params, losses=losses, loss_after=after, step_s=secs,
+               step_median_s=step_s, tokens_per_s=ids.size / step_s,
+               peak_gib=peak, profile=profile_step(
+                   torch, 'a fourth full fine-tuning step (update included)',
+                   lambda: step(state, ids, mask)))
+    del module, state, step, opt, first
+    torch.cuda.empty_cache()
+    return res
 
 
 def main():
@@ -1868,8 +2293,19 @@ def main():
     log(f'   fastio: {fastio.library_path().name} built and read '
         f'{fasta_path} as the Python parser does')
 
-    del evo
-    torch.cuda.empty_cache()
+    # -- 19. training: kernels 1-3 under autograd, LoRA at full depth ------
+    # -- 20. full fine-tuning of 9 layers at full width ----------------------
+    corpus_dir = tempfile.mkdtemp(prefix='evo_train_')
+    try:
+        corpus = train_corpus(np, corpus_dir)
+        log(f'== 19. gradients through kernels 1-3 ({smi})')
+        check_kernel_grads(torch, np, kernels, smi)
+        phase19_lora(torch, np, evo, smi, launches, nudged_forward, corpus)
+        del evo
+        torch.cuda.empty_cache()
+        phase20_full(torch, np, smi, launches, corpus)
+    finally:
+        shutil.rmtree(corpus_dir, ignore_errors=True)
 
     # -- 6. segmented scoring, evo-1-131k-base at full width ----------------
     t0 = time.time()
@@ -2561,48 +2997,8 @@ def main():
 
     # -- 12. where the device time goes (checks nothing; last, so the
     # profiler's hooks cannot slow the timed phases) ----------------------
-    from torch.profiler import ProfilerActivity, profile
-
     def profile_window(label, fn, layout_ops=None):
-        """Profile fn(); with `layout_ops` = (B, L, C), also count the CPU
-        ops that add a bias over a (B, L, 3, C) tensor or copy into a
-        (B, 3, C, L) one (the Hyena layer's old route into kernel 2), and
-        return (adds, copies)."""
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     record_shapes=layout_ops is not None) as prof:
-            t = time.time()
-            fn()
-            torch.cuda.synchronize()
-            wall_us = 1e6 * (time.time() - t)
-        counts = None
-        if layout_ops is not None:
-            B_, L_, C_ = layout_ops
-            counts = [0, 0]
-            for e in prof.events():
-                first = [list(sh) for sh in e.input_shapes if sh][:1]
-                if e.name == 'aten::add' and first == [[B_, L_, 3, C_]]:
-                    counts[0] += 1
-                if e.name == 'aten::copy_' and first == [[B_, 3, C_, L_]]:
-                    counts[1] += 1
-            log(f'   {label}: {counts[0]} bias adds over (B, L, 3, C), '
-                f'{counts[1]} copies into (B, 3, C, L)')
-        # kernels only: the GPU-side op annotations (aten::mm, ...) span
-        # the kernels they launch and would count them twice
-        ops = sorted((e for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA
-                      and not getattr(e, 'is_user_annotation', False)),
-                     key=lambda e: -e.self_device_time_total)
-        busy_us = sum(e.self_device_time_total for e in ops)
-        log(f'   profile of {label}: device busy {busy_us / 1e3:.1f} ms of '
-            f'{wall_us / 1e3:.1f} ms wall (idle share '
-            f'{1 - busy_us / wall_us:.3f}); {sum(e.count for e in ops)} '
-            f'kernels and copies on the device; top kernels:')
-        for e in ops[:10]:
-            log(f'     {100 * e.self_device_time_total / max(busy_us, 1):5.1f}'
-                f'%  {e.self_device_time_total / 1e3:8.2f} ms  '
-                f'x{e.count:<5d} {e.key[:90]}')
-        return counts
+        return profile_step(torch, label, fn, layout_ops)['layout']
 
     late_cache = model.initialize_inference_params(1, 132096)
 

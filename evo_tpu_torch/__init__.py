@@ -14,7 +14,10 @@ staggered generation requests by continuous batching (`serving.py`);
 `python -m evo_tpu_torch.cli.score`, `...cli.generate` and `...cli.serve`
 are the command lines. `runtime.py` holds the debug and tracing controls,
 `io/` the FASTA reader (with its native scanner) and the prefetch thread
-of `score_stream`.
+of `score_stream`. Fine-tuning lives in `training.py` (float32 masters,
+AdamW, the train step), `lora.py` (adapters), `io/dataset.py` (packed
+FASTA batches) and `python -m evo_tpu_torch.cli.finetune`; like the JAX
+package, the top level exports none of their names.
 
 This package imports neither JAX nor `evo_tpu`.
 """

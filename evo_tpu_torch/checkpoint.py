@@ -29,7 +29,8 @@ happens after a load (`models.load_checkpoint`), and `state_dict` refuses
 a quantized model. `quantized_layers_from_jax` sets the port's quantized
 layers from a JAX quantized tree, so tests run both packages on the same
 codes. `cache_from_jax` / `cache_to_jax` carry a decode cache across, so
-either package can resume from a state the other produced.
+either package can resume from a state the other produced, and
+`lora_from_jax` / `lora_to_jax` carry LoRA adapters across.
 """
 
 from __future__ import annotations
@@ -282,6 +283,71 @@ def cache_to_jax(cache: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
                        if isinstance(offset, torch.Tensor)
                        else np.int32(offset)),
             'layers': layers}
+
+
+def _runs(kinds):
+    """(kind, layer indices) of the maximal runs of one kind, in order,
+    as `ModelConfig.layer_segments` groups them (attention layers alone)."""
+    segs = []
+    for i, kind in enumerate(kinds):
+        if kind == 'hyena' and segs and segs[-1][0] == 'hyena':
+            segs[-1][1].append(i)
+        else:
+            segs.append((kind, [i]))
+    return segs
+
+
+def lora_to_jax(lora) -> list:
+    """The port's adapters (one entry a layer: {'attn' or 'hyena': {name:
+    {'a', 'b'}}, 'mlp': {...}}) as the JAX package's adapter tree of
+    float32 numpy arrays: one entry a segment, {'attn': ..., 'mlp': ...}
+    for an attention layer, {'stack': {'hyena': ..., 'mlp': ...}} for a
+    run of Hyena layers, each factor stacked over the run."""
+    kinds = ['attn' if 'attn' in e else 'hyena' for e in lora]
+    out = []
+    for kind, idxs in _runs(kinds):
+        if kind == 'attn':
+            out.append({sub: {n: {f: _as_numpy(t) for f, t in pr.items()}
+                              for n, pr in lora[idxs[0]][sub].items()}
+                        for sub in ('attn', 'mlp')})
+            continue
+        out.append({'stack': {sub: {
+            n: {f: np.stack([_as_numpy(lora[i][sub][n][f]) for i in idxs])
+                for f in ('a', 'b')}
+            for n in lora[idxs[0]][sub]} for sub in ('hyena', 'mlp')}})
+    return out
+
+
+def _lora_unstack(tree, kinds, device) -> list:
+    out = []
+    for (kind, idxs), seg in zip(_runs(kinds), tree):
+        if kind == 'attn':
+            out.append({sub: {n: {f: torch.tensor(np.asarray(a, np.float32),
+                                                  device=device)
+                                  for f, a in pr.items()}
+                              for n, pr in seg[sub].items()}
+                        for sub in ('attn', 'mlp')})
+            continue
+        for j in range(len(idxs)):
+            out.append({sub: {n: {f: torch.tensor(
+                np.asarray(a[j], np.float32), device=device)
+                for f, a in pr.items()}
+                for n, pr in seg['stack'][sub].items()}
+                for sub in ('hyena', 'mlp')})
+    return out
+
+
+def lora_from_jax(tree, cfg: ModelConfig,
+                  device: Union[str, torch.device] = 'cuda') -> list:
+    """Inverse of `lora_to_jax`: the JAX package's adapter tree (numpy or
+    JAX arrays) as the port's, one entry a layer of `cfg`, each run's
+    factors unstacked, float32 tensors on `device`."""
+    kinds = ['attn' if cfg.is_attn_layer(i) else 'hyena'
+             for i in range(cfg.num_layers)]
+    if len(tree) != len(_runs(kinds)):
+        raise ValueError(f'adapter tree of {len(tree)} segments for a '
+                         f'config of {len(_runs(kinds))}')
+    return _lora_unstack(tree, kinds, device)
 
 
 # ---------------------------------------------------------------------------

@@ -4,10 +4,11 @@ The port's own copy of `evo_tpu/config.py`: it cannot import that module,
 because importing anything under `evo_tpu` runs `evo_tpu/__init__.py`,
 which imports JAX. Field names match the reference YAML keys. The fields
 of the JAX package that the port has no use for (`use_pallas`, `cp_attn`,
-and the FFT-backend knobs) are dropped: `from_dict` ignores unknown keys,
-so the published YAMLs still load. `hyena_fused_mixer` and
+the FFT-backend knobs, and `mlp_init_method` / `mlp_output_init_method`,
+which no code of the JAX package reads) are dropped: `from_dict` ignores
+unknown keys, so the published YAMLs still load. `hyena_fused_mixer` and
 `hyena_pallas_prefix` keep their JAX names: they select kernels that the
-port has too.
+port has too. `remat` recomputes blocks on the backward pass, as there.
 
 The two published inference configs are held as dict constants below,
 transcribed from `evo_tpu/configs/*.yml`, because PyYAML is not a
@@ -132,6 +133,9 @@ class ModelConfig:
     # (reference `to_bfloat16_except_poles_residues`)
     compute_dtype: str = 'bfloat16'
     param_dtype: str = 'bfloat16'
+    # recompute each block on the backward pass (training; model.py wraps
+    # every block of the cache-free forward in torch.utils.checkpoint)
+    remat: bool = False
     # chunk (= Toeplitz tile) of the long conv, ops/fftconv.py
     hyena_matmul_chunk: int = 64
     # opt-in: the whole mixer core between the two projections (FIR, gates,

@@ -20,7 +20,8 @@ decode step (`mha_step`: the buffer-attention kernel at one query row on
 the card, for both caches; on the CPU a dense float32 softmax over an
 unquantised cache). The decode step takes a Python int offset or an
 int32 (B,) tensor of per-row offsets; the full-sequence paths take an
-int.
+int. Adapters attached by `lora.attach_lora` add their side paths after
+wqkv and wo on the full-sequence paths; the decode step refuses them.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import torch
 from torch import nn
 
 from evo_tpu_torch.config import ModelConfig
+from evo_tpu_torch.layers.adapters import add_lora, refuse_in_decode
 from evo_tpu_torch.layers.rotary import apply_rotary, rotary_cos_sin
 from evo_tpu_torch.ops.attention import flash_attention_causal
 from evo_tpu_torch.ops.attention_buffer import Offset, flash_attention_buffer
@@ -54,6 +56,7 @@ class Attention(nn.Module):
         self.bqkv = param(torch.zeros, 3, H, Dh) if cfg.qkv_proj_bias \
             else None
         self.bo = param(torch.zeros, D) if cfg.mha_out_proj_bias else None
+        self.lora, self.lora_scale = {}, 1.0
 
 
 def _qkv(p: Attention, x: torch.Tensor):
@@ -62,6 +65,7 @@ def _qkv(p: Attention, x: torch.Tensor):
     qkv = project(x, p.wqkv, 1, p.act_quant)         # (B, L, 3, H, Dh)
     if p.bqkv is not None:
         qkv = qkv + p.bqkv
+    qkv = add_lora(p, 'wqkv', x, qkv)
     return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
 
@@ -86,7 +90,7 @@ def _out(p: Attention, y: torch.Tensor) -> torch.Tensor:
     o = project(y, p.wo, 2, p.act_quant)
     if p.bo is not None:
         o = o + p.bo
-    return o
+    return add_lora(p, 'wo', y, o, n_in=2)
 
 
 def kv_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -184,6 +188,7 @@ def mha_step(p: Attention, cfg: ModelConfig, x_t: torch.Tensor,
     rounded to the cache type before A @ V, as the JAX package does (the
     same function as the kernel's plain version, in another order of
     sums)."""
+    refuse_in_decode(p)
     q, k, v = _qkv(p, x_t)
     q, k = _rotate(cfg, q, k, offset)
     _kv_write(kv_buffers, k, v, offset)

@@ -20,6 +20,9 @@ holds; under `hyena_pallas_prefix` the unfused long conv takes the prefix
 kernel (`ops/modal_prefix.py`). On both paths the in-projection's output
 stays in its (B, L, 3, C) layout: the FIR + gate kernel and the fused
 mixer read it in place and add the in-projection bias themselves.
+Adapters attached by `lora.attach_lora` add their side paths after w_in
+(in that (B, L, 3, C) layout, so the kernels still read it in place) and
+w_out on the full-sequence path; the decode step refuses them.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import torch
 from torch import nn
 
 from evo_tpu_torch.config import ModelConfig
+from evo_tpu_torch.layers.adapters import add_lora, refuse_in_decode
 from evo_tpu_torch.ops import fftconv
 from evo_tpu_torch.ops.fir_gate import fir_gate
 from evo_tpu_torch.ops.hyena_mixer import hyena_mixer, hyena_mixer_supported
@@ -65,13 +69,14 @@ class HyenaMixer(nn.Module):
             else None
         self.b_out = param(torch.zeros, D) if cfg.hyena_out_proj_bias \
             else None
+        self.lora, self.lora_scale = {}, 1.0
 
 
 def _out_proj(p: HyenaMixer, y: torch.Tensor) -> torch.Tensor:
     o = project(y, p.w_out, 1, p.act_quant)
     if p.b_out is not None:
         o = o + p.b_out
-    return o
+    return add_lora(p, 'w_out', y, o)
 
 
 def _streams(zl: torch.Tensor, b_in: Optional[torch.Tensor]) -> torch.Tensor:
@@ -102,7 +107,8 @@ def hyena_full(p: HyenaMixer, cfg: ModelConfig, x: torch.Tensor, *,
     L = x.shape[1]
     K = cfg.short_filter_length
     chunk = cfg.hyena_matmul_chunk
-    zl = project(x, p.w_in, 1, p.act_quant)          # (B, L, 3, C)
+    zl = add_lora(p, 'w_in', x,
+                  project(x, p.w_in, 1, p.act_quant))   # (B, L, 3, C)
     B, C = zl.shape[0], zl.shape[-1]
     if (cfg.hyena_fused_mixer and L >= K
             and hyena_mixer_supported((B, 3, C, L), chunk, cfg.state_size,
@@ -158,6 +164,7 @@ def hyena_full(p: HyenaMixer, cfg: ModelConfig, x: torch.Tensor, *,
 def hyena_step(p: HyenaMixer, cfg: ModelConfig, x_t: torch.Tensor,
                state: HyenaState):
     """Single-token decode step: x_t (B, 1, D) -> (y (B, 1, D), state)."""
+    refuse_in_decode(p)
     z_t = project(x_t[:, 0], p.w_in, 1, p.act_quant)   # (B, 3, C)
     if p.b_in is not None:
         z_t = z_t + p.b_in

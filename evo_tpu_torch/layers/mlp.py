@@ -6,7 +6,8 @@ with the exact-erf GELU of `mlp_activation: gelu`. Weights keep the JAX
 layouts: w1, w2 (D, I) and w3 (I, D). Each may be a `QuantizedWeight`
 (`quant.py`); `project` dispatches as the JAX package does: `qdot` under
 `act_quant` or for an int4 weight, else the product with the `wcast`
-weight.
+weight. Adapters attached by `lora.attach_lora` add their side paths
+after each frozen product (`layers/adapters.py`).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from evo_tpu_torch.layers.adapters import add_lora
 from evo_tpu_torch.quant import project
 
 _ACTS = {
@@ -44,8 +46,11 @@ class GatedMLP(nn.Module):
         self.w1 = param(dim, inner)
         self.w2 = param(dim, inner)
         self.w3 = param(inner, dim)
+        self.lora, self.lora_scale = {}, 1.0
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         aq = self.act_quant
-        g = self.act(project(x, self.w1, 1, aq)) * project(x, self.w2, 1, aq)
-        return project(g, self.w3, 1, aq)
+        z1 = add_lora(self, 'w1', x, project(x, self.w1, 1, aq))
+        z2 = add_lora(self, 'w2', x, project(x, self.w2, 1, aq))
+        g = self.act(z1) * z2
+        return add_lora(self, 'w3', g, project(g, self.w3, 1, aq))

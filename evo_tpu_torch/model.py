@@ -21,18 +21,26 @@ points update the cache in place and return it: a caller that wants to
 keep a cache as it was clones it first (`generation._grow_cache`). Every
 buffer is made of zeros: the attention kernels multiply masked keys by 0,
 which a NaN survives.
+
+Training (`training.py`, `lora.py`): the parameters are created with
+`requires_grad=False`, and the train steps turn on the ones they train.
+Under `cfg.remat` the cache-free forward recomputes each block on the
+backward pass (`torch.utils.checkpoint`), as the JAX package's forward
+does under `jax.checkpoint`.
 """
 
 from __future__ import annotations
 
 import itertools
-from typing import Any, Dict, Union
+from typing import Any, Dict, Optional, Union
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from evo_tpu_torch.config import ModelConfig
+from evo_tpu_torch.layers.adapters import refuse_in_decode
 from evo_tpu_torch.layers.attention import Attention, mha_full, mha_step
 from evo_tpu_torch.layers.hyena import (HyenaMixer, HyenaState, hyena_full,
                                         hyena_step)
@@ -204,35 +212,53 @@ def _unembed(model: StripedHyena, x: torch.Tensor) -> torch.Tensor:
     return logits[..., :model.config.vocab_size]
 
 
+def _block(blk, cfg: ModelConfig, x: torch.Tensor, layers=None, i: int = 0,
+           offset: int = 0, resume: bool = False) -> torch.Tensor:
+    """One pre-norm residual block of the full-sequence pass: x + mix(
+    norm(x)), then + mlp(norm(x)). With `layers` (the cache's list), the
+    block's decode state is written into layers[i]."""
+    h = blk.pre_norm(x)
+    if isinstance(blk, AttentionBlock):
+        mix, _ = mha_full(blk.attn, cfg, h, kv_buffers=(
+            None if layers is None else layers[i]), offset=offset,
+            attend_buffer=resume)
+    else:
+        mix, st = hyena_full(blk.hyena, cfg, h,
+                             collect_state=layers is not None,
+                             state=layers[i] if resume else None)
+        if layers is not None:
+            layers[i] = st
+    x = x + mix
+    return x + blk.mlp(blk.post_norm(x))
+
+
 def _full_sequence(model: StripedHyena, ids: torch.Tensor, layers=None,
-                   offset: int = 0, resume: bool = False):
+                   offset: int = 0, resume: bool = False,
+                   cfg: Optional[ModelConfig] = None):
     """The full-sequence pass shared by `forward` and `prefill`. With
     `layers` (the cache's list), each layer's decode state is written into
     it; with `resume`, ids continue the sequence that filled `layers` up
-    to `offset`."""
-    cfg = model.config
+    to `offset`. Under `cfg.remat` the cache-free pass checkpoints each
+    block when grad mode is on."""
+    cfg = model.config if cfg is None else cfg
+    remat = cfg.remat and layers is None and torch.is_grad_enabled()
     x = _embed(model, ids)
     for i, blk in enumerate(model.blocks):
-        h = blk.pre_norm(x)
-        if isinstance(blk, AttentionBlock):
-            mix, _ = mha_full(blk.attn, cfg, h, kv_buffers=(
-                None if layers is None else layers[i]), offset=offset,
-                attend_buffer=resume)
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(_block, blk, cfg, x,
+                                                  use_reentrant=False)
         else:
-            mix, st = hyena_full(blk.hyena, cfg, h,
-                                 collect_state=layers is not None,
-                                 state=layers[i] if resume else None)
-            if layers is not None:
-                layers[i] = st
-        x = x + mix
-        x = x + blk.mlp(blk.post_norm(x))
+            x = _block(blk, cfg, x, layers, i, offset, resume)
     return _unembed(model, x)
 
 
-def forward(model: StripedHyena, ids: torch.Tensor) -> torch.Tensor:
+def forward(model: StripedHyena, ids: torch.Tensor,
+            cfg: Optional[ModelConfig] = None) -> torch.Tensor:
     """ids (B, L) integer -> logits (B, L, vocab) float32. No padding mask,
-    as in the reference: a right-padded batch is sliced afterwards."""
-    return _full_sequence(model, ids)
+    as in the reference: a right-padded batch is sliced afterwards.
+    `cfg`: the config to run under, the model's own by default (the train
+    steps pass one with the kernel switches that have no backward off)."""
+    return _full_sequence(model, ids, cfg=cfg)
 
 
 def prefill(model: StripedHyena, ids: torch.Tensor, cache: Cache,
@@ -262,6 +288,7 @@ def decode_step(model: StripedHyena, token: torch.Tensor, cache: Cache):
     layers = cache['layers']
     x = _embed(model, token)
     for i, blk in enumerate(model.blocks):
+        refuse_in_decode(blk.mlp)
         h = blk.pre_norm(x)
         if isinstance(blk, AttentionBlock):
             mix, _ = mha_step(blk.attn, cfg, h, layers[i], offset)

@@ -22,6 +22,7 @@ from typing import Optional, Sequence, Union
 import torch
 
 from evo_tpu_torch.ops import _build
+from evo_tpu_torch.ops._grad import refuse
 from evo_tpu_torch.ops.attention import HEAD_DIM
 
 Offset = Union[int, torch.Tensor]
@@ -240,6 +241,7 @@ def flash_attention_buffer(q: torch.Tensor, k_buf: torch.Tensor,
     the plain version."""
     if not _build.check_device(q, 'flash_attention_buffer'):
         return attention_buffer_plain(q, k_buf, v_buf, offset, ks, vs)
+    refuse('flash_attention_buffer', q, k_buf, v_buf)
     T = _check_shapes(q, k_buf, v_buf, offset, ks, vs)
     B, Lq, H, Dh = q.shape
     quantized = ks is not None

@@ -12,6 +12,10 @@ full float32, as the JAX package pins `Precision.HIGHEST` inside its conv.
 So `conv_matmul_chunked` runs at the 'highest' float32 matmul precision
 whatever the global setting (`runtime.configure(highest_matmul_precision=
 False)` lowers it for every other product), and restores that setting.
+Under autograd it runs inside `PinnedConvFunction`, whose backward
+recomputes the conv and takes its gradient under the same pin: autograd's
+backward products run after the forward has left the pinned region, where
+they would otherwise take the global setting.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from typing import Optional, Tuple
 import torch
 
 from evo_tpu_torch.ops import modal_prefix as prefix_ops
+from evo_tpu_torch.ops._grad import needs_grad, plain_vjp
 from evo_tpu_torch.ops.modal_prefix import _pole_pow_range
 
 _MIN_MAG = 1e-20
@@ -125,7 +130,20 @@ def conv_matmul_chunked(u: torch.Tensor, poles: torch.Tensor,
     change the outputs nor inject state); a continued one must be a
     multiple already, or shorter than a chunk (`layers/hyena.py` splits a
     ragged segment accordingly).
+
+    When an argument requires grad, the conv runs inside
+    `PinnedConvFunction`: its backward is this function's gradient, taken
+    at the same pinned precision.
     """
+    if needs_grad(u, poles, residues, state, d_skip):
+        return PinnedConvFunction.apply(u, poles, residues, state, d_skip,
+                                        chunk, pallas_prefix)
+    return _conv_chunked(u, poles, residues, chunk, state, d_skip,
+                         pallas_prefix)
+
+
+def _conv_chunked(u, poles, residues, chunk, state, d_skip, pallas_prefix):
+    """The body of `conv_matmul_chunked`; its callers pin the precision."""
     B, D, L = u.shape
     S = poles.shape[1]
     C = min(chunk, L)
@@ -165,6 +183,32 @@ def conv_matmul_chunked(u: torch.Tensor, poles: torch.Tensor,
     return y, torch.stack([fr, fi], dim=-1)
 
 
+class PinnedConvFunction(torch.autograd.Function):
+    """`conv_matmul_chunked` with its gradient to u, the poles, the
+    residues, the entering state and d_skip, recomputed from the saved
+    inputs at the pinned precision. The recompute takes the plain prefix:
+    the prefix kernel computes the same function and has no backward."""
+
+    @staticmethod
+    def forward(ctx, u, poles, residues, state, d_skip, chunk,
+                pallas_prefix):
+        ctx.save_for_backward(u, poles, residues, state, d_skip)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return _conv_chunked(u, poles, residues, chunk, state, d_skip,
+                             pallas_prefix)
+
+    @staticmethod
+    @full_float32
+    def backward(ctx, gy, gstate):
+        def conv(u, poles, residues, state, d_skip):
+            return _conv_chunked(u, poles, residues, ctx.chunk, state,
+                                 d_skip, False)
+        grads = plain_vjp(conv, ctx.saved_tensors, ctx.needs_input_grad[:5],
+                          (gy, gstate))
+        return (*grads, None, None)
+
+
 def fir_causal_conv(z: torch.Tensor, w: torch.Tensor,
                     b: Optional[torch.Tensor],
                     state: Optional[torch.Tensor] = None):
@@ -172,18 +216,19 @@ def fir_causal_conv(z: torch.Tensor, w: torch.Tensor,
     y[c, t] = sum_j w[c, j] * z[c, t - (K-1-j)] (+ b[c]).
 
     z: (B, *C, L); w: (*C, K); state: (B, *C, K-1) trailing inputs of a
-    previous segment (None = zeros). Sums in float32 in tap order, then
-    bias; returns (y in z.dtype, the last K-1 inputs)."""
+    previous segment (None = zeros). Sums in float32 (or wider, for a
+    float64 z) in tap order, then bias; returns (y in z.dtype, the last K-1 inputs)."""
     L = z.shape[-1]
     K = w.shape[-1]
     if state is None:
         state = z.new_zeros(z.shape[:-1] + (K - 1,))
     zc = torch.cat([state.to(z.dtype), z], dim=-1)
-    y = torch.zeros(z.shape, dtype=torch.float32, device=z.device)
+    acc = torch.promote_types(z.dtype, torch.float32)
+    y = torch.zeros(z.shape, dtype=acc, device=z.device)
     for j in range(K):
-        y = y + w[None, ..., j, None].float() * zc[..., j:j + L].float()
+        y = y + w[None, ..., j, None].to(acc) * zc[..., j:j + L].to(acc)
     if b is not None:
-        y = y + b[None, ..., None].float()
+        y = y + b[None, ..., None].to(acc)
     return y.to(z.dtype), zc[..., L:]
 
 

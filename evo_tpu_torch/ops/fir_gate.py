@@ -11,7 +11,10 @@ The streams z are `(B, 3, C, L)` to the caller. On the card the kernel
 reads them where the in-projection left them: z must be the view
 `zl.permute(0, 2, 3, 1)` of the product's `(B, L, 3, C)` output, and the
 kernel adds the in-projection bias `b_in` itself, so the layer makes
-neither the bias pass nor the `(B, 3, C, L)` copy.
+neither the bias pass nor the `(B, 3, C, L)` copy. Under autograd the
+kernel runs inside `FirGateFunction`, whose backward is the plain
+version's gradient (`ops/_grad.py`), taken with z still the view of the
+in-projection's output.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import Optional, Tuple
 import torch
 
 from evo_tpu_torch.ops import _build
+from evo_tpu_torch.ops._grad import needs_grad, plain_vjp
 from evo_tpu_torch.ops.fftconv import fir_causal_conv
 
 KERNEL_TAPS = 3     # the kernel's filter length (every published evo config)
@@ -93,17 +97,13 @@ def check_kernel_args(z: torch.Tensor, w: torch.Tensor,
             f'{tuple(z.shape)}')
 
 
-def fir_gate(z: torch.Tensor, w: torch.Tensor,
-             b: Optional[torch.Tensor] = None,
-             tail: Optional[torch.Tensor] = None,
-             b_in: Optional[torch.Tensor] = None
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fused in-projection bias + FIR + gate; arguments as for
-    `fir_gate_plain`. A CUDA tensor launches the kernel, which needs z in
-    the in-projection's layout (`in_projection_layout`) and raises on
-    anything else; a CPU tensor takes the plain version."""
-    if not _build.check_device(z, 'fir_gate'):
-        return fir_gate_plain(z, w, b, tail, b_in)
+def fir_gate_kernel(z: torch.Tensor, w: torch.Tensor,
+                    b: Optional[torch.Tensor] = None,
+                    tail: Optional[torch.Tensor] = None,
+                    b_in: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel on CUDA tensors (raises on what it does not
+    take). Its outputs have no autograd history."""
     check_kernel_args(z, w, b, tail, b_in)
     B, _, C, L = z.shape
     x2 = torch.empty((B, C, L), dtype=z.dtype, device=z.device)
@@ -113,6 +113,41 @@ def fir_gate(z: torch.Tensor, w: torch.Tensor,
                       w.data_ptr(), _ptr(b), _ptr(b_in), _ptr(tail),
                       x2.data_ptr(), u.data_ptr(), B, C, L, w.shape[-1])
     return x2, u
+
+
+class FirGateFunction(torch.autograd.Function):
+    """`forward_impl(z, w, b, tail, b_in)` (the kernel) with the gradient
+    of `fir_gate_plain` to z, the taps, both biases and the tail,
+    recomputed from the saved inputs. z is saved as it was given (the view
+    of the in-projection's output), not copied."""
+
+    @staticmethod
+    def forward(ctx, z, w, b, tail, b_in, forward_impl):
+        ctx.save_for_backward(z, w, b, tail, b_in)
+        return forward_impl(z, w, b, tail, b_in)
+
+    @staticmethod
+    def backward(ctx, gx2, gu):
+        grads = plain_vjp(fir_gate_plain, ctx.saved_tensors,
+                          ctx.needs_input_grad[:5], (gx2, gu))
+        return (*grads, None)
+
+
+def fir_gate(z: torch.Tensor, w: torch.Tensor,
+             b: Optional[torch.Tensor] = None,
+             tail: Optional[torch.Tensor] = None,
+             b_in: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused in-projection bias + FIR + gate; arguments as for
+    `fir_gate_plain`. A CUDA tensor launches the kernel, which needs z in
+    the in-projection's layout (`in_projection_layout`) and raises on
+    anything else, through `FirGateFunction` when an argument requires
+    grad; a CPU tensor takes the plain version."""
+    if not _build.check_device(z, 'fir_gate'):
+        return fir_gate_plain(z, w, b, tail, b_in)
+    if needs_grad(z, w, b, tail, b_in):
+        return FirGateFunction.apply(z, w, b, tail, b_in, fir_gate_kernel)
+    return fir_gate_kernel(z, w, b, tail, b_in)
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:

@@ -27,6 +27,7 @@ from typing import Optional, Tuple
 import torch
 
 from evo_tpu_torch.ops import _build
+from evo_tpu_torch.ops._grad import refuse
 from evo_tpu_torch.ops.fftconv import conv_matmul_chunked, fir_causal_conv
 from evo_tpu_torch.ops.fir_gate import in_projection_layout
 
@@ -160,6 +161,7 @@ def hyena_mixer(z: torch.Tensor, fir_w: torch.Tensor,
     if not _build.check_device(z, 'hyena_mixer'):
         return hyena_mixer_plain(z, fir_w, fir_b, poles, residues, d_skip,
                                  chunk=chunk, state=state, b_in=b_in)
+    refuse('hyena_mixer', z, fir_w, fir_b, poles, residues, d_skip, b_in)
     fir0, iir0 = (None, None) if state is None else state
     _check_kernel_args(z, fir_w, fir_b, poles, residues, d_skip, fir0, iir0,
                        b_in, chunk)

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from evo_tpu_torch.ops import _build
+from evo_tpu_torch.ops._grad import refuse
 
 # the kernel keeps all rows of x in one block's tiles: decode and
 # forced-token batches are far below this, a batch prefill is not
@@ -127,6 +128,7 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     it does not take); a CPU tensor takes the plain version."""
     if not _build.check_device(x, 'int4_matmul'):
         return int4_matmul_plain(x, packed, scales, out_dtype)
+    refuse('int4_matmul', x)
     M, K, Kp, N = _check_shapes(x, packed, scales)
     _check_out(out_dtype)
     if (x.dtype != torch.bfloat16 or packed.dtype != torch.int8

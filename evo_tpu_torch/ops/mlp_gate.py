@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from evo_tpu_torch.ops import _build
+from evo_tpu_torch.ops._grad import refuse
 
 # activation name -> (the kernel's code, the plain function)
 _ACTS = {
@@ -50,6 +51,7 @@ def fused_gate(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     code = _act(activation)[0]
     if not _build.check_device(x, 'fused_gate'):
         return fused_gate_plain(x, w1, w2, activation)
+    refuse('fused_gate', x, w1, w2)
     if x.dtype != torch.bfloat16:
         raise TypeError(f'fused_gate kernel takes bf16, got {x.dtype}')
     D = x.shape[-1]

@@ -22,6 +22,7 @@ from typing import Optional, Tuple
 import torch
 
 from evo_tpu_torch.ops import _build
+from evo_tpu_torch.ops._grad import refuse
 
 Prefix = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -107,6 +108,7 @@ def modal_prefix(inj_r: torch.Tensor, inj_i: torch.Tensor,
     nothing else; CPU tensors take the plain version."""
     if not _build.check_device(inj_r, 'modal_prefix'):
         return modal_prefix_plain(inj_r, inj_i, logmag, theta, chunk, s0)
+    refuse('modal_prefix', inj_r, inj_i, logmag, theta, s0)
     if inj_r.dim() != 4 or inj_i.shape != inj_r.shape:
         raise ValueError('modal_prefix: inj_r and inj_i must be one '
                          f'(B, D, K, S) shape, got {tuple(inj_r.shape)} and '

@@ -1,7 +1,9 @@
 """RMSNorm: the CUDA kernel (`csrc/rmsnorm.cu`) and its plain version.
 
 Port of `evo_tpu/ops/pallas_rmsnorm.py:rmsnorm_pallas`; the plain version
-is `evo_tpu/layers/norms.py:rmsnorm`.
+is `evo_tpu/layers/norms.py:rmsnorm`. Under autograd the kernel runs inside
+`RMSNormFunction`, whose backward is the plain version's gradient
+(`ops/_grad.py`).
 """
 
 from __future__ import annotations
@@ -9,23 +11,23 @@ from __future__ import annotations
 import torch
 
 from evo_tpu_torch.ops import _build
+from evo_tpu_torch.ops._grad import needs_grad, plain_vjp
 
 
 def rmsnorm_plain(x: torch.Tensor, w: torch.Tensor,
                   eps: float = 1e-6) -> torch.Tensor:
-    """y = x * rsqrt(mean(x^2, -1) + eps) * w, fp32 statistics, cast back."""
-    x32 = x.float()
+    """y = x * rsqrt(mean(x^2, -1) + eps) * w, statistics in float32 (or
+    wider, for a float64 x), cast back."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    x32 = x.to(acc)
     ms = torch.mean(x32 * x32, dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(ms + eps) * w.float()).to(x.dtype)
+    return (x32 * torch.rsqrt(ms + eps) * w.to(acc)).to(x.dtype)
 
 
-def rmsnorm(x: torch.Tensor, w: torch.Tensor,
-            eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm over the last axis. A CUDA tensor launches the kernel (or
-    raises on what it does not take); a CPU tensor takes the plain
-    version."""
-    if not _build.check_device(x, 'rmsnorm'):
-        return rmsnorm_plain(x, w, eps)
+def rmsnorm_kernel(x: torch.Tensor, w: torch.Tensor,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors (raises on what it does not
+    take). Its output has no autograd history."""
     D = x.shape[-1]
     if x.dtype != torch.bfloat16 or w.dtype != x.dtype:
         raise TypeError(f'rmsnorm kernel takes bf16 x and w, got {x.dtype} '
@@ -43,3 +45,33 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor,
         _build.launch('evo_rmsnorm_bf16', 'rmsnorm', x.data_ptr(),
                       w.data_ptr(), y.data_ptr(), rows, D, float(eps))
     return y
+
+
+class RMSNormFunction(torch.autograd.Function):
+    """`forward_impl(x, w, eps)` (the kernel) with the gradient of
+    `rmsnorm_plain` to x and w, recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps, forward_impl):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return forward_impl(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        gx, gw = plain_vjp(lambda a, b: rmsnorm_plain(a, b, ctx.eps), (x, w),
+                           ctx.needs_input_grad[:2], (gy,))
+        return gx, gw, None, None
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last axis. A CUDA tensor launches the kernel (or
+    raises on what it does not take), through `RMSNormFunction` when x or
+    w requires grad; a CPU tensor takes the plain version."""
+    if not _build.check_device(x, 'rmsnorm'):
+        return rmsnorm_plain(x, w, eps)
+    if needs_grad(x, w):
+        return RMSNormFunction.apply(x, w, eps, rmsnorm_kernel)
+    return rmsnorm_kernel(x, w, eps)

@@ -1,0 +1,361 @@
+"""Training: next-token loss, AdamW on float32 masters, the train step and
+train-state files (port of `evo_tpu/training.py`).
+
+Precision, as in the JAX package: the `TrainState` holds float32 MASTER
+copies of the parameters; the forward and backward run on the model's own
+parameters in their types (bf16 on the card; the poles and residues stay
+float32), into which the masters are cast at the start of a step, as the
+JAX package casts them inside its loss. The gradients are upcast into the
+masters' `.grad`, which is the same arithmetic as the VJP of that cast, and
+the update runs in float32: global-norm clipping, Adam with float32
+moments, decoupled weight decay, the learning rate. The updated masters
+are copied back into the model, so it serves the trained weights between
+steps. Without masters, bf16 weights at fine-tuning learning rates
+(~1e-4) round most updates to zero.
+
+Kernels: a training forward on the card runs RMSNorm, FIR + gate and
+causal flash attention as CUDA kernels with gradients (`ops/_grad.py`);
+the train steps turn off `hyena_fused_mixer` and `hyena_pallas_prefix`,
+whose kernels have no backward, as `use_pallas='never'` turns them off in
+the JAX package, and refuse quantized weights and activations.
+
+The optax chain of the JAX package (`clip_by_global_norm`, `scale_by_adam`,
+`add_decayed_weights` under the decay mask, `scale_by_learning_rate`) is
+`Optimizer`: the clip written as optax writes it, then
+`torch.optim.AdamW` over two parameter groups (decay and no decay), whose
+decoupled decay `p * (1 - lr * wd)` is optax's decayed weights scaled by
+the learning rate. The schedule is a function of the step; the first
+update uses lr(0), as optax's count starts at 0.
+
+Train-state files are the port's own: safetensors of the masters and both
+moments plus a JSON of the step and the hyperparameters. The port reads no
+orbax directory (the JAX package's format) and says so.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import os
+from typing import Callable, Dict, NamedTuple, Optional, Union
+
+import torch
+
+from evo_tpu_torch import model as model_lib
+from evo_tpu_torch.config import ModelConfig
+from evo_tpu_torch.quant import QuantizedWeight
+
+Schedule = Callable[[int], float]
+STATE_DIR = 'train_state'
+_TENSORS = 'train_state.safetensors'
+_META = 'train_state.json'
+
+
+def module_of(model) -> model_lib.StripedHyena:
+    """The `StripedHyena` of an `EvoModel` (or the module itself)."""
+    return getattr(model, 'module', model)
+
+
+def next_token_loss(model, cfg: Optional[ModelConfig], ids,
+                    loss_mask=None) -> torch.Tensor:
+    """Mean next-token cross-entropy.
+
+    ids: (B, L) integer. Position t's logits predict ids[:, t+1].
+    loss_mask: (B, L) {0, 1} over *target* positions (mask[:, t] gates the
+    prediction of ids[:, t]); None = every position after the first counts.
+    Padding convention as in scoring: right-padded, no attention mask,
+    correctness from masking the loss only. `cfg`: the config to run the
+    forward under (None: the model's own)."""
+    module = module_of(model)
+    ids = torch.as_tensor(ids, device=module.device).long()
+    logits = model_lib.forward(module, ids, cfg)
+    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    nll = -torch.gather(logp, -1, ids[:, 1:, None])[..., 0]
+    mask = (torch.ones_like(nll) if loss_mask is None else torch.as_tensor(
+        loss_mask, device=module.device)[:, 1:].to(torch.float32))
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+class TrainState(NamedTuple):
+    params: Dict[str, torch.Tensor]    # float32 masters by parameter name
+    opt_state: torch.optim.Optimizer    # AdamW over the masters
+    step: int
+
+
+def decay_mask(params: Dict[str, torch.Tensor],
+               cfg: Optional[ModelConfig] = None) -> Dict[str, bool]:
+    """The AdamW decay mask of the JAX package, by parameter name: tensors
+    of two or more axes decay; 1-D ones (biases, norm gains) and the
+    pretrained modal poles and residues never do (decaying the dynamics
+    toward zero corrupts the filters even with no gradient signal).
+
+    The JAX package stacks each run of Hyena layers along a leading layer
+    axis and counts that axis: there a Hyena block's 1-D gains and biases
+    are 2-D and decay. With `cfg`, the port counts it too, so both
+    packages decay the same tensors; names are those of
+    `named_parameters()` ('blocks.<i>.<module>.<name>') or of
+    `lora.named_adapters`."""
+    mask = {}
+    for name, t in params.items():
+        parts = name.split('.')
+        stacked = (cfg is not None and parts[0] == 'blocks'
+                   and not cfg.is_attn_layer(int(parts[1])))
+        mask[name] = (t.dim() + stacked >= 2
+                      and parts[-1] not in ('poles', 'residues'))
+    return mask
+
+
+def warmup_cosine(peak_lr: float, total_steps: int,
+                  warmup_steps: Optional[int] = None,
+                  end_lr_frac: float = 0.1) -> Schedule:
+    """Linear warmup from 0 to `peak_lr` over `warmup_steps` (default:
+    total_steps/10, capped at 100), then cosine decay to `end_lr_frac *
+    peak_lr` at `total_steps`: optax's `warmup_cosine_decay_schedule` as a
+    function of the step count (0 at the first update)."""
+    if warmup_steps is None:
+        warmup_steps = min(100, max(1, total_steps // 10))
+    warmup_steps = min(warmup_steps, max(total_steps - 1, 1))
+    decay_steps = total_steps - warmup_steps
+    if decay_steps <= 0:
+        raise ValueError('warmup_cosine needs total_steps > warmup_steps, '
+                         f'got {total_steps} and {warmup_steps}')
+    end_lr = end_lr_frac * peak_lr
+    alpha = 0.0 if peak_lr == 0.0 else end_lr / peak_lr
+
+    def schedule(step: int) -> float:
+        if step < warmup_steps:
+            frac = 1.0 - min(max(step, 0), warmup_steps) / warmup_steps
+            return (0.0 - peak_lr) * frac + peak_lr
+        t = min(step - warmup_steps, decay_steps)
+        cosine = 0.5 * (1.0 + math.cos(math.pi * t / decay_steps))
+        return peak_lr * ((1.0 - alpha) * cosine + alpha)
+    return schedule
+
+
+def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
+    """optax's `clip_by_global_norm`, in place: every g becomes
+    (g / ||g||) * max_norm when the global norm ||g|| is max_norm or more,
+    with no epsilon (`torch.nn.utils.clip_grad_norm_` adds 1e-6 and would
+    not match). Chosen on the device, with no read back. Returns ||g||."""
+    grads = [g for g in grads if g is not None]
+    norm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm))
+    return norm
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    """The JAX package's optimizer chain (`make_optimizer`): global-norm
+    clipping, Adam (b1, b2, eps 1e-8) with float32 moments, weight decay
+    under `decay_mask`, the learning rate (a float or a schedule of the
+    step). `init` builds the `torch.optim.AdamW` over a dict of masters;
+    `update` takes one step with the masters' `.grad`."""
+
+    learning_rate: Union[float, Schedule] = 1e-4
+    weight_decay: float = 0.01
+    b1: float = 0.9
+    b2: float = 0.95
+    grad_clip: float = 1.0
+
+    def lr(self, step: int) -> float:
+        lr = self.learning_rate
+        return float(lr(step) if callable(lr) else lr)
+
+    def init(self, params: Dict[str, torch.Tensor],
+             cfg: Optional[ModelConfig] = None) -> torch.optim.AdamW:
+        mask = decay_mask(params, cfg)
+        groups = [{'params': [t for n, t in params.items() if mask[n]],
+                   'weight_decay': self.weight_decay},
+                  {'params': [t for n, t in params.items() if not mask[n]],
+                   'weight_decay': 0.0}]
+        return torch.optim.AdamW([g for g in groups if g['params']],
+                                 lr=self.lr(0), betas=(self.b1, self.b2),
+                                 eps=1e-8)
+
+    def update(self, opt: torch.optim.AdamW,
+               params: Dict[str, torch.Tensor], step: int) -> None:
+        """Clip the masters' gradients, set the learning rate of `step`
+        (counted from 0) and take one AdamW step."""
+        clip_by_global_norm_([t.grad for t in params.values()],
+                             self.grad_clip)
+        lr = self.lr(step)
+        for group in opt.param_groups:
+            group['lr'] = lr
+        opt.step()
+
+
+def make_optimizer(learning_rate: Union[float, Schedule] = 1e-4,
+                   weight_decay: float = 0.01, b1: float = 0.9,
+                   b2: float = 0.95, grad_clip: float = 1.0) -> Optimizer:
+    """AdamW with global-norm clipping, weight decay masked as
+    `decay_mask` says. learning_rate: a float or a schedule of the step,
+    e.g. `warmup_cosine(...)`."""
+    return Optimizer(learning_rate, weight_decay, b1, b2, grad_clip)
+
+
+def serving_params(state: TrainState, model) -> Dict[str, torch.Tensor]:
+    """The masters cast back to the types of the model's parameters."""
+    params = dict(module_of(model).named_parameters())
+    return {n: m.to(params[n].dtype) for n, m in state.params.items()}
+
+
+def load_masters(model, state: TrainState) -> None:
+    """Cast the masters into the model's parameters, in place."""
+    with torch.no_grad():
+        for n, p in module_of(model).named_parameters():
+            p.copy_(state.params[n])
+
+
+def init_train_state(model, optimizer: Optimizer) -> TrainState:
+    """float32 masters of every parameter of `model` (copies, also of the
+    float32 poles and residues) and the optimizer over them."""
+    module = module_of(model)
+    masters = {n: p.detach().to(torch.float32, copy=True)
+               for n, p in module.named_parameters()}
+    return TrainState(masters, optimizer.init(masters, module.config), 0)
+
+
+def train_config(model, adapters: bool = False) -> ModelConfig:
+    """The config a train step runs under: the model's own with the
+    kernels that have no backward turned off (`hyena_fused_mixer`,
+    `hyena_pallas_prefix`, as `use_pallas='never'` does in the JAX
+    package). Raises on quantized weights or activations."""
+    module = module_of(model)
+    cfg = module.config
+    quantized = cfg.act_quant != 'none' or any(
+        isinstance(m, QuantizedWeight) for m in module.modules())
+    if quantized and adapters:
+        raise NotImplementedError(
+            'LoRA over int8 / int4 base weights is not ported yet '
+            '(ROADMAP.md, modules queue: LoRA over a quantized base)')
+    if quantized:
+        raise ValueError('full fine-tuning trains float weights: load the '
+                         'model without weight_quant / act_quant')
+    return cfg.replace(hyena_fused_mixer=False, hyena_pallas_prefix=False)
+
+
+def set_trainable(tensors, on: bool) -> None:
+    for t in tensors:
+        t.requires_grad_(on)
+
+
+def make_train_step(model, optimizer: Optimizer
+                    ) -> Callable[..., tuple]:
+    """step(state, ids, loss_mask=None) -> (state', loss) for full
+    fine-tuning of `model` (an `EvoModel` or a `StripedHyena`): the
+    masters are cast into the model's parameters, the loss and its
+    gradients run there, the gradients are upcast into the masters'
+    `.grad`, AdamW steps the masters and they are copied back. The
+    parameters require grad only inside a step."""
+    module = module_of(model)
+    cfg = train_config(module)
+    params = dict(module.named_parameters())
+
+    def train_step(state: TrainState, ids, loss_mask=None):
+        load_masters(module, state)
+        set_trainable(params.values(), True)
+        try:
+            loss = next_token_loss(module, cfg, ids, loss_mask)
+            loss.backward()
+        finally:
+            set_trainable(params.values(), False)
+        for n, p in params.items():
+            m = state.params[n]
+            m.grad = (torch.zeros_like(m) if p.grad is None
+                      else p.grad.to(torch.float32))
+            p.grad = None
+        optimizer.update(state.opt_state, state.params, state.step)
+        for m in state.params.values():
+            m.grad = None
+        load_masters(module, state)
+        return (TrainState(state.params, state.opt_state, state.step + 1),
+                loss.detach())
+
+    return train_step
+
+
+def make_sharded_train_step(model, optimizer: Optimizer, mesh):
+    raise NotImplementedError(
+        'sharded train steps (data / tensor parallelism) are not ported '
+        'yet (ROADMAP.md, modules queue: parallelism)')
+
+
+# ---------------------------------------------------------------------------
+# Train-state files (the port's own format)
+# ---------------------------------------------------------------------------
+
+def flatten(tree, prefix: str = '') -> Dict[str, torch.Tensor]:
+    """Tensors of a dict / list tree by dotted path ('0.mlp.w1.a'); a flat
+    dict of names keeps its names."""
+    if isinstance(tree, torch.Tensor):
+        return {prefix: tree}
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    out = {}
+    for k, v in items:
+        out.update(flatten(v, f'{prefix}.{k}' if prefix else str(k)))
+    return out
+
+
+def save_train_state(state, path: str) -> None:
+    """Write a `TrainState` or `lora.LoraTrainState` under
+    `<path>/train_state/`: the masters and both Adam moments as
+    safetensors, the step, each tensor's Adam count and the
+    hyperparameters as JSON."""
+    from evo_tpu_torch.checkpoint import _write_safetensors_file
+    params, opt, step = state
+    d = os.path.join(os.path.abspath(path), STATE_DIR)
+    os.makedirs(d, exist_ok=True)
+    tensors, counts = {}, {}
+    for name, t in flatten(params).items():
+        tensors['params/' + name] = t
+        st = opt.state.get(t)
+        if st:
+            tensors['exp_avg/' + name] = st['exp_avg']
+            tensors['exp_avg_sq/' + name] = st['exp_avg_sq']
+            counts[name] = float(st['step'])
+    _write_safetensors_file(tensors, os.path.join(d, _TENSORS))
+    group = opt.param_groups[0]
+    meta = {'format': 'evo_tpu_torch_train_state', 'version': 1,
+            'step': int(step), 'adam_counts': counts,
+            'hyperparameters': {'lr': group['lr'], 'betas': group['betas'],
+                                'eps': group['eps'],
+                                'weight_decay': [g['weight_decay'] for g in
+                                                 opt.param_groups]}}
+    with open(os.path.join(d, _META), 'w') as f:
+        json.dump(meta, f, indent=1)
+
+
+def load_train_state(path: str, template):
+    """Restore a train state written by `save_train_state` into
+    `template` (a state of the same structure, e.g. from
+    `init_train_state`): its tensors and optimizer are filled in place and
+    it comes back with the saved step."""
+    from evo_tpu_torch.checkpoint import _read_safetensors_file
+    d = os.path.join(os.path.abspath(path), STATE_DIR)
+    if not os.path.exists(os.path.join(d, _META)):
+        raise ValueError(
+            f'{d} holds no train state of evo_tpu_torch ({_META} missing); '
+            'an orbax train state of the JAX package is not read here')
+    with open(os.path.join(d, _META)) as f:
+        meta = json.load(f)
+    saved = _read_safetensors_file(os.path.join(d, _TENSORS))
+    params, opt, _ = template
+    for name, t in flatten(params).items():
+        src = saved.get('params/' + name)
+        if src is None or tuple(src.shape) != tuple(t.shape):
+            raise ValueError(f'train state tensor {name!r}: saved '
+                             f'{None if src is None else tuple(src.shape)}'
+                             f', template {tuple(t.shape)}')
+        with torch.no_grad():
+            t.copy_(src)
+        if name in meta['adam_counts']:
+            opt.state[t] = {
+                'step': torch.tensor(meta['adam_counts'][name],
+                                     dtype=torch.float32),
+                'exp_avg': saved['exp_avg/' + name].to(t.device, copy=True),
+                'exp_avg_sq': saved['exp_avg_sq/' + name].to(t.device,
+                                                             copy=True)}
+    return type(template)(params, opt, meta['step'])

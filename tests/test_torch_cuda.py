@@ -1030,3 +1030,149 @@ def test_greedy_speculative_on_the_card(gamma, kv_quant):
         if L >= 3:
             want['fir_gate'] = n_hyena
         assert launched == want, (L, offset, launched)
+
+
+# -- training: kernels 1-3 under autograd ----------------------------------------
+
+def _scaled(got, want):
+    got, want = got.float(), want.float()
+    rms = want.pow(2).mean(-1, keepdim=True).sqrt()
+    return float(((got - want).abs()
+                  / want.abs().maximum(rms).clamp(min=1e-30)).max())
+
+
+@pytest.mark.parametrize('kernel', ['rmsnorm', 'fir_gate', 'flash_attention'])
+@pytest.mark.parametrize('L', [77, 1000])
+def test_kernel_gradient_is_the_plain_gradient(randn, kernel, L):
+    """Under autograd the wrapper launches its kernel once and its backward
+    (the plain version's gradient, recomputed from the saved inputs)
+    launches nothing: the gradients equal autograd's through the plain
+    forward on the same inputs, bit for bit, but attention's, whose row
+    blocks' float32 sums are added in another order (one bf16 rounding
+    step, 2^-7 of the larger of the value and its row's rms)."""
+    if kernel == 'rmsnorm':
+        inputs = (randn(2, L, 4096).requires_grad_(),
+                  randn(4096).requires_grad_())
+        fwd, plain = (lambda: rmsnorm(*inputs)), (lambda: rmsnorm_plain(
+            *inputs))
+        grad_out, limit = (randn(2, L, 4096),), 0.0
+    elif kernel == 'fir_gate':
+        inputs = (randn(2, L, 3, 256).requires_grad_(),
+                  randn(3, 256, 3).requires_grad_(),
+                  randn(3, 256).requires_grad_(),
+                  randn(2, 3, 256, 2).requires_grad_(),
+                  randn(3, 256).requires_grad_())
+
+        def args():
+            zl, w, b, tail, b_in = inputs
+            return zl.permute(0, 2, 3, 1), w, b, tail, b_in
+        fwd = lambda: fir_gate(*args())                       # noqa: E731
+        plain = lambda: fir_gate_plain(*args())               # noqa: E731
+        grad_out, limit = (randn(2, 256, L), randn(2, 256, L)), 0.0
+    else:
+        qkv = randn(2, L, 3, 4, 128).requires_grad_()
+        inputs = (qkv,)
+        fwd = lambda: flash_attention_causal(*qkv.unbind(2))  # noqa: E731
+        plain = lambda: attention_plain(*qkv.unbind(2))       # noqa: E731
+        grad_out, limit = (randn(2, L, 4, 128),), 2 ** -7
+    _build.LAUNCHES.clear()
+    out = fwd()
+    assert dict(_build.LAUNCHES) == {kernel: 1}
+    out = out if isinstance(out, tuple) else (out,)
+    assert all(o.grad_fn is not None for o in out)
+    got = torch.autograd.grad(out, inputs, grad_out)
+    assert dict(_build.LAUNCHES) == {kernel: 1}
+    ref = plain()
+    want = torch.autograd.grad(ref if isinstance(ref, tuple) else (ref,),
+                               inputs, grad_out)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and _scaled(g, w) <= limit
+
+
+def test_kernels_without_a_backward_refuse_grad(randn):
+    from evo_tpu_torch.ops.hyena_mixer import hyena_mixer
+    zl = randn(1, 128, 3, 256).requires_grad_()
+    with pytest.raises(RuntimeError, match='no backward'):
+        hyena_mixer(zl.permute(0, 2, 3, 1), randn(3, 256, 3), None,
+                    torch.rand(256, 8, 2, device='cuda') * 0.5,
+                    torch.randn(256, 8, 2, device='cuda'), randn(256),
+                    chunk=64)
+
+
+@pytest.mark.parametrize('remat', [False, True])
+def test_train_step_on_the_card(remat):
+    """A full and a LoRA train step of a small bf16 model: the launches of
+    a forward (and of the blocks' recompute under remat), every gradient
+    through the kernels within one bf16 rounding step's reach of the
+    all-plain gradient (the plain versions in the layers' place; the
+    yardstick is that gradient moved by one rounding step, 2^-8 of random
+    sign, of layer 0's normed input), and the loss falling."""
+    from evo_tpu_torch import lora, model as model_lib, training
+    from evo_tpu_torch.config import tiny_config
+    from evo_tpu_torch.layers import attention as att_layer
+    from evo_tpu_torch.layers import hyena as hyena_layer
+    from evo_tpu_torch.layers import norms
+    cfg = tiny_config(hidden_size=256, num_filters=256, num_attention_heads=2,
+                      compute_dtype='bfloat16', param_dtype='bfloat16',
+                      remat=remat)
+    model = model_lib.random_init(cfg, torch.Generator(device='cuda')
+                                  .manual_seed(0), 'cuda')
+    g = torch.Generator(device='cuda').manual_seed(1)
+    ids = torch.randint(65, 85, (2, 200), device='cuda', generator=g)
+    sign = torch.randint(0, 2, (1, 1, 256), device='cuda', generator=g)
+    params = dict(model.named_parameters())
+
+    def grads(nudge=False):
+        hook = model.blocks[0].pre_norm.register_forward_hook(
+            lambda mod, inp, out: out * (1 + (2 * sign - 1) * 2.0 ** -8).to(
+                out.dtype)) if nudge else None
+        training.set_trainable(params.values(), True)
+        training.next_token_loss(model, None, ids).backward()
+        training.set_trainable(params.values(), False)
+        if hook is not None:
+            hook.remove()
+        out = {n: p.grad for n, p in params.items()}
+        for p in params.values():
+            p.grad = None
+        return out
+
+    _build.LAUNCHES.clear()
+    got = grads()
+    n = 2 if remat else 1
+    assert dict(_build.LAUNCHES) == {'rmsnorm': 9 + 8 * (n - 1),
+                                     'fir_gate': 3 * n, 'flash_attention': n}
+    saved = (norms.rmsnorm, hyena_layer.fir_gate,
+             att_layer.flash_attention_causal)
+    norms.rmsnorm, hyena_layer.fir_gate, att_layer.flash_attention_causal = (
+        rmsnorm_plain, fir_gate_plain, attention_plain)
+    try:
+        _build.LAUNCHES.clear()
+        want, nudged = grads(), grads(nudge=True)
+        assert not _build.LAUNCHES
+    finally:
+        (norms.rmsnorm, hyena_layer.fir_gate,
+         att_layer.flash_attention_causal) = saved
+    for name in params:
+        ref = want[name].float()
+        dist = (got[name].float() - ref).norm() / ref.norm()
+        assert dist <= (nudged[name].float() - ref).norm() / ref.norm(), name
+
+    opt = training.make_optimizer(learning_rate=1e-3)
+    state = training.init_train_state(model, opt)
+    step = training.make_train_step(model, opt)
+    losses = []
+    for _ in range(3):
+        state, loss = step(state, ids)
+        losses.append(float(loss))
+    adapters = lora.init_lora(torch.Generator(device='cuda').manual_seed(2),
+                              model, rank=4)
+    lstate = lora.init_lora_train_state(adapters, opt)
+    lstep = lora.make_lora_train_step(model, opt)
+    _build.LAUNCHES.clear()
+    for _ in range(3):
+        lstate, loss = lstep(lstate, ids)
+        losses.append(float(loss))
+    assert dict(_build.LAUNCHES) == {'rmsnorm': 3 * (9 + 8 * (n - 1)),
+                                     'fir_gate': 3 * 3 * n,
+                                     'flash_attention': 3 * n}
+    assert losses[2] < losses[0] and losses[5] < losses[3], losses

@@ -26,10 +26,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, 'evo_tpu_torch')
 FORBIDDEN = ('jax', 'jaxlib', 'evo_tpu')
 # fields of the JAX config that the port drops: the kernel on/off switch
-# (in the port a tensor's device decides), parallelism, training and the
-# knobs of long-conv backends the port does not have. The kernel selectors
-# `hyena_fused_mixer` and `hyena_pallas_prefix` are fields of both.
-TPU_FIELDS = {'use_pallas', 'cp_attn', 'state_prefill_chunk', 'remat',
+# (in the port a tensor's device decides), parallelism, the knobs of
+# long-conv backends the port does not have, and the two init-method
+# strings that no code of the JAX package reads. The kernel selectors
+# `hyena_fused_mixer` and `hyena_pallas_prefix` and `remat` are fields of
+# both.
+TPU_FIELDS = {'use_pallas', 'cp_attn', 'state_prefill_chunk',
               'hyena_fft_chunk', 'hyena_conv_backend', 'mlp_init_method',
               'mlp_output_init_method'}
 
@@ -65,7 +67,9 @@ def test_import_leaves_jax_unloaded():
             'evo_tpu_torch.ops.hyena_mixer, evo_tpu_torch.ops.modal_prefix, '
             'evo_tpu_torch.ops.mlp_gate, evo_tpu_torch.speculative, '
             'evo_tpu_torch.runtime, evo_tpu_torch.io.fastio, '
-            'evo_tpu_torch.io.prefetch; '
+            'evo_tpu_torch.io.prefetch, evo_tpu_torch.training, '
+            'evo_tpu_torch.lora, evo_tpu_torch.io.dataset, '
+            'evo_tpu_torch.cli.finetune; '
             'assert "jax" not in sys.modules and "evo_tpu" not in '
             'sys.modules, sorted(sys.modules)')
     subprocess.run([sys.executable, '-c', code], cwd=ROOT, check=True,
