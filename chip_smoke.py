@@ -32,7 +32,10 @@ for an H100: the kernels target sm_90a). It
      and without a carried state; the
      fused MLP gate at 1 to 8,192 rows over (4096, 10928) weights, timed
      at 8,192 and 2), and times kernel, plain version, the roofline bound
-     and a library yardstick with CUDA events;
+     and a library yardstick with CUDA events; then kernels 2 to 7 again
+     at the shapes a tp = 2 rank of phase 21 gives them (2,048 channels,
+     16 heads, on the sharded layers' layouts), under the same limits,
+     recorded as `tp2_shard` in each kernel's row;
   3. checks the whole port on a small bf16 model against the same model's
      plain PyTorch path on the CPU;
   4. scores with evo-1-8k-base at full width (32 layers, D=4096, random
@@ -143,6 +146,25 @@ for an H100: the kernels target sm_90a). It
      layers of evo-1-8k-base at full width (1.8 B parameters, float32
      masters and AdamW), B=1, L=2,048, 3 steps at lr 1e-4, under the same
      checks;
+ 21. (after phase 20 frees its model; the references taken from phase 4's
+     model before phase 19 trains it) data- and tensor-parallel execution
+     as two ranks of the port on the one card over gloo, chosen
+     explicitly (NCCL refuses two ranks on one card): (a) `cli.score --dp
+     2` over 16 sequences, scores in input order within phase 4's 1e-2 of
+     the single process's, then again after one shard's files are
+     deleted, which only that shard's rank scores; (b) a tp = 2
+     evo-1-8k-base (`tools/tp_smoke.py model`): a forward at B=1, L=8,192
+     within phase 5's yardstick of the single process's (argmax agreement
+     >= 0.75), greedy generation under the bf16 and the int8 KV cache
+     (teacher forcing within phase 5's yardstick, 4x for int8), the fused
+     mixer and the prefix kernel at C/tp (their logits within the
+     yardstick of the unfused tp forward's), scores under int8 weights
+     within 0.05 of bf16, the
+     launch counts of one process, ranks bit-equal; (c) 2 sharded train
+     steps of phase 20's 9 layers (first loss within the one-rounding
+     yardstick of phase 20's, the loss falls, replicated masters
+     bit-equal across ranks). Its times are gloo's reduces through host
+     memory on one card: nothing of NCCL or of tp across cards;
  14. (after phase 6) the same with evo-1-131k-base: 12,000 nt in one pass
      and in segments of 4,096, then 131,072 nt in segments of 8,192, with
      the launch counts worked out from the segment bounds (a ragged first
@@ -657,6 +679,17 @@ def phase20_full(torch, np, smi, launches, corpus):
     state = training.init_train_state(module, opt)
     step = training.make_train_step(module, opt)
     first = {n: t.clone() for n, t in list(state.params.items())[:4]}
+    # the yardstick of phase 21's sharded first loss: how far one extra
+    # bf16 rounding step at layer 0 (as phase 5's) moves the first loss
+    sign = torch.randint(0, 2, (1, 1, cfg.hidden_size), device='cuda',
+                         generator=torch.Generator('cuda').manual_seed(5))
+    with torch.no_grad():
+        base = float(training.next_token_loss(module, None, ids, mask))
+        hook = module.blocks[0].pre_norm.register_forward_hook(
+            lambda mod, inp, out: out * (1 + (2 * sign - 1) * 2.0 ** -8).to(
+                out.dtype))
+        nudged = float(training.next_token_loss(module, None, ids, mask))
+        hook.remove()
     torch.cuda.synchronize()
     _build.LAUNCHES.clear()
     losses, secs = [], []
@@ -686,12 +719,359 @@ def phase20_full(torch, np, smi, launches, corpus):
           f'masters {finite}, moved {moved}')
     res = dict(params=n_params, losses=losses, loss_after=after, step_s=secs,
                step_median_s=step_s, tokens_per_s=ids.size / step_s,
-               peak_gib=peak, profile=profile_step(
+               peak_gib=peak, first_loss_yardstick=abs(nudged - base),
+               profile=profile_step(
                    torch, 'a fourth full fine-tuning step (update included)',
                    lambda: step(state, ids, mask)))
     del module, state, step, opt, first
     torch.cuda.empty_cache()
     return res
+
+
+def tp_shard_checks(torch, log, kernels, randn, D, H, Dh, S, chunk, buffers,
+                    modal_params, prefix_case, ops):
+    """Kernels 2-7 at the shapes a tp = 2 rank of evo-1-8k-base gives them
+    (phase 21): C/tp = 2,048 channels in kernels 2, 6 and 7, H/tp = 16
+    heads in kernels 3-5, on the layouts the sharded layers leave: the
+    in-projection's contiguous (B, L, 3, 2048) output read in place, q, k
+    and v as views of one (B, L, 3, 16, 128) tensor, (B, T, 16, 128) bf16
+    buffers and head-major int8 ones, (B, 2048, K, S) injections. Each is
+    held against its plain version with phase 2's limits for it; the
+    results go into its row of the kernels line as `tp2_shard`."""
+    o = ops
+    C, Hs = D // 2, H // 2
+    # kernel 2: bit-equal, fresh and with a carried tail
+    err = 0.0
+    equal = 1.0
+    for B, L in ((1, 1), (2, 1000), (1, 2048), (1, 8192)):
+        zl, fw, fb, b_in = (randn(B, L, 3, C), randn(3, C, 3), randn(3, C),
+                            randn(3, C))
+        z = zl.permute(0, 2, 3, 1)
+        for tail in (None, randn(B, 3, C, 2)):
+            for got, want in zip(o['fir_gate'](z, fw, fb, tail, b_in=b_in),
+                                 o['fir_gate_plain'](z, fw, fb, tail,
+                                                     b_in=b_in)):
+                torch.cuda.synchronize()
+                err = max(err, float((got.float() - want.float()).abs()
+                                     .max()))
+                equal = min(equal, float((got == want).float().mean()))
+    log(f'   tp = 2 shards: fir_gate at C={C}: max abs err {err:.3e}, '
+        f'equal {equal:.6f}')
+    check(err == 0 and equal == 1.0,
+          f'fir_gate at C=2048 disagrees: err {err}, equal {equal}')
+    kernels['fir_gate']['tp2_shard'] = dict(
+        max_abs_err=err, bit_equal_fraction=equal,
+        shape='zl (B, L, 3, 2048) bf16 with b_in, (B, L) in (1, 1), '
+              '(2, 1000), (1, 2048), (1, 8192), fresh and carried')
+    del zl, z, fw, fb, b_in, tail, got, want
+
+    # kernel 3: scaled error <= 2^-5
+    err = scaled = 0.0
+    for B, L in ((1, 1), (2, 129), (2, 1000), (1, 8192)):
+        qkv = randn(B, L, 3, Hs, Dh)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        got = o['flash_attention_causal'](q, k, v)
+        torch.cuda.synchronize()
+        want = o['attention_plain'](q, k, v)
+        err = max(err, float((got.float() - want.float()).abs().max()))
+        scaled = max(scaled, scaled_err(got, want))
+        del qkv, q, k, v, got, want
+    log(f'   tp = 2 shards: flash_attention at {Hs} heads: max abs err '
+        f'{err:.3e}, scaled {scaled:.3e}')
+    check(scaled <= 2 ** -5, f'flash attention at 16 heads: {scaled}')
+    kernels['flash_attention']['tp2_shard'] = dict(
+        max_abs_err=err, max_scaled_err=scaled,
+        shape='q, k, v views of one (B, L, 3, 16, 128) bf16 tensor, (B, L) '
+              'in (1, 1), (2, 129), (2, 1000), (1, 8192)')
+
+    # kernels 4 and 5 (the split key range and the combine kernel at one
+    # query row): scaled error <= 2^-5
+    err4 = err5 = scaled4 = scaled5 = 0.0
+    for B, Lq, T, offset in ((2, 1, 544, (512, 530)),    # phase 21's decode
+                             (2, 64, 1000, (100, 900)),
+                             (1, 128, 1024, 731),
+                             (2, 1, 65536, (5, 60000)),
+                             (1, 4, 3000, 2000), (1, 5, 3000, 2000),
+                             (1, 8192, 16384, 8192)):
+        q, off, bf, i8, sc = buffers(B, Lq, T, offset, heads=Hs)
+        got = o['flash_attention_buffer'](q, *bf, off)
+        got8 = o['flash_attention_buffer'](q, *i8, off, *sc)
+        torch.cuda.synchronize()
+        want = o['attention_buffer_plain'](q, *bf, off)
+        want8 = o['attention_buffer_plain'](q, *i8, off, *sc)
+        err4 = max(err4, float((got.float() - want.float()).abs().max()))
+        err5 = max(err5, float((got8.float() - want8.float()).abs().max()))
+        scaled4 = max(scaled4, scaled_err(got, want))
+        scaled5 = max(scaled5, scaled_err(got8, want8))
+        del q, off, bf, i8, sc, got, got8, want, want8
+    log(f'   tp = 2 shards: flash_attention_buffer at {Hs} heads: bf16 max '
+        f'abs err {err4:.3e}, scaled {scaled4:.3e}; int8 max abs err '
+        f'{err5:.3e}, scaled {scaled5:.3e}')
+    check(scaled4 <= 2 ** -5 and scaled5 <= 2 ** -5,
+          f'buffer attention at 16 heads: {scaled4}, {scaled5}')
+    shape = ('q (B, Lq, 16, 128) over (B, T, 16, 128) bf16 buffers and '
+             'head-major int8 ones at offsets: (2, 1, 544, (512, 530)), '
+             '(2, 64, 1000, (100, 900)), (1, 128, 1024, 731), (2, 1, 65536, '
+             '(5, 60000)), (1, 4 and 5, 3000, 2000), (1, 8192, 16384, 8192)')
+    kernels['flash_attention_buffer']['tp2_shard'] = dict(
+        max_abs_err=err4, max_scaled_err=scaled4, shape=shape)
+    kernels['flash_attention_buffer_q8']['tp2_shard'] = dict(
+        max_abs_err=err5, max_scaled_err=scaled5, shape=shape)
+    kernels['combine_partials']['tp2_shard'] = dict(
+        max_scaled_err=scaled5, shape='inside flash_attention_buffer_q8 at '
+        'one query row (its tp2_shard cases with Lq = 1)')
+
+    # kernel 6: scaled error <= 2^-6, >= 99 % equal, the state within 1e-4,
+    # the FIR tail equal
+    err = scaled = state = 0.0
+    equal = 1.0
+    for B, L, carried in ((1, 2048, False), (1, 8192, True), (2, 512, True)):
+        zl = randn(B, L, 3, C)
+        fw, fb = randn(3, C, 3) * 0.5, randn(3, C) * 0.1
+        z, b_in = zl.permute(0, 2, 3, 1), randn(3, C)
+        poles, residues = modal_params(C, S)
+        d_skip = randn(C)
+        st = (randn(B, 3, C, 2), randn(B, C, S, 2).float()) if carried \
+            else None
+        check(o['hyena_mixer_supported'](z.shape, chunk, S, 3),
+              'support rule at C=2048')
+        got = o['hyena_mixer'](z, fw, fb, poles, residues, d_skip,
+                               chunk=chunk, state=st, b_in=b_in)
+        torch.cuda.synchronize()
+        want = o['hyena_mixer_plain'](z, fw, fb, poles, residues, d_skip,
+                                      chunk=chunk, state=st, b_in=b_in)
+        check(torch.equal(got[2], want[2]),
+              'hyena_mixer FIR tail differs at C=2048')
+        err = max(err, float((got[0].float() - want[0].float()).abs().max()))
+        scaled = max(scaled, scaled_err(got[0], want[0]))
+        equal = min(equal, float((got[0] == want[0]).float().mean()))
+        state = max(state, scaled_err(got[1].flatten(2), want[1].flatten(2)))
+        del zl, z, got, want, st
+    log(f'   tp = 2 shards: hyena_mixer at C={C}: max abs err {err:.3e}, '
+        f'scaled {scaled:.3e}, equal {equal:.6f}, modal state scaled '
+        f'{state:.3e}')
+    check(scaled <= 2 ** -6 and equal >= 0.99 and state <= 1e-4,
+          f'hyena_mixer at C=2048: {scaled}, {equal}, {state}')
+    kernels['hyena_mixer']['tp2_shard'] = dict(
+        max_abs_err=err, max_scaled_err=scaled, bit_equal_fraction=equal,
+        max_scaled_err_state=state,
+        shape='zl (B, L, 3, 2048) bf16 with b_in, chunk 64, 8 states: (1, '
+              '2048) fresh, (1, 8192) and (2, 512) carried')
+
+    # kernel 7: scaled error <= 2e-5, with and without a carried state
+    err = scaled = 0.0
+    for B, K in ((1, 32), (1, 128), (2, 8)):
+        case = prefix_case(B, K, C)
+        for s0 in (None, randn(B, C, S, 2).float()):
+            got = o['modal_prefix'](*case, s0)
+            torch.cuda.synchronize()
+            want = o['modal_prefix_plain'](*case, s0)
+            err = max(err, max(float((a - b).abs().max())
+                               for a, b in zip(got, want)))
+            scaled = max(scaled, max(scaled_err(a.flatten(2), b.flatten(2))
+                                     for a, b in zip(got, want)))
+    log(f'   tp = 2 shards: modal_prefix at C={C}: max abs err {err:.3e}, '
+        f'scaled {scaled:.3e}')
+    check(scaled <= 2e-5, f'modal_prefix at C=2048: {scaled}')
+    kernels['modal_prefix']['tp2_shard'] = dict(
+        max_abs_err=err, max_scaled_err=scaled,
+        shape='inj (B, 2048, K, 8) fp32 x 2: (1, 32) (2,048 positions at '
+              'chunk 64), (1, 128), (2, 8), fresh and carried')
+
+
+def phase21_inputs(torch, np, evo, prompts, seqs, nudged_forward, d):
+    """What phase 21's ranks are held to, from the single-process
+    evo-1-8k-base (seed 0) while it is on the card and unchanged: one
+    forward at B=1, L=8,192 and its one-rounding yardstick, phase 5's
+    prompts, phase 4's ragged sequences, and a FASTA of 16 sequences with
+    their scores in batches of 4. Written to `d`; the logits leave the
+    card."""
+    from evo_tpu_torch.io.fasta import read_fasta, write_fasta
+    from evo_tpu_torch.scoring import score_sequences
+    rng = np.random.default_rng(21)
+    ids = torch.from_numpy(rng.integers(65, 85, (1, 8192)))
+    logits = evo.model(ids)[0]
+    floor = float((nudged_forward(evo.model, ids) - logits).abs().mean())
+    torch.save({'ids': ids, 'logits': logits.float().cpu(),
+                'prompts': prompts, 'seqs': seqs},
+               os.path.join(d, 'model_in.pt'))
+    del logits
+    _, examples = read_fasta(os.path.join(ROOT, 'examples',
+                                          'example_seqs.fasta'))
+    # the 3 examples, the 4 ragged sequences, and 9 of their prefixes
+    fasta16 = examples + seqs + [s[:n] for s, n in zip(
+        seqs * 3, (100, 333, 512, 777, 1024, 1500, 2048, 2999, 3500))]
+    check(len(fasta16) == 16 and max(map(len, fasta16)) <= 8192,
+          'phase 21 FASTA')
+    path = os.path.join(d, 'sixteen.fasta')
+    write_fasta(path, [f's{i}' for i in range(16)], fasta16)
+    scores = []
+    for i in range(0, 16, 4):
+        scores += score_sequences(fasta16[i:i + 4], evo.model, evo.tokenizer)
+    return dict(floor=floor, fasta=path, seqs=fasta16, scores=scores)
+
+
+def phase21_parallel(torch, np, smi, launches, ref, res20, corpus, d):
+    """Data- and tensor-parallel execution: two ranks of the port on the
+    one card over gloo (chosen explicitly; NCCL refuses two ranks on one
+    card), launched with torchrun's environment. These times are gloo's
+    host-memory reduces on one card, and say nothing of NCCL or of tensor
+    parallelism across cards."""
+    from evo_tpu_torch.parallel.distributed import launch_local
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    log(f'== 21. parallel execution ({smi}): 2 ranks on one card, '
+        f'torch.distributed backend gloo (passed explicitly)')
+    out = {}
+
+    def run(argv, tag):
+        t = time.time()
+        logs = launch_local(argv, 2, env=env, timeout=900,
+                            log_dir=os.path.join(d, tag))
+        return logs, time.time() - t
+
+    def rank_json(part):
+        out = []
+        for r in (0, 1):
+            with open(os.path.join(d, f'{part}_rank{r}.json')) as f:
+                out.append(json.load(f))
+        return out
+
+    # (a) sharded scoring through the CLI: 2 replicas of the whole model,
+    # 8 sequences each, then a resume after one shard's files are deleted
+    tsv = os.path.join(d, 'cli', 'scores.tsv')
+    os.makedirs(os.path.dirname(tsv))
+    argv = ['-m', 'evo_tpu_torch.cli.score', '--dp', '2', '--random-init',
+            '--dist-backend', 'gloo', '--batch-size', '4', '--input-fasta',
+            ref['fasta'], '--output-tsv', tsv]
+    _, secs = run(argv, 'cli1')
+    with open(tsv) as f:
+        rows = [ln.rstrip('\n').split('\t') for ln in f][1:]
+    got = [float(r[1]) for r in rows]
+    worst = max(abs(a - b) for a, b in zip(got, ref['scores']))
+    log(f'   (a) cli.score --dp 2 over {len(rows)} sequences (batch 4): '
+        f'{secs:.1f} s; largest difference from the single-process scores '
+        f'{worst:.2e} (limit 1e-2, phase 4\'s)')
+    check([r[0] for r in rows] == ref['seqs'] and worst <= 1e-2
+          and all(np.isfinite(got)), f'sharded CLI scores {got}')
+    work = tsv + '.work'
+    for name in ('shard_1.csv', 'shard_1.done'):
+        os.remove(os.path.join(work, name))
+    with open(tsv) as f:
+        before = f.read()
+    logs, secs2 = run(argv, 'cli2')
+    skipped = 'shard 0: done before, skipped' in logs[0]
+    rescored = 'shard 1: scored 8 sequences' in logs[1]
+    log(f'   (a) resumed after shard 1\'s files were deleted: {secs2:.1f} s; '
+        f'rank 0 skipped shard 0: {skipped}, rank 1 scored shard 1 again: '
+        f'{rescored}')
+    with open(tsv) as f:
+        after = f.read()
+    check(skipped and rescored and 'scored' not in logs[0]
+          and after == before, 'the sharded CLI did not resume')
+    out['a'] = dict(seconds=secs, resume_seconds=secs2, max_diff=worst)
+
+    # (b) a tp = 2 evo-1-8k-base
+    _, secs = run(['-m', 'evo_tpu_torch.tools.tp_smoke', 'model', d],
+                  'model')
+    r0, r1 = rank_json('model')
+    per_forward = {'rmsnorm': 65, 'fir_gate': 29, 'flash_attention': 3}
+    n_new = 32
+    want_gen = {'rmsnorm': 65 * n_new, 'fir_gate': 29, 'flash_attention': 3,
+                'flash_attention_buffer': 3 * (n_new - 1)}
+    want_gen8 = dict(want_gen, flash_attention_buffer_q8=3 * (n_new - 1),
+                     combine_partials=3 * (n_new - 1))
+    del want_gen8['flash_attention_buffer']
+    logits = [torch.load(os.path.join(d, f'logits_rank{r}.pt'))
+              for r in (0, 1)]
+    for r, res in enumerate((r0, r1)):
+        m = res['part']
+        t_b, t_8 = m['teacher_bf16'], m['teacher_int8']
+        log(f'   (b) rank {r}: weights {m["weight_gib"]:.2f} GiB, made in '
+            f'{m["init_s"]:.1f} s; forward B=1 L=8192 {m["forward_ms"]:.1f} '
+            f'ms; again with each of the 64 reduces between device syncs '
+            f'{m["forward_instrumented_ms"]:.1f} ms, of which the reduces '
+            f'{m["reduce_ms"]:.1f} ms, {100 * m["reduce_share"]:.1f} %; '
+            f'against the single process: mean abs '
+            f'{m["forward_mean_abs"]:.5f} (yardstick {ref["floor"]:.5f}), '
+            f'max {m["forward_max_abs"]:.4f}, argmax agreement '
+            f'{m["forward_argmax_agree"]:.4f}; decode step '
+            f'{m["decode_step_ms"]:.2f} ms at B=2; generate 2 x 512 + 32: '
+            f'bf16 {m["generate_bf16_s"]:.2f} s, teacher forcing {t_b}; '
+            f'int8 KV {m["generate_int8_s"]:.2f} s, {t_8}; fused mixer, '
+            f'L=2048: mean abs {m["fused_mean_abs"]:.5f} from the unfused '
+            f'tp logits; prefix kernel, L=2048: mean abs '
+            f'{m["prefix_mean_abs"]:.5f}; scores bf16 {m["scores_bf16"]}, '
+            f'int8 weights {m["scores_int8"]}; peak {m["peak_gib"]:.2f} '
+            f'GiB; {res["seconds"]:.1f} s')
+        check(m['launches_forward'] == per_forward,
+              f'tp forward launches {m["launches_forward"]}')
+        check(m['launches_generate_bf16'] == want_gen,
+              f'tp generate launches {m["launches_generate_bf16"]}')
+        check(m['launches_generate_int8'] == want_gen8,
+              f'tp int8-KV generate launches {m["launches_generate_int8"]}')
+        check(m['launches_fused_forward'] == {
+            'rmsnorm': 65, 'flash_attention': 3, 'hyena_mixer': 29},
+              f'tp fused launches {m["launches_fused_forward"]}')
+        check(m['launches_prefix_forward'] == {
+            'rmsnorm': 65, 'fir_gate': 29, 'modal_prefix': 29,
+            'flash_attention': 3},
+              f'tp prefix launches {m["launches_prefix_forward"]}')
+        check(m['prefix_mean_abs'] <= ref['floor'],
+              'tp forward under the prefix kernel past the yardstick')
+        check(m['forward_mean_abs'] <= ref['floor']
+              and m['forward_argmax_agree'] >= 0.75,
+              'tp logits moved past the one-rounding yardstick')
+        check(t_b['mean_abs'] <= t_b['yardstick'] and t_b['argmax_agree']
+              >= 0.75, f'tp teacher forcing, bf16 KV: {t_b}')
+        check(t_8['mean_abs'] <= 4 * t_8['yardstick']
+              and t_8['argmax_agree'] >= 0.75,
+              f'tp teacher forcing, int8 KV: {t_8}')
+        check(m['fused_mean_abs'] <= ref['floor'],
+              'tp fused forward past the yardstick')
+        check(m['all_finite'] and max(abs(a - b) for a, b in zip(
+            m['scores_int8'], m['scores_bf16'])) <= 0.05,
+              'tp int8-weight scores past 0.05 of bf16 (phase 9\'s limit)')
+        check(m['logits_equal_across_ranks']
+              and m['tokens_equal_across_ranks'],
+              'the ranks disagree')
+    check(torch.equal(logits[0], logits[1]) and r0['part']['tokens_bf16']
+          == r1['part']['tokens_bf16'] and r0['part']['tokens_int8']
+          == r1['part']['tokens_int8'], 'the ranks\' results differ')
+    m = r0['part']
+    launches['tp2_forward_8192'] = m['launches_forward']
+    launches['tp2_generate'] = m['launches_generate_bf16']
+    launches['tp2_generate_int8'] = m['launches_generate_int8']
+    launches['tp2_fused_forward_2048'] = m['launches_fused_forward']
+    launches['tp2_prefix_forward_2048'] = m['launches_prefix_forward']
+    out['b'] = dict(seconds=secs, ranks=[r0, r1])
+
+    # (c) the sharded train step
+    with open(os.path.join(d, 'train_in.json'), 'w') as f:
+        json.dump({'corpus': corpus}, f)
+    _, secs = run(['-m', 'evo_tpu_torch.tools.tp_smoke', 'train', d],
+                  'train')
+    t0, t1 = (x['part'] for x in rank_json('train'))
+    yard = res20['first_loss_yardstick']
+    want = train_launches(2, 9, 1)
+    for r, t in enumerate((t0, t1)):
+        log(f'   (c) rank {r}: tp = 2 train steps of 9 layers at L=2,049: '
+            f'losses {t["losses"]} (phase 20\'s first {res20["losses"][0]}, '
+            f'one-rounding yardstick {yard:.2e}), after {t["loss_after"]}; '
+            f'steps {t["step_s"]} s; replicated masters ({t["n_replicated"]}'
+            f') equal across ranks {t["replicated_equal"]}; peak '
+            f'{t["peak_gib"]:.2f} GiB; launches {t["launches"]}')
+        check(t['launches'] == want, f'tp train launches {t["launches"]}')
+        check(abs(t['losses'][0] - res20['losses'][0]) <= yard,
+              'the sharded first loss is past the one-rounding yardstick')
+        check(t['loss_after'] < t['losses'][0] and all(t['replicated_equal']),
+              f'sharded training: {t}')
+    check(t0['losses'] == t1['losses'], 'the ranks\' losses differ')
+    launches['tp2_train_2048'] = t0['launches']
+    out['c'] = dict(seconds=secs, ranks=[t0, t1])
+    log(f'   phase 21 seconds: (a) {out["a"]["seconds"]:.1f} + '
+        f'{out["a"]["resume_seconds"]:.1f}, (b) {out["b"]["seconds"]:.1f}, '
+        f'(c) {out["c"]["seconds"]:.1f}')
+    return out
 
 
 def main():
@@ -909,9 +1289,9 @@ def main():
     # the quantisation itself enters the comparison. The buffers' tails
     # past the last query are finite garbage (x10) that the mask must
     # keep out; zeros there would hide a wrong mask.
-    def buffers(B, Lq, T, offset):
-        q, kb, vb = randn(B, Lq, H, Dh), randn(B, T, H, Dh), randn(B, T, H,
-                                                                  Dh)
+    def buffers(B, Lq, T, offset, heads=H):
+        q, kb, vb = (randn(B, Lq, heads, Dh), randn(B, T, heads, Dh),
+                     randn(B, T, heads, Dh))
         offs = [offset] * B if isinstance(offset, int) else offset
         for b, o in enumerate(offs):
             kb[b, o + Lq:] *= 10
@@ -1323,12 +1703,12 @@ def main():
     # |err| <= 2e-5 of the larger of |want| and the rms over its channel's
     # chunks and states (the tolerance at which the JAX package's test
     # holds its kernel to its loop), with and without a carried state.
-    def prefix_case(B, K):
-        inj = [torch.randn(B, D, K, S, device=dev, generator=g)
+    def prefix_case(B, K, C=D):
+        inj = [torch.randn(B, C, K, S, device=dev, generator=g)
                for _ in range(2)]
-        logmag = torch.log(torch.rand(D, S, device=dev, generator=g) * 0.48
+        logmag = torch.log(torch.rand(C, S, device=dev, generator=g) * 0.48
                            + 0.5)
-        theta = (torch.rand(D, S, device=dev, generator=g) * 2 - 1) * 3.1
+        theta = (torch.rand(C, S, device=dev, generator=g) * 2 - 1) * 3.1
         return (*inj, logmag, theta, chunk)
 
     err7 = scaled7 = 0.0
@@ -1426,6 +1806,18 @@ def main():
               'rounds both products to bf16 first')
     log(f'   mlp_gate by rows: {by_rows9}')
     del w1, w2, wa, wb
+    tp_shard_checks(torch, log, kernels, randn, D, H, Dh, S, chunk, buffers,
+                    modal_params, prefix_case, dict(
+                        fir_gate=fir_gate, fir_gate_plain=fir_gate_plain,
+                        flash_attention_causal=flash_attention_causal,
+                        attention_plain=attention_plain,
+                        flash_attention_buffer=flash_attention_buffer,
+                        attention_buffer_plain=attention_buffer_plain,
+                        hyena_mixer=hyena_mixer,
+                        hyena_mixer_plain=hyena_mixer_plain,
+                        hyena_mixer_supported=hyena_mixer_supported,
+                        modal_prefix=modal_prefix,
+                        modal_prefix_plain=modal_prefix_plain))
     for kk in kernels.values():
         log(f"   {kk['name']}: {kk['ms']:.4f} ms (bound {kk['bound_ms']:.4f}"
             f" ms by {kk['bound_by']}, plain {kk['plain_ms']:.4f}, library "
@@ -2298,12 +2690,19 @@ def main():
     corpus_dir = tempfile.mkdtemp(prefix='evo_train_')
     try:
         corpus = train_corpus(np, corpus_dir)
+        # phase 21's references, before phase 19 trains this model
+        ref21 = phase21_inputs(torch, np, evo, prompts, seqs,
+                               nudged_forward, corpus_dir)
         log(f'== 19. gradients through kernels 1-3 ({smi})')
         check_kernel_grads(torch, np, kernels, smi)
         phase19_lora(torch, np, evo, smi, launches, nudged_forward, corpus)
         del evo
         torch.cuda.empty_cache()
-        phase20_full(torch, np, smi, launches, corpus)
+        res20 = phase20_full(torch, np, smi, launches, corpus)
+        # -- 21. data- and tensor-parallel execution, 2 ranks ------------
+        torch.cuda.empty_cache()
+        phase21_parallel(torch, np, smi, launches, ref21, res20, corpus,
+                         corpus_dir)
     finally:
         shutil.rmtree(corpus_dir, ignore_errors=True)
 

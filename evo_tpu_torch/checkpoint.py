@@ -49,6 +49,7 @@ import torch
 from evo_tpu_torch.config import ModelConfig
 from evo_tpu_torch.layers.hyena import HyenaState
 from evo_tpu_torch.model import AttentionBlock, StripedHyena
+from evo_tpu_torch.parallel.sharding import shard_tensor
 from evo_tpu_torch.quant import QuantizedWeight
 
 NATIVE_MARKER = 'evo_tpu_torch_checkpoint.json'
@@ -98,19 +99,25 @@ def _pop(sd: Dict[str, Array], key: str, required: bool = True,
 
 
 def params_from_state_dict(sd: Dict[str, Array], cfg: ModelConfig,
-                           device: Union[str, torch.device] = 'cuda'
-                           ) -> StripedHyena:
+                           device: Union[str, torch.device] = 'cuda',
+                           mesh=None) -> StripedHyena:
     """Build the port's model from a reference-named state dict (backbone
-    prefix already stripped). Every tensor must be consumed."""
+    prefix already stripped). Every tensor must be consumed. Under a mesh
+    each tensor is read whole, its tp slice kept (`parallel.sharding`) and
+    the rest freed before the next one is read."""
     sd = {k: v for k, v in sd.items() if not _BUFFER_RE.search(k)}
-    model = StripedHyena(cfg, device)
+    model = StripedHyena(cfg, device, mesh)
     D, H, Dh = cfg.hidden_size, cfg.num_attention_heads, cfg.head_dim
+    names = {id(t): n for n, t in model.named_parameters()}
 
     def pop(key, required=True):
         return _pop(sd, key, required, model.device)
 
+    def put(dest, full):
+        dest.copy_(shard_tensor(full, names[id(dest)], mesh))
+
     emb = pop('embedding_layer.weight')
-    model.embedding.copy_(emb)
+    put(model.embedding, emb)
     unembed = pop('unembed.weight', required=False)
     if cfg.tie_embeddings:
         if unembed is not None and not torch.equal(unembed.float(),
@@ -120,28 +127,28 @@ def params_from_state_dict(sd: Dict[str, Array], cfg: ModelConfig,
                 'embedding_layer.weight but the config says '
                 'tie_embeddings=True: untied snapshot, fix the config')
     else:
-        model.unembed.copy_(unembed if unembed is not None else emb)
+        put(model.unembed, unembed if unembed is not None else emb)
     if cfg.final_norm:
-        model.final_norm.weight.copy_(pop('norm.scale'))
+        put(model.final_norm.weight, pop('norm.scale'))
 
     def optional(key, enabled, dest, shape):
         b = pop(key, required=enabled)
         if b is not None and enabled:
-            dest.copy_(b.reshape(shape))
+            put(dest, b.reshape(shape))
 
     for i, blk in enumerate(model.blocks):
         p = f'blocks.{i}.'
-        blk.pre_norm.weight.copy_(pop(p + 'pre_norm.scale'))
-        blk.post_norm.weight.copy_(pop(p + 'post_norm.scale'))
-        blk.mlp.w1.copy_(pop(p + 'mlp.l1.weight').T)
-        blk.mlp.w2.copy_(pop(p + 'mlp.l2.weight').T)
-        blk.mlp.w3.copy_(pop(p + 'mlp.l3.weight').T)
+        put(blk.pre_norm.weight, pop(p + 'pre_norm.scale'))
+        put(blk.post_norm.weight, pop(p + 'post_norm.scale'))
+        put(blk.mlp.w1, pop(p + 'mlp.l1.weight').T)
+        put(blk.mlp.w2, pop(p + 'mlp.l2.weight').T)
+        put(blk.mlp.w3, pop(p + 'mlp.l3.weight').T)
         if isinstance(blk, AttentionBlock):
             a = blk.attn
-            a.wqkv.copy_(pop(p + 'inner_mha_cls.Wqkv.weight')
-                         .T.reshape(D, 3, H, Dh))
-            a.wo.copy_(pop(p + 'inner_mha_cls.out_proj.weight')
-                       .T.reshape(H, Dh, D))
+            put(a.wqkv, pop(p + 'inner_mha_cls.Wqkv.weight')
+                .T.reshape(D, 3, H, Dh))
+            put(a.wo, pop(p + 'inner_mha_cls.out_proj.weight')
+                .T.reshape(H, Dh, D))
             optional(p + 'inner_mha_cls.Wqkv.bias', cfg.qkv_proj_bias,
                      a.bqkv, (3, H, Dh))
             optional(p + 'inner_mha_cls.out_proj.bias',
@@ -150,13 +157,13 @@ def params_from_state_dict(sd: Dict[str, Array], cfg: ModelConfig,
         h = blk.hyena
         poles = pop(p + 'filter.poles')
         residues = pop(p + 'filter.residues')
-        h.poles.copy_(poles.reshape(h.poles.shape))
-        h.residues.copy_(residues.reshape(h.residues.shape))
+        put(h.poles, poles.reshape(D, -1, 2))
+        put(h.residues, residues.reshape(D, -1, 2))
         fir_w = pop(p + 'filter.short_filter_weight')
-        h.fir_w.copy_(fir_w.reshape(h.fir_w.shape))
-        h.w_in.copy_(pop(p + 'projections.weight').T.reshape(D, 3, D))
-        h.d_skip.copy_(pop(p + 'filter.D'))
-        h.w_out.copy_(pop(p + 'out_filter_dense.weight').T)
+        put(h.fir_w, fir_w.reshape(3, D, -1))
+        put(h.w_in, pop(p + 'projections.weight').T.reshape(D, 3, D))
+        put(h.d_skip, pop(p + 'filter.D'))
+        put(h.w_out, pop(p + 'out_filter_dense.weight').T)
         optional(p + 'projections.bias', cfg.hyena_proj_bias, h.b_in, (3, D))
         optional(p + 'filter.short_filter_bias', cfg.short_filter_bias,
                  h.fir_b, (3, D))
@@ -698,17 +705,18 @@ def infer_config_overrides(sd: Dict[str, Array],
 
 
 def load_reference_checkpoint(path: str, cfg: ModelConfig,
-                              device: Union[str, torch.device] = 'cuda'
-                              ) -> StripedHyena:
-    """A reference snapshot -> the port's model on `device`."""
+                              device: Union[str, torch.device] = 'cuda',
+                              mesh=None) -> StripedHyena:
+    """A reference snapshot -> the port's model on `device` (this rank's
+    shards under a mesh)."""
     sd = strip_backbone_prefix(read_safetensors_state_dict(path))
-    return params_from_state_dict(sd, cfg, device)
+    return params_from_state_dict(sd, cfg, device, mesh)
 
 
 def load_reference_checkpoint_adaptive(
         path: str, cfg: ModelConfig,
-        device: Union[str, torch.device] = 'cuda', verbose: bool = True
-        ) -> Tuple[StripedHyena, ModelConfig]:
+        device: Union[str, torch.device] = 'cuda', verbose: bool = True,
+        mesh=None) -> Tuple[StripedHyena, ModelConfig]:
     """Load a reference snapshot with the checkpoint as ground truth:
     infer the architecture fields from its shapes, validate the whole
     schema in one pass, then build the model. Returns (model, adapted
@@ -724,7 +732,7 @@ def load_reference_checkpoint_adaptive(
     if not report['ok']:
         raise ValueError('reference snapshot does not match the engine '
                          'schema:\n' + format_validation_report(report))
-    return params_from_state_dict(sd, cfg, device), cfg
+    return params_from_state_dict(sd, cfg, device, mesh), cfg
 
 
 # ---------------------------------------------------------------------------
@@ -750,8 +758,10 @@ def save_native(model: StripedHyena, path: str,
 
 
 def load_native(path: str, cfg: ModelConfig,
-                device: Union[str, torch.device] = 'cuda') -> StripedHyena:
-    return load_reference_checkpoint(os.path.abspath(path), cfg, device)
+                device: Union[str, torch.device] = 'cuda',
+                mesh=None) -> StripedHyena:
+    return load_reference_checkpoint(os.path.abspath(path), cfg, device,
+                                     mesh)
 
 
 def native_config(path: str) -> Optional[ModelConfig]:
@@ -797,13 +807,13 @@ def is_native_checkpoint(path: str) -> bool:
 
 
 def load_params_auto(path: str, cfg: ModelConfig,
-                     device: Union[str, torch.device] = 'cuda'
-                     ) -> StripedHyena:
+                     device: Union[str, torch.device] = 'cuda',
+                     mesh=None) -> StripedHyena:
     """Load a native checkpoint or a reference snapshot, whichever `path`
     holds, under `cfg` as it is."""
     if is_native_checkpoint(path):
-        return load_native(path, cfg, device)
-    return load_reference_checkpoint(path, cfg, device)
+        return load_native(path, cfg, device, mesh)
+    return load_reference_checkpoint(path, cfg, device, mesh)
 
 
 # ---------------------------------------------------------------------------

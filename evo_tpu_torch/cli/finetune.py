@@ -19,7 +19,18 @@ Wires the packed-FASTA batches (`io/dataset.py`) into the train step of
 `--device` defaults to `cuda`; `--tiny --device cpu` trains a tiny model
 of the same schema on the CPU (example_seqs.fasta is ~50 tokens, so
 --seq-len must be small enough to cut --batch-size windows an epoch).
-`--dp` / `--tp` other than 1 raise: meshes are not ported.
+
+`--dp D --tp T` fine-tunes the whole model over D x T ranks, launched one
+rank a card as torchrun launches them (`--dist-backend gloo` for several
+ranks on one card): `training.make_sharded_train_step`, each rank
+writing its own train-state files; the serving checkpoint is gathered
+and written by rank 0. --batch-size keeps the JAX script's meaning, the
+windows a host reads a step (there, one process drives a host), so the
+global batch is --batch-size times the hosts, whatever D is: each dp
+rank reads its share of it (`rank_batch_size`), from the records of its
+dp coordinate (the dataset split D ways where the JAX script splits it
+over hosts), and the rate printed is a host's. LoRA under a mesh is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -34,6 +45,7 @@ import torch
 from evo_tpu_torch import checkpoint as ckpt
 from evo_tpu_torch import lora as lora_lib
 from evo_tpu_torch import training
+from evo_tpu_torch.cli.score import start_ranks
 from evo_tpu_torch.config import cli_tiny_overrides
 from evo_tpu_torch.io.dataset import PackedFastaDataset
 from evo_tpu_torch.models import Evo
@@ -67,9 +79,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--grad-clip', type=float, default=1.0)
     p.add_argument('--seed', type=int, default=0)
     p.add_argument('--dp', type=int, default=1,
-                   help='data-parallel mesh size (not ported yet)')
+                   help='data-parallel size (ranks that split the batches)')
     p.add_argument('--tp', type=int, default=None,
-                   help='tensor-parallel mesh size (not ported yet)')
+                   help='tensor-parallel size (ranks that shard the model)')
+    p.add_argument('--dist-backend', default=None, choices=['nccl', 'gloo'],
+                   help='torch.distributed backend (default: nccl on the '
+                        'card, gloo on the CPU)')
     p.add_argument('--lora-rank', type=int, default=0,
                    help='>0 trains rank-r LoRA adapters (lora.py) over '
                         'the frozen base weights: the one-card 7B '
@@ -92,19 +107,38 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def rank_batch_size(batch_size: int, mesh, hosts: int = 1) -> int:
+    """Windows a dp rank reads a step when each of `hosts` hosts reads
+    `batch_size` (the JAX script's per-process batch): the global batch
+    split over the mesh's dp ranks, which must divide it."""
+    dp = 1 if mesh is None else mesh.dp
+    total = batch_size * hosts
+    if total % dp:
+        raise ValueError(f'--batch-size {batch_size} on {hosts} host(s) '
+                         f'is a global batch of {total}, which --dp {dp} '
+                         'does not divide')
+    return total // dp
+
+
 def main(argv: Optional[List[str]] = None):
     args = build_parser().parse_args(argv)
-    if args.dp != 1 or args.tp not in (None, 1):
-        raise NotImplementedError(
-            '--dp / --tp (sharded train steps) are not ported yet '
-            '(ROADMAP.md, modules queue: parallelism)')
+    mesh, rows = None, args.batch_size
+    if start_ranks(args):
+        from evo_tpu_torch.parallel.distributed import get_world_size
+        from evo_tpu_torch.parallel.mesh import make_mesh
+        mesh = make_mesh(dp=args.dp, tp=args.tp)
+        world = get_world_size()
+        hosts = world // int(os.environ.get('LOCAL_WORLD_SIZE', world))
+        rows = rank_batch_size(args.batch_size, mesh, hosts)
+    lead = mesh is None or mesh.rank == 0
     overrides = {'remat': not args.no_remat}
     if args.tiny:
         args.random_init = True
         overrides.update(cli_tiny_overrides())
     evo = Evo(args.model_name, args.device,
               checkpoint_path=args.checkpoint_path,
-              random_init=args.random_init, config_overrides=overrides)
+              random_init=args.random_init, config_overrides=overrides,
+              mesh=mesh)
     cfg = evo.config
 
     if args.lr_schedule == 'cosine':
@@ -126,24 +160,31 @@ def main(argv: Optional[List[str]] = None):
         state = lora_lib.init_lora_train_state(adapters, optimizer)
         step_fn = lora_lib.make_lora_train_step(evo.model, optimizer,
                                                 alpha=args.lora_alpha)
+    elif mesh is not None:
+        state = training.init_train_state(evo.model, optimizer)
+        step_fn = training.make_sharded_train_step(evo.model, optimizer,
+                                                   mesh)
     else:
         state = training.init_train_state(evo.model, optimizer)
         step_fn = training.make_train_step(evo.model, optimizer)
     if args.resume and os.path.exists(
             os.path.join(args.save_dir, training.STATE_DIR)):
-        state = training.load_train_state(args.save_dir, state)
+        state = training.load_train_state(args.save_dir, state, mesh)
         print(f'resumed at step {state.step}', flush=True)
 
-    ds = PackedFastaDataset(args.input_fasta, evo.tokenizer,
-                            seq_len=args.seq_len,
-                            batch_size=args.batch_size, seed=args.seed)
-    print(f'{len(ds._records)} records, ~{ds.tokens_per_epoch} tokens/'
-          f'epoch, {ds.steps_per_epoch()} steps/epoch/host', flush=True)
+    ds = PackedFastaDataset(
+        args.input_fasta, evo.tokenizer, seq_len=args.seq_len,
+        batch_size=rows, seed=args.seed,
+        process_index=0 if mesh is None else mesh.index('dp'),
+        process_count=1 if mesh is None else mesh.dp)
+    if lead:
+        print(f'{len(ds._records)} records, ~{ds.tokens_per_epoch} tokens/'
+              f'epoch, {ds.steps_per_epoch()} steps/epoch/host', flush=True)
 
     def save(state):
         os.makedirs(args.save_dir, exist_ok=True)
         serving = os.path.join(args.save_dir, 'serving')
-        training.save_train_state(state, args.save_dir)
+        training.save_train_state(state, args.save_dir, mesh)
         if lora:
             # the adapters alone as the JAX package's npz, and a merged
             # serving checkpoint (the base model itself stays as it is)
@@ -153,6 +194,16 @@ def main(argv: Optional[List[str]] = None):
             ckpt.save_native(lora_lib.merge_lora(
                 evo.model.module, state.lora, args.lora_alpha), serving,
                 cfg=cfg)
+        elif mesh is not None:
+            from evo_tpu_torch.parallel.distributed import barrier
+            from evo_tpu_torch.parallel.sharding import unshard
+            training.load_masters(evo.model, state)
+            if mesh.index('dp') == 0:
+                full = unshard(evo.model.module, mesh)
+                if lead:
+                    ckpt.save_native(full, serving, cfg=cfg)
+                del full
+            barrier()
         else:
             training.load_masters(evo.model, state)
             ckpt.save_native(evo.model.module, serving, cfg=cfg)
@@ -164,7 +215,7 @@ def main(argv: Optional[List[str]] = None):
             break
         state, loss = step_fn(state, ids, mask)
         done += 1
-        if args.log_every and done % args.log_every == 0:
+        if lead and args.log_every and done % args.log_every == 0:
             loss = float(loss)          # sync point
             rate = (done - start) * args.batch_size * (args.seq_len + 1) \
                 / max(time.time() - t0, 1e-9)
@@ -173,8 +224,9 @@ def main(argv: Optional[List[str]] = None):
         if args.save_every and done % args.save_every == 0:
             save(state)
     save(state)
-    print(f'done: {done} steps; serving checkpoint at '
-          f'{os.path.join(args.save_dir, "serving")}', flush=True)
+    if lead:
+        print(f'done: {done} steps; serving checkpoint at '
+              f'{os.path.join(args.save_dir, "serving")}', flush=True)
     return state
 
 

@@ -9,6 +9,11 @@
 tiny model of the same schema on the CPU. `--speculative G` generates each
 sample by n-gram speculative decoding (`speculative.py`) with G proposed
 tokens a verify pass, seed `--seed + i` for sample i.
+
+`--dp` / `--tp` run one model over that many ranks, launched one rank a
+card as torchrun launches them (`--dist-backend gloo` for several ranks on
+one card): every rank runs the same loop and draws the same tokens, and
+rank 0 prints them. Speculative decoding under a mesh is not ported yet.
 """
 
 from __future__ import annotations
@@ -16,8 +21,10 @@ from __future__ import annotations
 import argparse
 from typing import List, Optional
 
-from evo_tpu_torch.cli.score import build_overrides, refuse_parallelism
 import numpy as np
+
+from evo_tpu_torch.cli.score import (add_mesh_flags, build_overrides, rank,
+                                     start_ranks)
 
 from evo_tpu_torch.generation import generate
 from evo_tpu_torch.models import Evo
@@ -48,9 +55,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--tiny', action='store_true',
                         help='tiny same-schema model (CPU smoke tests; '
                              'implies --random-init)')
-    parser.add_argument('--dp', type=int, default=1)
-    parser.add_argument('--tp', type=int, default=None)
-    parser.add_argument('--cp', type=int, default=1)
+    add_mesh_flags(parser)
     parser.add_argument('--prefill-segment-len', type=int, default=None,
                         help='prefill long prompts in chunks of this many '
                              'tokens through the resumable cache (bounded '
@@ -77,11 +82,17 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[List[str]] = None):
     args = build_parser().parse_args(argv)
-    refuse_parallelism(args)
+    mesh = None
+    if start_ranks(args):
+        from evo_tpu_torch.parallel.mesh import make_mesh
+        mesh = make_mesh(dp=args.dp, tp=args.tp)
+        if rank() != 0:
+            args.verbose = 0
     overrides = build_overrides(args)
     evo = Evo(args.model_name, args.device,
               checkpoint_path=args.checkpoint_path,
-              random_init=args.random_init, config_overrides=overrides)
+              random_init=args.random_init, config_overrides=overrides,
+              mesh=mesh)
     if args.speculative:
         seqs, scores = [], []
         for i in range(args.n_samples):

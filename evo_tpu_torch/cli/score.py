@@ -7,6 +7,21 @@ flags, defaults and output of the JAX package's `scripts/score.py`).
 
 `--device` is honoured and defaults to `cuda`; `--tiny --device cpu` runs a
 tiny model of the same schema on the CPU.
+
+Across processes (the multi-host branch of the JAX package's script),
+launched one rank a card the way torchrun launches it:
+
+    torchrun --nproc-per-node 8 -m evo_tpu_torch.cli.score \
+        --input-fasta big.fasta --output-tsv scores.tsv [--tp 2]
+
+Each model replica scores its shards of the FASTA, with a manifest, a
+CSV and a done-marker a shard in `<output-tsv>.work/`, so a re-run
+resumes; rank 0 writes the TSV in input order and the other ranks exit
+quietly. Without `--tp` a replica is one rank. With `--tp T` it is all
+the ranks of a host (`local_mesh`): T-way tensor parallel, with the
+host's ranks / T data-parallel ranks inside it that split each batch,
+and the hosts split the shards. `--dist-backend gloo` runs several
+ranks on one card (NCCL refuses that).
 """
 
 from __future__ import annotations
@@ -17,7 +32,8 @@ from typing import List, Optional
 from evo_tpu_torch.config import cli_quant_overrides, cli_tiny_overrides
 from evo_tpu_torch.io.fasta import read_fasta
 from evo_tpu_torch.models import Evo
-from evo_tpu_torch.scoring import score_sequences_segmented, score_stream
+from evo_tpu_torch.scoring import (score_sequences, score_sequences_segmented,
+                                   score_stream)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -41,12 +57,7 @@ def build_parser() -> argparse.ArgumentParser:
                              'tests; implies --random-init)')
     parser.add_argument('--reduce-method', default='mean',
                         choices=['mean', 'sum'])
-    parser.add_argument('--dp', type=int, default=1,
-                        help='data-parallel mesh size (not ported yet)')
-    parser.add_argument('--cp', type=int, default=1,
-                        help='context-parallel axis size (not ported yet)')
-    parser.add_argument('--tp', type=int, default=None,
-                        help='tensor-parallel mesh size (not ported yet)')
+    add_mesh_flags(parser)
     parser.add_argument('--no-bucket', action='store_true',
                         help='disable power-of-two length bucketing')
     parser.add_argument('--segment-len', type=int, default=None,
@@ -66,13 +77,54 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def refuse_parallelism(args) -> None:
-    """The mesh flags are accepted for compatibility and raise when set:
-    their machinery is not ported."""
-    if args.dp != 1 or args.cp != 1 or args.tp not in (None, 1):
+def add_mesh_flags(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument('--dp', type=int, default=1,
+                        help='data-parallel size (ranks that split the '
+                             'work; one process a rank)')
+    parser.add_argument('--cp', type=int, default=1,
+                        help='context-parallel size (not ported yet)')
+    parser.add_argument('--tp', type=int, default=None,
+                        help='tensor-parallel size (ranks that shard one '
+                             'model)')
+    parser.add_argument('--dist-backend', default=None,
+                        choices=['nccl', 'gloo'],
+                        help='torch.distributed backend: nccl on the card '
+                             '(default), gloo on the CPU; gloo also runs '
+                             'several ranks on one card')
+
+
+def refuse_parallelism(args, serving: bool = False) -> None:
+    """--cp, and for the server every mesh flag, raise: their machinery
+    is not ported yet."""
+    if getattr(args, 'cp', 1) != 1 or serving and (
+            args.dp != 1 or args.tp not in (None, 1)):
         raise NotImplementedError(
-            '--dp / --tp / --cp (meshes, and with them multi-host scoring) '
-            'are not ported yet (ROADMAP.md, modules queue: parallelism)')
+            ('--dp / --tp / --cp (serving under a mesh)' if serving else
+             '--cp (context parallelism)') + ' is not ported yet '
+            '(ROADMAP.md, modules queue: parallelism: context parallel, '
+            'and serving, speculation and LoRA under a mesh)')
+
+
+def start_ranks(args) -> bool:
+    """Join the process group that torchrun's environment describes
+    (`parallel.distributed.initialize_distributed`, the backend of
+    --dist-backend). Returns True with more than one rank. --dp / --tp
+    above 1 in a single process raise: each rank is a process."""
+    from evo_tpu_torch.parallel.distributed import initialize_distributed
+    refuse_parallelism(args)
+    multi = initialize_distributed(backend=args.dist_backend,
+                                   device=args.device)
+    if not multi and (args.dp not in (1, -1) or args.tp not in (None, 1)):
+        raise ValueError(
+            f'--dp {args.dp} --tp {args.tp} needs one process a rank: '
+            'launch with torchrun (or the same RANK / WORLD_SIZE / '
+            'MASTER_ADDR / MASTER_PORT environment)')
+    return multi
+
+
+def rank() -> int:
+    from evo_tpu_torch.parallel.distributed import get_rank
+    return get_rank()
 
 
 def build_overrides(args) -> Optional[dict]:
@@ -91,14 +143,32 @@ def build_overrides(args) -> Optional[dict]:
 
 def main(argv: Optional[List[str]] = None):
     args = build_parser().parse_args(argv)
-    refuse_parallelism(args)
+    # join the ranks first: each takes its card before anything else does
+    multi = start_ranks(args)
+    mesh = None
+    if multi:
+        from evo_tpu_torch.parallel.distributed import get_world_size
+        from evo_tpu_torch.parallel.mesh import local_mesh
+        # a model replica: one rank, or under --tp every rank of a host
+        # (dp = local ranks / tp inside it); the replicas split the FASTA
+        # between them (score_fasta_sharded)
+        tp = args.tp or 1
+        if args.dp not in (1, -1, get_world_size() // tp):
+            raise ValueError(f'--dp {args.dp}: {get_world_size()} ranks at '
+                             f'--tp {tp} make {get_world_size() // tp} '
+                             'data-parallel replicas')
+        if tp > 1:
+            mesh = local_mesh(dp=-1, tp=tp)
     overrides = build_overrides(args)
     evo = Evo(args.model_name, args.device,
               checkpoint_path=args.checkpoint_path,
-              random_init=args.random_init, config_overrides=overrides)
+              random_init=args.random_init, config_overrides=overrides,
+              mesh=mesh)
 
     _, seqs = read_fasta(args.input_fasta)
     print(f'Scoring {len(seqs)} sequences...', flush=True)
+    if multi:
+        return _score_sharded(args, evo, seqs, mesh)
     if args.segment_len:
         scores = score_sequences_segmented(
             seqs, evo.model, evo.tokenizer, segment_len=args.segment_len,
@@ -113,6 +183,39 @@ def main(argv: Optional[List[str]] = None):
             progress=lambda done: print(f'  {done}/{len(seqs)}',
                                         flush=True))
 
+    with open(args.output_tsv, 'w') as f:
+        f.write('seqs\tscores\n')
+        for seq, score in zip(seqs, scores):
+            f.write(f'{seq}\t{score}\n')
+    print(f'Wrote {args.output_tsv}')
+    return seqs, scores
+
+
+def _score_sharded(args, evo, seqs, mesh):
+    """The multi-process branch: shards, done-markers and resume in
+    `<output-tsv>.work/`; rank 0 writes the TSV in input order."""
+    import csv
+
+    from evo_tpu_torch.parallel.distributed import score_fasta_sharded
+
+    def score_batch(batch):
+        if args.segment_len:
+            return score_sequences_segmented(
+                batch, evo.model, evo.tokenizer,
+                segment_len=args.segment_len,
+                reduce_method=args.reduce_method)
+        return score_sequences(batch, evo.model, evo.tokenizer,
+                               reduce_method=args.reduce_method)
+
+    merged = score_fasta_sharded(
+        args.input_fasta, args.output_tsv + '.work', score_batch,
+        batch_size=args.batch_size, mesh=mesh,
+        log=lambda msg: print(f'rank {rank()}: {msg}', flush=True))
+    if merged is None:
+        return None, None
+    with open(merged) as f:
+        rows = list(csv.reader(f))[1:]       # input order
+    scores = [float(r[2]) for r in rows]
     with open(args.output_tsv, 'w') as f:
         f.write('seqs\tscores\n')
         for seq, score in zip(seqs, scores):

@@ -15,6 +15,11 @@ calls. As in the reference:
 
 The engine updates a cache in place, so a resumed call clones the passed
 cache first and leaves the caller's as it was, unless `donate_cache`.
+
+Under a mesh every rank runs the same loop with the same seeded
+generator: the logits it samples from are the whole batch's on every rank
+(summed over tp, gathered over dp by `models.EvoModel`), so all ranks draw
+the same tokens.
 """
 
 from __future__ import annotations
@@ -25,7 +30,6 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from evo_tpu_torch import model as model_lib
 from evo_tpu_torch.layers.hyena import HyenaState
 from evo_tpu_torch.ops.sampling import sample
 from evo_tpu_torch.runtime import device_memory_report
@@ -193,9 +197,7 @@ class Generator:
             # the reference prints device memory under verbose
             print(f'Memory before generation: {device_memory_report()}',
                   flush=True)
-        module = self.model.module
-        logits, cache = model_lib.prefill(module, prompt, cache,
-                                          resume=resume)
+        logits, cache = self.model.prefill(prompt, cache, resume=resume)
         last = logits[:, -1]
         toks, steps = [], []
         for i in range(total):
@@ -205,7 +207,7 @@ class Generator:
             toks.append(tok)
             steps.append(last)
             if i < total - 1:
-                last, cache = model_lib.decode_step(module, tok, cache)
+                last, cache = self.model.decode_step(tok, cache)
         generation = torch.stack(toks[num_forced:], dim=1)
         scores = torch.stack(steps[num_forced:], dim=1)
         if verbose:

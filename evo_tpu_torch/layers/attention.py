@@ -20,7 +20,10 @@ decode step (`mha_step`: the buffer-attention kernel at one query row on
 the card, for both caches; on the CPU a dense float32 softmax over an
 unquantised cache). The decode step takes a Python int offset or an
 int32 (B,) tensor of per-row offsets; the full-sequence paths take an
-int. Adapters attached by `lora.attach_lora` add their side paths after
+int. Under a mesh (`parallel/`) a rank holds H/tp heads of wqkv and
+bqkv, the matching rows of wo and an (H/tp)-head cache; the kernels run at
+H/tp heads, and wo's partial products are summed over tp before bo.
+Adapters attached by `lora.attach_lora` add their side paths after
 wqkv and wo on the full-sequence paths; the decode step refuses them.
 """
 
@@ -37,15 +40,19 @@ from evo_tpu_torch.layers.adapters import add_lora, refuse_in_decode
 from evo_tpu_torch.layers.rotary import apply_rotary, rotary_cos_sin
 from evo_tpu_torch.ops.attention import flash_attention_causal
 from evo_tpu_torch.ops.attention_buffer import Offset, flash_attention_buffer
+from evo_tpu_torch.parallel.collectives import copy_to_tp, reduce_from_tp
+from evo_tpu_torch.parallel.mesh import tp_size
 from evo_tpu_torch.quant import project
 
 
 class Attention(nn.Module):
     def __init__(self, cfg: ModelConfig, *, dtype: torch.dtype,
-                 device: torch.device):
+                 device: torch.device, mesh=None):
         super().__init__()
-        D, H, Dh = cfg.hidden_size, cfg.num_attention_heads, cfg.head_dim
+        D, Dh = cfg.hidden_size, cfg.head_dim
+        H = cfg.num_attention_heads // tp_size(mesh)
         self.act_quant = cfg.act_quant == 'int8'
+        self.mesh = mesh
 
         def param(make, *shape):
             return nn.Parameter(make(shape, dtype=dtype, device=device),
@@ -62,6 +69,7 @@ class Attention(nn.Module):
 def _qkv(p: Attention, x: torch.Tensor):
     """Fused QKV projection: x (B, L, D) -> q, k, v (B, L, H, Dh), views of
     one (B, L, 3, H, Dh) tensor."""
+    x = copy_to_tp(x, p.mesh)
     qkv = project(x, p.wqkv, 1, p.act_quant)         # (B, L, 3, H, Dh)
     if p.bqkv is not None:
         qkv = qkv + p.bqkv
@@ -87,7 +95,7 @@ def _rotate(cfg: ModelConfig, q, k, offset: Offset):
 
 def _out(p: Attention, y: torch.Tensor) -> torch.Tensor:
     """y (B, L, H, Dh) -> (B, L, D): wo contracts the two axes (H, Dh)."""
-    o = project(y, p.wo, 2, p.act_quant)
+    o = reduce_from_tp(project(y, p.wo, 2, p.act_quant), p.mesh)
     if p.bo is not None:
         o = o + p.bo
     return add_lora(p, 'wo', y, o, n_in=2)

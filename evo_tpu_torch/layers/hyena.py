@@ -10,6 +10,10 @@
 Weights keep the JAX layouts: w_in (D, 3, C), fir_w (3, C, K), poles and
 residues (C, S, 2) float32, d_skip (C,), w_out (C, D). w_in and w_out may
 be `QuantizedWeight`s (`quant.py`); the projections go through `project`.
+Under a mesh (`parallel/`) a rank holds C/tp channels of every C-axis
+tensor and the matching rows of w_out: everything between the
+projections, kernels included, runs on the local channels unchanged, and
+the out-projection's partial products are summed over tp before b_out.
 
 Decode state (`HyenaState`): fir (B, 3, C, K-1) trailing pre-FIR inputs
 and iir (B, C, S, 2) float32 modal state. Paths: a full sequence or a
@@ -37,6 +41,8 @@ from evo_tpu_torch.layers.adapters import add_lora, refuse_in_decode
 from evo_tpu_torch.ops import fftconv
 from evo_tpu_torch.ops.fir_gate import fir_gate
 from evo_tpu_torch.ops.hyena_mixer import hyena_mixer, hyena_mixer_supported
+from evo_tpu_torch.parallel.collectives import copy_to_tp, reduce_from_tp
+from evo_tpu_torch.parallel.mesh import tp_size
 from evo_tpu_torch.quant import project
 
 
@@ -47,25 +53,27 @@ class HyenaState(NamedTuple):
 
 class HyenaMixer(nn.Module):
     def __init__(self, cfg: ModelConfig, *, dtype: torch.dtype,
-                 device: torch.device):
+                 device: torch.device, mesh=None):
         super().__init__()
         D = cfg.hidden_size
+        C = D // tp_size(mesh)
         K, S = cfg.short_filter_length, cfg.state_size
         self.act_quant = cfg.act_quant == 'int8'
+        self.mesh = mesh
 
         def param(make, *shape, dt=dtype):
             return nn.Parameter(make(shape, dtype=dt, device=device),
                                 requires_grad=False)
 
-        self.w_in = param(torch.empty, D, 3, D)
-        self.fir_w = param(torch.empty, 3, D, K)
-        self.poles = param(torch.empty, D, S, 2, dt=torch.float32)
-        self.residues = param(torch.empty, D, S, 2, dt=torch.float32)
-        self.d_skip = param(torch.ones, D)
-        self.w_out = param(torch.empty, D, D)
-        self.b_in = param(torch.zeros, 3, D) if cfg.hyena_proj_bias \
+        self.w_in = param(torch.empty, D, 3, C)
+        self.fir_w = param(torch.empty, 3, C, K)
+        self.poles = param(torch.empty, C, S, 2, dt=torch.float32)
+        self.residues = param(torch.empty, C, S, 2, dt=torch.float32)
+        self.d_skip = param(torch.ones, C)
+        self.w_out = param(torch.empty, C, D)
+        self.b_in = param(torch.zeros, 3, C) if cfg.hyena_proj_bias \
             else None
-        self.fir_b = param(torch.zeros, 3, D) if cfg.short_filter_bias \
+        self.fir_b = param(torch.zeros, 3, C) if cfg.short_filter_bias \
             else None
         self.b_out = param(torch.zeros, D) if cfg.hyena_out_proj_bias \
             else None
@@ -73,7 +81,7 @@ class HyenaMixer(nn.Module):
 
 
 def _out_proj(p: HyenaMixer, y: torch.Tensor) -> torch.Tensor:
-    o = project(y, p.w_out, 1, p.act_quant)
+    o = reduce_from_tp(project(y, p.w_out, 1, p.act_quant), p.mesh)
     if p.b_out is not None:
         o = o + p.b_out
     return add_lora(p, 'w_out', y, o)
@@ -107,6 +115,7 @@ def hyena_full(p: HyenaMixer, cfg: ModelConfig, x: torch.Tensor, *,
     L = x.shape[1]
     K = cfg.short_filter_length
     chunk = cfg.hyena_matmul_chunk
+    x = copy_to_tp(x, p.mesh)
     zl = add_lora(p, 'w_in', x,
                   project(x, p.w_in, 1, p.act_quant))   # (B, L, 3, C)
     B, C = zl.shape[0], zl.shape[-1]

@@ -48,6 +48,7 @@ from evo_tpu_torch.checkpoint import _lora_unstack, lora_to_jax
 from evo_tpu_torch.layers.adapters import delta1, delta2  # noqa: F401
 from evo_tpu_torch.model import AttentionBlock
 from evo_tpu_torch.ops.fftconv import full_float32
+from evo_tpu_torch.parallel import refuse_mesh
 from evo_tpu_torch.quant import QuantizedWeight
 
 # target weight -> (owning submodule of a block, number of input axes)
@@ -87,6 +88,7 @@ def init_lora(generator: torch.Generator, model, rank: int = 8,
         raise ValueError(f'unknown LoRA targets {sorted(unknown)}; '
                          f'choose from {sorted(_TARGETS)}')
     module = training.module_of(model)
+    refuse_mesh('LoRA', module.mesh)
     out: Lora = []
     for blk in module.blocks:
         entry = {_mixer(blk): {}, 'mlp': {}}
@@ -132,6 +134,7 @@ def attach_lora(model, lora: Lora, alpha: float = 16.0):
     scale alpha / r; the full-sequence paths then add the side paths. No
     weight is copied. Returns `model`."""
     module = training.module_of(model)
+    refuse_mesh('LoRA', module.mesh)
     scale = alpha / lora_rank(lora)
     owners = {}
     for owner, name, pr in _sites(module, lora):
@@ -225,6 +228,7 @@ def make_lora_train_step(model, optimizer: training.Optimizer,
     only to them. Set `cfg.remat` for long sequences: the backward then
     recomputes each block instead of keeping every layer's activations."""
     module = training.module_of(model)
+    refuse_mesh('LoRA', module.mesh)
     cfg = training.train_config(module, adapters=True)
 
     def train_step(state: LoraTrainState, ids, loss_mask=None):

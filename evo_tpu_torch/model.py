@@ -22,6 +22,13 @@ keep a cache as it was clones it first (`generation._grow_cache`). Every
 buffer is made of zeros: the attention kernels multiply masked keys by 0,
 which a NaN survives.
 
+Under a mesh (`parallel/`, `StripedHyena(cfg, device, mesh)`) every rank
+holds its tensor-parallel shards and runs the same entry points on them:
+the layers sum their row-parallel products over tp, while the embedding,
+the norms and the unembedding stay replicated (kernel 1 runs on the full
+D on every rank). The data-parallel split of a batch is the engine
+facade's (`models.EvoModel`).
+
 Training (`training.py`, `lora.py`): the parameters are created with
 `requires_grad=False`, and the train steps turn on the ones they train.
 Under `cfg.remat` the cache-free forward recomputes each block on the
@@ -46,6 +53,7 @@ from evo_tpu_torch.layers.hyena import (HyenaMixer, HyenaState, hyena_full,
                                         hyena_step)
 from evo_tpu_torch.layers.mlp import GatedMLP
 from evo_tpu_torch.layers.norms import RMSNorm
+from evo_tpu_torch.parallel import sharding
 
 Cache = Dict[str, Any]
 
@@ -66,40 +74,44 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
 class AttentionBlock(nn.Module):
     """Pre-norm residual block: x + attn(norm(x)), then + mlp(norm(x))."""
 
-    def __init__(self, cfg: ModelConfig, *, dtype, device):
+    def __init__(self, cfg: ModelConfig, *, dtype, device, mesh=None):
         super().__init__()
         D = cfg.hidden_size
         self.pre_norm = RMSNorm(D, cfg.eps, dtype=dtype, device=device)
         self.post_norm = RMSNorm(D, cfg.eps, dtype=dtype, device=device)
-        self.attn = Attention(cfg, dtype=dtype, device=device)
+        self.attn = Attention(cfg, dtype=dtype, device=device, mesh=mesh)
         self.mlp = GatedMLP(D, cfg.inner_mlp_size_actual, cfg.mlp_activation,
                             dtype=dtype, device=device,
-                            act_quant=cfg.act_quant == 'int8')
+                            act_quant=cfg.act_quant == 'int8', mesh=mesh)
 
 
 class HyenaBlock(nn.Module):
-    def __init__(self, cfg: ModelConfig, *, dtype, device):
+    def __init__(self, cfg: ModelConfig, *, dtype, device, mesh=None):
         super().__init__()
         D = cfg.hidden_size
         self.pre_norm = RMSNorm(D, cfg.eps, dtype=dtype, device=device)
         self.post_norm = RMSNorm(D, cfg.eps, dtype=dtype, device=device)
-        self.hyena = HyenaMixer(cfg, dtype=dtype, device=device)
+        self.hyena = HyenaMixer(cfg, dtype=dtype, device=device, mesh=mesh)
         self.mlp = GatedMLP(D, cfg.inner_mlp_size_actual, cfg.mlp_activation,
                             dtype=dtype, device=device,
-                            act_quant=cfg.act_quant == 'int8')
+                            act_quant=cfg.act_quant == 'int8', mesh=mesh)
 
 
 class StripedHyena(nn.Module):
     """Parameters of the whole model; weights are left uninitialised here
-    (`random_init` or `checkpoint.params_from_state_dict` fill them)."""
+    (`random_init` or `checkpoint.params_from_state_dict` fill them). With
+    a `parallel.mesh.Mesh`, each layer holds this rank's tp shards; a size
+    that tp does not divide raises a ValueError naming it."""
 
     def __init__(self, cfg: ModelConfig,
-                 device: Union[str, torch.device] = 'cuda'):
+                 device: Union[str, torch.device] = 'cuda', mesh=None):
         super().__init__()
         device = resolve_device(device)
+        sharding.check_divisible(cfg, mesh)
         dtype = getattr(torch, cfg.param_dtype)
         D, V = cfg.hidden_size, cfg.padded_vocab_size
         self.config = cfg
+        self.mesh = mesh
 
         def param(*shape):
             return nn.Parameter(torch.empty(shape, dtype=dtype,
@@ -112,7 +124,7 @@ class StripedHyena(nn.Module):
                            if cfg.final_norm else None)
         self.blocks = nn.ModuleList([
             (AttentionBlock if cfg.is_attn_layer(i) else HyenaBlock)(
-                cfg, dtype=dtype, device=device)
+                cfg, dtype=dtype, device=device, mesh=mesh)
             for i in range(cfg.num_layers)])
 
     @property
@@ -121,17 +133,32 @@ class StripedHyena(nn.Module):
 
 
 def random_init(cfg: ModelConfig, generator: torch.Generator,
-                device: Union[str, torch.device] = 'cuda') -> StripedHyena:
+                device: Union[str, torch.device] = 'cuda',
+                mesh=None) -> StripedHyena:
     """Random weights with the distributions of `evo_tpu.model.init_params`
     (not its values: the generators differ). `generator` lives on
     `device`. Pole magnitudes stay in [0.6, 0.99]: a pole outside the unit
-    disk overflows over 8k positions."""
-    model = StripedHyena(cfg, device)
+    disk overflows over 8k positions.
+
+    Under a mesh every rank draws each full tensor in the same order from
+    the one generator and keeps its slice, so that the shards are those of
+    the unsharded `random_init` with the same generator; one full tensor
+    at a time is held."""
+    model = StripedHyena(cfg, device, mesh)
     D, I = cfg.hidden_size, cfg.inner_mlp_size_actual
     K, S = cfg.short_filter_length, cfg.state_size
+    names = {id(t): n for n, t in model.named_parameters()}
+
+    def put(t, full):
+        t.copy_(sharding.shard_tensor(full, names[id(t)], mesh))
 
     def normal_(t, std):
-        t.normal_(0.0, std, generator=generator)
+        shape = sharding.full_shape(names[id(t)], t.shape, mesh)
+        if shape == tuple(t.shape):
+            t.normal_(0.0, std, generator=generator)
+            return
+        put(t, torch.empty(shape, dtype=t.dtype, device=t.device).normal_(
+            0.0, std, generator=generator))
 
     normal_(model.embedding, 0.02)
     if model.unembed is not None:
@@ -153,8 +180,8 @@ def random_init(cfg: ModelConfig, generator: torch.Generator,
             0.6, 0.99, generator=generator)
         ang = torch.empty((D, S), device=model.device).uniform_(
             -3.14159, 3.14159, generator=generator)
-        hy.poles.copy_(torch.stack([mag * torch.cos(ang),
-                                    mag * torch.sin(ang)], dim=-1))
+        put(hy.poles, torch.stack([mag * torch.cos(ang),
+                                   mag * torch.sin(ang)], dim=-1))
     return model
 
 
@@ -166,36 +193,20 @@ def param_count(model: StripedHyena) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device: Union[str, torch.device] = 'cuda') -> Cache:
-    """Zeroed decode cache for `batch` rows of up to `max_len` positions."""
+               device: Union[str, torch.device] = 'cuda',
+               mesh=None) -> Cache:
+    """Zeroed decode cache for `batch` rows of up to `max_len` positions.
+    Attention layers take {'k', 'v'} (B, T, H, Dh) buffers, or head-major
+    int8 ones with their scales under `kv_quant='int8'`; Hyena layers a
+    `HyenaState`. Under a mesh, this rank's part: H/tp heads, C/tp
+    channels, and its dp rank's rows (`parallel.sharding.
+    cache_shardings`)."""
     device = resolve_device(device)
-    cd = getattr(torch, cfg.compute_dtype)
-    D, H, Dh = cfg.hidden_size, cfg.num_attention_heads, cfg.head_dim
-    K, S = cfg.short_filter_length, cfg.state_size
     layers = []
-    for i in range(cfg.num_layers):
-        if cfg.is_attn_layer(i) and cfg.kv_quant == 'int8':
-            # head-major, so a head's positions are contiguous for the
-            # decode step that streams them
-            layers.append({
-                name: torch.zeros(shape, dtype=dt, device=device)
-                for name, shape, dt in (
-                    ('k', (batch, H, max_len, Dh), torch.int8),
-                    ('v', (batch, H, max_len, Dh), torch.int8),
-                    ('ks', (batch, H, max_len), torch.float32),
-                    ('vs', (batch, H, max_len), torch.float32))})
-        elif cfg.is_attn_layer(i):
-            layers.append({
-                'k': torch.zeros((batch, max_len, H, Dh), dtype=cd,
-                                 device=device),
-                'v': torch.zeros((batch, max_len, H, Dh), dtype=cd,
-                                 device=device)})
-        else:
-            layers.append(HyenaState(
-                fir=torch.zeros((batch, 3, D, K - 1), dtype=cd,
-                                device=device),
-                iir=torch.zeros((batch, D, S, 2), dtype=torch.float32,
-                                device=device)))
+    for spec in sharding.cache_shardings(cfg, mesh, batch, max_len):
+        bufs = {name: torch.zeros(shape, dtype=dt, device=device)
+                for name, (shape, dt) in spec.items()}
+        layers.append(HyenaState(**bufs) if 'fir' in bufs else bufs)
     return {'offset': 0, 'layers': layers}
 
 

@@ -7,6 +7,13 @@
 
 `Evo` keeps the reference's positional `device` argument and honours it:
 weights live on that device, "cuda" by default.
+
+With a mesh (`parallel.make_mesh`, one process per card) every rank
+builds the same `Evo` and holds its tensor-parallel shards. The facade
+splits each batch over dp: a dp rank runs its rows (`collectives.
+shard_rows`) against a cache of its rows, and the logits are gathered
+over dp, so every rank returns the whole result, as the JAX package's
+dp-sharded program does.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ import torch
 
 from evo_tpu_torch import model as model_lib
 from evo_tpu_torch.config import EVO_1_8K_BASE, EVO_1_131K_BASE, ModelConfig
+from evo_tpu_torch.parallel.collectives import gather_rows, shard_rows
 from evo_tpu_torch.tokenizer import CharLevelTokenizer
 
 MODEL_NAMES = [
@@ -41,11 +49,13 @@ def config_for_model(model_name: str) -> ModelConfig:
 
 
 class EvoModel:
-    """Engine facade over a `model.StripedHyena` and its config."""
+    """Engine facade over a `model.StripedHyena` and its config; `mesh` is
+    the module's."""
 
     def __init__(self, config: ModelConfig, module: model_lib.StripedHyena):
         self.config = config
         self.module = module
+        self.mesh = module.mesh
 
     @property
     def device(self) -> torch.device:
@@ -73,23 +83,40 @@ class EvoModel:
         if ids.dim() == 1:
             ids = ids[None]
         if inference_params_dict is None:
-            return model_lib.forward(self.module, ids), None
+            B = ids.shape[0]
+            logits = model_lib.forward(self.module,
+                                       shard_rows(ids, self.mesh))
+            return gather_rows(logits, self.mesh, B), None
         per_row = isinstance(inference_params_dict['offset'], torch.Tensor)
         if ids.shape[1] == 1 and (per_row or not donate_cache):
-            logits, cache = model_lib.decode_step(self.module, ids[:, 0],
-                                                  inference_params_dict)
+            logits, cache = self.decode_step(ids[:, 0],
+                                             inference_params_dict)
             return logits[:, None], cache
         if per_row:
             raise ValueError('a cache with per-row (B,) offsets takes '
                              'decode steps only, not a prefill')
         if resume is None:
             resume = inference_params_dict['offset'] > 0
-        return model_lib.prefill(self.module, ids, inference_params_dict,
-                                 resume=bool(resume))
+        return self.prefill(ids, inference_params_dict, resume=bool(resume))
+
+    def prefill(self, ids: torch.Tensor, cache, resume: bool = False):
+        """`model.prefill` over the batch ids (B, L), split over dp."""
+        logits, cache = model_lib.prefill(
+            self.module, shard_rows(ids, self.mesh), cache, resume=resume)
+        return gather_rows(logits, self.mesh, ids.shape[0]), cache
+
+    def decode_step(self, token: torch.Tensor, cache):
+        """`model.decode_step` for the batch's tokens (B,), split over
+        dp."""
+        logits, cache = model_lib.decode_step(
+            self.module, shard_rows(token, self.mesh), cache)
+        return gather_rows(logits, self.mesh, token.shape[0]), cache
 
     def initialize_inference_params(self, batch_size: int, max_len: int):
+        """A zeroed cache for a batch of `batch_size` rows (this rank's
+        part under a mesh)."""
         return model_lib.init_cache(self.config, batch_size, max_len,
-                                    self.device)
+                                    self.device, self.mesh)
 
     @property
     def num_params(self) -> int:
@@ -115,22 +142,26 @@ def load_checkpoint(
 
     Under `weight_quant` the loaded (unquantized) weights are quantized
     layer by layer, each source weight freed as soon as its codes exist.
+
+    mesh: a `parallel.mesh.Mesh`; every rank calls this with the same
+    arguments and keeps its tensor-parallel shards, read (or drawn) whole
+    one tensor at a time and sliced before they are quantized. int4 has no
+    sharded layout and raises.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            'meshes (tensor, data and context parallelism) are not '
-            'ported yet (ROADMAP.md, modules queue: parallelism)')
     device = model_lib.resolve_device(device)
     config = config_for_model(model_name)
     if config_overrides:
         config = config.replace(**config_overrides)
+    if config.weight_quant == 'int4' and mesh is not None:
+        from evo_tpu_torch.quant import INT4_MESH_REFUSAL
+        raise ValueError(INT4_MESH_REFUSAL)
     if config.act_quant == 'int8' and config.weight_quant != 'int8':
         raise ValueError('act_quant: int8 requires weight_quant: int8 (the '
                          'int8 x int8 product needs quantized weights; '
                          'evo_tpu_torch/quant.py)')
     if random_init:
         gen = torch.Generator(device=device).manual_seed(seed)
-        module = model_lib.random_init(config, gen, device)
+        module = model_lib.random_init(config, gen, device, mesh)
     else:
         if checkpoint_path is None:
             checkpoint_path = snapshot_download(model_name)
@@ -139,10 +170,11 @@ def load_checkpoint(
             # the config saved WITH the checkpoint is ground truth for the
             # architecture fields; runtime fields stay as requested
             config = ckpt.reconcile_native_config(checkpoint_path, config)
-            module = ckpt.load_params_auto(checkpoint_path, config, device)
+            module = ckpt.load_params_auto(checkpoint_path, config, device,
+                                           mesh)
         else:
             module, config = ckpt.load_reference_checkpoint_adaptive(
-                checkpoint_path, config, device)
+                checkpoint_path, config, device, mesh=mesh)
     if config.weight_quant != 'none':
         from evo_tpu_torch.quant import quantize_params
         module = quantize_params(module, free_source=True,

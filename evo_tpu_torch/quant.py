@@ -23,6 +23,13 @@ norms, biases and the tied embedding keep their types.
 Symmetric max-abs scales, reduced over the product's contraction axes. A
 quantized weight is a `QuantizedWeight` module in the place of the layer's
 parameter, holding buffers `q`, `s` (int8) or `q4`, `s4` (int4).
+
+Under a mesh (`parallel/`) the codes and scales follow the weights'
+shards. A row-parallel weight (w3, w_out, wo) is split along its
+contraction, so its scales and, under `act_quant`, each activation row's
+scale are maxima over the whole row, all-reduced over tp: the unsharded
+function, as GSPMD computes it in the JAX package. int4 has no sharded
+layout.
 """
 
 from __future__ import annotations
@@ -35,12 +42,18 @@ import torch
 from torch import nn
 
 from evo_tpu_torch.ops import int4 as int4_ops
+from evo_tpu_torch.parallel.collectives import all_reduce_max
 
 # weight name -> number of leading contraction axes (layouts of model.py:
 # w1, w2 (D, I), w3 (I, D), w_in (D, 3, C), w_out (C, D), wqkv (D, 3, H,
 # Dh), wo (H, Dh, D))
 _QUANT_AXES = {'w1': 1, 'w2': 1, 'w3': 1, 'w_in': 1, 'w_out': 1, 'wqkv': 1,
                'wo': 2}
+# the weights split along their contraction under a mesh
+_ROW_PARALLEL = ('w3', 'w_out', 'wo')
+INT4_MESH_REFUSAL = ('weight_quant: int4 is single-chip only '
+                     '(evo_tpu_torch/ops/int4.py); drop the mesh or use '
+                     'int8')
 # where each family lives in a block: (submodule, weight names)
 _FAMILIES = (('mlp', ('w1', 'w2', 'w3')), ('hyena', ('w_in', 'w_out')),
              ('attn', ('wqkv', 'wo')))
@@ -49,10 +62,14 @@ _FAMILIES = (('mlp', ('w1', 'w2', 'w3')), ('hyena', ('w_in', 'w_out')),
 class QuantizedWeight(nn.Module):
     """A quantized projection weight: buffers `q` (int8 codes in the
     weight's own shape) and `s` (float32, contraction axes kept as 1), or
-    `q4` ((Kp/2, N) packed nibbles) and `s4` (float32 (Kp/128, *out))."""
+    `q4` ((Kp/2, N) packed nibbles) and `s4` (float32 (Kp/128, *out)).
+    `row_mesh`: the mesh whose tp ranks split its contraction (a
+    row-parallel shard), else None."""
 
-    def __init__(self, mode: str, codes: torch.Tensor, scales: torch.Tensor):
+    def __init__(self, mode: str, codes: torch.Tensor, scales: torch.Tensor,
+                 row_mesh=None):
         super().__init__()
+        self.row_mesh = row_mesh
         if mode not in ('int8', 'int4'):
             raise ValueError(f'unknown quantization mode {mode!r}')
         self.mode = mode
@@ -61,14 +78,16 @@ class QuantizedWeight(nn.Module):
         self.register_buffer(names[1], scales)
 
 
-def quantize_weight(w: torch.Tensor, axes: Tuple[int, ...]
+def quantize_weight(w: torch.Tensor, axes: Tuple[int, ...], mesh=None
                     ) -> QuantizedWeight:
     """Symmetric int8 with max-abs scales per output channel (reduced over
-    `axes`, kept as 1). Rounds half to even, as the JAX package does."""
+    `axes`, kept as 1). Rounds half to even, as the JAX package does.
+    `mesh`: w is a row-parallel shard, whose maxima are taken over tp."""
     w32 = w.float()
-    s = (w32.abs().amax(dim=axes, keepdim=True) / 127.0).clamp(min=1e-12)
+    amax = all_reduce_max(w32.abs().amax(dim=axes, keepdim=True), mesh)
+    s = (amax / 127.0).clamp(min=1e-12)
     q = torch.round(w32 / s).clamp(-127, 127).to(torch.int8)
-    return QuantizedWeight('int8', q, s)
+    return QuantizedWeight('int8', q, s, mesh)
 
 
 def quantize_weight_int4(w: torch.Tensor, nc: int) -> QuantizedWeight:
@@ -185,7 +204,9 @@ def qdot(x: torch.Tensor, w: Any, nc: int = 1) -> torch.Tensor:
     y = int32_dot * x_scale * w_scale.
 
     A plain weight takes the ordinary product (so call sites can be
-    unconditional under `act_quant`), an int4 weight `int4_dot`."""
+    unconditional under `act_quant`), an int4 weight `int4_dot`. The
+    codes of a row-parallel shard (`w.row_mesh`) contract x's axes split
+    over tp, so each row's scale is its maximum over tp."""
     if is_int4(w):
         return int4_dot(x, w, nc)
     lead, x2 = _flatten(x, nc)
@@ -195,7 +216,8 @@ def qdot(x: torch.Tensor, w: Any, nc: int = 1) -> torch.Tensor:
         return y.reshape(lead + wshape)
     wshape = tuple(w.q.shape[nc:])
     x32 = x2.float()
-    xs = (x32.abs().amax(dim=1, keepdim=True) / 127.0).clamp(min=1e-12)
+    xs = (all_reduce_max(x32.abs().amax(dim=1, keepdim=True), w.row_mesh)
+          / 127.0).clamp(min=1e-12)
     xq = torch.round(x32 / xs).clamp(-127, 127).to(torch.int8)
     y32 = _int8_matmul(xq, w.q.reshape(x2.shape[1], -1))
     y = y32.float() * xs * w.s.reshape(1, -1)
@@ -242,6 +264,8 @@ def quantize_params(model: nn.Module, free_source: bool = False,
     bytes than asked for)."""
     if mode not in ('int8', 'int4'):
         raise ValueError(f'unknown quantization mode {mode!r}')
+    if mode == 'int4' and getattr(model, 'mesh', None) is not None:
+        raise ValueError(INT4_MESH_REFUSAL)
     if not free_source:
         shared = {id(t): t for t in itertools.chain(model.parameters(),
                                                     model.buffers())}
@@ -258,8 +282,9 @@ def quantize_params(model: nn.Module, free_source: bool = False,
             continue
         nc = _QUANT_AXES[name]
         src = w.detach()
+        row_mesh = owner.mesh if name in _ROW_PARALLEL else None
         qw = (quantize_weight_int4(src, nc) if mode == 'int4'
-              else quantize_weight(src, tuple(range(nc))))
+              else quantize_weight(src, tuple(range(nc)), row_mesh))
         del src, w
         delattr(owner, name)     # the parameter leaves before the module
         setattr(owner, name, qw)  # of the same name is registered

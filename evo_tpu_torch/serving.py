@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from evo_tpu_torch import model as model_lib
+from evo_tpu_torch.parallel import refuse_mesh
 from evo_tpu_torch.generation import _cache_kv_len
 from evo_tpu_torch.ops.sampling import NEG_INF
 
@@ -228,6 +229,7 @@ class GenerationServer:
 
         seed: the server's seed; each sampled request's generator is
         seeded from it and the request's own seed."""
+        refuse_mesh('GenerationServer', getattr(model, 'mesh', None))
         if max_slots < 1:
             raise ValueError('max_slots must be >= 1')
         self.model = model

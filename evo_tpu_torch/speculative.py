@@ -44,6 +44,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from evo_tpu_torch.parallel import refuse_mesh
+
 
 class NGramIndex:
     """Longest-match last-occurrence index over the emitted stream.
@@ -231,6 +233,7 @@ def generate_speculative(
     Returns (token ids (num_tokens,) int32, per-token log-probs under the
     UNFILTERED distribution, SpecStats).
     """
+    refuse_mesh('generate_speculative', getattr(model, 'mesh', None))
     if input_ids is None:
         if prompt is None or tokenizer is None:
             raise ValueError('pass input_ids= or prompt= with a tokenizer')

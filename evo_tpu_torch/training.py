@@ -28,8 +28,19 @@ the learning rate. The schedule is a function of the step; the first
 update uses lr(0), as optax's count starts at 0.
 
 Train-state files are the port's own: safetensors of the masters and both
-moments plus a JSON of the step and the hyperparameters. The port reads no
-orbax directory (the JAX package's format) and says so.
+moments plus a JSON of the step and the hyperparameters (one file pair a
+rank under a mesh, the mesh's shape in the JSON). The port reads no orbax
+directory (the JAX package's format) and says so.
+
+`make_sharded_train_step` is full fine-tuning over a (dp, tp) mesh
+(`parallel/`): each rank keeps float32 masters and both moments of its
+tp shards only, takes its dp rank's rows of the batch, and the layers'
+collectives carry the tensor-parallel forward and backward. The master
+gradients are summed over dp (each rank's loss is divided by the whole
+batch's count, so the sum is the JAX package's mean), the global-norm
+clip is taken over the whole logical tree (the squares of tp-sharded
+gradients summed over tp, replicated ones counted once) and AdamW steps
+each rank's shards.
 """
 
 from __future__ import annotations
@@ -44,6 +55,8 @@ import torch
 
 from evo_tpu_torch import model as model_lib
 from evo_tpu_torch.config import ModelConfig
+from evo_tpu_torch.parallel.collectives import all_reduce_sum
+from evo_tpu_torch.parallel.sharding import tp_axis
 from evo_tpu_torch.quant import QuantizedWeight
 
 Schedule = Callable[[int], float]
@@ -58,7 +71,7 @@ def module_of(model) -> model_lib.StripedHyena:
 
 
 def next_token_loss(model, cfg: Optional[ModelConfig], ids,
-                    loss_mask=None) -> torch.Tensor:
+                    loss_mask=None, count=None) -> torch.Tensor:
     """Mean next-token cross-entropy.
 
     ids: (B, L) integer. Position t's logits predict ids[:, t+1].
@@ -66,7 +79,8 @@ def next_token_loss(model, cfg: Optional[ModelConfig], ids,
     prediction of ids[:, t]); None = every position after the first counts.
     Padding convention as in scoring: right-padded, no attention mask,
     correctness from masking the loss only. `cfg`: the config to run the
-    forward under (None: the model's own)."""
+    forward under (None: the model's own). `count`: the divisor, the
+    mask's own sum by default (a dp rank passes the whole batch's)."""
     module = module_of(model)
     ids = torch.as_tensor(ids, device=module.device).long()
     logits = model_lib.forward(module, ids, cfg)
@@ -74,7 +88,9 @@ def next_token_loss(model, cfg: Optional[ModelConfig], ids,
     nll = -torch.gather(logp, -1, ids[:, 1:, None])[..., 0]
     mask = (torch.ones_like(nll) if loss_mask is None else torch.as_tensor(
         loss_mask, device=module.device)[:, 1:].to(torch.float32))
-    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    if count is None:
+        count = torch.sum(mask)
+    return torch.sum(nll * mask) / torch.clamp(count, min=1.0)
 
 
 class TrainState(NamedTuple):
@@ -133,13 +149,19 @@ def warmup_cosine(peak_lr: float, total_steps: int,
     return schedule
 
 
-def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads, max_norm: float,
+                         norm: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """optax's `clip_by_global_norm`, in place: every g becomes
     (g / ||g||) * max_norm when the global norm ||g|| is max_norm or more,
     with no epsilon (`torch.nn.utils.clip_grad_norm_` adds 1e-6 and would
-    not match). Chosen on the device, with no read back. Returns ||g||."""
+    not match). Chosen on the device, with no read back. Returns ||g||.
+    `norm`: ||g|| of a larger tree that grads are part of (a sharded
+    step's), computed by the caller."""
     grads = [g for g in grads if g is not None]
-    norm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
+    if norm is None:
+        norm = torch.sqrt(sum(torch.sum(g.float() * g.float())
+                              for g in grads))
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, (g / norm.to(g.dtype)) * max_norm))
@@ -176,11 +198,13 @@ class Optimizer:
                                  eps=1e-8)
 
     def update(self, opt: torch.optim.AdamW,
-               params: Dict[str, torch.Tensor], step: int) -> None:
-        """Clip the masters' gradients, set the learning rate of `step`
-        (counted from 0) and take one AdamW step."""
+               params: Dict[str, torch.Tensor], step: int,
+               norm: Optional[torch.Tensor] = None) -> None:
+        """Clip the masters' gradients (by `norm` where given, see
+        `clip_by_global_norm_`), set the learning rate of `step` (counted
+        from 0) and take one AdamW step."""
         clip_by_global_norm_([t.grad for t in params.values()],
-                             self.grad_clip)
+                             self.grad_clip, norm)
         lr = self.lr(step)
         for group in opt.param_groups:
             group['lr'] = lr
@@ -251,14 +275,41 @@ def make_train_step(model, optimizer: Optimizer
     `.grad`, AdamW steps the masters and they are copied back. The
     parameters require grad only inside a step."""
     module = module_of(model)
+    if module.mesh is not None:
+        raise ValueError('the model is sharded over a mesh: use '
+                         'make_sharded_train_step(model, optimizer, mesh)')
+    return _train_step(module, optimizer, None)
+
+
+def _train_step(module, optimizer: Optimizer, mesh):
     cfg = train_config(module)
     params = dict(module.named_parameters())
+    sharded = {n for n in params if mesh is not None and mesh.tp > 1
+               and tp_axis(n) is not None}
+
+    def global_norm(masters):
+        """||g|| over the logical tree: the squares of tp-sharded
+        gradients summed over tp, replicated ones (the same on every tp
+        rank) counted once."""
+        def sq(names):
+            return sum((torch.sum(masters[n].grad * masters[n].grad)
+                        for n in names), torch.zeros((), device=module.device))
+        return torch.sqrt(all_reduce_sum(sq(sharded), mesh)
+                          + sq([n for n in masters if n not in sharded]))
 
     def train_step(state: TrainState, ids, loss_mask=None):
         load_masters(module, state)
+        count = None
+        if mesh is not None and mesh.dp > 1:
+            # the whole batch's count of scored positions, so that the
+            # sum of the dp ranks' losses is the global mean
+            mask = (torch.ones(ids.shape, device=module.device)
+                    if loss_mask is None else torch.as_tensor(
+                        loss_mask, device=module.device).float())
+            count = all_reduce_sum(mask[:, 1:].sum(), mesh, 'dp')
         set_trainable(params.values(), True)
         try:
-            loss = next_token_loss(module, cfg, ids, loss_mask)
+            loss = next_token_loss(module, cfg, ids, loss_mask, count)
             loss.backward()
         finally:
             set_trainable(params.values(), False)
@@ -267,20 +318,35 @@ def make_train_step(model, optimizer: Optimizer
             m.grad = (torch.zeros_like(m) if p.grad is None
                       else p.grad.to(torch.float32))
             p.grad = None
-        optimizer.update(state.opt_state, state.params, state.step)
+            if count is not None:
+                m.grad = all_reduce_sum(m.grad, mesh, 'dp')
+        norm = None if mesh is None else global_norm(state.params)
+        optimizer.update(state.opt_state, state.params, state.step, norm)
         for m in state.params.values():
             m.grad = None
         load_masters(module, state)
+        loss = loss.detach()
+        if count is not None:
+            loss = all_reduce_sum(loss, mesh, 'dp')
         return (TrainState(state.params, state.opt_state, state.step + 1),
-                loss.detach())
+                loss)
 
     return train_step
 
 
 def make_sharded_train_step(model, optimizer: Optimizer, mesh):
-    raise NotImplementedError(
-        'sharded train steps (data / tensor parallelism) are not ported '
-        'yet (ROADMAP.md, modules queue: parallelism)')
+    """step(state, ids, loss_mask=None) -> (state', loss) for full
+    fine-tuning of a model sharded over `mesh` (built with `mesh=`; see
+    the module docstring). Every rank calls the step; ids and loss_mask
+    are this dp rank's rows of the global batch (each tp rank of a dp
+    group passes the same rows), and the loss returned on every rank is
+    the global batch's. `init_train_state(model, optimizer)` makes each
+    rank's masters of its shards."""
+    module = module_of(model)
+    if module.mesh is not mesh:
+        raise ValueError('make_sharded_train_step: the model was not built '
+                         'on this mesh (pass mesh= when loading it)')
+    return _train_step(module, optimizer, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -299,15 +365,29 @@ def flatten(tree, prefix: str = '') -> Dict[str, torch.Tensor]:
     return out
 
 
-def save_train_state(state, path: str) -> None:
+def _files(mesh) -> tuple:
+    """(tensors, JSON) file names: one pair, or one pair a rank."""
+    if mesh is None:
+        return _TENSORS, _META
+    stem = f'train_state.rank{mesh.rank}'
+    return stem + '.safetensors', stem + '.json'
+
+
+def _mesh_shape(mesh) -> Optional[dict]:
+    return None if mesh is None else dict(mesh.shape)
+
+
+def save_train_state(state, path: str, mesh=None) -> None:
     """Write a `TrainState` or `lora.LoraTrainState` under
     `<path>/train_state/`: the masters and both Adam moments as
     safetensors, the step, each tensor's Adam count and the
-    hyperparameters as JSON."""
+    hyperparameters as JSON. Under a mesh every rank writes its own pair
+    (`train_state.rank<r>.*`), with the mesh's shape in the JSON."""
     from evo_tpu_torch.checkpoint import _write_safetensors_file
     params, opt, step = state
     d = os.path.join(os.path.abspath(path), STATE_DIR)
     os.makedirs(d, exist_ok=True)
+    tensors_file, meta_file = _files(mesh)
     tensors, counts = {}, {}
     for name, t in flatten(params).items():
         tensors['params/' + name] = t
@@ -316,32 +396,43 @@ def save_train_state(state, path: str) -> None:
             tensors['exp_avg/' + name] = st['exp_avg']
             tensors['exp_avg_sq/' + name] = st['exp_avg_sq']
             counts[name] = float(st['step'])
-    _write_safetensors_file(tensors, os.path.join(d, _TENSORS))
+    _write_safetensors_file(tensors, os.path.join(d, tensors_file))
     group = opt.param_groups[0]
     meta = {'format': 'evo_tpu_torch_train_state', 'version': 1,
             'step': int(step), 'adam_counts': counts,
+            'mesh': _mesh_shape(mesh),
             'hyperparameters': {'lr': group['lr'], 'betas': group['betas'],
                                 'eps': group['eps'],
                                 'weight_decay': [g['weight_decay'] for g in
                                                  opt.param_groups]}}
-    with open(os.path.join(d, _META), 'w') as f:
+    with open(os.path.join(d, meta_file), 'w') as f:
         json.dump(meta, f, indent=1)
 
 
-def load_train_state(path: str, template):
+def load_train_state(path: str, template, mesh=None):
     """Restore a train state written by `save_train_state` into
     `template` (a state of the same structure, e.g. from
     `init_train_state`): its tensors and optimizer are filled in place and
-    it comes back with the saved step."""
+    it comes back with the saved step. Under a mesh each rank reads its
+    own pair; a state saved under another mesh shape, or with and without
+    one, raises."""
     from evo_tpu_torch.checkpoint import _read_safetensors_file
     d = os.path.join(os.path.abspath(path), STATE_DIR)
-    if not os.path.exists(os.path.join(d, _META)):
+    tensors_file, meta_file = _files(mesh)
+    if not os.path.exists(os.path.join(d, meta_file)):
+        other = sorted(n for n in os.listdir(d) if n.endswith('.json')) \
+            if os.path.isdir(d) else []
         raise ValueError(
-            f'{d} holds no train state of evo_tpu_torch ({_META} missing); '
-            'an orbax train state of the JAX package is not read here')
-    with open(os.path.join(d, _META)) as f:
+            f'{d} holds no train state of evo_tpu_torch for mesh '
+            f'{_mesh_shape(mesh)} ({meta_file} missing; found {other}); an '
+            'orbax train state of the JAX package is not read here')
+    with open(os.path.join(d, meta_file)) as f:
         meta = json.load(f)
-    saved = _read_safetensors_file(os.path.join(d, _TENSORS))
+    if meta.get('mesh') != _mesh_shape(mesh):
+        raise ValueError(f'{d} was saved under mesh {meta.get("mesh")}, '
+                         f'not {_mesh_shape(mesh)}: load it on the mesh it '
+                         'was saved from')
+    saved = _read_safetensors_file(os.path.join(d, tensors_file))
     params, opt, _ = template
     for name, t in flatten(params).items():
         src = saved.get('params/' + name)

@@ -45,14 +45,14 @@ TINY = ['--tiny', '--device', 'cpu']
 def jax_weights(monkeypatch):
     """Make the port's random init return the JAX package's weights of the
     same config and seed."""
-    def random_init(cfg, generator, device):
+    def random_init(cfg, generator, device, mesh=None):
         fields = {f for f in JaxModelConfig.__dataclass_fields__}
         jcfg = JaxModelConfig(**{k: v for k, v in vars(cfg).items()
                                  if k in fields}, use_pallas='never')
         params = jax_model.init_params(
             jax.random.PRNGKey(generator.initial_seed()), jcfg)
         return params_from_state_dict(
-            jax_ckpt.export_state_dict(params, jcfg), cfg, device)
+            jax_ckpt.export_state_dict(params, jcfg), cfg, device, mesh)
 
     monkeypatch.setattr(models.model_lib, 'random_init', random_init)
 
@@ -140,10 +140,16 @@ def test_speculative_cli_matches_jax_cli(monkeypatch, jax_weights, capsys,
     (generate_cli, ['--tp', '2']), (generate_cli, ['--cp', '2'])],
     ids=lambda v: v[0] if isinstance(v, list) else v.__name__.rsplit('.')[-1])
 def test_unported_flags_raise(tmp_path, cli, flag):
+    """--cp is not ported and names its ROADMAP item; --dp / --tp above 1
+    need one process a rank and say how to launch them."""
     base = (['--input-fasta', FASTA, '--output-tsv', str(tmp_path / 'x')]
             if cli is score_cli else ['--prompt', 'ACGT'])
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        cli.main(TINY + base + flag)
+    if flag[0] == '--cp':
+        with pytest.raises(NotImplementedError, match='ROADMAP'):
+            cli.main(TINY + base + flag)
+    else:
+        with pytest.raises(ValueError, match='torchrun'):
+            cli.main(TINY + base + flag)
     # at their defaults the same flags are accepted
     args = cli.build_parser().parse_args(base + ['--tp', '1'])
     score_cli.refuse_parallelism(args)
@@ -153,12 +159,14 @@ def test_unported_flags_raise(tmp_path, cli, flag):
                                         ('generate.py', generate_cli)])
 def test_flags_and_defaults_match_jax_scripts(script, cli):
     """Every flag of the JAX script, under the same name and with the same
-    default, save `--device`: honoured here, 'cuda' unless told."""
+    default, save `--device`: honoured here, 'cuda' unless told; the port
+    adds `--dist-backend` (its process groups' backend)."""
     src = open(os.path.join(ROOT, 'scripts', script)).read()
     want = set(re.findall(r"add_argument\('(--[a-z-]+)'", src))
     actions = {a.option_strings[0]: a
                for a in cli.build_parser()._actions if a.option_strings}
-    assert set(actions) - {'-h'} == want
+    assert set(actions) - {'-h', '--dist-backend'} == want
+    assert actions['--dist-backend'].default is None
     assert actions['--device'].default == 'cuda'
     for flag, default in (('--model-name', 'evo-1-8k-base'),
                           ('--quant', 'none'), ('--kv-quant', 'none'),

@@ -1176,3 +1176,56 @@ def test_train_step_on_the_card(remat):
                                      'fir_gate': 3 * 3 * n,
                                      'flash_attention': 3 * n}
     assert losses[2] < losses[0] and losses[5] < losses[3], losses
+
+
+# the small bf16 config of the two-rank test: 4 heads of 128, so each of
+# tp = 2 ranks runs the attention kernels at 2 heads and the Hyena
+# kernels at 256 channels
+TP_SMALL = dict(hidden_size=512, num_filters=512, num_attention_heads=4,
+                compute_dtype='bfloat16', param_dtype='bfloat16')
+
+
+def test_tp2_gloo_ranks_on_one_card(tmp_path):
+    """Two ranks on cuda:0 over gloo (`tools/tp_smoke.py small`): the
+    tp = 2 logits against the single process's on the card, both ranks
+    bit-equal, each launching kernels 1-3 at its shard's shapes. The tp
+    reduces round the row-parallel products in other places: 5 % of the
+    logit range, as the other bf16 model checks here."""
+    import os
+    from pathlib import Path
+
+    from evo_tpu_torch import model as model_lib
+    from evo_tpu_torch.config import tiny_config
+    from evo_tpu_torch.parallel.distributed import launch_local
+    cfg = tiny_config(**TP_SMALL)
+    ids = torch.randint(0, 512, (2, 200),
+                        generator=torch.Generator().manual_seed(0))
+    torch.save({'config': TP_SMALL, 'ids': ids}, tmp_path / 'small_in.pt')
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).parent.parent))
+    launch_local(['-m', 'evo_tpu_torch.tools.tp_smoke', 'small',
+                  str(tmp_path)], 2, env=env, timeout=600)
+    module = model_lib.random_init(
+        cfg, torch.Generator(device='cuda').manual_seed(0), 'cuda')
+    want = model_lib.forward(module, ids.cuda()).cpu()
+    got = [torch.load(tmp_path / f'small_logits_rank{r}.pt') for r in (0, 1)]
+    assert torch.equal(got[0], got[1])
+    assert (got[0] - want).abs().max() <= 0.05 * want.abs().max()
+    import json
+    launches = json.load(open(tmp_path / 'small_rank0.json'))['part'][
+        'launches']
+    assert launches == {'rmsnorm': 2 * cfg.num_layers + 1,
+                        'fir_gate': cfg.num_layers - 1, 'flash_attention': 1}
+
+
+def test_nccl_refuses_two_ranks_on_one_card(monkeypatch):
+    """More local ranks than cards under NCCL raise before NCCL does, and
+    name the gloo backend; nothing switches backends quietly."""
+    from evo_tpu_torch.parallel import distributed
+    n = torch.cuda.device_count() + 1
+    for k, v in dict(WORLD_SIZE=n, RANK=0, LOCAL_RANK=0, LOCAL_WORLD_SIZE=n,
+                     MASTER_ADDR='localhost', MASTER_PORT=29999).items():
+        monkeypatch.setenv(k, str(v))
+    with pytest.raises(RuntimeError, match='--dist-backend gloo'):
+        distributed.initialize_distributed(backend='nccl', device='cuda')
+    with pytest.raises(RuntimeError, match='--dist-backend gloo'):
+        distributed.initialize_distributed(device='cuda')

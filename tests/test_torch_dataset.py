@@ -82,7 +82,7 @@ def test_finetune_flags_match_jax_script():
     actions = {a.option_strings[0]: a
                for a in finetune_cli.build_parser()._actions
                if a.option_strings}
-    assert set(actions) - {'-h', '--device'} == want
+    assert set(actions) - {'-h', '--device', '--dist-backend'} == want
     for flag, default in (
             ('--device', 'cuda'), ('--model-name', 'evo-1-8k-base'),
             ('--seq-len', 8192), ('--batch-size', 1), ('--steps', 100),
@@ -92,7 +92,7 @@ def test_finetune_flags_match_jax_script():
             ('--dp', 1), ('--tp', None), ('--save-every', 0),
             ('--log-every', 10)):
         assert actions[flag].default == default, flag
-    with pytest.raises(NotImplementedError, match='parallelism'):
+    with pytest.raises(ValueError, match='torchrun'):
         finetune_cli.main(['--input-fasta', 'x', '--save-dir', 'y', '--tiny',
                            '--device', 'cpu', '--dp', '2'])
 

@@ -183,8 +183,9 @@ def test_unported_paths_raise(setup):
         assert tiny_config(weight_quant=quant).weight_quant == quant
     assert tiny_config(weight_quant='int8', act_quant='int8').act_quant \
         == 'int8'
+    from evo_tpu_torch.parallel.mesh import make_mesh
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        Evo('evo-1-8k-base', 'cpu', random_init=True, mesh=object())
+        make_mesh(cp=2)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         tiny_config(param_dtype='float32', compute_dtype='bfloat16')
     from evo_tpu_torch.cli import generate as generate_cli

@@ -291,8 +291,10 @@ def test_train_step_guards(small):
     with pytest.raises(ValueError, match='float weights'):
         training.make_train_step(quantize_params(port_model(jcfg, params)),
                                  opt)
-    with pytest.raises(NotImplementedError, match='parallelism'):
-        training.make_sharded_train_step(port_model(jcfg, params), opt, None)
+    from evo_tpu_torch.parallel.mesh import Mesh
+    with pytest.raises(ValueError, match='not built on this mesh'):
+        training.make_sharded_train_step(port_model(jcfg, params), opt,
+                                         Mesh(1, 1, 1))
     losses = []
     for fused in (False, True):
         model = port_model(jcfg, params, hyena_fused_mixer=fused,
