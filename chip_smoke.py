@@ -165,6 +165,27 @@ for an H100: the kernels target sm_90a). It
      yardstick of phase 20's, the loss falls, replicated masters
      bit-equal across ranks). Its times are gloo's reduces through host
      memory on one card: nothing of NCCL or of tp across cards;
+ 22. (at the start of phase 6, beside its evo-1-131k-base; the 8k
+     references taken from phase 4's model before phase 19 trains it)
+     context parallelism as two ranks of the port on the one card over
+     gloo, chosen explicitly, as one cp = 2 mesh (`tools/cp_smoke.py
+     model`): (a) evo-1-8k-base, a forward at B=1, L=8,192 under each
+     cp_attn ('ulysses', 'ring', 'zigzag') within phase 5's yardstick of
+     the single process's (argmax agreement >= 0.75), with kernel 3 three
+     times under Ulysses and never under the rings (their core is plain
+     float32, as the JAX package's), and the share of each forward spent
+     in the cp collectives, and 2,048 positions under the fused mixer and
+     under the prefix kernel at C/cp channels (kernels 6 and 7, within
+     the yardstick of the Ulysses logits); (b) greedy generation from phase 5's prompts,
+     32 tokens, under the bf16 and the int8 KV cache, kernels 4 / 5 three
+     times a step over a 16-head cache, and teacher forcing with the
+     single process's tokens within its one-rounding yardstick (4x for
+     int8); (c) evo-1-131k-base, 32,768 nt in segments of 8,192 (a fresh
+     first segment of 8,193, padded inside the model) within 1e-2 of the
+     single process's score; (d) `cli.score --cp 2` over phase 21's
+     FASTA within 1e-2 of the single-process scores; ranks bit-equal.
+     Its times are gloo's all-to-alls and sends through host memory on
+     one card: nothing of NCCL or of cp across cards;
  14. (after phase 6) the same with evo-1-131k-base: 12,000 nt in one pass
      and in segments of 4,096, then 131,072 nt in segments of 8,192, with
      the launch counts worked out from the segment bounds (a ragged first
@@ -1072,6 +1093,192 @@ def phase21_parallel(torch, np, smi, launches, ref, res20, corpus, d):
         f'{out["a"]["resume_seconds"]:.1f}, (b) {out["b"]["seconds"]:.1f}, '
         f'(c) {out["c"]["seconds"]:.1f}')
     return out
+
+
+def phase22_inputs(torch, evo, prompts, nudged_forward, d, model_in):
+    """What phase 22's ranks are held to from the single-process
+    evo-1-8k-base (seed 0), while it is on the card and unchanged: phase
+    21's forward at B=1, L=8,192 and its yardstick, and greedy generation
+    from phase 5's prompts, 32 tokens under the bf16 and the int8 KV cache
+    (tokens, each step's logits, and the one-rounding yardstick over the
+    same positions). Written to `d`/cp_in.pt, on the host."""
+    from evo_tpu_torch.generation import Generator
+    from evo_tpu_torch.models import EvoModel
+    from evo_tpu_torch.scoring import prepare_batch
+    inp = torch.load(model_in)
+    prompt_ids = prepare_batch(prompts, evo.tokenizer, prepend_bos=False)[0]
+    P, n_new = prompt_ids.shape[1], 32
+    gen = {}
+    for label, kv in (('bf16', 'none'), ('int8', 'int8')):
+        m = EvoModel(evo.config.replace(kv_quant=kv), evo.model.module)
+        toks, steps, _ = Generator(m, evo.tokenizer, top_k=1,
+                                   temperature=0.0).generate(
+            input_ids=prompt_ids, num_tokens=n_new)
+        full = torch.cat([torch.as_tensor(prompt_ids, device='cuda').long(),
+                          toks], dim=1)
+        window = slice(P - 1, P - 1 + n_new)
+        floor = (nudged_forward(m, full)[:, window] - m(full)[0][:, window])
+        gen[label] = dict(tokens=toks.cpu(), steps=steps.float().cpu(),
+                          yardstick=float(floor.abs().mean()))
+    torch.save({'ids': inp['ids'], 'logits': inp['logits'],
+                'prompts': prompts, 'generate': gen},
+               os.path.join(d, 'cp_in.pt'))
+
+
+def phase22_context_parallel(torch, np, smi, launches, ref21, model, tok,
+                             d):
+    """Context parallelism: two ranks of the port on the one card over
+    gloo (chosen explicitly; NCCL refuses two ranks on one card) as one
+    cp = 2 mesh (`tools/cp_smoke.py model`), against the single process:
+    `model` is the single-process evo-1-131k-base (seed 0), which scores
+    (c)'s sequence here first. These times are gloo's host-memory
+    all-to-alls and sends on one card, and say nothing of NCCL or of cp
+    across cards."""
+    from evo_tpu_torch.io.fasta import write_fasta
+    from evo_tpu_torch.parallel.distributed import launch_local
+    from evo_tpu_torch.scoring import score_sequences_segmented
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    floor = ref21['floor']
+    rng = np.random.default_rng(22)
+    long_seq = ''.join(rng.choice(list('ACGT'), 32768))
+    t = time.time()
+    long_score = score_sequences_segmented([long_seq], model, tok,
+                                           segment_len=8192)[0]
+    long_single_s = time.time() - t
+    path = os.path.join(d, 'cp_in.pt')
+    inp = torch.load(path)
+    inp.update(long_seq=long_seq, long_score=long_score)
+    torch.save(inp, path)
+    log(f'== 22. context parallelism ({smi}): 2 ranks on one card as one '
+        f'cp = 2 mesh, torch.distributed backend gloo (passed explicitly); '
+        f'the single process scores 32,768 nt with evo-1-131k-base in '
+        f'segments of 8,192 in {long_single_s:.2f} s: {long_score:.6f}')
+
+    def run(argv, tag):
+        t = time.time()
+        logs = launch_local(argv, 2, env=env, timeout=900,
+                            log_dir=os.path.join(d, tag))
+        return logs, time.time() - t
+
+    _, secs = run(['-m', 'evo_tpu_torch.tools.cp_smoke', 'model', d],
+                  'model')
+    ranks = []
+    for r in (0, 1):
+        with open(os.path.join(d, f'model_rank{r}.json')) as f:
+            ranks.append(json.load(f)['part'])
+    n_new = 32
+    per_forward = {'rmsnorm': 65, 'fir_gate': 29, 'flash_attention': 3}
+    ring_forward = {'rmsnorm': 65, 'fir_gate': 29}
+    want_gen = {'rmsnorm': 65 * n_new, 'fir_gate': 29, 'flash_attention': 3,
+                'flash_attention_buffer': 3 * (n_new - 1)}
+    want_gen8 = {'rmsnorm': 65 * n_new, 'fir_gate': 29, 'flash_attention': 3,
+                 'flash_attention_buffer_q8': 3 * (n_new - 1),
+                 'combine_partials': 3 * (n_new - 1)}
+    # 32,769 tokens with the BOS: a fresh segment of 8,193 (padded to
+    # 8,194 for cp = 2) and 3 resumed ones of 8,192
+    want_long = {'rmsnorm': 65 * 4, 'fir_gate': 29 * 4, 'flash_attention': 3,
+                 'flash_attention_buffer': 3 * 3}
+    for r, m in enumerate(ranks):
+        for key, want in (('fused', {'rmsnorm': 65, 'flash_attention': 3,
+                                     'hyena_mixer': 29}),
+                          ('prefix', {'rmsnorm': 65, 'fir_gate': 29,
+                                      'modal_prefix': 29,
+                                      'flash_attention': 3})):
+            f = m['forward'].pop(key)
+            log(f'   (a) rank {r}, {key} forward L=2048 (kernel '
+                f'{6 if key == "fused" else 7} at C/cp = 2,048): mean abs '
+                f'{f["mean_abs"]:.5f} from the Ulysses logits, argmax '
+                f'agreement {f["argmax_agree"]:.4f}; launches '
+                f'{f["launches"]}')
+            check(f['launches'] == want,
+                  f'cp {key} forward launches {f["launches"]}')
+            check(f['mean_abs'] <= floor,
+                  f'cp {key} forward past the yardstick')
+            launches[f'cp2_{key}_forward_2048'] = f['launches']
+        for mode, f in m['forward'].items():
+            log(f'   (a) rank {r}, cp_attn={mode}: forward B=1 L=8192, each '
+                f'cp collective between device syncs, {f["ms"]:.1f} ms, of '
+                f'which the collectives {f["collectives_ms"]:.1f} ms, '
+                f'{100 * f["collectives_share"]:.1f} %; against the single '
+                f'process: mean abs {f["mean_abs"]:.5f} (yardstick '
+                f'{floor:.5f}), max {f["max_abs"]:.4f}, argmax agreement '
+                f'{f["argmax_agree"]:.4f}; launches {f["launches"]}')
+            check(f['launches'] == (per_forward if mode == 'ulysses'
+                                    else ring_forward),
+                  f'cp {mode} forward launches {f["launches"]}')
+            check(f['mean_abs'] <= floor and f['argmax_agree'] >= 0.75,
+                  f'cp {mode} logits moved past the one-rounding yardstick')
+            check(f['equal_across_ranks'], f'cp {mode}: the ranks differ')
+        for label, want in (('bf16', want_gen), ('int8', want_gen8)):
+            g = m['generate'][label]
+            tf = g['teacher']
+            log(f'   (b) rank {r}, {label} KV: generate 2 x 512 + {n_new} '
+                f'{g["seconds"]:.2f} s; local cache k {g["cache_k_shape"]}; '
+                f'tokens equal to the single process\'s '
+                f'{g["tokens_equal_single"]:.4f}; teacher forcing with the '
+                f'single process\'s tokens: mean abs {tf["mean_abs"]:.5f} '
+                f'(yardstick {tf["yardstick"]:.5f}), argmax agreement '
+                f'{tf["argmax_agree"]:.4f}; launches {g["launches"]}')
+            check(g['launches'] == want,
+                  f'cp {label}-KV generate launches {g["launches"]}')
+            heads = g['cache_k_shape'][2 if label == 'bf16' else 1]
+            check(heads == 16, f'cp {label} cache: {g["cache_k_shape"]}')
+            limit = tf['yardstick'] * (1 if label == 'bf16' else 4)
+            check(tf['mean_abs'] <= limit and tf['argmax_agree'] >= 0.75,
+                  f'cp teacher forcing, {label} KV: {tf}')
+            check(g['tokens_equal_across_ranks'],
+                  f'cp {label}: the ranks\' tokens differ')
+        c = m['long']
+        log(f'   (c) rank {r}: evo-1-131k-base 32,768 nt in segments of '
+            f'8,192: {c["score"]:.6f} in {c["seconds"]:.2f} s (single '
+            f'process {long_score:.6f} in {long_single_s:.2f} s; '
+            f'difference {c["diff"]:.3e}, limit 1e-2), each collective '
+            f'between device syncs, of which the collectives '
+            f'{c["collectives_s"]:.2f} s, {100 * c["collectives_share"]:.1f} '
+            f'%; launches {c["launches"]}')
+        check(c['launches'] == want_long,
+              f'cp segmented launches {c["launches"]}')
+        check(c['diff'] <= 1e-2 and c['score_equal_across_ranks'],
+              f'cp segmented score: {c}')
+        log(f'   rank {r}: 8k weights {m["weight_gib"]:.2f} GiB made in '
+            f'{m["init_s"]:.1f} s; decode step B=2 '
+            f'{m["generate"]["decode_step_ms"]:.2f} ms; peak '
+            f'{m["peak_gib_8k"]:.2f} GiB (8k), {m["peak_gib_131k"]:.2f} GiB '
+            f'(131k); parts (a) {m["forward_s"]:.1f} s, (b) '
+            f'{m["generate_s"]:.1f} s, (c) {m["long_s"]:.1f} s')
+    logits = [torch.load(os.path.join(d, f'cp_logits_rank{r}.pt'))
+              for r in (0, 1)]
+    check(torch.equal(logits[0], logits[1]) and all(
+        ranks[0]['generate'][k]['tokens'] == ranks[1]['generate'][k][
+            'tokens'] for k in ('bf16', 'int8')),
+          'the ranks\' results differ')
+    m = ranks[0]
+    for mode, f in m['forward'].items():
+        launches[f'cp2_forward_{mode}_8192'] = f['launches']
+    launches['cp2_generate'] = m['generate']['bf16']['launches']
+    launches['cp2_generate_int8'] = m['generate']['int8']['launches']
+    launches['cp2_score_segmented_32k'] = m['long']['launches']
+
+    # (d) the score CLI under --cp 2 over phase 21's FASTA
+    fasta = os.path.join(d, 'sixteen.fasta')
+    write_fasta(fasta, [f's{i}' for i in range(16)], ref21['seqs'])
+    tsv = os.path.join(d, 'cli', 'scores.tsv')
+    os.makedirs(os.path.dirname(tsv))
+    _, cli_s = run(['-m', 'evo_tpu_torch.cli.score', '--cp', '2',
+                    '--random-init', '--dist-backend', 'gloo',
+                    '--batch-size', '4', '--input-fasta', fasta,
+                    '--output-tsv', tsv], 'cli')
+    with open(tsv) as f:
+        rows = [ln.rstrip('\n').split('\t') for ln in f][1:]
+    got = [float(x[1]) for x in rows]
+    worst = max(abs(a - b) for a, b in zip(got, ref21['scores']))
+    log(f'   (d) cli.score --cp 2 over {len(rows)} sequences (batch 4): '
+        f'{cli_s:.1f} s; largest difference from the single-process scores '
+        f'{worst:.2e} (limit 1e-2, phase 4\'s)')
+    check([x[0] for x in rows] == ref21['seqs'] and worst <= 1e-2
+          and all(np.isfinite(got)), f'cp CLI scores {got}')
+    log(f'   phase 22 seconds: ranks {secs:.1f}, CLI {cli_s:.1f}')
+    return dict(seconds=secs, cli_seconds=cli_s, ranks=ranks)
 
 
 def main():
@@ -2688,11 +2895,15 @@ def main():
     # -- 19. training: kernels 1-3 under autograd, LoRA at full depth ------
     # -- 20. full fine-tuning of 9 layers at full width ----------------------
     corpus_dir = tempfile.mkdtemp(prefix='evo_train_')
+    cp_dir = tempfile.mkdtemp(prefix='evo_cp_')
     try:
         corpus = train_corpus(np, corpus_dir)
-        # phase 21's references, before phase 19 trains this model
+        # phase 21's and 22's references, before phase 19 trains this
+        # model
         ref21 = phase21_inputs(torch, np, evo, prompts, seqs,
                                nudged_forward, corpus_dir)
+        phase22_inputs(torch, evo, prompts, nudged_forward, cp_dir,
+                       os.path.join(corpus_dir, 'model_in.pt'))
         log(f'== 19. gradients through kernels 1-3 ({smi})')
         check_kernel_grads(torch, np, kernels, smi)
         phase19_lora(torch, np, evo, smi, launches, nudged_forward, corpus)
@@ -2713,6 +2924,13 @@ def main():
     torch.cuda.synchronize()
     log(f'== 6. evo-1-131k-base random init: {model.num_params:,} parameters '
         f'in {time.time() - t0:.1f} s')
+    # -- 22. context parallelism, 2 ranks (beside this model) --------------
+    try:
+        phase22_context_parallel(torch, np, smi, launches, ref21, model, tok,
+                                 cp_dir)
+    finally:
+        shutil.rmtree(cp_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
     # (a) 12,000 nt in one pass and in segments of 4,096. The segments run
     # the same layers on other shapes (other GEMM tiles, the conv's chunks
     # aligned elsewhere, the buffer kernel for the causal one), so their

@@ -30,7 +30,8 @@ global batch is --batch-size times the hosts, whatever D is: each dp
 rank reads its share of it (`rank_batch_size`), from the records of its
 dp coordinate (the dataset split D ways where the JAX script splits it
 over hosts), and the rate printed is a host's. LoRA under a mesh is not
-ported yet.
+ported yet; the JAX script has no `--cp`, and the train steps refuse a
+context-parallel mesh.
 """
 
 from __future__ import annotations

@@ -10,10 +10,11 @@ tiny model of the same schema on the CPU. `--speculative G` generates each
 sample by n-gram speculative decoding (`speculative.py`) with G proposed
 tokens a verify pass, seed `--seed + i` for sample i.
 
-`--dp` / `--tp` run one model over that many ranks, launched one rank a
-card as torchrun launches them (`--dist-backend gloo` for several ranks on
-one card): every rank runs the same loop and draws the same tokens, and
-rank 0 prints them. Speculative decoding under a mesh is not ported yet.
+`--dp` / `--tp` / `--cp` run one model over that many ranks, launched
+one rank a card as torchrun launches them (`--dist-backend gloo` for
+several ranks on one card): every rank runs the same loop and draws the
+same tokens, and rank 0 prints them. `--cp N` splits the prompt's prefill
+over N ranks. Speculative decoding under a mesh is not ported yet.
 """
 
 from __future__ import annotations
@@ -85,7 +86,7 @@ def main(argv: Optional[List[str]] = None):
     mesh = None
     if start_ranks(args):
         from evo_tpu_torch.parallel.mesh import make_mesh
-        mesh = make_mesh(dp=args.dp, tp=args.tp)
+        mesh = make_mesh(dp=args.dp, tp=args.tp, cp=args.cp)
         if rank() != 0:
             args.verbose = 0
     overrides = build_overrides(args)

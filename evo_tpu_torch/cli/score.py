@@ -17,11 +17,12 @@ launched one rank a card the way torchrun launches it:
 Each model replica scores its shards of the FASTA, with a manifest, a
 CSV and a done-marker a shard in `<output-tsv>.work/`, so a re-run
 resumes; rank 0 writes the TSV in input order and the other ranks exit
-quietly. Without `--tp` a replica is one rank. With `--tp T` it is all
-the ranks of a host (`local_mesh`): T-way tensor parallel, with the
-host's ranks / T data-parallel ranks inside it that split each batch,
-and the hosts split the shards. `--dist-backend gloo` runs several
-ranks on one card (NCCL refuses that).
+quietly. Without `--tp` / `--cp` a replica is one rank. With `--tp T`
+and / or `--cp N` it is all the ranks of a host (`local_mesh`): T-way
+tensor parallel and N-way context parallel (each sequence split over N
+ranks), with the host's ranks / (T N) data-parallel ranks inside it that
+split each batch, and the hosts split the shards. `--dist-backend gloo`
+runs several ranks on one card (NCCL refuses that).
 """
 
 from __future__ import annotations
@@ -82,7 +83,8 @@ def add_mesh_flags(parser: argparse.ArgumentParser) -> None:
                         help='data-parallel size (ranks that split the '
                              'work; one process a rank)')
     parser.add_argument('--cp', type=int, default=1,
-                        help='context-parallel size (not ported yet)')
+                        help='context-parallel size (ranks that split each '
+                             'sequence; long-context prefill)')
     parser.add_argument('--tp', type=int, default=None,
                         help='tensor-parallel size (ranks that shard one '
                              'model)')
@@ -93,31 +95,29 @@ def add_mesh_flags(parser: argparse.ArgumentParser) -> None:
                              'several ranks on one card')
 
 
-def refuse_parallelism(args, serving: bool = False) -> None:
-    """--cp, and for the server every mesh flag, raise: their machinery
-    is not ported yet."""
-    if getattr(args, 'cp', 1) != 1 or serving and (
-            args.dp != 1 or args.tp not in (None, 1)):
-        raise NotImplementedError(
-            ('--dp / --tp / --cp (serving under a mesh)' if serving else
-             '--cp (context parallelism)') + ' is not ported yet '
-            '(ROADMAP.md, modules queue: parallelism: context parallel, '
-            'and serving, speculation and LoRA under a mesh)')
+def refuse_parallelism(args) -> None:
+    """The serve CLI's mesh flags raise: serving under a mesh is not
+    ported yet."""
+    if args.dp != 1 or args.tp not in (None, 1) or args.cp != 1:
+        from evo_tpu_torch.parallel import QUEUE
+        raise NotImplementedError('--dp / --tp / --cp (serving under a '
+                                  f'mesh) is not ported yet ({QUEUE})')
 
 
 def start_ranks(args) -> bool:
     """Join the process group that torchrun's environment describes
     (`parallel.distributed.initialize_distributed`, the backend of
-    --dist-backend). Returns True with more than one rank. --dp / --tp
-    above 1 in a single process raise: each rank is a process."""
+    --dist-backend). Returns True with more than one rank. --dp / --tp /
+    --cp above 1 in a single process raise: each rank is a process."""
     from evo_tpu_torch.parallel.distributed import initialize_distributed
-    refuse_parallelism(args)
     multi = initialize_distributed(backend=args.dist_backend,
                                    device=args.device)
-    if not multi and (args.dp not in (1, -1) or args.tp not in (None, 1)):
+    cp = getattr(args, 'cp', 1)
+    if not multi and (args.dp not in (1, -1) or args.tp not in (None, 1)
+                      or cp != 1):
         raise ValueError(
-            f'--dp {args.dp} --tp {args.tp} needs one process a rank: '
-            'launch with torchrun (or the same RANK / WORLD_SIZE / '
+            f'--dp {args.dp} --tp {args.tp} --cp {cp} needs one process a '
+            'rank: launch with torchrun (or the same RANK / WORLD_SIZE / '
             'MASTER_ADDR / MASTER_PORT environment)')
     return multi
 
@@ -149,16 +149,17 @@ def main(argv: Optional[List[str]] = None):
     if multi:
         from evo_tpu_torch.parallel.distributed import get_world_size
         from evo_tpu_torch.parallel.mesh import local_mesh
-        # a model replica: one rank, or under --tp every rank of a host
-        # (dp = local ranks / tp inside it); the replicas split the FASTA
-        # between them (score_fasta_sharded)
-        tp = args.tp or 1
-        if args.dp not in (1, -1, get_world_size() // tp):
+        # a model replica: one rank, or under --tp / --cp every rank of a
+        # host (dp = local ranks / (tp cp) inside it); the replicas split
+        # the FASTA between them (score_fasta_sharded)
+        tp, cp = args.tp or 1, args.cp
+        n = get_world_size() // (tp * cp)
+        if args.dp not in (1, -1, n):
             raise ValueError(f'--dp {args.dp}: {get_world_size()} ranks at '
-                             f'--tp {tp} make {get_world_size() // tp} '
-                             'data-parallel replicas')
-        if tp > 1:
-            mesh = local_mesh(dp=-1, tp=tp)
+                             f'--tp {tp} --cp {cp} make {n} data-parallel '
+                             'replicas')
+        if tp > 1 or cp > 1:
+            mesh = local_mesh(dp=-1, tp=tp, cp=cp)
     overrides = build_overrides(args)
     evo = Evo(args.model_name, args.device,
               checkpoint_path=args.checkpoint_path,

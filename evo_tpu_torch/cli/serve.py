@@ -88,7 +88,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def build_server(args) -> GenerationServer:
     """The model of the flags and a server over it."""
-    refuse_parallelism(args, serving=True)
+    refuse_parallelism(args)
     overrides = build_overrides(args)
     evo = Evo(args.model_name, args.device,
               checkpoint_path=args.checkpoint_path,

@@ -3,10 +3,11 @@
 The port's own copy of `evo_tpu/config.py`: it cannot import that module,
 because importing anything under `evo_tpu` runs `evo_tpu/__init__.py`,
 which imports JAX. Field names match the reference YAML keys. The fields
-of the JAX package that the port has no use for (`use_pallas`, `cp_attn`,
-the FFT-backend knobs, and `mlp_init_method` / `mlp_output_init_method`,
+of the JAX package that the port has no use for (`use_pallas`, the
+FFT-backend knobs, and `mlp_init_method` / `mlp_output_init_method`,
 which no code of the JAX package reads) are dropped: `from_dict` ignores
-unknown keys, so the published YAMLs still load. `hyena_fused_mixer` and
+unknown keys, so the published YAMLs still load. `cp_attn` picks the
+context-parallel attention (`parallel/`), as there. `hyena_fused_mixer` and
 `hyena_pallas_prefix` keep their JAX names: they select kernels that the
 port has too. `remat` recomputes blocks on the backward pass, as there.
 
@@ -153,8 +154,15 @@ class ModelConfig:
     weight_quant: str = 'none'
     act_quant: str = 'none'
     kv_quant: str = 'none'
+    # the attention of a context-parallel mesh (cp > 1): 'ulysses' (an
+    # all-to-all to H/(tp*cp) heads over the whole sequence, the causal
+    # flash kernel on them), 'ring' (K/V blocks passed around the cp
+    # group, a float32 online softmax) or 'zigzag' (the ring over balanced
+    # chunk pairs)
+    cp_attn: str = 'ulysses'
 
     def __post_init__(self):
+        assert self.cp_attn in ('ulysses', 'ring', 'zigzag'), self.cp_attn
         object.__setattr__(self, 'attn_layer_idxs',
                            tuple(self.attn_layer_idxs))
         if not self.hyena_layer_idxs:

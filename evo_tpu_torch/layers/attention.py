@@ -23,6 +23,14 @@ int32 (B,) tensor of per-row offsets; the full-sequence paths take an
 int. Under a mesh (`parallel/`) a rank holds H/tp heads of wqkv and
 bqkv, the matching rows of wo and an (H/tp)-head cache; the kernels run at
 H/tp heads, and wo's partial products are summed over tp before bo.
+Under context parallelism (cp > 1) x is this rank's rows of the sequence;
+q and k are rotated at their global positions, and `cfg.cp_attn` picks
+the attention (`_cp_attend`): Ulysses (one all-to-all to the whole
+sequence of H/(tp cp) heads, the causal flash kernel, the reverse
+all-to-all), or the ring or zigzag ring (`ops/ring_attention.py`). The
+cache holds this rank's H/(tp cp) heads (`mesh.channel_block`), which a
+resumed segment reaches in the Ulysses layout; the decode step keeps those
+heads of the projection and sums wo's partial products over tp and cp.
 Adapters attached by `lora.attach_lora` add their side paths after
 wqkv and wo on the full-sequence paths; the decode step refuses them.
 """
@@ -40,9 +48,15 @@ from evo_tpu_torch.layers.adapters import add_lora, refuse_in_decode
 from evo_tpu_torch.layers.rotary import apply_rotary, rotary_cos_sin
 from evo_tpu_torch.ops.attention import flash_attention_causal
 from evo_tpu_torch.ops.attention_buffer import Offset, flash_attention_buffer
-from evo_tpu_torch.parallel.collectives import copy_to_tp, reduce_from_tp
-from evo_tpu_torch.parallel.mesh import tp_size
-from evo_tpu_torch.quant import project
+from evo_tpu_torch.ops.ring_attention import (ring_attention,
+                                              zigzag_ring_attention)
+from evo_tpu_torch.ops.ulysses_attention import ulysses_attention
+from evo_tpu_torch.parallel.collectives import (all_reduce_sum, copy_to_tp,
+                                                gather_seq, reduce_from_tp,
+                                                seq_to_heads, split_seq)
+from evo_tpu_torch.parallel.mesh import (CHANNEL, channel_block, has_cp,
+                                         tp_size)
+from evo_tpu_torch.quant import project, row_block
 
 
 class Attention(nn.Module):
@@ -79,7 +93,8 @@ def _qkv(p: Attention, x: torch.Tensor):
 
 def _rotate(cfg: ModelConfig, q, k, offset: Offset):
     """Rotary positions [offset, offset + L), shared by the batch, or from
-    row b's own offset[b] for an int32 (B,) tensor."""
+    row b's own offset[b] for an int32 (B,) tensor. Under cp the caller
+    passes the global position of this rank's first row."""
     if isinstance(offset, torch.Tensor):
         positions = offset[:, None] + torch.arange(q.shape[1],
                                                    device=q.device)
@@ -93,9 +108,16 @@ def _rotate(cfg: ModelConfig, q, k, offset: Offset):
     return apply_rotary(q, cos, sin), apply_rotary(k, cos, sin)
 
 
-def _out(p: Attention, y: torch.Tensor) -> torch.Tensor:
-    """y (B, L, H, Dh) -> (B, L, D): wo contracts the two axes (H, Dh)."""
-    o = reduce_from_tp(project(y, p.wo, 2, p.act_quant), p.mesh)
+def _out(p: Attention, y: torch.Tensor, heads=None) -> torch.Tensor:
+    """y (B, L, H, Dh) -> (B, L, D): wo contracts the two axes (H, Dh).
+    heads=(start, n): y holds only heads [start, start + n) of the tp
+    shard (a decode step under cp), whose partial products with wo's
+    matching rows are summed over tp and cp."""
+    if heads is None:
+        o = reduce_from_tp(project(y, p.wo, 2, p.act_quant), p.mesh)
+    else:
+        o = all_reduce_sum(project(y, row_block(p.wo, *heads, CHANNEL), 2,
+                                   p.act_quant), p.mesh, CHANNEL)
     if p.bo is not None:
         o = o + p.bo
     return add_lora(p, 'wo', y, o, n_in=2)
@@ -153,7 +175,8 @@ def _kv_write(st: Dict[str, torch.Tensor], k, v, offset: Offset) -> None:
 
 def mha_full(p: Attention, cfg: ModelConfig, x: torch.Tensor,
              kv_buffers: Optional[Dict[str, torch.Tensor]] = None,
-             offset: int = 0, attend_buffer: bool = False):
+             offset: int = 0, attend_buffer: bool = False,
+             seq_len: Optional[int] = None):
     """Causal attention over the sequence or segment x (B, L, D) at
     positions [offset, offset + L) (scoring and prefill). With
     `kv_buffers`, k and v are written there. Returns (y (B, L, D),
@@ -162,13 +185,23 @@ def mha_full(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     By default the block attends only itself (a fresh sequence), over its
     own unquantised k and v even when the cache is int8. With
     `attend_buffer` it continues a filled cache: the queries attend the
-    whole buffer under the mask `key <= offset + query`."""
+    whole buffer under the mask `key <= offset + query`.
+
+    Under cp, x holds this rank's rows of a sequence padded to a multiple
+    of cp, whose first `seq_len` positions are real: only those are written
+    to the cache, and the padded rows of the result are not used."""
     if attend_buffer and kv_buffers is None:
         raise ValueError('attend_buffer needs the kv_buffers to attend')
     if isinstance(offset, torch.Tensor):
         raise ValueError('mha_full takes a Python int offset; per-row '
                          '(B,) offsets are for the decode step (mha_step)')
     q, k, v = _qkv(p, x)
+    if has_cp(p.mesh):
+        rows = q.shape[1]
+        q, k = _rotate(cfg, q, k, offset + p.mesh.index('cp') * rows)
+        y = _cp_attend(p, cfg, q, k, v, kv_buffers, offset, attend_buffer,
+                       rows * p.mesh.cp if seq_len is None else seq_len)
+        return _out(p, y), kv_buffers
     q, k = _rotate(cfg, q, k, offset)
     if kv_buffers is not None:
         _kv_write(kv_buffers, k, v, offset)
@@ -179,6 +212,44 @@ def mha_full(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     else:
         y = flash_attention_causal(q, k, v)
     return _out(p, y), kv_buffers
+
+
+def _cp_attend(p: Attention, cfg: ModelConfig, q, k, v, kv_buffers,
+               offset: int, attend_buffer: bool, seq_len: int
+               ) -> torch.Tensor:
+    """Attention under cp: q, k, v (B, L/cp, H, Dh) this rank's rows at H
+    heads of the tp shard (q and k rotated) -> (B, L/cp, H, Dh), writing
+    the first `seq_len` positions of this rank's H/cp heads to the cache.
+
+    A resumed segment, and `cp_attn='ulysses'`, go to the whole sequence
+    of H/cp heads by one all-to-all (which also gives the cache its
+    layout), run kernel 4 / 5 over the buffer or kernel 3 there, and come
+    back by the reverse one. Where cp does not divide H, Ulysses gathers
+    the sequence instead and keeps this rank's rows of kernel 3's result
+    (there is no cache then: `cache_shardings` raises). 'ring' and
+    'zigzag' keep the rows and pass K/V around the cp group; with a cache
+    they first move k and v to its layout by one all-to-all."""
+    mesh = p.mesh
+    if q.shape[2] % mesh.cp and cfg.cp_attn == 'ulysses':
+        y = flash_attention_causal(*(gather_seq(t, mesh) for t in (q, k, v)))
+        return split_seq(y, mesh)
+    if attend_buffer or cfg.cp_attn == 'ulysses':
+        def core(qh, kh, vh):
+            if kv_buffers is not None:
+                _kv_write(kv_buffers, kh, vh, offset)
+            if not attend_buffer:
+                return flash_attention_causal(qh, kh, vh)
+            return flash_attention_buffer(qh, kv_buffers['k'],
+                                          kv_buffers['v'], offset,
+                                          kv_buffers.get('ks'),
+                                          kv_buffers.get('vs'))
+        return ulysses_attention(q, k, v, mesh, seq_len, core)
+    if kv_buffers is not None:
+        kv = seq_to_heads(torch.stack([k, v], dim=2), mesh, 3)[:, :seq_len]
+        _kv_write(kv_buffers, kv[:, :, 0], kv[:, :, 1], offset)
+    ring = (zigzag_ring_attention if cfg.cp_attn == 'zigzag'
+            else ring_attention)
+    return ring(q, k, v, mesh, seq_len)
 
 
 def mha_step(p: Attention, cfg: ModelConfig, x_t: torch.Tensor,
@@ -195,18 +266,26 @@ def mha_step(p: Attention, cfg: ModelConfig, x_t: torch.Tensor,
     float32 on the cache-typed values, softmax in float32, the weights
     rounded to the cache type before A @ V, as the JAX package does (the
     same function as the kernel's plain version, in another order of
-    sums)."""
+    sums).
+
+    Under cp, x_t is whole on every rank, and the rank keeps its block of
+    heads of the projection (the heads of its cache); wo's partial
+    products are summed over tp and cp."""
     refuse_in_decode(p)
     q, k, v = _qkv(p, x_t)
+    heads = channel_block(p.mesh, q.shape[2]) if has_cp(p.mesh) else None
+    if heads is not None:
+        q, k, v = (t.narrow(2, *heads) for t in (q, k, v))
     q, k = _rotate(cfg, q, k, offset)
     _kv_write(kv_buffers, k, v, offset)
     if 'ks' in kv_buffers or q.device.type == 'cuda':
         y = flash_attention_buffer(q, kv_buffers['k'], kv_buffers['v'],
                                    offset, kv_buffers.get('ks'),
                                    kv_buffers.get('vs'))
-        return _out(p, y), kv_buffers
-    y = dense_step_attention(q, kv_buffers['k'], kv_buffers['v'], offset)
-    return _out(p, y), kv_buffers
+    else:
+        y = dense_step_attention(q, kv_buffers['k'], kv_buffers['v'],
+                                 offset)
+    return _out(p, y, heads), kv_buffers
 
 
 def dense_step_attention(q: torch.Tensor, k_buf: torch.Tensor,

@@ -27,7 +27,13 @@ holds its tensor-parallel shards and runs the same entry points on them:
 the layers sum their row-parallel products over tp, while the embedding,
 the norms and the unembedding stay replicated (kernel 1 runs on the full
 D on every rank). The data-parallel split of a batch is the engine
-facade's (`models.EvoModel`).
+facade's (`models.EvoModel`). Under context parallelism (cp > 1) the
+full-sequence pass keeps this rank's rows of the sequence in the residual
+stream (embedding, norms, MLPs and kernel 1 on L/cp rows), a length that
+cp does not divide padded on the right inside the pass and cut back
+wherever a layout holds the whole sequence (causality keeps every real
+position exact), and the logits are gathered over cp, so every rank
+returns them whole; a decode step's token is whole on every rank.
 
 Training (`training.py`, `lora.py`): the parameters are created with
 `requires_grad=False`, and the train steps turn on the ones they train.
@@ -54,6 +60,8 @@ from evo_tpu_torch.layers.hyena import (HyenaMixer, HyenaState, hyena_full,
 from evo_tpu_torch.layers.mlp import GatedMLP
 from evo_tpu_torch.layers.norms import RMSNorm
 from evo_tpu_torch.parallel import sharding
+from evo_tpu_torch.parallel.collectives import gather_seq, split_seq
+from evo_tpu_torch.parallel.mesh import has_cp
 
 Cache = Dict[str, Any]
 
@@ -224,19 +232,22 @@ def _unembed(model: StripedHyena, x: torch.Tensor) -> torch.Tensor:
 
 
 def _block(blk, cfg: ModelConfig, x: torch.Tensor, layers=None, i: int = 0,
-           offset: int = 0, resume: bool = False) -> torch.Tensor:
+           offset: int = 0, resume: bool = False,
+           seq_len: Optional[int] = None) -> torch.Tensor:
     """One pre-norm residual block of the full-sequence pass: x + mix(
     norm(x)), then + mlp(norm(x)). With `layers` (the cache's list), the
-    block's decode state is written into layers[i]."""
+    block's decode state is written into layers[i]. `seq_len`: under cp,
+    the real positions of the padded sequence whose rows x holds."""
     h = blk.pre_norm(x)
     if isinstance(blk, AttentionBlock):
         mix, _ = mha_full(blk.attn, cfg, h, kv_buffers=(
             None if layers is None else layers[i]), offset=offset,
-            attend_buffer=resume)
+            attend_buffer=resume, seq_len=seq_len)
     else:
         mix, st = hyena_full(blk.hyena, cfg, h,
                              collect_state=layers is not None,
-                             state=layers[i] if resume else None)
+                             state=layers[i] if resume else None,
+                             seq_len=seq_len)
         if layers is not None:
             layers[i] = st
     x = x + mix
@@ -250,17 +261,33 @@ def _full_sequence(model: StripedHyena, ids: torch.Tensor, layers=None,
     `layers` (the cache's list), each layer's decode state is written into
     it; with `resume`, ids continue the sequence that filled `layers` up
     to `offset`. Under `cfg.remat` the cache-free pass checkpoints each
-    block when grad mode is on."""
+    block when grad mode is on.
+
+    Under cp the ids are the whole sequence on every rank; the pass runs
+    on this rank's rows of it, padded on the right to a multiple of cp
+    (the ring attentions take no padding on a fresh sequence: they raise
+    the JAX package's ValueError), and returns the whole logits."""
     cfg = model.config if cfg is None else cfg
     remat = cfg.remat and layers is None and torch.is_grad_enabled()
+    mesh = model.mesh
+    seq_len = None
+    if has_cp(mesh):
+        seq_len = ids.shape[1]
+        pad = -seq_len % mesh.cp
+        if pad:
+            ids = F.pad(ids, (0, pad))
+        ids = split_seq(ids, mesh)
     x = _embed(model, ids)
     for i, blk in enumerate(model.blocks):
         if remat:
             x = torch.utils.checkpoint.checkpoint(_block, blk, cfg, x,
                                                   use_reentrant=False)
         else:
-            x = _block(blk, cfg, x, layers, i, offset, resume)
-    return _unembed(model, x)
+            x = _block(blk, cfg, x, layers, i, offset, resume, seq_len)
+    logits = _unembed(model, x)
+    if seq_len is None:
+        return logits
+    return gather_seq(logits, mesh)[:, :seq_len]
 
 
 def forward(model: StripedHyena, ids: torch.Tensor,

@@ -13,7 +13,9 @@ builds the same `Evo` and holds its tensor-parallel shards. The facade
 splits each batch over dp: a dp rank runs its rows (`collectives.
 shard_rows`) against a cache of its rows, and the logits are gathered
 over dp, so every rank returns the whole result, as the JAX package's
-dp-sharded program does.
+dp-sharded program does. Under context parallelism (cp > 1) the engine
+splits each row's sequence over cp and gathers its logits
+(`model._full_sequence`), so the same holds.
 """
 
 from __future__ import annotations

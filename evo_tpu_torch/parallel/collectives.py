@@ -1,5 +1,5 @@
-"""Megatron's two tensor-parallel operators, and the few other collectives
-of the port's mesh paths.
+"""Megatron's two tensor-parallel operators, the context-parallel
+reshards, and the few other collectives of the port's mesh paths.
 
 The JAX package states a layout and lets GSPMD insert the collectives; the
 port inserts them by hand, around each rank's shard of a product:
@@ -17,27 +17,39 @@ bf16 all-reduce would round at every hop, and gloo does not promise to
 reduce bf16 at all). Without a mesh, or at tp = 1, both return their
 input and launch nothing.
 
+Under context parallelism (cp > 1) the residual stream holds this cp
+rank's rows of the sequence (`split_seq`, `gather_seq`), and the mixers
+move between that layout and the whole sequence of a block of channels
+or heads with one all-to-all over cp each way (`seq_to_heads`,
+`heads_to_seq`); ring attention passes K/V blocks between cp neighbours
+(`cp_exchange`). The decode step sums over tp and cp together
+(`all_reduce_sum(x, mesh, CHANNEL)`). Each is a no-op at cp = 1.
+
 Gloo takes CUDA tensors for `all_reduce`, `broadcast` and `barrier` only;
-the gathers here go through CPU copies under gloo and stay on the card
-under NCCL.
+the gathers, all-to-alls and sends here go through CPU copies under gloo
+and stay on the card under NCCL. They move bytes (a uint8 view of each
+tensor), so any type passes either backend unchanged.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from evo_tpu_torch.parallel.mesh import Mesh
 
+Axis = Union[str, Tuple[str, ...]]
 
-def _active(mesh: Optional[Mesh], axis: str) -> bool:
-    return mesh is not None and mesh.shape[axis] > 1
+
+def _active(mesh: Optional[Mesh], axis: Axis) -> bool:
+    return mesh is not None and mesh.axis_size(axis) > 1
 
 
 def all_reduce_sum(x: torch.Tensor, mesh: Optional[Mesh],
-                   axis: str = 'tp') -> torch.Tensor:
-    """Sum over `axis` in float32, rounded once to x's type."""
+                   axis: Axis = 'tp') -> torch.Tensor:
+    """Sum over `axis` (or a tuple of axes together) in float32, rounded
+    once to x's type."""
     if not _active(mesh, axis):
         return x
     import torch.distributed as dist
@@ -47,7 +59,7 @@ def all_reduce_sum(x: torch.Tensor, mesh: Optional[Mesh],
 
 
 def all_reduce_max(x: torch.Tensor, mesh: Optional[Mesh],
-                   axis: str = 'tp') -> torch.Tensor:
+                   axis: Axis = 'tp') -> torch.Tensor:
     """Element-wise max over `axis` (a copy; exact in any type)."""
     if not _active(mesh, axis):
         return x
@@ -107,12 +119,10 @@ def gather_cpu(x: torch.Tensor, mesh: Mesh, axis: str) -> List[torch.Tensor]:
     n = mesh.shape[axis]
     if n == 1:
         return [x]
-    src = x.contiguous()
-    if mesh.backend != 'nccl':
-        src = src.cpu()
-    parts = [torch.empty_like(src) for _ in range(n)]
-    dist.all_gather(parts, src, group=mesh.group(axis))
-    return [p.to(x.device) for p in parts]
+    wire = _wire(x, mesh)
+    parts = [torch.empty_like(wire) for _ in range(n)]
+    dist.all_gather(parts, wire, group=mesh.group(axis))
+    return [p.view(x.dtype).view(x.shape).to(x.device) for p in parts]
 
 
 def dp_rows(n: int, mesh: Optional[Mesh]) -> int:
@@ -144,3 +154,116 @@ def gather_rows(x: torch.Tensor, mesh: Optional[Mesh], n: int
     if not _active(mesh, 'dp'):
         return x
     return torch.cat(gather_cpu(x, mesh, 'dp'), dim=0)[:n]
+
+
+# ---------------------------------------------------------------------------
+# Context parallelism
+# ---------------------------------------------------------------------------
+
+def _wire(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """t's bytes as a contiguous uint8 tensor where the backend takes it:
+    on the host under gloo, on t's device under NCCL."""
+    t = t.contiguous()
+    if mesh.backend != 'nccl':
+        t = t.cpu()
+    return t.view(torch.uint8) if t.dim() else t.reshape(1).view(torch.uint8)
+
+
+def all_to_all(x: torch.Tensor, mesh: Mesh, axis: str = 'cp'
+               ) -> torch.Tensor:
+    """x (n, ...), n the size of `axis`: block j goes to the axis's rank
+    j. Returns (n, ...) on x's device whose block j came from rank j."""
+    import torch.distributed as dist
+    wire = _wire(x, mesh)
+    out = torch.empty_like(wire)
+    dist.all_to_all_single(out, wire, group=mesh.group(axis))
+    return out.view(x.dtype).view(x.shape).to(x.device)
+
+
+def split_seq(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """This cp rank's rows of x (B, L, ...): the contiguous block cp_i of
+    cp along L (which cp must divide)."""
+    if not _active(mesh, 'cp'):
+        return x
+    n = x.shape[1] // mesh.cp
+    return x[:, mesh.index('cp') * n:(mesh.index('cp') + 1) * n]
+
+
+def gather_seq(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """Inverse of `split_seq`: every cp rank's rows, in order, on every
+    rank."""
+    if not _active(mesh, 'cp'):
+        return x
+    return torch.cat(gather_cpu(x, mesh, 'cp'), dim=1)
+
+
+def seq_to_heads(x: torch.Tensor, mesh: Optional[Mesh], axis: int
+                 ) -> torch.Tensor:
+    """(B, L/cp, ..., N, ...) rows of the sequence, every channel or head
+    on axis `axis` -> (B, L, ..., N/cp, ...): the whole sequence of this
+    rank's block cp_i of N. One all-to-all over cp. At B = 1 the received
+    buffer already is the result; at B > 1 it takes one permuting copy."""
+    if not _active(mesh, 'cp'):
+        return x
+    n = mesh.cp
+    send = x.unflatten(axis, (n, x.shape[axis] // n)).movedim(axis, 0)
+    recv = all_to_all(send, mesh)              # (n, B, L/cp, ..., N/cp, ...)
+    return recv.movedim(0, 1).flatten(1, 2)
+
+
+def heads_to_seq(y: torch.Tensor, mesh: Optional[Mesh], axis: int
+                 ) -> torch.Tensor:
+    """Inverse of `seq_to_heads`: (B, L, ..., N/cp, ...) -> (B, L/cp, ...,
+    N, ...), this rank's rows with every cp rank's block in order."""
+    if not _active(mesh, 'cp'):
+        return y
+    n = mesh.cp
+    send = y.unflatten(1, (n, y.shape[1] // n)).movedim(1, 0)
+    recv = all_to_all(send, mesh)              # (n, B, L/cp, ..., N/cp, ...)
+    return recv.movedim(0, axis).flatten(axis, axis + 1)
+
+
+def _cp_rank(mesh: Mesh, c: int) -> int:
+    """The global rank of cp index c in this rank's cp group."""
+    return mesh.rank + (c - mesh.index('cp')) * mesh.tp
+
+
+class _Pending:
+    """The sends and receives of a `cp_exchange` in flight (holding their
+    buffers until they complete); `wait()` returns the receives on the
+    device."""
+
+    def __init__(self, reqs, sent, bufs, like):
+        self.reqs, self.sent, self.bufs, self.like = reqs, sent, bufs, like
+
+    def wait(self) -> List[torch.Tensor]:
+        for req in self.reqs:
+            req.wait()
+        self.sent = None
+        return [b.view(t.dtype).view(t.shape).to(t.device)
+                for b, t in zip(self.bufs, self.like)]
+
+
+def cp_exchange(sends: Sequence[Tuple[int, torch.Tensor]],
+                recvs: Sequence[Tuple[int, torch.Tensor]], mesh: Mesh
+                ) -> _Pending:
+    """Point-to-point sends and receives within the cp group, posted in one
+    `batch_isend_irecv` (so that no pair of ranks waits on the other).
+    sends: (cp index, tensor); recvs: (cp index, a tensor of the shape
+    and type to receive). Messages between a pair are matched in the
+    order given, which both sides keep. Returns the pending receives."""
+    import torch.distributed as dist
+    group = mesh.group('cp')
+    ops, sent, bufs = [], [_wire(t, mesh) for _, t in sends], []
+    for (c, _), wire in zip(sends, sent):
+        ops.append(dist.P2POp(dist.isend, wire, _cp_rank(mesh, c),
+                              group=group))
+    for c, t in recvs:
+        buf = torch.empty(t.numel() * t.element_size(), dtype=torch.uint8,
+                          device=t.device if mesh.backend == 'nccl'
+                          else 'cpu')
+        bufs.append(buf)
+        ops.append(dist.P2POp(dist.irecv, buf, _cp_rank(mesh, c),
+                              group=group))
+    reqs = dist.batch_isend_irecv(ops) if ops else []
+    return _Pending(reqs, sent, bufs, [t for _, t in recvs])

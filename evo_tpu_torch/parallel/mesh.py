@@ -12,8 +12,9 @@ layers run Megatron tensor parallelism by hand on each rank's shards
 Axes, outermost to innermost, as in the JAX package:
 
   dp  data parallel: each dp rank runs its rows of the batch;
-  cp  context parallel (sequence sharding); sizes above 1 are not ported
-      yet and raise;
+  cp  context parallel: the residual stream's sequence is split over cp,
+      and inside a mixer a rank holds the whole sequence of its block of
+      channels or heads (`channel_block`);
   tp  tensor parallel: weights sharded Megatron-style. Innermost, so a tp
       group is contiguous ranks, which `torchrun` places on one host.
 
@@ -30,8 +31,9 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 AXES = ('dp', 'cp', 'tp')
-CP_REFUSAL = ('context parallelism (cp > 1) is not ported yet (ROADMAP.md, '
-              'modules queue: parallelism: context parallel)')
+# the mixers' channel axes under cp, tp major and cp minor, as the JAX
+# package's `channel_axes` orders them
+CHANNEL = ('tp', 'cp')
 
 
 def plan_mesh(n: int, dp: int = 1, tp: Optional[int] = None, cp: int = 1,
@@ -67,6 +69,10 @@ def axis_groups(base: int, dp: int, cp: int, tp: int
                for d in range(dp) for t in range(tp)],
         'tp': [[rank(d, c, t) for t in range(tp)]
                for d in range(dp) for c in range(cp)],
+        # the (tp, cp) group of a decode step's sums: every rank of a dp
+        # index, in channel-block order
+        CHANNEL: [[rank(d, c, t) for t in range(tp) for c in range(cp)]
+                  for d in range(dp)],
     }
 
 
@@ -75,8 +81,9 @@ class Mesh:
 
     `shape` maps each axis name to its size, `coords` to this rank's index
     on it; `group(axis)` is the axis's `torch.distributed` group (None for
-    a size-1 axis: nothing to talk to). `replica` and `replicas` say which
-    of the world's replicas this is and how many there are."""
+    a size-1 axis: nothing to talk to), and `group(CHANNEL)` the group of
+    the tp and cp axes together. `replica` and `replicas` say which of the
+    world's replicas this is and how many there are."""
 
     def __init__(self, dp: int, cp: int, tp: int, rank: int = 0,
                  replica: int = 0, replicas: int = 1,
@@ -110,7 +117,22 @@ class Mesh:
     def index(self, axis: str) -> int:
         return self.coords[axis]
 
-    def group(self, axis: str):
+    def axis_size(self, axis) -> int:
+        """The size of an axis, or of a tuple of axes together."""
+        if isinstance(axis, tuple):
+            n = 1
+            for a in axis:
+                n *= self.shape[a]
+            return n
+        return self.shape[axis]
+
+    def group(self, axis):
+        """The group of `axis`; of a tuple of axes, that of the only one
+        above size 1 when there is one (the same ranks)."""
+        if isinstance(axis, tuple):
+            live = [a for a in axis if self.shape[a] > 1]
+            if len(live) == 1:
+                return self.groups.get(live[0])
         return self.groups.get(axis)
 
     def __repr__(self) -> str:
@@ -144,8 +166,8 @@ def _build(dp: int, cp: int, tp: int, replicas: int,
         backend = dist.get_backend()
         for r in range(replicas):
             for axis, lists in axis_groups(r * size, dp, cp, tp).items():
-                if len(lists[0]) < 2:
-                    continue
+                if len(lists[0]) < 2 or (axis == CHANNEL and 1 in (cp, tp)):
+                    continue        # nothing to talk to, or an axis's own
                 for ranks in lists:
                     g = dist.new_group(ranks)
                     if rank in ranks:
@@ -164,8 +186,6 @@ def make_mesh(dp: int = 1, tp: Optional[int] = None, cp: int = 1,
     when `torch.distributed` is not initialized). tp defaults to
     world/(dp*cp); dp=-1 means world/(tp*cp). Call
     `distributed.initialize_distributed` first."""
-    if cp > 1:
-        raise NotImplementedError(CP_REFUSAL)
     world, _ = _world()
     dp, cp, tp = plan_mesh(world, dp, tp, cp)
     return _build(dp, cp, tp, 1, device)
@@ -178,8 +198,6 @@ def local_mesh(dp: int = 1, tp: Optional[int] = None, cp: int = 1,
     hosts splitting the work among themselves (`distributed.
     score_fasta_sharded`). The sizes follow `make_mesh`'s rules over the
     local world."""
-    if cp > 1:
-        raise NotImplementedError(CP_REFUSAL)
     world, _ = _world()
     local = int(os.environ.get('LOCAL_WORLD_SIZE', world))
     dp, cp, tp = plan_mesh(local, dp, tp, cp, what='local world size')
@@ -202,3 +220,18 @@ def channel_axes(mesh: Optional[Mesh]):
 
 def tp_size(mesh: Optional[Mesh]) -> int:
     return 1 if mesh is None else mesh.tp
+
+
+def channel_block(mesh: Optional[Mesh], n: int) -> Tuple[int, int]:
+    """(start, size) of this rank's block of the n channels or heads of
+    its tp shard under cp: block `cp_i` of cp, so that across the mesh the
+    blocks follow the JAX package's ('tp', 'cp') order (tp major). The
+    whole shard (0, n) without an active cp axis; a ValueError where cp
+    does not divide n."""
+    if not has_cp(mesh):
+        return 0, n
+    if n % mesh.cp:
+        raise ValueError(f'{n} channels / heads of a tp shard do not '
+                         f'divide over cp={mesh.cp}')
+    size = n // mesh.cp
+    return mesh.index('cp') * size, size

@@ -20,7 +20,10 @@ alive, and the in-projection's output must stay a dense (B, L, 3, C/tp)
 tensor, which kernels 2 and 6 read in place.
 
 Decode caches hold H/tp heads and C/tp channels, and the rows of their dp
-rank.
+rank. Under context parallelism (cp > 1) the weights stay tp shards,
+whole on every cp rank, while the caches and everything inside a mixer
+hold H/(tp cp) heads and C/(tp cp) channels: block cp_i of the tp shard
+(`mesh.channel_block`), the JAX package's ('tp', 'cp') layout.
 """
 
 from __future__ import annotations
@@ -197,11 +200,16 @@ def _full_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
 
 def check_divisible(cfg: ModelConfig, mesh: Optional[Mesh]) -> None:
     """Raise a ValueError naming the first parameter and axis that tp does
-    not divide."""
-    if mesh is None or mesh.tp == 1:
+    not divide, or, under cp, the Hyena channels that tp cp do not (the
+    heads take another path there, `layers/attention.py`)."""
+    if mesh is None:
         return
-    for name, shape in _full_shapes(cfg).items():
-        local_shape(name, shape, mesh)
+    if mesh.tp > 1:
+        for name, shape in _full_shapes(cfg).items():
+            local_shape(name, shape, mesh)
+    if mesh.cp > 1 and cfg.hidden_size % (mesh.tp * mesh.cp):
+        raise ValueError(f'Hyena channels: {cfg.hidden_size} do not divide '
+                         f'over tp*cp = {mesh.tp}*{mesh.cp}')
 
 
 def shard_params(params: Any, cfg: ModelConfig, mesh: Mesh) -> Any:
@@ -239,15 +247,20 @@ def shard_params(params: Any, cfg: ModelConfig, mesh: Mesh) -> Any:
 def cache_shardings(cfg: ModelConfig, mesh: Optional[Mesh], batch: int,
                     max_len: int) -> List[Dict[str, Tuple[tuple, Any]]]:
     """The local decode-cache layout of each layer on this rank: name ->
-    (shape, dtype). Heads and channels are split over tp and the batch
-    over dp (`collectives.dp_rows` rows), as the JAX package's cache
-    shardings place them."""
+    (shape, dtype). Heads and channels are split over tp, or over (tp, cp)
+    under context parallelism, and the batch over dp (`collectives.
+    dp_rows` rows), as the JAX package's cache shardings place them. A
+    head count that tp cp does not divide raises a ValueError."""
     from evo_tpu_torch.parallel.collectives import dp_rows
-    tp = 1 if mesh is None else mesh.tp
+    from evo_tpu_torch.parallel.mesh import CHANNEL
+    n = 1 if mesh is None else mesh.axis_size(CHANNEL)
+    if cfg.num_attention_heads % n:
+        raise ValueError(f'KV cache: {cfg.num_attention_heads} heads do not '
+                         f'divide over tp*cp = {n}')
     B = dp_rows(batch, mesh)
     cd = getattr(torch, cfg.compute_dtype)
-    H, Dh = cfg.num_attention_heads // tp, cfg.head_dim
-    C = cfg.hidden_size // tp
+    H, Dh = cfg.num_attention_heads // n, cfg.head_dim
+    C = cfg.hidden_size // n
     K, S = cfg.short_filter_length, cfg.state_size
     layers = []
     for i in range(cfg.num_layers):

@@ -64,12 +64,15 @@ class QuantizedWeight(nn.Module):
     weight's own shape) and `s` (float32, contraction axes kept as 1), or
     `q4` ((Kp/2, N) packed nibbles) and `s4` (float32 (Kp/128, *out)).
     `row_mesh`: the mesh whose tp ranks split its contraction (a
-    row-parallel shard), else None."""
+    row-parallel shard), else None; `row_axis`: the mesh axes over which
+    the contraction is split, tp, or tp and cp for a decode step's block
+    (`row_block`)."""
 
     def __init__(self, mode: str, codes: torch.Tensor, scales: torch.Tensor,
-                 row_mesh=None):
+                 row_mesh=None, row_axis='tp'):
         super().__init__()
         self.row_mesh = row_mesh
+        self.row_axis = row_axis
         if mode not in ('int8', 'int4'):
             raise ValueError(f'unknown quantization mode {mode!r}')
         self.mode = mode
@@ -216,8 +219,8 @@ def qdot(x: torch.Tensor, w: Any, nc: int = 1) -> torch.Tensor:
         return y.reshape(lead + wshape)
     wshape = tuple(w.q.shape[nc:])
     x32 = x2.float()
-    xs = (all_reduce_max(x32.abs().amax(dim=1, keepdim=True), w.row_mesh)
-          / 127.0).clamp(min=1e-12)
+    xs = (all_reduce_max(x32.abs().amax(dim=1, keepdim=True), w.row_mesh,
+                         w.row_axis) / 127.0).clamp(min=1e-12)
     xq = torch.round(x32 / xs).clamp(-127, 127).to(torch.int8)
     y32 = _int8_matmul(xq, w.q.reshape(x2.shape[1], -1))
     y = y32.float() * xs * w.s.reshape(1, -1)
@@ -234,6 +237,19 @@ def project(x: torch.Tensor, w: Any, nc: int = 1,
     wd = wcast(w, x.dtype)
     y = x2 @ wd.reshape(x2.shape[1], -1)
     return y.reshape(lead + tuple(wd.shape[nc:]))
+
+
+def row_block(w: Any, start: int, n: int, axis) -> Any:
+    """Rows [start, start + n) of the leading (contraction) axis of a
+    row-parallel weight, the rest of whose rows other ranks hold along the
+    mesh axes `axis`: a view of a plain weight, or the same codes' rows
+    with the per-column scales unchanged (still valid for any rows)."""
+    if not isinstance(w, QuantizedWeight):
+        return w.narrow(0, start, n)
+    if w.mode != 'int8':
+        raise TypeError('int4 weights have no sharded layout')
+    return QuantizedWeight('int8', w.q.narrow(0, start, n), w.s, w.row_mesh,
+                           axis)
 
 
 def _family_sites(model: nn.Module):

@@ -55,6 +55,7 @@ import torch
 
 from evo_tpu_torch import model as model_lib
 from evo_tpu_torch.config import ModelConfig
+from evo_tpu_torch.parallel import refuse_cp
 from evo_tpu_torch.parallel.collectives import all_reduce_sum
 from evo_tpu_torch.parallel.sharding import tp_axis
 from evo_tpu_torch.quant import QuantizedWeight
@@ -346,6 +347,7 @@ def make_sharded_train_step(model, optimizer: Optimizer, mesh):
     if module.mesh is not mesh:
         raise ValueError('make_sharded_train_step: the model was not built '
                          'on this mesh (pass mesh= when loading it)')
+    refuse_cp('the sharded train step', mesh)
     return _train_step(module, optimizer, mesh)
 
 

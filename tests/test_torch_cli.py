@@ -140,16 +140,12 @@ def test_speculative_cli_matches_jax_cli(monkeypatch, jax_weights, capsys,
     (generate_cli, ['--tp', '2']), (generate_cli, ['--cp', '2'])],
     ids=lambda v: v[0] if isinstance(v, list) else v.__name__.rsplit('.')[-1])
 def test_unported_flags_raise(tmp_path, cli, flag):
-    """--cp is not ported and names its ROADMAP item; --dp / --tp above 1
-    need one process a rank and say how to launch them."""
+    """--dp / --tp / --cp above 1 need one process a rank and say how to
+    launch them (--cp is ported: tests/test_torch_context_parallel.py)."""
     base = (['--input-fasta', FASTA, '--output-tsv', str(tmp_path / 'x')]
             if cli is score_cli else ['--prompt', 'ACGT'])
-    if flag[0] == '--cp':
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            cli.main(TINY + base + flag)
-    else:
-        with pytest.raises(ValueError, match='torchrun'):
-            cli.main(TINY + base + flag)
+    with pytest.raises(ValueError, match='torchrun'):
+        cli.main(TINY + base + flag)
     # at their defaults the same flags are accepted
     args = cli.build_parser().parse_args(base + ['--tp', '1'])
     score_cli.refuse_parallelism(args)

@@ -1217,6 +1217,80 @@ def test_tp2_gloo_ranks_on_one_card(tmp_path):
                         'fir_gate': cfg.num_layers - 1, 'flash_attention': 1}
 
 
+def _ulysses_layout(randn, B, L, cp=2, heads=16):
+    """What the all-to-all over cp hands the attention layer: the received
+    (cp, B, L/cp, 3, heads, 128) buffer viewed as (B, L, 3, heads, 128),
+    as `collectives.seq_to_heads` returns it (a view at B = 1, a permuted
+    copy above)."""
+    recv = randn(cp, B, L // cp, 3, heads, 128)
+    return recv.movedim(0, 1).flatten(1, 2)
+
+
+@pytest.mark.parametrize('B,L,cut', [(1, 8192, 0), (2, 1000, 0), (1, 8194, 1),
+                                     (2, 130, 1)])
+def test_flash_attention_kernel_on_the_ulysses_layout(randn, B, L, cut):
+    """Kernel 3 reads q, k, v where the all-to-all left them, also cut to
+    the real positions of a padded sequence (`cut` rows fewer), against
+    its plain version; kernel 4 over a cache written from that layout."""
+    qkv = _ulysses_layout(randn, B, L)[:, :L - cut]
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    before = _build.LAUNCHES['flash_attention']
+    got = flash_attention_causal(q, k, v)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES['flash_attention'] == before + 1
+    assert got.shape == q.shape
+    assert _scaled_err(got, attention_plain(q, k, v)) <= 2 ** -5
+    T, n = L + 64, (L - cut) // 2
+    kb = torch.zeros(B, T, 16, 128, dtype=torch.bfloat16, device='cuda')
+    vb = torch.zeros_like(kb)
+    kb[:, :L - cut], vb[:, :L - cut] = k, v
+    got = flash_attention_buffer(q[:, n:], kb, vb, n)
+    torch.cuda.synchronize()
+    want = attention_buffer_plain(q[:, n:], kb, vb, n)
+    assert _scaled_err(got, want) <= 2 ** -5
+
+
+# the small bf16 config of the cp = 2 test: 4 heads of 128, so each rank
+# runs kernel 3 at 2 heads and the Hyena kernels at 256 channels over the
+# whole sequence
+def test_cp2_gloo_ranks_on_one_card(tmp_path):
+    """Two ranks on cuda:0 over gloo as one cp = 2 mesh (`tools/cp_smoke.py
+    small`): the logits under each cp_attn against the single process's on
+    the card, both ranks bit-equal, and under Ulysses at an odd length too
+    (padded inside the model; the rings refuse it); kernel 3 at the Ulysses
+    heads, and never in the rings' plain core."""
+    import json
+    import os
+    from pathlib import Path
+
+    from evo_tpu_torch import model as model_lib
+    from evo_tpu_torch.config import tiny_config
+    from evo_tpu_torch.parallel.distributed import launch_local
+    cfg = tiny_config(**TP_SMALL)
+    ids = torch.randint(0, 512, (2, 200),
+                        generator=torch.Generator().manual_seed(0))
+    torch.save({'config': TP_SMALL, 'ids': ids}, tmp_path / 'small_in.pt')
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).parent.parent))
+    launch_local(['-m', 'evo_tpu_torch.tools.cp_smoke', 'small',
+                  str(tmp_path)], 2, env=env, timeout=600)
+    module = model_lib.random_init(
+        cfg, torch.Generator(device='cuda').manual_seed(0), 'cuda')
+    want = model_lib.forward(module, ids.cuda()).cpu()
+    launches = json.load(open(tmp_path / 'small_rank0.json'))['part']
+    for mode in ('ulysses', 'ring', 'zigzag'):
+        got = [torch.load(tmp_path / f'small_{mode}_rank{r}.pt')
+               for r in (0, 1)]
+        assert torch.equal(got[0], got[1]), mode
+        assert (got[0] - want).abs().max() <= 0.05 * want.abs().max(), mode
+        assert launches[mode] == dict(
+            {'rmsnorm': 2 * cfg.num_layers + 1,
+             'fir_gate': cfg.num_layers - 1},
+            **({'flash_attention': 1} if mode == 'ulysses' else {})), mode
+    got = [torch.load(tmp_path / f'small_ragged_rank{r}.pt') for r in (0, 1)]
+    assert torch.equal(got[0], got[1]) and got[0].shape[1] == 199
+    assert (got[0] - want[:, :199]).abs().max() <= 0.05 * want.abs().max()
+
+
 def test_nccl_refuses_two_ranks_on_one_card(monkeypatch):
     """More local ranks than cards under NCCL raise before NCCL does, and
     name the gloo backend; nothing switches backends quietly."""

@@ -26,12 +26,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, 'evo_tpu_torch')
 FORBIDDEN = ('jax', 'jaxlib', 'evo_tpu')
 # fields of the JAX config that the port drops: the kernel on/off switch
-# (in the port a tensor's device decides), parallelism, the knobs of
+# (in the port a tensor's device decides), the knobs of
 # long-conv backends the port does not have, and the two init-method
 # strings that no code of the JAX package reads. The kernel selectors
 # `hyena_fused_mixer` and `hyena_pallas_prefix` and `remat` are fields of
 # both.
-TPU_FIELDS = {'use_pallas', 'cp_attn', 'state_prefill_chunk',
+TPU_FIELDS = {'use_pallas', 'state_prefill_chunk',
               'hyena_fft_chunk', 'hyena_conv_backend', 'mlp_init_method',
               'mlp_output_init_method'}
 

@@ -169,7 +169,8 @@ def test_forced_prompt_matches_full_prefill(setup):
 
 def test_unported_paths_raise(setup):
     """What the port does not hold yet raises and names its ROADMAP item
-    (meshes, weights kept in another type than the activations); what it
+    (serving under a mesh, weights kept in another type than the
+    activations); what it
     now holds (a filled cache continued, segments, the int8 KV cache,
     quantized weights, weights from a file, speculative decoding) no
     longer does."""
@@ -183,9 +184,16 @@ def test_unported_paths_raise(setup):
         assert tiny_config(weight_quant=quant).weight_quant == quant
     assert tiny_config(weight_quant='int8', act_quant='int8').act_quant \
         == 'int8'
-    from evo_tpu_torch.parallel.mesh import make_mesh
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        make_mesh(cp=2)
+    # cp > 1 is ported (tests/test_torch_context_parallel.py); serving
+    # under a mesh is not
+    from evo_tpu_torch.parallel.mesh import Mesh
+    from evo_tpu_torch.serving import GenerationServer
+    model.mesh = Mesh(1, 2, 1)
+    try:
+        with pytest.raises(NotImplementedError, match='ROADMAP'):
+            GenerationServer(model, tok)
+    finally:
+        model.mesh = None
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         tiny_config(param_dtype='float32', compute_dtype='bfloat16')
     from evo_tpu_torch.cli import generate as generate_cli

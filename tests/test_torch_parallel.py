@@ -12,9 +12,10 @@ In this process (no ranks):
     make_mesh` on the conftest's virtual CPU devices;
   * `split_for_process` and the shard manifest, byte for byte, against
     the JAX functions, and a fingerprint mismatch raising in both;
-  * the refusals: cp > 1, int4 under a mesh, serving, speculation and
-    LoRA under a mesh, the serve CLI's mesh flags and --cp, a size tp
-    does not divide.
+  * the refusals that remain: int4 under a mesh, serving, speculation and
+    LoRA under a mesh, the serve CLI's mesh flags and --cp, the sharded
+    train step under cp, a size tp does not divide; cp = 2, now ported
+    (tests/test_torch_context_parallel.py), wants ranks of its own.
 
 In two gloo processes on the CPU, this file run as a script (it imports
 no JAX then):
@@ -672,8 +673,12 @@ def test_mesh_coordinates_and_refusals():
     m = make_mesh()          # one process, no group
     assert (m.dp, m.cp, m.tp, m.groups) == (1, 1, 1, {})
     assert isinstance(m, Mesh)
-    for make in (make_mesh, local_mesh):
-        with pytest.raises(NotImplementedError, match='context parallel'):
+    # cp > 1 is ported; in one process a cp = 2 mesh does not fit the
+    # world, as the JAX package's make_mesh says of one device
+    for make, what in ((make_mesh, 'device_count'),
+                       (local_mesh, 'local world size')):
+        with pytest.raises(ValueError,
+                           match=rf'dp\*cp\*tp = 1\*2\*0 != {what} 1'):
             make(cp=2)
 
 
@@ -730,16 +735,34 @@ def test_refusals_under_a_mesh(tmp_path):
     evo = Evo('evo-1-8k-base', 'cpu', random_init=True, mesh=one,
               config_overrides=cli_tiny_overrides())
     assert evo.model.mesh is one
+    heading = ('parallelism: serving, speculation and LoRA under a mesh, '
+               'and training under cp')
     for call in (lambda: GenerationServer(evo.model, evo.tokenizer),
                  lambda: generate_speculative(evo.model, evo.tokenizer,
                                               prompt='ACGT', num_tokens=2),
                  lambda: lora.init_lora(torch.Generator(), evo.model, 2)):
-        with pytest.raises(NotImplementedError, match='under a mesh'):
+        with pytest.raises(NotImplementedError, match='under a mesh') as e:
             call()
-    with pytest.raises(NotImplementedError, match='serving under a mesh'):
-        serve_cli.build_server(serve_cli.build_parser().parse_args(
-            ['--tiny', '--device', 'cpu', '--tp', '2']))
-    with pytest.raises(NotImplementedError, match='context parallel'):
+        assert heading in str(e.value)
+    for flag in ('--tp', '--cp'):
+        with pytest.raises(NotImplementedError,
+                           match='serving under a mesh') as e:
+            serve_cli.build_server(serve_cli.build_parser().parse_args(
+                ['--tiny', '--device', 'cpu', flag, '2']))
+        assert heading in str(e.value)
+    # the train steps under cp
+    from evo_tpu_torch import training
+    cp_mesh = Mesh(1, 2, 1)
+    cp_evo = Evo('evo-1-8k-base', 'cpu', random_init=True, mesh=cp_mesh,
+                 config_overrides=cli_tiny_overrides())
+    with pytest.raises(NotImplementedError,
+                       match='context parallelism') as e:
+        training.make_sharded_train_step(
+            cp_evo.model, training.make_optimizer(learning_rate=1e-3),
+            cp_mesh)
+    assert heading in str(e.value)
+    # --cp is ported: in one process it wants ranks, as --dp / --tp do
+    with pytest.raises(ValueError, match='one process a rank'):
         score_cli.main(['--tiny', '--device', 'cpu', '--cp', '2',
                         '--input-fasta', str(FASTA), '--output-tsv',
                         str(tmp_path / 'x.tsv')])
