@@ -186,6 +186,27 @@ for an H100: the kernels target sm_90a). It
      FASTA within 1e-2 of the single-process scores; ranks bit-equal.
      Its times are gloo's all-to-alls and sends through host memory on
      one card: nothing of NCCL or of cp across cards;
+ 23. (after phase 18, beside its unchanged evo-1-8k-base; (c) checked
+     after phase 20) serving, speculation and LoRA under a mesh as two
+     ranks of the port on the one card over gloo, chosen explicitly
+     (`tools/mesh_smoke.py model`): (a) a tp = 2 evo-1-8k-base at full
+     width and depth serving six ragged requests on 4 slots (prompts of
+     96-1,500 nt, 32-48 new tokens, two sampled, a batched pair, one
+     arriving after the second step), then two under the int8 KV cache:
+     every request ends with its token count, the recorded log-probs
+     within phase 5's yardstick of one single-process forward (4x for
+     int8), greedy argmax agreement >= 0.75, the launch counts of the
+     schedule, one step() with one host read outside the collectives and
+     no scalar read, ranks equal; (b) tp = 2 speculation at g = 8 with the
+     oracle drafter, under phase 18's limits; (c) LoRA rank 8 under tp = 2
+     on phase 20's 9 layers, 2 steps (the first loss within phase 20's
+     yardstick, a falling loss, the base bit-unchanged, adapters equal
+     across ranks, kernels 1-3 under autograd); (d) dp = 2 and (e) cp = 2
+     serving on 9 layers under (a)'s limits (each dp rank decoding its 2
+     of the 4 slots; per-slot device offsets through the cp decode
+     branch); (f) `cli.serve --tp 2 --dist-backend gloo` in JSONL mode on
+     a small bf16 checkpoint against a one-process run. Its times are
+     gloo's collectives through host memory on one card;
  14. (after phase 6) the same with evo-1-131k-base: 12,000 nt in one pass
      and in segments of 4,096, then 131,072 nt in segments of 8,192, with
      the launch counts worked out from the segment bounds (a ragged first
@@ -1279,6 +1300,323 @@ def phase22_context_parallel(torch, np, smi, launches, ref21, model, tok,
           and all(np.isfinite(got)), f'cp CLI scores {got}')
     log(f'   phase 22 seconds: ranks {secs:.1f}, CLI {cli_s:.1f}')
     return dict(seconds=secs, cli_seconds=cli_s, ranks=ranks)
+
+
+def phase23_inputs(torch, np, d, corpus, spec_prompt):
+    """The traffic of phase 23, written to `d`/mesh_in.json: six ragged
+    requests (96-1,500 nt prompts, 32-48 new tokens, two sampled, a
+    same-length pair for one batched fill, one arriving after the second
+    step), two under the int8 KV cache, phase 18's random 512-nt prompt
+    and oracle schedule, the training corpus, and (f)'s three requests of
+    24 tokens with the small bf16 model they go to (512 channels, 4 heads
+    of 128, 4 layers, seed 0), written as a native checkpoint: the
+    kernels take bf16 only, so the CLIs' float32 `--tiny` does not run on
+    the card."""
+    from evo_tpu_torch import checkpoint as ckpt
+    from evo_tpu_torch import model as model_lib
+    from evo_tpu_torch.config import tiny_config
+    rng = np.random.default_rng(23)
+    plens = [512, 512, 96, 700, 1500, 900]
+    news = [int(n) for n in rng.integers(32, 49, len(plens))]
+    sampled, late = (1, 4), (5,)
+    requests = [dict(prompt=''.join(rng.choice(list('ACGT'), n)),
+                     num_tokens=news[i],
+                     temperature=1.0 if i in sampled else 0.0,
+                     top_k=4 if i in sampled else 0, seed=2300 + i,
+                     late=i in late) for i, n in enumerate(plens)]
+    requests_int8 = [dict(prompt=''.join(rng.choice(list('ACGT'), n)),
+                          num_tokens=32, temperature=0.0, top_k=0,
+                          seed=2310 + i, late=False)
+                     for i, n in enumerate((300, 1000))]
+    cfg = tiny_config(hidden_size=512, num_filters=512, num_attention_heads=4,
+                      compute_dtype='bfloat16', param_dtype='bfloat16')
+    path = os.path.join(d, 'small_ckpt')
+    ckpt.save_native(model_lib.random_init(
+        cfg, torch.Generator(device='cuda').manual_seed(0), 'cuda'), path,
+        cfg=cfg)
+    cli = dict(path=path, num_tokens=24, prompts=[
+        ''.join(rng.choice(list('ACGT'), n)) for n in (40, 96, 130)],
+        flags=['--checkpoint-path', path, '--max-slots', '2', '--max-len',
+               '256', '--steps-per-sync', '8', '--prompt-chunk', '64'])
+    inp = dict(requests=requests, requests_int8=requests_int8,
+               spec_prompt=spec_prompt, spec_schedule=[8, 8, 5, 8, 2, 0, 8, 3],
+               corpus=corpus, cli=cli)
+    with open(os.path.join(d, 'mesh_in.json'), 'w') as f:
+        json.dump(inp, f)
+    return inp
+
+
+def serve_launches(calls, chunks, layers, attn, int8=False, split_rows=4):
+    """The launches of a server's run: each engine call of a fill (its
+    length, resumed or fresh) a prefill's, and 8 decode steps a chunk,
+    each with one row a slot."""
+    hyena = layers - attn
+    steps = 8 * chunks
+    fresh = sum(not resumed for _, resumed in calls)
+    want = collections.Counter({
+        'rmsnorm': (2 * layers + 1) * (steps + len(calls)),
+        'fir_gate': hyena * sum(L >= 3 for L, _ in calls),
+        'flash_attention': attn * fresh})
+    if int8:
+        want['flash_attention_buffer_q8'] = attn * (steps + len(calls) - fresh)
+        want['combine_partials'] = attn * (steps + sum(
+            resumed and L <= split_rows for L, resumed in calls))
+    else:
+        want['flash_attention_buffer'] = attn * (steps + len(calls) - fresh)
+    return {k: v for k, v in want.items() if v}
+
+
+def phase23_mesh(np, smi, launches, big, tok, inp, d, helpers):
+    """Serving, speculation and LoRA under a mesh: two ranks of the port on
+    the one card over gloo (chosen explicitly; NCCL refuses two ranks on
+    one card), `tools/mesh_smoke.py model`, held to the single process:
+    `big` is the single-process evo-1-8k-base (seed 0, unchanged since
+    phase 4) and `helpers` phase 16's and 18's checks. (c)'s checks
+    wait for phase 20's loss (`phase23_lora_check`). These times are gloo's
+    host-memory collectives on one card, and say nothing of NCCL or of a
+    mesh across cards."""
+    from types import SimpleNamespace
+
+    from evo_tpu_torch.models import Evo, EvoModel
+    from evo_tpu_torch.parallel.distributed import launch_local
+    from evo_tpu_torch.tools.mesh_smoke import NINE
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    log(f'== 23. serving, speculation and LoRA under a mesh ({smi}): 2 ranks '
+        f'on one card, torch.distributed backend gloo (passed explicitly)')
+    t = time.time()
+    launch_local(['-m', 'evo_tpu_torch.tools.mesh_smoke', 'model', d], 2,
+                 env=env, timeout=900, log_dir=os.path.join(d, 'model'))
+    secs = time.time() - t
+    ranks = []
+    for r in (0, 1):
+        with open(os.path.join(d, f'model_rank{r}.json')) as f:
+            ranks.append(json.load(f)['part'])
+    reqs = inp['requests']
+
+    def served(part, model, requests, layers, attn, limit, label):
+        """Each rank's run of `part` against the single process: token
+        counts, launches, teacher forcing within `limit` yardsticks; the
+        ranks' tokens and log-probs equal."""
+        for r, m in enumerate(ranks):
+            x = m[part]
+            check(all(len(x['tokens'][i]) == q['num_tokens']
+                      for i, q in enumerate(requests)),
+                  f'23{label} rank {r}: a request did not end with its '
+                  f'token count')
+            want = serve_launches(x['calls'], len(x['chunk_ms']), layers,
+                                  attn, int8='int8' in part)
+            check(x['launches'] == want, f'23{label} rank {r} launches '
+                  f'{x["launches"]}, expected {want}')
+        x = ranks[0][part]
+        results = {i: SimpleNamespace(token_ids=np.asarray(x['tokens'][i]),
+                                      logps=np.asarray(x['logps'][i]))
+                   for i in range(len(requests))}
+        d_, dmax, f_, agree = helpers['teacher_forced'](
+            model, tok, [q['prompt'] for q in requests], results,
+            {i: i for i in results},
+            [i for i, q in enumerate(requests) if q['temperature'] <= 0])
+        check(d_ <= limit * f_ and agree >= 0.75,
+              f'23{label}: served log-probs disagree with teacher forcing '
+              f'({d_} against {limit} x {f_}, agreement {agree})')
+        check(all(ranks[1][part][k] == x[k] for k in ('tokens', 'logps')),
+              f'23{label}: the ranks\' results differ')
+        for r, m in enumerate(ranks):
+            y = m[part]
+            log(f'   {label} rank {r}: {len(requests)} requests, '
+                f'{y["new_tokens"]} new tokens in {y["seconds"]:.2f} s, '
+                f'{y["tokens_per_s"]:.1f} generated tokens/s aggregate; '
+                f'{len(y["chunk_ms"])} decode chunks of 8 steps, median '
+                f'{y.get("chunk_median_ms", 0):.1f} ms a chunk, '
+                f'{y.get("chunk_median_ms", 0) / 8:.2f} ms a step; decode '
+                f'rows {y["rows"]} from slot {y["base"]}; peak '
+                f'{y["peak_gib"]:.2f} GiB; launches {y["launches"]}')
+        log(f'   {label}: teacher forcing against one single-process '
+            f'forward: mean abs log-prob diff {d_:.5f} (max {dmax:.4f}), '
+            f'one rounding step {f_:.5f} (limit {limit}x), greedy argmax '
+            f'agreement {agree:.4f} (limit 0.75); ranks equal')
+        return dict(mean_abs=d_, max_abs=dmax, yardstick=f_,
+                    argmax_agreement=agree)
+
+    out = {'seconds': secs}
+    out['a'] = served('a', big, reqs, 32, 3, 1, '(a) tp = 2, bf16 KV')
+    out['a_int8'] = served(
+        'a_int8', EvoModel(big.config.replace(kv_quant='int8'), big.module),
+        inp['requests_int8'], 32, 3, 4, '(a) tp = 2, int8 KV')
+    for r, m in enumerate(ranks):
+        p, ts = m['a']['profiled_step'], m['a']['timed_step']
+        log(f'   (a) rank {r}: one step() of 4 decoding slots in the '
+            f'profiler: {p["wall_ms"]:.1f} ms, {p["collectives"]} '
+            f'collectives, host reads outside them {p["host_reads"]}, '
+            f'aten::_local_scalar_dense outside them {p["scalar_reads"]}, '
+            f'{p["device_to_host"]} device-to-host copies in all (gloo '
+            f'stages its reduces through the host); with each collective '
+            f'between device syncs {ts["step_ms"]:.1f} ms, of which the '
+            f'collectives {ts["collectives_ms"]:.1f} ms, '
+            f'{100 * ts["collectives_share"]:.1f} %')
+        check(p['host_reads'] == ['cpu'] and p['scalar_reads'] == 0,
+              f'23(a) rank {r}: the chunk read the device: {p}')
+        check(m['a']['rows'] == 4, f'23(a) rows {m["a"]["rows"]}')
+    # (b) speculation under tp = 2
+    b = ranks[0]['b']
+    for r, m in enumerate(ranks):
+        x = m['b']
+        want = helpers['spec_launches'](x['lengths'])
+        check(x['launches'] == want, f'23(b) rank {r} launches '
+              f'{x["launches"]}, expected {want}')
+        full, replays = helpers['check_schedule_ran'](
+            x['lengths'], 8, SimpleNamespace(accepted=x['accepted']),
+            f'23(b) rank {r}')
+        log(f'   (b) rank {r}: speculation at g = 8, 32 tokens, oracle '
+            f'drafter: {x["seconds"]:.2f} s without the drafter\'s '
+            f'{x["oracle_seconds"]:.2f} s; accepted {x["accepted"]} of '
+            f'{x["proposed"]} in {x["cycles"]} cycles, {full} accepted in '
+            f'full, replays by length {dict(sorted(replays.items()))}; '
+            f'launches {x["launches"]}')
+    check(ranks[1]['b']['tokens'] == b['tokens']
+          and ranks[1]['b']['logps'] == b['logps'],
+          '23(b): the ranks\' results differ')
+    d_, dmax, f_, agree = helpers['spec_teacher_forced'](
+        big, inp['spec_prompt'], np.asarray(b['tokens']), b['logps'])
+    log(f'   (b): teacher forcing: mean abs log-prob diff {d_:.5f} (max '
+        f'{dmax:.4f}), one rounding step {f_:.5f} (limit 1x), argmax '
+        f'agreement {agree:.4f} (limit 0.75); ranks equal')
+    check(d_ <= f_ and agree >= 0.75,
+          '23(b): speculative log-probs disagree with teacher forcing')
+    out['b'] = dict(mean_abs=d_, yardstick=f_, argmax_agreement=agree)
+    # (d) dp = 2 and (e) cp = 2 on the first 9 layers
+    nine = Evo('evo-1-8k-base', random_init=True, seed=0, device='cuda',
+               config_overrides=NINE)
+    out['d'] = served('d', nine.model, reqs, 9, 1, 1, '(d) dp = 2')
+    for r, m in enumerate(ranks):
+        check(m['d']['rows'] == 2 and m['d']['base'] == 2 * r,
+              f'23(d) rank {r} decoded rows {m["d"]["rows"]} from '
+              f'{m["d"]["base"]}')
+    out['e'] = served('e', nine.model, reqs, 9, 1, 1, '(e) cp = 2')
+    for r, m in enumerate(ranks):
+        e = m['e']
+        log(f'   (e) rank {r}: {e["steps_seen"]} decode steps\' attention, '
+            f'every offset an int32 (B,) device tensor: '
+            f'{e["device_offsets"]}, under an active cp axis: '
+            f'{e["cp_steps"]}')
+        check(e['device_offsets'] and e['cp_steps'] == e['steps_seen'] > 0,
+              f'23(e) rank {r}: {e["steps_seen"]} decode steps, device '
+              f'offsets {e["device_offsets"]}, {e["cp_steps"]} under cp')
+    del nine
+    for r, m in enumerate(ranks):
+        log(f'   rank {r}: 8k weights {m["weight_gib"]:.2f} GiB made in '
+            f'{m["init_s"]:.1f} s; parts (a) {m["a_s"]:.1f} s, (b) '
+            f'{m["b_s"]:.1f} s, (c) {m["c_s"]:.1f} s, (d) {m["d_s"]:.1f} s, '
+            f'(e) {m["e_s"]:.1f} s, (f) {m["f_s"]:.1f} s')
+    a = ranks[0]
+    launches['mesh_tp2_serve'] = a['a']['launches']
+    launches['mesh_tp2_serve_int8'] = a['a_int8']['launches']
+    launches['mesh_tp2_speculative'] = a['b']['launches']
+    launches['mesh_tp2_lora_2048'] = a['c']['launches']
+    launches['mesh_dp2_serve'] = a['d']['launches']
+    launches['mesh_cp2_serve'] = a['e']['launches']
+    out['ranks'] = ranks
+    return out
+
+
+def phase23_lora_check(res23, res20):
+    """23 (c): LoRA under tp = 2 on phase 20's 9 layers and batch."""
+    yard = res20['first_loss_yardstick']
+    want = train_launches(2, 9, 1)
+    for r, m in enumerate(res23['ranks']):
+        c = m['c']
+        log(f'   23 (c) rank {r}: LoRA rank 8 under tp = 2, 9 layers at '
+            f'L = 2,049: losses {c["losses"]} (phase 20\'s first '
+            f'{res20["losses"][0]}, one-rounding yardstick {yard:.2e}), '
+            f'after {c["loss_after"]}; steps {c["step_s"]} s; base weights '
+            f'unchanged {c["base_unchanged"]}; adapters equal across ranks '
+            f'{c["adapters_equal_across_ranks"]}; peak {c["peak_gib"]:.2f} '
+            f'GiB; launches {c["launches"]}')
+        check(c['launches'] == want, f'23(c) launches {c["launches"]}')
+        check(abs(c['losses'][0] - res20['losses'][0]) <= yard,
+              '23(c): the first loss is past the one-rounding yardstick')
+        check(c['loss_after'] < c['losses'][0] and c['base_unchanged']
+              and c['adapters_equal_across_ranks'], f'23(c): {c}')
+    check(res23['ranks'][0]['c']['losses'] == res23['ranks'][1]['c']['losses'],
+          '23(c): the ranks\' losses differ')
+
+
+def phase23_cli(torch, np, inp, res23, d):
+    """23 (f): `cli.serve --tp 2 --dist-backend gloo` in JSONL mode under
+    `launch_local`, on (f)'s small bf16 checkpoint. Rank 0's lines must be
+    the lines of the same requests through a tp = 2 `GenerationServer`
+    with the CLI's settings (phase 23's ranks, `mesh_smoke.cli_reference`),
+    exactly. Against a one-process run of the CLI: the same ids and token
+    counts; as bf16 tp rounds each rank's partial products before their
+    sum, greedy streams may part at a near-tie, so the tp generations are
+    held to one forward of the one-process model by (a)'s teacher-forcing
+    limits, and whether the lines equal the one process's is reported."""
+    from evo_tpu_torch.models import Evo
+    from evo_tpu_torch.parallel.distributed import launch_local
+    cli = inp['cli']
+    reqs = os.path.join(d, 'requests.jsonl')
+    with open(reqs, 'w') as f:
+        for i, p in enumerate(cli['prompts']):
+            f.write(json.dumps({'id': f'r{i}', 'num_tokens': cli['num_tokens'],
+                                'prompt': p}) + '\n')
+    flags = [*cli['flags'], '--requests-jsonl', reqs]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t = time.time()
+    launch_local(['-m', 'evo_tpu_torch.cli.serve', '--tp', '2',
+                  '--dist-backend', 'gloo', *flags, '--output-jsonl',
+                  os.path.join(d, 'tp2.jsonl')], 2, env=env, timeout=600,
+                 log_dir=os.path.join(d, 'cli'))
+    tp_s = time.time() - t
+    t = time.time()
+    subprocess.run([sys.executable, '-m', 'evo_tpu_torch.cli.serve', *flags,
+                    '--output-jsonl', os.path.join(d, 'one.jsonl')],
+                   env=env, check=True, timeout=600, cwd=ROOT)
+    one_s = time.time() - t
+    got, one = ([json.loads(ln) for ln in open(os.path.join(d, n))]
+                for n in ('tp2.jsonl', 'one.jsonl'))
+    ref = res23['ranks'][0]['f']
+    check(res23['ranks'][1]['f'] == ref, '23(f): the ranks\' runs differ')
+    want = [{'id': f'r{i}', 'sequence': ref['sequences'][i],
+             'num_tokens': len(ref['tokens'][i]), 'score': ref['scores'][i]}
+            for i in range(len(cli['prompts']))]
+    check(got == want, f'23(f): cli.serve --tp 2 wrote {got}, the tp = 2 '
+          f'server {want}')
+    check([(g['id'], g['num_tokens']) for g in one]
+          == [(w['id'], w['num_tokens']) for w in want],
+          f'23(f): the one-process CLI wrote {one}')
+    evo = Evo('evo-1-8k-base', 'cuda', checkpoint_path=cli['path'])
+    sign = torch.randint(0, 2, (1, 1, evo.config.hidden_size), device='cuda',
+                         generator=torch.Generator('cuda').manual_seed(5))
+    diffs, floors, agree = [], [], []
+    for p, toks, logps in zip(cli['prompts'], ref['tokens'], ref['logps']):
+        full = torch.as_tensor(np.concatenate([evo.tokenizer.tokenize(p),
+                                               toks]), device='cuda').long()
+        P, nxt = len(p), full[len(p):]
+        lp = torch.log_softmax(evo.model(full[None])[0][0, P - 1:-1].float(),
+                               -1)
+        hook = evo.model.module.blocks[0].pre_norm.register_forward_hook(
+            lambda mod, x, out: out * (1 + (2 * sign - 1) * 2.0 ** -8).to(
+                out.dtype))
+        nud = torch.log_softmax(evo.model(full[None])[0][0, P - 1:-1].float(),
+                                -1)
+        hook.remove()
+        mine = lp.gather(-1, nxt[:, None])[:, 0]
+        diffs.append((torch.as_tensor(logps, device='cuda') - mine).abs())
+        floors.append((nud.gather(-1, nxt[:, None])[:, 0] - mine).abs())
+        agree.append((lp.argmax(-1) == nxt).float())
+    d_, f_ = float(torch.cat(diffs).mean()), float(torch.cat(floors).mean())
+    agree = float(torch.cat(agree).mean())
+    log(f'   (f) cli.serve --tp 2 --dist-backend gloo, JSONL, 3 requests of '
+        f'{cli["num_tokens"]} tokens on a small bf16 checkpoint: {tp_s:.1f} s '
+        f'(one process {one_s:.1f} s); rank 0\'s lines equal the tp = 2 '
+        f'server\'s; equal to the one process\'s: {got == one}; the tp '
+        f'generations against one forward of the one-process model: mean '
+        f'abs log-prob diff {d_:.5f}, one rounding step {f_:.5f} (limit 1x), '
+        f'greedy argmax agreement {agree:.4f} (limit 0.75)')
+    check(d_ <= f_ and agree >= 0.75,
+          '23(f): the tp = 2 generations disagree with the one-process model')
+    return dict(seconds=tp_s, one_process_seconds=one_s,
+                equal_to_one_process=got == one, mean_abs=d_, yardstick=f_,
+                argmax_agreement=agree)
 
 
 def main():
@@ -2904,12 +3242,33 @@ def main():
                                nudged_forward, corpus_dir)
         phase22_inputs(torch, evo, prompts, nudged_forward, cp_dir,
                        os.path.join(corpus_dir, 'model_in.pt'))
+        # -- 23. serving, speculation and LoRA under a mesh, 2 ranks -----
+        # beside the unchanged single-process model; (c)'s checks wait for
+        # phase 20's loss
+        t23 = time.time()
+        mesh_dir = os.path.join(corpus_dir, 'mesh')
+        os.makedirs(os.path.join(mesh_dir, 'f'))
+        inp23 = phase23_inputs(torch, np, mesh_dir, corpus,
+                               prompts18['non-repetitive'])
+        res23 = phase23_mesh(
+            np, smi, launches, evo.model, evo.tokenizer, inp23, mesh_dir,
+            dict(teacher_forced=teacher_forced, spec_launches=spec_launches,
+                 check_schedule_ran=check_schedule_ran,
+                 spec_teacher_forced=spec_teacher_forced))
+        res23['f'] = phase23_cli(torch, np, inp23, res23,
+                                 os.path.join(mesh_dir, 'f'))
+        f23 = res23['f']
+        log(f'   phase 23 seconds: {time.time() - t23:.1f} (ranks '
+            f'{res23["seconds"]:.1f}, CLI {f23["seconds"]:.1f} + '
+            f'{f23["one_process_seconds"]:.1f})')
+        torch.cuda.empty_cache()
         log(f'== 19. gradients through kernels 1-3 ({smi})')
         check_kernel_grads(torch, np, kernels, smi)
         phase19_lora(torch, np, evo, smi, launches, nudged_forward, corpus)
         del evo
         torch.cuda.empty_cache()
         res20 = phase20_full(torch, np, smi, launches, corpus)
+        phase23_lora_check(res23, res20)
         # -- 21. data- and tensor-parallel execution, 2 ranks ------------
         torch.cuda.empty_cache()
         phase21_parallel(torch, np, smi, launches, ref21, res20, corpus,

@@ -20,17 +20,20 @@ Wires the packed-FASTA batches (`io/dataset.py`) into the train step of
 of the same schema on the CPU (example_seqs.fasta is ~50 tokens, so
 --seq-len must be small enough to cut --batch-size windows an epoch).
 
-`--dp D --tp T` fine-tunes the whole model over D x T ranks, launched one
-rank a card as torchrun launches them (`--dist-backend gloo` for several
-ranks on one card): `training.make_sharded_train_step`, each rank
-writing its own train-state files; the serving checkpoint is gathered
-and written by rank 0. --batch-size keeps the JAX script's meaning, the
-windows a host reads a step (there, one process drives a host), so the
-global batch is --batch-size times the hosts, whatever D is: each dp
-rank reads its share of it (`rank_batch_size`), from the records of its
-dp coordinate (the dataset split D ways where the JAX script splits it
-over hosts), and the rate printed is a host's. LoRA under a mesh is not
-ported yet; the JAX script has no `--cp`, and the train steps refuse a
+`--dp D --tp T` fine-tunes over D x T ranks, launched one rank a card as
+torchrun launches them (`--dist-backend gloo` for several ranks on one
+card): the whole model by `training.make_sharded_train_step`, or with
+`--lora-rank` the adapters by `lora.make_lora_train_step` (whole on
+every rank, summed over tp and dp), each rank writing its own
+train-state files; rank 0 writes `adapters.npz`, and the serving
+checkpoint (the adapters merged into each shard first) is gathered with
+`sharding.unshard` and written by rank 0. --batch-size keeps the JAX
+script's meaning, the windows a host reads a step (there, one process
+drives a host), so the global batch is --batch-size times the hosts,
+whatever D is: each dp rank reads its share of it (`rank_batch_size`),
+from the records of its dp coordinate (the dataset split D ways where
+the JAX script splits it over hosts), and the rate printed is a host's.
+The JAX script has no `--cp`, and the train steps refuse a
 context-parallel mesh.
 """
 
@@ -189,25 +192,25 @@ def main(argv: Optional[List[str]] = None):
         if lora:
             # the adapters alone as the JAX package's npz, and a merged
             # serving checkpoint (the base model itself stays as it is)
-            lora_lib.save_lora(state.lora,
-                               os.path.join(args.save_dir, 'adapters.npz'),
-                               alpha=args.lora_alpha)
-            ckpt.save_native(lora_lib.merge_lora(
-                evo.model.module, state.lora, args.lora_alpha), serving,
-                cfg=cfg)
-        elif mesh is not None:
-            from evo_tpu_torch.parallel.distributed import barrier
-            from evo_tpu_torch.parallel.sharding import unshard
-            training.load_masters(evo.model, state)
-            if mesh.index('dp') == 0:
-                full = unshard(evo.model.module, mesh)
-                if lead:
-                    ckpt.save_native(full, serving, cfg=cfg)
-                del full
-            barrier()
+            if lead:
+                lora_lib.save_lora(state.lora, os.path.join(
+                    args.save_dir, 'adapters.npz'), alpha=args.lora_alpha)
+            module = lora_lib.merge_lora(evo.model.module, state.lora,
+                                         args.lora_alpha)
         else:
             training.load_masters(evo.model, state)
-            ckpt.save_native(evo.model.module, serving, cfg=cfg)
+            module = evo.model.module
+        if mesh is None:
+            ckpt.save_native(module, serving, cfg=cfg)
+            return
+        from evo_tpu_torch.parallel.distributed import barrier
+        from evo_tpu_torch.parallel.sharding import unshard
+        if mesh.index('dp') == 0:
+            full = unshard(module, mesh)
+            if lead:
+                ckpt.save_native(full, serving, cfg=cfg)
+            del full
+        barrier()
 
     start = done = state.step
     t0 = time.time()

@@ -14,7 +14,8 @@ tokens a verify pass, seed `--seed + i` for sample i.
 one rank a card as torchrun launches them (`--dist-backend gloo` for
 several ranks on one card): every rank runs the same loop and draws the
 same tokens, and rank 0 prints them. `--cp N` splits the prompt's prefill
-over N ranks. Speculative decoding under a mesh is not ported yet.
+over N ranks. `--speculative G` runs under the mesh too: every rank takes
+the same decisions from the same logits.
 """
 
 from __future__ import annotations

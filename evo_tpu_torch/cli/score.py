@@ -95,15 +95,6 @@ def add_mesh_flags(parser: argparse.ArgumentParser) -> None:
                              'several ranks on one card')
 
 
-def refuse_parallelism(args) -> None:
-    """The serve CLI's mesh flags raise: serving under a mesh is not
-    ported yet."""
-    if args.dp != 1 or args.tp not in (None, 1) or args.cp != 1:
-        from evo_tpu_torch.parallel import QUEUE
-        raise NotImplementedError('--dp / --tp / --cp (serving under a '
-                                  f'mesh) is not ported yet ({QUEUE})')
-
-
 def start_ranks(args) -> bool:
     """Join the process group that torchrun's environment describes
     (`parallel.distributed.initialize_distributed`, the backend of

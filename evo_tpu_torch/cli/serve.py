@@ -19,6 +19,17 @@ decode batch moving.
 
 `--device` is honoured and defaults to `cuda`; `--tiny --device cpu` runs a
 tiny model of the same schema on the CPU.
+
+Across ranks, one process a card as torchrun launches them, `--dp`,
+`--tp` and `--cp` make one (dp, cp, tp) mesh of every rank, as the JAX
+script's flags make one over a host's chips:
+
+    torchrun --nproc-per-node 2 -m evo_tpu_torch.cli.serve --tp 2 \
+        --requests-jsonl reqs.jsonl --output-jsonl out.jsonl
+
+Rank 0 reads the requests (or serves HTTP) and writes the results; the
+other ranks follow its schedule (`serving.GenerationServer`).
+`--dist-backend gloo` runs several ranks on one card (NCCL refuses that).
 """
 
 from __future__ import annotations
@@ -28,7 +39,8 @@ import json
 import sys
 from typing import List, Optional
 
-from evo_tpu_torch.cli.score import build_overrides, refuse_parallelism
+from evo_tpu_torch.cli.score import (add_mesh_flags, build_overrides,
+                                     start_ranks)
 from evo_tpu_torch.models import Evo
 from evo_tpu_torch.serving import GenerationServer, ServerLoop
 
@@ -51,9 +63,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help='int8 attention KV cache: halves per-slot cache '
                         'memory and the cache reads of a decode step '
                         '(opt-in)')
-    p.add_argument('--dp', type=int, default=1)
-    p.add_argument('--tp', type=int, default=None)
-    p.add_argument('--cp', type=int, default=1)
+    add_mesh_flags(p)
     # server shape
     p.add_argument('--max-slots', type=int, default=8)
     p.add_argument('--max-len', type=int, default=8192)
@@ -87,19 +97,31 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def build_server(args) -> GenerationServer:
-    """The model of the flags and a server over it."""
-    refuse_parallelism(args)
+    """The model of the flags and a server over it; under --dp / --tp /
+    --cp, on this rank's part of a mesh of every rank (one process a
+    rank: a single process with a flag above 1 raises)."""
+    mesh = None
+    if start_ranks(args):
+        from evo_tpu_torch.parallel.mesh import make_mesh
+        mesh = make_mesh(dp=args.dp, tp=args.tp, cp=args.cp)
     overrides = build_overrides(args)
     evo = Evo(args.model_name, args.device,
               checkpoint_path=args.checkpoint_path,
-              random_init=args.random_init, config_overrides=overrides)
-    return GenerationServer(
-        evo.model, evo.tokenizer, max_slots=args.max_slots,
-        max_len=args.max_len, top_k=args.top_k, top_p=args.top_p,
-        steps_per_sync=args.steps_per_sync, stop_token=args.stop_token,
-        prompt_chunk=args.prompt_chunk or None,
-        prefill_chunks_per_sync=args.prefill_chunks_per_sync,
-        prefill_batch=args.prefill_batch, seed=args.seed)
+              random_init=args.random_init, config_overrides=overrides,
+              mesh=mesh)
+    return GenerationServer(evo.model, evo.tokenizer,
+                            **server_settings(args))
+
+
+def server_settings(args) -> dict:
+    """The `GenerationServer` keywords of the flags."""
+    return dict(max_slots=args.max_slots, max_len=args.max_len,
+                top_k=args.top_k, top_p=args.top_p,
+                steps_per_sync=args.steps_per_sync,
+                stop_token=args.stop_token,
+                prompt_chunk=args.prompt_chunk or None,
+                prefill_chunks_per_sync=args.prefill_chunks_per_sync,
+                prefill_batch=args.prefill_batch, seed=args.seed)
 
 
 def _submit_kwargs(args, req: dict) -> dict:
@@ -230,6 +252,13 @@ def run_http(args, server: GenerationServer) -> None:
 def main(argv: Optional[List[str]] = None):
     args = build_parser().parse_args(argv)
     server = build_server(args)
+    if not server.lead:
+        # the other ranks of a mesh step as rank 0 steps
+        if args.http is not None:
+            server.follow()
+        else:
+            server.run()
+        return
     if args.http is not None:
         run_http(args, server)
     else:

@@ -10,6 +10,18 @@ scales B in float32 before `delta1` casts it. So the master B receives
 the scaled gradient, as it does there. The adapted weight itself is never
 formed.
 
+Under tensor parallelism the adapters stay whole on every rank (the JAX
+package keeps them replicated), and a site takes the part of them that
+its shard of the weight meets (`tp_factors`): at a column-parallel weight
+(w1, w2, wqkv, w_in) this rank's slice of B's output axis, at a
+row-parallel one (w3, wo, w_out) its slice of A's input axis, whose side
+path is a partial sum like the product's and is added to it before the
+sum over tp and before the bias. The slices are views, so each rank's
+gradient of a factor is zero outside its slice (or, for the factor that
+stays whole, a partial sum), and the ranks' gradients sum to the whole
+one (`lora.make_lora_train_step`). Under cp the side paths run on the
+rank's rows, as the products do.
+
 Decode steps do not read adapters, as in the JAX package, which serves
 decode from the merged tree: a decode step on a module with adapters
 attached raises (`refuse_in_decode`) and points to `lora.merge_lora`.
@@ -17,9 +29,35 @@ attached raises (`refuse_in_decode`) and points to `lora.merge_lora`.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
+
+from evo_tpu_torch.parallel.sharding import tp_axis
+
+# adapted weight -> (owning submodule of a block, number of input axes)
+TARGETS = {
+    'w1': ('mlp', 1), 'w2': ('mlp', 1), 'w3': ('mlp', 1),
+    'wqkv': ('attn', 1), 'wo': ('attn', 2),
+    'w_in': ('hyena', 1), 'w_out': ('hyena', 1),
+}
+
+
+def tp_factors(mesh, name: str, pr: Dict[str, torch.Tensor]
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(A, B) of weight `name` as this rank's shard of it meets them: at
+    tp > 1 A's slice along the weight's tp axis where that axis is an
+    input axis, else B's; views of the whole factors."""
+    a, b = pr['a'], pr['b']
+    if mesh is None or mesh.tp == 1:
+        return a, b
+    sub, n_in = TARGETS[name]
+    axis = tp_axis(f'{sub}.{name}')
+    row = axis < n_in
+    t, f_axis = (a, axis) if row else (b, 1 + axis - n_in)
+    n = t.shape[f_axis] // mesh.tp
+    part = t.narrow(f_axis, mesh.index('tp') * n, n)
+    return (part, b) if row else (a, part)
 
 
 def delta1(x: torch.Tensor, pr: Dict[str, torch.Tensor],
@@ -44,13 +82,16 @@ def delta2(y: torch.Tensor, pr: Dict[str, torch.Tensor],
 
 def add_lora(module: torch.nn.Module, name: str, x: torch.Tensor,
              out: torch.Tensor, n_in: int = 1) -> torch.Tensor:
-    """`out` (the frozen product of `x` with `module`'s weight `name`)
-    plus the side path of its adapter, in out's type, when one is
-    attached; `out` itself otherwise. `n_in`: the weight's input axes."""
+    """`out` (the frozen product of `x` with `module`'s shard of its
+    weight `name`) plus the side path of its adapter, in out's type, when
+    one is attached; `out` itself otherwise. `n_in`: the weight's input
+    axes."""
     pr = module.lora.get(name) if module.lora else None
     if pr is None:
         return out
-    side = (delta1 if n_in == 1 else delta2)(x, pr, module.lora_scale)
+    a, b = tp_factors(module.mesh, name, pr)
+    side = (delta1 if n_in == 1 else delta2)(x, {'a': a, 'b': b},
+                                             module.lora_scale)
     return out + side.to(out.dtype)
 
 

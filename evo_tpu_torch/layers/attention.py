@@ -32,7 +32,8 @@ cache holds this rank's H/(tp cp) heads (`mesh.channel_block`), which a
 resumed segment reaches in the Ulysses layout; the decode step keeps those
 heads of the projection and sums wo's partial products over tp and cp.
 Adapters attached by `lora.attach_lora` add their side paths after
-wqkv and wo on the full-sequence paths; the decode step refuses them.
+wqkv and after wo (before its sum over tp and its bias) on the
+full-sequence paths; the decode step refuses them.
 """
 
 from __future__ import annotations
@@ -114,13 +115,12 @@ def _out(p: Attention, y: torch.Tensor, heads=None) -> torch.Tensor:
     shard (a decode step under cp), whose partial products with wo's
     matching rows are summed over tp and cp."""
     if heads is None:
-        o = reduce_from_tp(project(y, p.wo, 2, p.act_quant), p.mesh)
+        o = reduce_from_tp(add_lora(p, 'wo', y, project(
+            y, p.wo, 2, p.act_quant), n_in=2), p.mesh)
     else:
         o = all_reduce_sum(project(y, row_block(p.wo, *heads, CHANNEL), 2,
                                    p.act_quant), p.mesh, CHANNEL)
-    if p.bo is not None:
-        o = o + p.bo
-    return add_lora(p, 'wo', y, o, n_in=2)
+    return o if p.bo is None else o + p.bo
 
 
 def kv_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

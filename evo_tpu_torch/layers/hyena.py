@@ -34,7 +34,8 @@ stays in its (B, L, 3, C) layout: the FIR + gate kernel and the fused
 mixer read it in place and add the in-projection bias themselves.
 Adapters attached by `lora.attach_lora` add their side paths after w_in
 (in that (B, L, 3, C) layout, so the kernels still read it in place) and
-w_out on the full-sequence path; the decode step refuses them.
+after w_out (before its sum over tp and its bias) on the full-sequence
+path; the decode step refuses them.
 """
 
 from __future__ import annotations
@@ -117,10 +118,9 @@ def _core(p: HyenaMixer) -> _Core:
 
 
 def _out_proj(p: HyenaMixer, y: torch.Tensor) -> torch.Tensor:
-    o = reduce_from_tp(project(y, p.w_out, 1, p.act_quant), p.mesh)
-    if p.b_out is not None:
-        o = o + p.b_out
-    return add_lora(p, 'w_out', y, o)
+    o = reduce_from_tp(add_lora(p, 'w_out', y, project(
+        y, p.w_out, 1, p.act_quant)), p.mesh)
+    return o if p.b_out is None else o + p.b_out
 
 
 def _out_proj_block(p: HyenaMixer, y: torch.Tensor, start: int, n: int

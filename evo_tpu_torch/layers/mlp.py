@@ -7,7 +7,8 @@ layouts: w1, w2 (D, I) and w3 (I, D). Each may be a `QuantizedWeight`
 (`quant.py`); `project` dispatches as the JAX package does: `qdot` under
 `act_quant` or for an int4 weight, else the product with the `wcast`
 weight. Adapters attached by `lora.attach_lora` add their side paths
-after each frozen product (`layers/adapters.py`). Under a mesh
+after each frozen product (`layers/adapters.py`; w3's before the sum over
+tp). Under a mesh
 (`parallel/`) w1 and w2 hold I/tp columns and w3 the matching rows, whose
 partial products are summed over tp.
 """
@@ -60,5 +61,5 @@ class GatedMLP(nn.Module):
         z1 = add_lora(self, 'w1', x, project(x, self.w1, 1, aq))
         z2 = add_lora(self, 'w2', x, project(x, self.w2, 1, aq))
         g = self.act(z1) * z2
-        return add_lora(self, 'w3', g, reduce_from_tp(
-            project(g, self.w3, 1, aq), mesh))
+        return reduce_from_tp(add_lora(self, 'w3', g,
+                                       project(g, self.w3, 1, aq)), mesh)

@@ -32,6 +32,17 @@ its factors and the scale alpha / r, and the layer sites add
 Decode steps refuse attached adapters; `merge_lora` folds them into the
 weights (W + alpha / r * A @ B in float32, cast back) for generation and
 serving.
+
+Under a mesh (`parallel/`) the adapters are whole on every rank, drawn
+alike from a generator seeded alike, in the shapes of the whole weights
+(so `adapters.npz` keeps its layout); each site uses the slice its shard
+meets (`layers/adapters.tp_factors`), and `merge_lora` folds into each
+rank's shard the same slice of A @ B. `make_lora_train_step` runs under
+(dp, tp): each rank passes its dp rank's rows, the loss is normalised by
+the whole batch's count as `training.make_sharded_train_step` does, each
+adapter gradient is summed over tp and then dp, the clip takes the norm of
+the whole (and equal) gradients, and AdamW steps every rank's copy of the
+adapters alike. Under cp it raises (`parallel.refuse_cp`).
 """
 
 from __future__ import annotations
@@ -45,18 +56,15 @@ import torch
 
 from evo_tpu_torch import training
 from evo_tpu_torch.checkpoint import _lora_unstack, lora_to_jax
-from evo_tpu_torch.layers.adapters import delta1, delta2  # noqa: F401
+from evo_tpu_torch.layers.adapters import (  # noqa: F401
+    TARGETS as _TARGETS, delta1, delta2, tp_factors)
 from evo_tpu_torch.model import AttentionBlock
 from evo_tpu_torch.ops.fftconv import full_float32
-from evo_tpu_torch.parallel import refuse_mesh
+from evo_tpu_torch.parallel import refuse_cp
+from evo_tpu_torch.parallel.collectives import all_reduce_sum, sum_grads
+from evo_tpu_torch.parallel.sharding import full_shape
 from evo_tpu_torch.quant import QuantizedWeight
 
-# target weight -> (owning submodule of a block, number of input axes)
-_TARGETS = {
-    'w1': ('mlp', 1), 'w2': ('mlp', 1), 'w3': ('mlp', 1),
-    'wqkv': ('attn', 1), 'wo': ('attn', 2),
-    'w_in': ('hyena', 1), 'w_out': ('hyena', 1),
-}
 DEFAULT_TARGETS = tuple(_TARGETS)
 
 Lora = List[Dict[str, Dict[str, Dict[str, torch.Tensor]]]]
@@ -64,6 +72,13 @@ Lora = List[Dict[str, Dict[str, Dict[str, torch.Tensor]]]]
 
 def _mixer(blk) -> str:
     return 'attn' if isinstance(blk, AttentionBlock) else 'hyena'
+
+
+def _full_shape(owner, name: str) -> tuple:
+    """The shape of the whole weight `name` of `owner` (its tp shard's
+    under a mesh)."""
+    return full_shape(f'{_TARGETS[name][0]}.{name}',
+                      tuple(getattr(owner, name).shape), owner.mesh)
 
 
 def _sites(module, lora: Lora):
@@ -81,14 +96,15 @@ def init_lora(generator: torch.Generator, model, rank: int = 8,
               targets: Sequence[str] = DEFAULT_TARGETS) -> Lora:
     """Adapters for every target weight of every layer: A normal / sqrt(
     fan_in), drawn from `generator` on its own device, B zeros, both
-    float32 on the model's device."""
+    float32 on the model's device, in the shapes of the whole weights
+    under a mesh too (every rank the same call, with a generator seeded
+    alike)."""
     targets = set(targets)
     unknown = targets - set(_TARGETS)
     if unknown:
         raise ValueError(f'unknown LoRA targets {sorted(unknown)}; '
                          f'choose from {sorted(_TARGETS)}')
     module = training.module_of(model)
-    refuse_mesh('LoRA', module.mesh)
     out: Lora = []
     for blk in module.blocks:
         entry = {_mixer(blk): {}, 'mlp': {}}
@@ -101,7 +117,8 @@ def init_lora(generator: torch.Generator, model, rank: int = 8,
                     'LoRA over int8 / int4 base weights is not ported yet '
                     '(ROADMAP.md, modules queue: LoRA over a quantized '
                     'base)')
-            in_dims, out_dims = tuple(w.shape[:n_in]), tuple(w.shape[n_in:])
+            shape = _full_shape(getattr(blk, sub), name)
+            in_dims, out_dims = shape[:n_in], shape[n_in:]
             a = torch.randn((*in_dims, rank), generator=generator,
                             device=generator.device, dtype=torch.float32)
             entry[sub][name] = {
@@ -132,9 +149,9 @@ def named_adapters(lora: Lora) -> Dict[str, torch.Tensor]:
 def attach_lora(model, lora: Lora, alpha: float = 16.0):
     """Give each module that owns an adapted weight its factors and the
     scale alpha / r; the full-sequence paths then add the side paths. No
-    weight is copied. Returns `model`."""
+    weight is copied; under a mesh the factors are the whole ones, which
+    each site slices. Returns `model`."""
     module = training.module_of(model)
-    refuse_mesh('LoRA', module.mesh)
     scale = alpha / lora_rank(lora)
     owners = {}
     for owner, name, pr in _sites(module, lora):
@@ -144,12 +161,13 @@ def attach_lora(model, lora: Lora, alpha: float = 16.0):
             raise NotImplementedError(
                 'LoRA over int8 / int4 base weights is not ported yet '
                 '(ROADMAP.md, modules queue: LoRA over a quantized base)')
-        if (tuple(pr['a'].shape[:-1]) != tuple(w.shape[:n_in])
-                or tuple(pr['b'].shape[1:]) != tuple(w.shape[n_in:])
+        shape = _full_shape(owner, name)
+        if (tuple(pr['a'].shape[:-1]) != shape[:n_in]
+                or tuple(pr['b'].shape[1:]) != shape[n_in:]
                 or pr['a'].shape[-1] != pr['b'].shape[0]):
             raise ValueError(
                 f'adapter of {name} has A {tuple(pr["a"].shape)} and B '
-                f'{tuple(pr["b"].shape)} for a weight of {tuple(w.shape)} '
+                f'{tuple(pr["b"].shape)} for a weight of {shape} '
                 '(rank/targets mismatch?)')
         owners.setdefault(owner, {})[name] = pr
     for owner, pairs in owners.items():
@@ -171,10 +189,10 @@ def attached(model) -> bool:
 
 
 @full_float32
-def _fold(w: torch.Tensor, pr: Dict[str, torch.Tensor],
+def _fold(w: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
           scale: float) -> None:
     """w <- w + A @ (scale * B), in float32, cast back to w's type."""
-    a, b = pr['a'], pr['b'] * scale
+    b = b * scale
     delta = torch.tensordot(a, b.to(a.device), dims=([a.dim() - 1], [0]))
     w.copy_((w.float() + delta).to(w.dtype))
 
@@ -189,7 +207,8 @@ def merge_lora(model, lora: Lora, alpha: float = 16.0,
     model that shares every tensor but the adapted weights. donate=True
     folds into `model` itself and returns it, so two copies of the weights
     never coexist (a 7B merge on one card). Adapters must not be attached
-    (`detach_lora`)."""
+    (`detach_lora`). Under a mesh each rank folds A @ B's slice that its
+    shard holds."""
     if attached(model):
         raise ValueError('merge_lora folds into the base weights: '
                          'detach_lora first')
@@ -203,7 +222,8 @@ def merge_lora(model, lora: Lora, alpha: float = 16.0,
         target = copy.deepcopy(model, shared)
     with torch.no_grad():
         for owner, name, pr in _sites(training.module_of(target), lora):
-            _fold(getattr(owner, name), pr, scale)
+            _fold(getattr(owner, name), *tp_factors(owner.mesh, name, pr),
+                  scale)
     return target
 
 
@@ -226,17 +246,31 @@ def make_lora_train_step(model, optimizer: training.Optimizer,
     JAX step takes it as an argument for the same reason): the adapters
     are attached for the step and detached after it, and gradients flow
     only to them. Set `cfg.remat` for long sequences: the backward then
-    recomputes each block instead of keeping every layer's activations."""
+    recomputes each block instead of keeping every layer's activations.
+
+    Under the model's (dp, tp) mesh every rank calls the step with its dp
+    rank's rows of the global batch (each tp rank of a dp group the same
+    rows), and the loss returned on every rank is the global batch's
+    (module docstring); cp > 1 raises."""
     module = training.module_of(model)
-    refuse_mesh('LoRA', module.mesh)
+    mesh = module.mesh
+    refuse_cp('the LoRA train step', mesh)
     cfg = training.train_config(module, adapters=True)
+    dp = mesh is not None and mesh.dp > 1
 
     def train_step(state: LoraTrainState, ids, loss_mask=None):
         params = named_adapters(state.lora)
+        count = None
+        if dp:
+            # the whole batch's count of scored positions, so that the
+            # sum of the dp ranks' losses is the global mean
+            count = all_reduce_sum(training.scored_positions(
+                module, ids, loss_mask), mesh, 'dp')
         training.set_trainable(params.values(), True)
         attach_lora(module, state.lora, alpha)
         try:
-            loss = training.next_token_loss(module, cfg, ids, loss_mask)
+            loss = training.next_token_loss(module, cfg, ids, loss_mask,
+                                            count)
             loss.backward()
         finally:
             detach_lora(module)
@@ -244,11 +278,15 @@ def make_lora_train_step(model, optimizer: training.Optimizer,
         for t in params.values():
             if t.grad is None:
                 t.grad = torch.zeros_like(t)
+        sum_grads(list(params.values()), mesh)
         optimizer.update(state.opt_state, params, state.step)
         for t in params.values():
             t.grad = None
+        loss = loss.detach()
+        if dp:
+            loss = all_reduce_sum(loss, mesh, 'dp')
         return (LoraTrainState(state.lora, state.opt_state, state.step + 1),
-                loss.detach())
+                loss)
 
     return train_step
 

@@ -202,16 +202,17 @@ def param_count(model: StripedHyena) -> int:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: Union[str, torch.device] = 'cuda',
-               mesh=None) -> Cache:
+               mesh=None, split_dp: bool = True) -> Cache:
     """Zeroed decode cache for `batch` rows of up to `max_len` positions.
     Attention layers take {'k', 'v'} (B, T, H, Dh) buffers, or head-major
     int8 ones with their scales under `kv_quant='int8'`; Hyena layers a
     `HyenaState`. Under a mesh, this rank's part: H/tp heads, C/tp
-    channels, and its dp rank's rows (`parallel.sharding.
-    cache_shardings`)."""
+    channels, and its dp rank's rows, or with `split_dp=False` every row
+    (`parallel.sharding.cache_shardings`)."""
     device = resolve_device(device)
     layers = []
-    for spec in sharding.cache_shardings(cfg, mesh, batch, max_len):
+    for spec in sharding.cache_shardings(cfg, mesh, batch, max_len,
+                                         split_dp):
         bufs = {name: torch.zeros(shape, dtype=dt, device=device)
                 for name, (shape, dt) in spec.items()}
         layers.append(HyenaState(**bufs) if 'fir' in bufs else bufs)

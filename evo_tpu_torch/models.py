@@ -64,7 +64,8 @@ class EvoModel:
         return self.module.device
 
     def __call__(self, input_ids, inference_params_dict=None,
-                 donate_cache: bool = False, resume=None):
+                 donate_cache: bool = False, resume=None,
+                 split_dp: bool = True):
         """No cache: forward, returns (logits, None). With a cache: a
         decode step for a length-1 input, else a prefill; returns (logits,
         cache).
@@ -80,7 +81,11 @@ class EvoModel:
         not it is donated, and returns that same dict, so a caller that
         wants the old state clones it first. The keyword keeps the
         reference's routing: a donated length-1 input takes the prefill,
-        not the decode step."""
+        not the decode step.
+
+        split_dp=False: a prefill of every row on every dp rank, into a
+        cache of every row (`initialize_inference_params(...,
+        split_dp=False)`), with no gather: the server's fills."""
         ids = torch.as_tensor(input_ids, device=self.device).long()
         if ids.dim() == 1:
             ids = ids[None]
@@ -99,10 +104,15 @@ class EvoModel:
                              'decode steps only, not a prefill')
         if resume is None:
             resume = inference_params_dict['offset'] > 0
-        return self.prefill(ids, inference_params_dict, resume=bool(resume))
+        return self.prefill(ids, inference_params_dict, resume=bool(resume),
+                            split_dp=split_dp)
 
-    def prefill(self, ids: torch.Tensor, cache, resume: bool = False):
-        """`model.prefill` over the batch ids (B, L), split over dp."""
+    def prefill(self, ids: torch.Tensor, cache, resume: bool = False,
+                split_dp: bool = True):
+        """`model.prefill` over the batch ids (B, L), split over dp unless
+        `split_dp=False`."""
+        if not split_dp:
+            return model_lib.prefill(self.module, ids, cache, resume=resume)
         logits, cache = model_lib.prefill(
             self.module, shard_rows(ids, self.mesh), cache, resume=resume)
         return gather_rows(logits, self.mesh, ids.shape[0]), cache
@@ -114,11 +124,12 @@ class EvoModel:
             self.module, shard_rows(token, self.mesh), cache)
         return gather_rows(logits, self.mesh, token.shape[0]), cache
 
-    def initialize_inference_params(self, batch_size: int, max_len: int):
+    def initialize_inference_params(self, batch_size: int, max_len: int,
+                                    split_dp: bool = True):
         """A zeroed cache for a batch of `batch_size` rows (this rank's
-        part under a mesh)."""
+        part under a mesh; every row with `split_dp=False`)."""
         return model_lib.init_cache(self.config, batch_size, max_len,
-                                    self.device, self.mesh)
+                                    self.device, self.mesh, split_dp)
 
     @property
     def num_params(self) -> int:

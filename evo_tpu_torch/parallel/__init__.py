@@ -10,8 +10,10 @@ explicit all-reduce (`collectives.py`). Under context parallelism (cp >
 the whole sequence of a block of channels or heads and back by an
 all-to-all over cp (or pass K/V around the cp group: `ops/
 ring_attention.py`). `distributed.py` starts the process group and runs
-the restartable sharded scoring jobs. Serving, speculation and LoRA under
-a mesh, and training under cp, are not ported yet and raise.
+the restartable sharded scoring jobs. Serving (`serving.py`: the first rank
+takes the requests and broadcasts them), speculation and LoRA run under
+any mesh, and the train steps under (dp, tp); training under cp is not
+ported yet and raises (`refuse_cp`).
 
 The JAX package's exports, but for `param_shardings` and `data_sharding`:
 they build `NamedSharding`s for GSPMD to place, and a rank of the port
@@ -27,15 +29,7 @@ from evo_tpu_torch.parallel.sharding import (  # noqa: F401
     cache_shardings, shard_params,
 )
 
-QUEUE = ('ROADMAP.md, modules queue: parallelism: serving, speculation and '
-         'LoRA under a mesh, and training under cp')
-
-
-def refuse_mesh(what: str, mesh) -> None:
-    """Raise for a path that is not ported under a mesh yet."""
-    if mesh is not None:
-        raise NotImplementedError(f'{what} under a mesh is not ported yet '
-                                  f'({QUEUE})')
+QUEUE = 'ROADMAP.md, modules queue: parallelism: training under cp'
 
 
 def refuse_cp(what: str, mesh) -> None:

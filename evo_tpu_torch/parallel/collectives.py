@@ -25,6 +25,11 @@ or heads with one all-to-all over cp each way (`seq_to_heads`,
 (`cp_exchange`). The decode step sums over tp and cp together
 (`all_reduce_sum(x, mesh, CHANNEL)`). Each is a no-op at cp = 1.
 
+Serving and LoRA add three: `broadcast_object` (a server's requests,
+cancels and stops, from the first rank), `gather_rows_to_host` (a decode
+chunk's tokens and log-probs over dp, with the chunk's one readback) and
+`sum_grads` (adapter gradients over tp, then dp).
+
 Gloo takes CUDA tensors for `all_reduce`, `broadcast` and `barrier` only;
 the gathers, all-to-alls and sends here go through CPU copies under gloo
 and stay on the card under NCCL. They move bytes (a uint8 view of each
@@ -154,6 +159,41 @@ def gather_rows(x: torch.Tensor, mesh: Optional[Mesh], n: int
     if not _active(mesh, 'dp'):
         return x
     return torch.cat(gather_cpu(x, mesh, 'dp'), dim=0)[:n]
+
+
+def gather_rows_to_host(x: torch.Tensor, mesh: Optional[Mesh], n: int
+                        ) -> torch.Tensor:
+    """`gather_rows` of x, on the host, with one device-to-host copy: under
+    gloo the rank's rows are copied out and gathered there, under NCCL
+    gathered on the device and copied out."""
+    if mesh is None or mesh.backend == 'nccl':
+        return gather_rows(x, mesh, n).cpu()
+    return gather_rows(x.cpu(), mesh, n)
+
+
+def broadcast_object(obj):
+    """A small picklable host object from global rank 0, on every rank of
+    the process group (a server's mesh is the whole world). The others'
+    `obj` is ignored."""
+    import torch.distributed as dist
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def sum_grads(tensors: Sequence[torch.Tensor], mesh: Optional[Mesh]
+              ) -> None:
+    """Replace each tensor's `.grad` by its sum over tp, then over dp
+    (float32, in place), through one flat buffer an axis."""
+    live = [a for a in ('tp', 'dp') if _active(mesh, a)]
+    if not live:
+        return
+    grads = [t.grad for t in tensors]
+    flat = torch.cat([g.reshape(-1).float() for g in grads])
+    for axis in live:
+        flat = all_reduce_sum(flat, mesh, axis)
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
 
 
 # ---------------------------------------------------------------------------

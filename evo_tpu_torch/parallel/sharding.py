@@ -245,19 +245,22 @@ def shard_params(params: Any, cfg: ModelConfig, mesh: Mesh) -> Any:
 
 
 def cache_shardings(cfg: ModelConfig, mesh: Optional[Mesh], batch: int,
-                    max_len: int) -> List[Dict[str, Tuple[tuple, Any]]]:
+                    max_len: int, split_dp: bool = True
+                    ) -> List[Dict[str, Tuple[tuple, Any]]]:
     """The local decode-cache layout of each layer on this rank: name ->
     (shape, dtype). Heads and channels are split over tp, or over (tp, cp)
     under context parallelism, and the batch over dp (`collectives.
-    dp_rows` rows), as the JAX package's cache shardings place them. A
-    head count that tp cp does not divide raises a ValueError."""
+    dp_rows` rows), as the JAX package's cache shardings place them;
+    `split_dp=False` keeps every row (a dp replica's own prefill, as the
+    server's fills run). A head count that tp cp does not divide raises a
+    ValueError."""
     from evo_tpu_torch.parallel.collectives import dp_rows
     from evo_tpu_torch.parallel.mesh import CHANNEL
     n = 1 if mesh is None else mesh.axis_size(CHANNEL)
     if cfg.num_attention_heads % n:
         raise ValueError(f'KV cache: {cfg.num_attention_heads} heads do not '
                          f'divide over tp*cp = {n}')
-    B = dp_rows(batch, mesh)
+    B = dp_rows(batch, mesh) if split_dp else batch
     cd = getattr(torch, cfg.compute_dtype)
     H, Dh = cfg.num_attention_heads // n, cfg.head_dim
     C = cfg.hidden_size // n

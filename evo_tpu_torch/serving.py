@@ -38,6 +38,31 @@ position), so the per-row KV writes need no bound check on the device.
 With device offsets the kernels cannot trim the key range on the host:
 kernel 5 sizes its split over the whole cache, and kernel 4 takes, for
 each row, the key tiles up to that row's offset.
+
+Under a mesh (`parallel/`, one process a card) every rank builds the same
+server over its `EvoModel` and runs the same schedule:
+
+  * **Intake on the first rank.** Only rank 0 takes `submit` and
+    `cancel` (and is the `lead`); at the start of each `step()` it
+    broadcasts what it took since the last one, and the other ranks apply
+    it in the same order, so every host holds the same queue, slots and
+    results. `run()` on the lead ends with an 'end' message that ends the
+    others' `run()`; `stop()` sends 'stop', which ends their `follow()`
+    (the HTTP server's followers). An idle `ServerLoop` sends an empty
+    step every `HEARTBEAT` seconds, so that no follower waits in a
+    broadcast past the process group's timeout.
+  * **tp and cp.** Each rank holds its heads and channels of every cache
+    (`parallel.sharding.cache_shardings`) and runs every fill, decode
+    step and sample on them; the logits are whole on every rank and the
+    slot generators are seeded alike, so the ranks draw the same tokens.
+  * **dp.** A dp rank holds its contiguous block of `dp_rows(max_slots)`
+    slots (the last block padded with rows no request gets) and decodes
+    and samples only those; the chunk's tokens and log-probs are gathered
+    over dp in its one readback (`collectives.gather_rows_to_host`).
+    Fills run unsplit on every dp replica (a B=1 fill cannot split
+    anyway): every replica samples each admitted request's first token
+    from the same logits with the request's own generator, and the
+    slot's owner copies the row into its block and keeps the generator.
 """
 
 from __future__ import annotations
@@ -52,11 +77,14 @@ import numpy as np
 import torch
 
 from evo_tpu_torch import model as model_lib
-from evo_tpu_torch.parallel import refuse_mesh
 from evo_tpu_torch.generation import _cache_kv_len
 from evo_tpu_torch.ops.sampling import NEG_INF
+from evo_tpu_torch.parallel.collectives import (broadcast_object, dp_rows,
+                                                gather_rows_to_host)
 
 _MASK64 = (1 << 64) - 1
+# seconds between the empty steps an idle ServerLoop sends its followers
+HEARTBEAT = 10.0
 
 
 def _stream_seed(server_seed: int, request_seed: int) -> int:
@@ -200,7 +228,8 @@ class GenerationResult:
 class GenerationServer:
     """Fixed-slot continuous-batching scheduler (module docstring).
 
-    model: an `EvoModel` (`models.py`); the server runs on its device.
+    model: an `EvoModel` (`models.py`); the server runs on its device
+    and, with the model's mesh, on every rank of it (module docstring).
     max_len bounds prompt + generated tokens of a request. top_k, top_p
     and the temperature are per request (`submit` overrides; the
     constructor's values are the defaults)."""
@@ -229,9 +258,21 @@ class GenerationServer:
 
         seed: the server's seed; each sampled request's generator is
         seeded from it and the request's own seed."""
-        refuse_mesh('GenerationServer', getattr(model, 'mesh', None))
         if max_slots < 1:
             raise ValueError('max_slots must be >= 1')
+        mesh = getattr(model, 'mesh', None)
+        if mesh is not None and mesh.replicas > 1:
+            raise ValueError('a server spans one model replica: build its '
+                             'mesh with parallel.make_mesh')
+        self.mesh = mesh
+        # ranks kept in step by the lead's broadcasts
+        self._ranks = mesh is not None and mesh.size > 1
+        self.lead = not self._ranks or mesh.rank == 0
+        self._inbox: List[tuple] = []
+        self._control: Optional[str] = None
+        # this rank's block of slots: [base, base + rows)
+        self._rows = dp_rows(max_slots, mesh)
+        self._base = (0 if mesh is None else mesh.index('dp')) * self._rows
         self.model = model
         self.cfg = model.config
         self.device = model_lib.resolve_device(model.device)
@@ -265,24 +306,27 @@ class GenerationServer:
                 cache_len = -(-max_len // 128) * 128
         self._cache_len = cache_len
         cache = model.initialize_inference_params(max_slots, cache_len)
-        cache['offset'] = torch.zeros((max_slots,), dtype=torch.int32,
+        cache['offset'] = torch.zeros((self._rows,), dtype=torch.int32,
                                       device=self.device)
         self._cache = cache
         # scratch prefill caches by row count, written in place by every
         # fill; the batched ones are made at their first fill
-        self._prefill_caches = {1: model.initialize_inference_params(
-            1, cache_len)}
+        self._prefill_caches = {1: self._fill_cache(1)}
         dev = self.device
-        self._tokens = torch.zeros((max_slots,), dtype=torch.int64,
-                                   device=dev)
-        self._temps = torch.zeros((max_slots,), dtype=torch.float32,
-                                  device=dev)
-        self._topks = torch.full((max_slots,), self.top_k,
-                                 dtype=torch.int32, device=dev)
-        self._topps = torch.full((max_slots,), self.top_p,
-                                 dtype=torch.float32, device=dev)
-        # one generator per sampled slot, None where the slot draws nothing
-        self._gens: List[Optional[torch.Generator]] = [None] * max_slots
+        rows = self._rows
+        self._tokens = torch.zeros((rows,), dtype=torch.int64, device=dev)
+        self._temps = torch.zeros((rows,), dtype=torch.float32, device=dev)
+        self._topks = torch.full((rows,), self.top_k, dtype=torch.int32,
+                                 device=dev)
+        self._topps = torch.full((rows,), self.top_p, dtype=torch.float32,
+                                 device=dev)
+        # a first token's sampling parameters where the slot is another dp
+        # rank's
+        self._one = (torch.zeros((1,), dtype=torch.int32, device=dev),
+                     torch.zeros((1,), dtype=torch.float32, device=dev),
+                     torch.zeros((1,), dtype=torch.float32, device=dev))
+        # one generator per sampled local slot, None where it draws nothing
+        self._gens: List[Optional[torch.Generator]] = [None] * rows
 
         self._queue: deque[_Request] = deque()
         # deferred (req, tok0, logp0) of admissions, on the device
@@ -303,7 +347,9 @@ class GenerationServer:
         seed: the request's sampling seed (default: its request id). A
         request's output is a function of (server seed, request seed,
         prompt, parameters), whatever the other traffic.
-        top_k / top_p: per-request overrides of the server's defaults."""
+        top_k / top_p: per-request overrides of the server's defaults.
+        Under ranks, the lead's only."""
+        self._refuse_follower('submit')
         if input_ids is None:
             if prompt is None:
                 raise ValueError('pass prompt= or input_ids=')
@@ -320,14 +366,63 @@ class GenerationServer:
                 f'prompt ({ids.size}) + num_tokens ({num_tokens}) exceeds '
                 f'the server max_len ({self.max_len})')
         rid = self._next_rid
-        self._next_rid += 1
         req = _Request(rid, ids, int(num_tokens), float(temperature),
                        int(rid if seed is None else seed),
                        top_k=int(self.top_k if top_k is None else top_k),
                        top_p=float(self.top_p if top_p is None else top_p))
-        self._requests[rid] = req
-        self._queue.append(req)
+        self._enqueue(req)
+        if self._ranks:
+            self._inbox.append(('submit', rid, ids, req.num_tokens,
+                                req.temperature, req.seed, req.top_k,
+                                req.top_p))
         return rid
+
+    def _enqueue(self, req: _Request) -> None:
+        self._next_rid = req.rid + 1
+        self._requests[req.rid] = req
+        self._queue.append(req)
+
+    # -- ranks ---------------------------------------------------------------
+
+    def _refuse_follower(self, what: str) -> None:
+        if not self.lead:
+            raise RuntimeError(
+                f'{what}: only rank 0 of the mesh takes requests; the other '
+                'ranks follow it (run() or follow())')
+
+    def _sync(self, control: Optional[str] = None) -> bool:
+        """The lead broadcasts the requests and cancels it took since the
+        last call, with `control` ('end' or 'stop'); the others apply
+        them in its order. Returns False on a follower that received a
+        control message. Without ranks, True."""
+        if not self._ranks:
+            return True
+        ops, self._control = broadcast_object(
+            (self._inbox, control) if self.lead else None)
+        if self.lead:
+            self._inbox = []
+            return True
+        for op in ops:
+            if op[0] == 'submit':
+                rid, ids, n, temp, seed, top_k, top_p = op[1:]
+                self._enqueue(_Request(rid, ids, n, temp, seed, top_k=top_k,
+                                       top_p=top_p))
+            else:
+                self._cancel(op[1])
+        return self._control is None
+
+    def follow(self) -> None:
+        """A follower's loop: step as the lead steps until it stops
+        (`stop()`), through the ends of its runs."""
+        if self.lead:
+            raise RuntimeError('follow() is for the ranks other than 0')
+        while self.step() or self._control != 'stop':
+            pass
+
+    def stop(self) -> None:
+        """On the lead: end the followers' `follow()`."""
+        if self._ranks and self.lead:
+            self._sync('stop')
 
     # -- scheduling ----------------------------------------------------------
 
@@ -341,25 +436,32 @@ class GenerationServer:
 
     def _insert_from(self, fill_cache, last_logits, slot: int,
                      req: _Request, src: int = 0) -> None:
-        """Admit `req` into `slot`: set the slot's sampling parameters,
-        sample its first token from row `src` of the fill's last logits
-        with the request's generator, and copy row `src` of `fill_cache`
-        into the slot. The fill cache is only read: it may be the prefix
-        cache, and a batched fill's rows are admitted one at a time."""
+        """Admit `req` into `slot`: sample its first token from row `src`
+        of the fill's last logits with the request's generator and, on the
+        slot's dp rank, set the slot's sampling parameters and copy row
+        `src` of `fill_cache` into it. The fill cache is only read: it may
+        be the prefix cache, and a batched fill's rows are admitted one at
+        a time."""
         gen = None
         if req.temperature > 0.0:
             gen = torch.Generator(device=self.device).manual_seed(
                 _stream_seed(self.seed, req.seed))
-        s = slice(slot, slot + 1)
-        self._temps[s].fill_(req.temperature)
-        self._topks[s].fill_(req.top_k)
-        self._topps[s].fill_(req.top_p)
-        tok0, logp0 = _sample_slots(last_logits[src:src + 1, -1],
-                                    self._topks[s], self._topps[s],
-                                    self._temps[s], [gen])
-        _admit_slot(self._cache, fill_cache, src, slot)
-        self._tokens[s].copy_(tok0)
-        self._gens[slot] = gen
+        row = slot - self._base
+        mine = 0 <= row < self._rows
+        if mine:
+            s = slice(row, row + 1)
+            params = (self._topks[s], self._topps[s], self._temps[s])
+        else:
+            params = self._one
+        params[0].fill_(req.top_k)
+        params[1].fill_(req.top_p)
+        params[2].fill_(req.temperature)
+        tok0, logp0 = _sample_slots(last_logits[src:src + 1, -1], *params,
+                                    [gen])
+        if mine:
+            _admit_slot(self._cache, fill_cache, src, row)
+            self._tokens[s].copy_(tok0)
+            self._gens[row] = gen
         self._slots[slot] = req
         # the first token stays on the device until the next host
         # observation (_flush_firsts), so admission never waits for it
@@ -408,7 +510,7 @@ class GenerationServer:
                 _, self._prefill_caches[k] = self.model(
                     ids[:, s:s + self.prompt_chunk],
                     inference_params_dict=self._prefill_caches[k],
-                    donate_cache=True, resume=s > 0)
+                    donate_cache=True, resume=s > 0, split_dp=False)
                 f['pos'] += self.prompt_chunk
                 budget -= 1
             if f['pos'] < head:
@@ -416,12 +518,11 @@ class GenerationServer:
             budget -= 1                      # the tail below
             last_logits, filled = self.model(
                 ids[:, head:], inference_params_dict=self._prefill_caches[k],
-                donate_cache=True, resume=head > 0)
+                donate_cache=True, resume=head > 0, split_dp=False)
             if k == 1:
                 self._prefill_caches[1] = (
                     self._prefix['cache'] if self._prefix is not None
-                    else self.model.initialize_inference_params(
-                        1, self._cache_len))
+                    else self._fill_cache(1))
                 self._prefix = {'key': f['reqs'][0].input_ids.tobytes(),
                                 'cache': filled,
                                 'last_logits': last_logits}
@@ -430,6 +531,12 @@ class GenerationServer:
                     self._insert_from(filled, last_logits, slot, req,
                                       src=src)
             self._fill = None
+
+    def _fill_cache(self, k: int):
+        """A zeroed prefill cache of k rows, every row on every dp rank
+        (fills run unsplit on each dp replica)."""
+        return self.model.initialize_inference_params(k, self._cache_len,
+                                                      split_dp=False)
 
     def _group_size(self, avail: int) -> int:
         """The largest ladder size ({2, 4, ..., prefill_batch}) <= avail,
@@ -465,9 +572,7 @@ class GenerationServer:
                     self._queue.remove(m)
                     reqs.append(m)
                 if g not in self._prefill_caches:
-                    self._prefill_caches[g] = \
-                        self.model.initialize_inference_params(
-                            g, self._cache_len)
+                    self._prefill_caches[g] = self._fill_cache(g)
         self._fill = {'slots': free[:len(reqs)], 'reqs': reqs,
                       'ids': torch.as_tensor(
                           np.stack([r.input_ids for r in reqs]),
@@ -496,7 +601,8 @@ class GenerationServer:
 
     def _free(self, slot: int) -> None:
         self._slots[slot] = None
-        self._gens[slot] = None
+        if 0 <= slot - self._base < self._rows:
+            self._gens[slot - self._base] = None
 
     def _harvest(self, emitted: np.ndarray, logps: np.ndarray) -> None:
         """emitted, logps: (steps, B) from one decode chunk."""
@@ -511,37 +617,53 @@ class GenerationServer:
             if req is not None and req.done:
                 self._free(slot)
 
-    def step(self) -> None:
+    def step(self) -> bool:
         """Advance prompt prefills, then run one decode chunk and read its
-        tokens back."""
+        tokens back. Under ranks it starts with the lead's broadcast, and
+        returns False on a follower that received an 'end' or a 'stop'
+        instead of a step; True otherwise."""
+        if not self._sync():
+            return False
         self._service_fills()
         for slot, req in enumerate(self._slots):
             if req is not None and req.done:
                 self._free(slot)
         if all(r is None for r in self._slots):
-            return
+            return True
         # idle rows restart at position 0, so they take one key tile of
         # kernel 4 instead of walking toward the end of the cache (fill_,
-        # not an item assignment: nothing reads a host scalar)
+        # not an item assignment: nothing reads a host scalar); so do the
+        # rows past max_slots of the last dp rank's block
         offsets = self._cache['offset']
-        for slot, req in enumerate(self._slots):
-            if req is None:
-                offsets[slot:slot + 1].zero_()
+        for row in range(self._rows):
+            slot = self._base + row
+            if slot >= self.max_slots or self._slots[slot] is None:
+                offsets[row:row + 1].zero_()
         # always exactly steps_per_sync steps: the chunk's shapes and
         # launches stay the same whatever the requests need
         self._tokens, self._cache, emitted, logps = _decode_chunk(
             self.model.module, self._tokens, self._cache, self._topks,
             self._topps, self._temps, self._gens, self.steps_per_sync)
         # the one readback of the chunk: tokens (exact in float64) and
-        # log-probs together
-        out = torch.stack([emitted.double(), logps.double()]).cpu().numpy()
-        self._harvest(out[0].astype(np.int64), out[1])
+        # log-probs together, every dp rank's slots, (slots, 2, steps)
+        out = gather_rows_to_host(
+            torch.stack([emitted.double(), logps.double()]).permute(2, 0, 1),
+            self.mesh, self.max_slots).numpy()
+        self._harvest(out[:, 0].T.astype(np.int64), out[:, 1].T)
+        return True
 
     def run(self) -> Dict[int, GenerationResult]:
-        """Drive the loop until every submitted request has finished."""
-        while (self._queue or self._fill is not None
-               or any(r is not None for r in self._slots)):
-            self.step()
+        """Drive the loop until every submitted request has finished. Under
+        ranks the lead ends the others' `run()` when it is done, and every
+        rank returns every result."""
+        if self.lead:
+            while (self._queue or self._fill is not None
+                   or any(r is not None for r in self._slots)):
+                self.step()
+            self._sync('end')
+        else:
+            while self.step():
+                pass
         self._flush_firsts()
         return dict(self._results)
 
@@ -569,7 +691,15 @@ class GenerationServer:
         """End request `rid` early. True if it was queued, mid-prefill or
         decoding: its result is finalized at once with the tokens so far
         and `cancelled=True`, and its slot frees for the next request.
-        False if unknown or already finished."""
+        False if unknown or already finished. Under ranks, the lead's
+        only."""
+        self._refuse_follower('cancel')
+        done = self._cancel(rid)
+        if done and self._ranks:
+            self._inbox.append(('cancel', rid))
+        return done
+
+    def _cancel(self, rid: int) -> bool:
         self._flush_firsts()
         req = self._requests.get(rid)
         if req is None or req.done:
@@ -602,7 +732,11 @@ class ServerLoop:
     `server.step()` while work is pending, and any number of caller
     threads (HTTP handlers, `cli/serve.py`) submit requests and wait for
     their own results. Every access to the server holds one lock; a
-    decode chunk holds it for its wall time, the intended granularity."""
+    decode chunk holds it for its wall time, the intended granularity.
+
+    Under ranks it runs on the lead, whose followers call
+    `server.follow()`: while idle it steps every `HEARTBEAT` seconds (an
+    empty broadcast), and `close()` stops the followers."""
 
     def __init__(self, server: GenerationServer):
         self.server = server
@@ -612,13 +746,18 @@ class ServerLoop:
         self._thread.start()
 
     def _run(self):
+        last = time.monotonic()
         while True:
             with self._cv:
-                while not self._stop and self.server.pending == 0:
+                while (not self._stop and self.server.pending == 0
+                       and not (self.server._ranks and time.monotonic()
+                                - last >= HEARTBEAT)):
                     self._cv.wait(timeout=0.1)
                 if self._stop:
+                    self.server.stop()
                     return
                 self.server.step()
+                last = time.monotonic()
                 self._cv.notify_all()
 
     def submit(self, **kwargs) -> int:
@@ -668,7 +807,8 @@ class ServerLoop:
         with self._cv:
             self._stop = True
             self._cv.notify_all()
-        self._thread.join(timeout=5)
+        # under ranks the thread's last act is the followers' stop
+        self._thread.join(timeout=None if self.server._ranks else 5)
 
 
 def serve_requests(model, tokenizer, prompts: Sequence[str],
@@ -678,14 +818,18 @@ def serve_requests(model, tokenizer, prompts: Sequence[str],
                    steps_per_sync: int = 8, prefill_batch: int = 0,
                    seed: int = 0) -> List[GenerationResult]:
     """Run a ragged list of prompts through one continuous-batching server
-    and return the results in submission order."""
+    and return the results in submission order. Under a mesh every rank
+    calls it with the same arguments: the lead submits the prompts, and
+    every rank returns the results."""
     if max_len is None:
         max_len = max(len(p) for p in prompts) + num_tokens + 1
     server = GenerationServer(model, tokenizer, max_slots=max_slots,
                               max_len=max_len, top_k=top_k, top_p=top_p,
                               steps_per_sync=steps_per_sync,
                               prefill_batch=prefill_batch, seed=seed)
-    rids = [server.submit(prompt=p, num_tokens=num_tokens,
-                          temperature=temperature) for p in prompts]
+    # a fresh server numbers its requests from 0, in submission order
+    rids = ([server.submit(prompt=p, num_tokens=num_tokens,
+                           temperature=temperature) for p in prompts]
+            if server.lead else list(range(len(prompts))))
     results = server.run()
     return [results[r] for r in rids]

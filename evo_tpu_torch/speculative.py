@@ -35,6 +35,16 @@ place. Full acceptance keeps the verified cache; partial acceptance puts
 back the saved offset and states and replays the accepted prefix. KV rows
 past the restored offset are stale, masked by causality, and written over
 by the next pass; the KV buffers are never copied.
+
+Under a mesh (`parallel/`) every rank calls `generate_speculative` with
+the same arguments. The verify passes and replays are resumed prefills
+through the engine facade, which runs them on the rank's shards (under
+cp padded to a multiple of cp, in the Ulysses layout); the offset and
+layer list saved before a pass are the rank's own. The host decisions
+(acceptance, the correction, every draw of the seeded numpy generator)
+are taken on every rank from the same logits, which the facade returns
+whole and bit-equal on every rank, so the ranks emit the same stream
+with no collective of their own.
 """
 
 from __future__ import annotations
@@ -43,8 +53,6 @@ import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
-
-from evo_tpu_torch.parallel import refuse_mesh
 
 
 class NGramIndex:
@@ -233,7 +241,6 @@ def generate_speculative(
     Returns (token ids (num_tokens,) int32, per-token log-probs under the
     UNFILTERED distribution, SpecStats).
     """
-    refuse_mesh('generate_speculative', getattr(model, 'mesh', None))
     if input_ids is None:
         if prompt is None or tokenizer is None:
             raise ValueError('pass input_ids= or prompt= with a tokenizer')

@@ -94,6 +94,16 @@ def next_token_loss(model, cfg: Optional[ModelConfig], ids,
     return torch.sum(nll * mask) / torch.clamp(count, min=1.0)
 
 
+def scored_positions(module, ids, loss_mask=None) -> torch.Tensor:
+    """The number of target positions of a batch that the loss scores
+    (float32, on the module's device): a dp rank's share of the divisor
+    of a sharded step's loss."""
+    mask = (torch.ones(tuple(ids.shape), device=module.device)
+            if loss_mask is None else torch.as_tensor(
+                loss_mask, device=module.device).float())
+    return mask[:, 1:].sum()
+
+
 class TrainState(NamedTuple):
     params: Dict[str, torch.Tensor]    # float32 masters by parameter name
     opt_state: torch.optim.Optimizer    # AdamW over the masters
@@ -304,10 +314,8 @@ def _train_step(module, optimizer: Optimizer, mesh):
         if mesh is not None and mesh.dp > 1:
             # the whole batch's count of scored positions, so that the
             # sum of the dp ranks' losses is the global mean
-            mask = (torch.ones(ids.shape, device=module.device)
-                    if loss_mask is None else torch.as_tensor(
-                        loss_mask, device=module.device).float())
-            count = all_reduce_sum(mask[:, 1:].sum(), mesh, 'dp')
+            count = all_reduce_sum(scored_positions(module, ids, loss_mask),
+                                   mesh, 'dp')
         set_trainable(params.values(), True)
         try:
             loss = next_token_loss(module, cfg, ids, loss_mask, count)

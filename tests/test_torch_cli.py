@@ -146,9 +146,9 @@ def test_unported_flags_raise(tmp_path, cli, flag):
             if cli is score_cli else ['--prompt', 'ACGT'])
     with pytest.raises(ValueError, match='torchrun'):
         cli.main(TINY + base + flag)
-    # at their defaults the same flags are accepted
+    # at their defaults the same flags want no ranks
     args = cli.build_parser().parse_args(base + ['--tp', '1'])
-    score_cli.refuse_parallelism(args)
+    assert score_cli.start_ranks(args) is False
 
 
 @pytest.mark.parametrize('script,cli', [('score.py', score_cli),

@@ -1217,6 +1217,40 @@ def test_tp2_gloo_ranks_on_one_card(tmp_path):
                         'fir_gate': cfg.num_layers - 1, 'flash_attention': 1}
 
 
+def test_tp2_server_gloo_ranks_on_one_card(tmp_path):
+    """Two ranks on cuda:0 over gloo as one tp = 2 `GenerationServer`
+    (`tools/mesh_smoke.py small`): the greedy tokens of three ragged
+    prompts on 2 slots equal to the single process's server on the card,
+    both ranks alike, kernel 4 launched at each rank's 2 heads."""
+    import json
+    import os
+    from pathlib import Path
+
+    from evo_tpu_torch import model as model_lib
+    from evo_tpu_torch.config import tiny_config
+    from evo_tpu_torch.models import EvoModel
+    from evo_tpu_torch.parallel.distributed import launch_local
+    from evo_tpu_torch.serving import serve_requests
+    from evo_tpu_torch.tokenizer import CharLevelTokenizer
+    cfg = tiny_config(**TP_SMALL)
+    prompts = ['ACGT' * 10, 'TTGACCA' * 9, 'GATTACA' * 3]
+    torch.save({'config': TP_SMALL, 'prompts': prompts, 'num_tokens': 8},
+               tmp_path / 'small_in.pt')
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).parent.parent))
+    launch_local(['-m', 'evo_tpu_torch.tools.mesh_smoke', 'small',
+                  str(tmp_path)], 2, env=env, timeout=600)
+    module = model_lib.random_init(
+        cfg, torch.Generator(device='cuda').manual_seed(0), 'cuda')
+    want = [r.token_ids.tolist() for r in serve_requests(
+        EvoModel(cfg, module), CharLevelTokenizer(512), prompts,
+        num_tokens=8, max_slots=2, steps_per_sync=4)]
+    got = [json.load(open(tmp_path / f'small_rank{r}.json'))['part']
+           for r in (0, 1)]
+    assert got[0]['tokens'] == got[1]['tokens'] == want
+    assert got[0]['launches'] == got[1]['launches']
+    assert got[0]['launches']['flash_attention_buffer'] > 0
+
+
 def _ulysses_layout(randn, B, L, cp=2, heads=16):
     """What the all-to-all over cp hands the attention layer: the received
     (cp, B, L/cp, 3, heads, 128) buffer viewed as (B, L, 3, heads, 128),

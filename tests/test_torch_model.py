@@ -169,11 +169,11 @@ def test_forced_prompt_matches_full_prefill(setup):
 
 def test_unported_paths_raise(setup):
     """What the port does not hold yet raises and names its ROADMAP item
-    (serving under a mesh, weights kept in another type than the
+    (LoRA training under cp, weights kept in another type than the
     activations); what it
     now holds (a filled cache continued, segments, the int8 KV cache,
-    quantized weights, weights from a file, speculative decoding) no
-    longer does."""
+    quantized weights, weights from a file, speculative decoding, serving
+    under a mesh) no longer does."""
     model, tok, _, _ = setup
     cache = model.initialize_inference_params(1, 32)
     model(np.zeros((1, 4), np.int32), inference_params_dict=cache)
@@ -184,16 +184,17 @@ def test_unported_paths_raise(setup):
         assert tiny_config(weight_quant=quant).weight_quant == quant
     assert tiny_config(weight_quant='int8', act_quant='int8').act_quant \
         == 'int8'
-    # cp > 1 is ported (tests/test_torch_context_parallel.py); serving
-    # under a mesh is not
+    # cp > 1 is ported (tests/test_torch_context_parallel.py), and serving
+    # under a mesh (tests/test_torch_mesh_serving.py); training under cp
+    # is not
+    from evo_tpu_torch import lora, training
     from evo_tpu_torch.parallel.mesh import Mesh
-    from evo_tpu_torch.serving import GenerationServer
-    model.mesh = Mesh(1, 2, 1)
+    model.module.mesh = Mesh(1, 2, 1)
     try:
         with pytest.raises(NotImplementedError, match='ROADMAP'):
-            GenerationServer(model, tok)
+            lora.make_lora_train_step(model, training.make_optimizer())
     finally:
-        model.mesh = None
+        model.module.mesh = None
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         tiny_config(param_dtype='float32', compute_dtype='bfloat16')
     from evo_tpu_torch.cli import generate as generate_cli

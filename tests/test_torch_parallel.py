@@ -12,10 +12,12 @@ In this process (no ranks):
     make_mesh` on the conftest's virtual CPU devices;
   * `split_for_process` and the shard manifest, byte for byte, against
     the JAX functions, and a fingerprint mismatch raising in both;
-  * the refusals that remain: int4 under a mesh, serving, speculation and
-    LoRA under a mesh, the serve CLI's mesh flags and --cp, the sharded
-    train step under cp, a size tp does not divide; cp = 2, now ported
-    (tests/test_torch_context_parallel.py), wants ranks of its own.
+  * the refusals that remain: int4 under a mesh, the sharded and the
+    LoRA train steps under cp, a size tp does not divide; the mesh flags
+    of the score and serve CLIs want ranks of their own in one process
+    (serving, speculation and LoRA under a mesh: tests/
+    test_torch_mesh_serving.py; cp = 2: tests/
+    test_torch_context_parallel.py).
 
 In two gloo processes on the CPU, this file run as a script (it imports
 no JAX then):
@@ -719,6 +721,7 @@ def test_refusals_under_a_mesh(tmp_path):
     from evo_tpu_torch.config import cli_tiny_overrides, tiny_config
     from evo_tpu_torch.model import StripedHyena
     from evo_tpu_torch.models import Evo
+    from evo_tpu_torch.parallel import QUEUE
     from evo_tpu_torch.parallel.collectives import copy_to_tp, reduce_from_tp
     from evo_tpu_torch.parallel.mesh import Mesh
     from evo_tpu_torch.serving import GenerationServer
@@ -735,32 +738,37 @@ def test_refusals_under_a_mesh(tmp_path):
     evo = Evo('evo-1-8k-base', 'cpu', random_init=True, mesh=one,
               config_overrides=cli_tiny_overrides())
     assert evo.model.mesh is one
-    heading = ('parallelism: serving, speculation and LoRA under a mesh, '
-               'and training under cp')
-    for call in (lambda: GenerationServer(evo.model, evo.tokenizer),
-                 lambda: generate_speculative(evo.model, evo.tokenizer,
-                                              prompt='ACGT', num_tokens=2),
-                 lambda: lora.init_lora(torch.Generator(), evo.model, 2)):
-        with pytest.raises(NotImplementedError, match='under a mesh') as e:
-            call()
-        assert heading in str(e.value)
-    for flag in ('--tp', '--cp'):
-        with pytest.raises(NotImplementedError,
-                           match='serving under a mesh') as e:
+    heading = 'parallelism: training under cp'
+    assert QUEUE == f'ROADMAP.md, modules queue: {heading}'
+    # serving, speculation and LoRA take a mesh (tests/
+    # test_torch_mesh_serving.py): on a one-rank mesh, as without one
+    server = GenerationServer(evo.model, evo.tokenizer, max_slots=1,
+                              max_len=16)
+    rid = server.submit(prompt='ACGT', num_tokens=2)
+    assert server.lead and len(server.run()[rid].token_ids) == 2
+    toks, _, _ = generate_speculative(evo.model, evo.tokenizer,
+                                      prompt='ACGT', num_tokens=2)
+    assert len(toks) == 2
+    assert lora.lora_rank(lora.init_lora(torch.Generator(), evo.model,
+                                         2)) == 2
+    # the mesh flags of the serve CLI want ranks in one process
+    for flag in ('--dp', '--tp', '--cp'):
+        with pytest.raises(ValueError, match='one process a rank'):
             serve_cli.build_server(serve_cli.build_parser().parse_args(
                 ['--tiny', '--device', 'cpu', flag, '2']))
-        assert heading in str(e.value)
-    # the train steps under cp
+    # the train steps under cp, full and LoRA
     from evo_tpu_torch import training
     cp_mesh = Mesh(1, 2, 1)
     cp_evo = Evo('evo-1-8k-base', 'cpu', random_init=True, mesh=cp_mesh,
                  config_overrides=cli_tiny_overrides())
-    with pytest.raises(NotImplementedError,
-                       match='context parallelism') as e:
-        training.make_sharded_train_step(
-            cp_evo.model, training.make_optimizer(learning_rate=1e-3),
-            cp_mesh)
-    assert heading in str(e.value)
+    opt = training.make_optimizer(learning_rate=1e-3)
+    for make in (lambda: training.make_sharded_train_step(
+            cp_evo.model, opt, cp_mesh),
+                 lambda: lora.make_lora_train_step(cp_evo.model, opt)):
+        with pytest.raises(NotImplementedError,
+                           match='context parallelism') as e:
+            make()
+        assert heading in str(e.value)
     # --cp is ported: in one process it wants ranks, as --dp / --tp do
     with pytest.raises(ValueError, match='one process a rank'):
         score_cli.main(['--tiny', '--device', 'cpu', '--cp', '2',

@@ -841,8 +841,13 @@ def test_serving_imports_leave_jax_unloaded():
 
 
 def test_serve_cli_refuses_parallelism():
-    with pytest.raises(NotImplementedError, match='not ported'):
-        serve_cli.main(TINY + ['--tp', '2'])
+    """--dp / --tp / --cp above 1 in one process raise and say how to
+    launch the ranks (serving under a mesh: tests/
+    test_torch_mesh_serving.py)."""
+    for flag in ('--dp', '--tp', '--cp'):
+        with pytest.raises(ValueError, match='one process a rank: launch '
+                           'with torchrun'):
+            serve_cli.main(TINY + [flag, '2'])
     args = serve_cli.build_parser().parse_args([])
     assert (args.device, args.max_slots, args.max_len, args.steps_per_sync,
             args.prompt_chunk, args.prefill_batch) == ('cuda', 8, 8192, 32,
