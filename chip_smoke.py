@@ -207,6 +207,27 @@ for an H100: the kernels target sm_90a). It
      branch); (f) `cli.serve --tp 2 --dist-backend gloo` in JSONL mode on
      a small bf16 checkpoint against a one-process run. Its times are
      gloo's collectives through host memory on one card;
+ 24. (after phase 21) training under context parallelism as two ranks of
+     the port on the one card over gloo, chosen explicitly, as one cp = 2
+     mesh (`tools/cp_train_smoke.py model`), on phase 20's 9 layers
+     (seed 20) at full width: (a) full fine-tuning, a window of L =
+     2,048, 2 steps under Ulysses, 1 under 'ring' and 1 under 'zigzag',
+     and a ragged L = 2,049 under Ulysses with remat (1 step), each leg
+     from the seed's weights; (b) LoRA rank 8 on the seven targets at L
+     = 8,192 with remat, 2 steps under Ulysses and 1 under 'zigzag'.
+     Held to the single process on the same weights and batches: the
+     first loss within its one-rounding yardstick, a falling loss over
+     two steps, the probed gradients (layer 0's w_in, the attention's
+     wqkv, the final norm; the adapters' B factors of the first two) as
+     the step sums them within the larger of the yardstick's relative
+     distance and one bf16 rounding of the gradient (2^-8), replicated
+     masters or adapters bit-equal across ranks after each step, LoRA's
+     base unchanged, kernels 1-3's launches under grad (forward and
+     recompute), and kernels 1-3's gradient Functions at a rank's shapes
+     against their plain versions; s a step, the cp collectives' share
+     of a step (forward, backward, gradient sum apart) and peak GiB a
+     rank beside the single process's. Gloo through host memory: nothing
+     of NCCL or of cp across cards;
  14. (after phase 6) the same with evo-1-131k-base: 12,000 nt in one pass
      and in segments of 4,096, then 131,072 nt in segments of 8,192, with
      the launch counts worked out from the segment bounds (a ragged first
@@ -445,6 +466,36 @@ def train_launches(steps, layers, attn_layers):
             'flash_attention': steps * 2 * attn_layers}
 
 
+def time_grads(torch, fwd, plain, inputs, grad_out, reps):
+    """(forward ms, backward ms, plain backward ms, backward scaled error
+    against the plain gradient) for a forward with inputs `inputs`
+    (requires grad), by CUDA events."""
+    out = fwd()
+    out = out if isinstance(out, tuple) else (out,)
+    ref = plain()
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    gk = torch.autograd.grad(out, inputs, grad_out, retain_graph=True)
+    gp = torch.autograd.grad(ref, inputs, grad_out, retain_graph=True)
+    err = max(scaled_err(a, b) for a, b in zip(gk, gp))
+    return dict(
+        forward_ms=time_ms(torch, fwd, reps=reps),
+        backward_ms=time_ms(torch, lambda: torch.autograd.grad(
+            out, inputs, grad_out, retain_graph=True), reps=reps),
+        plain_backward_ms=time_ms(torch, lambda: torch.autograd.grad(
+            ref, inputs, grad_out, retain_graph=True), reps=reps),
+        grad_scaled_err=err)
+
+
+# The limit of each kernel's backward against the plain gradient. The
+# backward is the plain version's gradient at the same inputs, so
+# bit-equal to autograd's through the plain forward, but for attention:
+# its blocks' float32 gradients are added in another order than
+# autograd adds them, which may move the bf16 result by one rounding
+# step (2^-7 of the larger of the value and its row's rms)
+GRAD_LIMITS = (('rmsnorm', 0.0), ('fir_gate', 0.0),
+               ('flash_attention', 2 ** -7))
+
+
 def check_kernel_grads(torch, np, kernels, smi):
     """Kernels 1-3 under autograd on the card. (a) A Hyena block and an
     attention block of evo-1 width (D=4096, 32 heads x 128, inner MLP
@@ -529,24 +580,8 @@ def check_kernel_grads(torch, np, kernels, smi):
     def randn(*shape):
         return torch.randn(*shape, device=dev, generator=g).bfloat16()
 
-    def timed(fwd, plain, inputs, grad_out, reps):
-        """(forward ms, backward ms, plain backward ms, backward scaled
-        error against the plain gradient) for a forward with inputs
-        `inputs` (requires grad)."""
-        out = fwd()
-        out = out if isinstance(out, tuple) else (out,)
-        ref = plain()
-        ref = ref if isinstance(ref, tuple) else (ref,)
-        gk = torch.autograd.grad(out, inputs, grad_out, retain_graph=True)
-        gp = torch.autograd.grad(ref, inputs, grad_out, retain_graph=True)
-        err = max(scaled_err(a, b) for a, b in zip(gk, gp))
-        return dict(
-            forward_ms=time_ms(torch, fwd, reps=reps),
-            backward_ms=time_ms(torch, lambda: torch.autograd.grad(
-                out, inputs, grad_out, retain_graph=True), reps=reps),
-            plain_backward_ms=time_ms(torch, lambda: torch.autograd.grad(
-                ref, inputs, grad_out, retain_graph=True), reps=reps),
-            grad_scaled_err=err)
+    def timed(*a):
+        return time_grads(torch, *a)
 
     D, H, Dh, L = 4096, 32, 128, 8192
     x, w = randn(L, D).requires_grad_(), randn(D).requires_grad_()
@@ -576,13 +611,7 @@ def check_kernel_grads(torch, np, kernels, smi):
             lambda: flash_attention_causal(*qkv_views()),
             lambda: attention_plain(*qkv_views()), (qkv,),
             (randn(1, L, H, Dh),), 3))
-    # The backward is the plain version's gradient at the same inputs, so
-    # bit-equal to autograd's through the plain forward, but for attention:
-    # its blocks' float32 gradients are added in another order than
-    # autograd adds them, which may move the bf16 result by one rounding
-    # step (2^-7 of the larger of the value and its row's rms)
-    for name, limit in (('rmsnorm', 0.0), ('fir_gate', 0.0),
-                        ('flash_attention', 2 ** -7)):
+    for name, limit in GRAD_LIMITS:
         log(f'   {name} under autograd ({smi}): '
             f'{kernels[name]["training"]}')
         check(kernels[name]['training']['grad_scaled_err'] <= limit,
@@ -1617,6 +1646,304 @@ def phase23_cli(torch, np, inp, res23, d):
     return dict(seconds=tp_s, one_process_seconds=one_s,
                 equal_to_one_process=got == one, mean_abs=d_, yardstick=f_,
                 argmax_agreement=agree)
+
+
+def cp_kernel_grads(torch, kernels, smi):
+    """Kernels 1-3 under autograd at the shapes a cp = 2 rank of phase
+    24's LoRA legs gives them (L = 8,192 over two ranks): kernel 1 on the
+    rank's 4,096 rows; kernel 2 on the all-to-all's received buffer (1,
+    8192, 3, 2048), C/cp channels over the whole L, read in place; kernel 3
+    at H/cp = 16 heads over the whole L, q, k and v as views of the
+    all-to-all's (1, 8192, 3, 16, 128) output. Held against the plain
+    gradients under phase 19's limits and timed as phase 19 times them
+    (`cp2_training` in each kernel's row)."""
+    from evo_tpu_torch.ops.attention import (attention_plain,
+                                             flash_attention_causal)
+    from evo_tpu_torch.ops.fir_gate import fir_gate, fir_gate_plain
+    from evo_tpu_torch.ops.rmsnorm import rmsnorm, rmsnorm_plain
+    g = torch.Generator(device='cuda').manual_seed(24)
+
+    def randn(*shape):
+        return torch.randn(*shape, device='cuda', generator=g).bfloat16()
+    D, C, H, Dh, L = 4096, 2048, 16, 128, 8192
+    x, w = randn(L // 2, D).requires_grad_(), randn(D).requires_grad_()
+    kernels['rmsnorm']['cp2_training'] = dict(
+        shape='x (4096, 4096) bf16, a cp = 2 rank\'s rows of L = 8,192; '
+              'grads to x and w', **time_grads(
+            torch, lambda: rmsnorm(x, w), lambda: rmsnorm_plain(x, w),
+            (x, w), (randn(L // 2, D),), 10))
+    zl = randn(1, L, 3, C).requires_grad_()
+    fw, fb, b_in = (randn(3, C, 3).requires_grad_(),
+                    randn(3, C).requires_grad_(), randn(3, C).requires_grad_())
+
+    def z():
+        return zl.permute(0, 2, 3, 1)
+    kernels['fir_gate']['cp2_training'] = dict(
+        shape='zl (1, 8192, 3, 2048) bf16, the all-to-all\'s received '
+              'buffer in place; grads to zl, taps and both biases',
+        **time_grads(torch, lambda: fir_gate(z(), fw, fb, b_in=b_in),
+                     lambda: fir_gate_plain(z(), fw, fb, b_in=b_in),
+                     (zl, fw, fb, b_in), (randn(1, C, L), randn(1, C, L)),
+                     10))
+    qkv = randn(1, L, 3, H, Dh).requires_grad_()
+
+    def qkv_views():
+        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    kernels['flash_attention']['cp2_training'] = dict(
+        shape='q, k, v (1, 8192, 16, 128) bf16 views of the all-to-all\'s '
+              '(1, 8192, 3, 16, 128) output; grad to it', **time_grads(
+            torch, lambda: flash_attention_causal(*qkv_views()),
+            lambda: attention_plain(*qkv_views()), (qkv,),
+            (randn(1, L, H, Dh),), 3))
+    for name, limit in GRAD_LIMITS:
+        log(f'   {name} under autograd at a cp = 2 rank\'s shapes ({smi}): '
+            f'{kernels[name]["cp2_training"]}')
+        check(kernels[name]['cp2_training']['grad_scaled_err'] <= limit,
+              f'{name}: backward at the cp shapes disagrees with the plain '
+              'gradient')
+    del x, w, zl, fw, fb, b_in, qkv
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def contiguous_out_projection():
+    """The Hyena out-projection fed a contiguous copy of its operand, as a
+    cp rank feeds it (its rows come back from the all-to-all contiguous).
+    At an odd L the single process hands cuBLAS the transposed view of (B,
+    C, L), of leading dimension L, whose kernel for it adds in another
+    order than for a contiguous operand: at L = 2,049 a third of the
+    outputs round to another bf16 (none at 2,048), enough to move phase
+    20's first loss by 3.9e-4. The same function, other roundings; phase
+    24 holds the ranks to the single process on the ranks' operand
+    layout and prints the shipped one's loss beside it."""
+    from evo_tpu_torch.layers import hyena
+    real = hyena._to_rows
+    hyena._to_rows = lambda p, y, padded: real(p, y, padded).contiguous()
+    try:
+        yield
+    finally:
+        hyena._to_rows = real
+
+
+@contextlib.contextmanager
+def plain_attention_core(on):
+    """With `on`, the attention layers' causal core is the plain version
+    (float32 scores, softmax and P @ V, one rounding at the end), the
+    arithmetic of the rings' plain float32 core, in kernel 3's place
+    (which rounds P to bf16 before P @ V)."""
+    from evo_tpu_torch.layers import attention
+    from evo_tpu_torch.ops.attention import attention_plain
+    real = attention.flash_attention_causal
+    if on:
+        attention.flash_attention_causal = attention_plain
+    try:
+        yield
+    finally:
+        attention.flash_attention_causal = real
+
+
+def cp_train_inputs(torch, corpus, d):
+    """What phase 24's ranks are held to, from the single process on the
+    card, on the same weights (the first 9 layers of evo-1-8k-base, seed
+    20), batches and adapters, in the ranks' arithmetic: the Hyena
+    out-projection's operand laid out as a rank's
+    (`contiguous_out_projection`), and for the rings' legs the plain
+    float32 attention core in kernel 3's place (`plain_attention_core`;
+    keys '..._plain'). For each batch: the loss and the probed gradients
+    (`tools/cp_train_smoke.py`: FULL_PROBES, LORA_PROBES), the same with
+    one extra bf16 rounding step (2^-8 of random sign) on the output of
+    layer 0's first norm, and the time and peak of one step of each kind
+    (as shipped). The probed gradients go to `d`/cp_train_ref.pt."""
+    from evo_tpu_torch import lora, training
+    from evo_tpu_torch import model as model_lib
+    from evo_tpu_torch.tools import cp_train_smoke as cts
+    module = model_lib.random_init(
+        cts.nine_layers(),
+        torch.Generator(device='cuda').manual_seed(cts.FULL_SEED), 'cuda')
+    sign = torch.randint(0, 2, (1, 1, module.config.hidden_size),
+                         device='cuda',
+                         generator=torch.Generator('cuda').manual_seed(5))
+
+    def loss_and_grads(tensors, names, cfg, ids, mask, nudge):
+        hook = module.blocks[0].pre_norm.register_forward_hook(
+            lambda mod, inp, out: out * (1 + (2 * sign - 1) * 2.0 ** -8).to(
+                out.dtype)) if nudge else None
+        training.set_trainable(tensors.values(), True)
+        try:
+            loss = training.next_token_loss(module, cfg, ids, mask)
+            loss.backward()
+        finally:
+            training.set_trainable(tensors.values(), False)
+            if hook is not None:
+                hook.remove()
+        out = {n: tensors[n].grad.float().clone() for n in names}
+        for t in tensors.values():
+            t.grad = None
+        return float(loss.detach()), out
+
+    def reference(key, tensors, names, cfg, ids, mask):
+        with contiguous_out_projection(), plain_attention_core(
+                key.endswith('_plain')):
+            loss, grads = loss_and_grads(tensors, names, cfg, ids, mask,
+                                         False)
+            nudged, moved = loss_and_grads(tensors, names, cfg, ids, mask,
+                                           True)
+        # one rounding step: at layer 0 (the nudge) or of the gradient
+        # itself (2^-8 relative: a rank's gradient is a bf16 partial sum,
+        # rounded before the float32 sum over cp), whichever moves it more
+        yard = {n: max(float((moved[n] - g).norm() / g.norm()), 2.0 ** -8)
+                for n, g in grads.items()}
+        refs[key] = {n: g.cpu() for n, g in grads.items()}
+        return dict(loss=loss, loss_yardstick=abs(nudged - loss),
+                    grad_yardstick=yard)
+
+    def one_step(make):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.time()
+        make()
+        torch.cuda.synchronize()
+        return time.time() - t, torch.cuda.max_memory_allocated() / 2**30
+
+    refs, res = {}, {}
+    # (b) LoRA, first: the base stays as it is
+    ids, mask = cts._batch(corpus, cts.LORA_SEQ_LEN)
+    module.config = module.config.replace(remat=True)
+    adapters = lora.init_lora(
+        torch.Generator(device='cuda').manual_seed(cts.LORA_SEED), module,
+        rank=8)
+    lora.attach_lora(module, adapters, 16.0)
+    for key in ('lora', 'lora_plain'):
+        res[key] = reference(key, lora.named_adapters(adapters),
+                             cts.LORA_PROBES, training.train_config(
+                                 module, adapters=True), ids, mask)
+    lora.detach_lora(module)
+    opt = training.make_optimizer(learning_rate=1e-3)
+    step = lora.make_lora_train_step(module, opt, alpha=16.0)
+    res['lora']['step_s'], res['lora']['peak_gib'] = one_step(
+        lambda: step(lora.init_lora_train_state(adapters, opt), ids, mask))
+    del adapters, opt, step
+    # (a) full fine-tuning: the ragged window under remat, then L = 2,048
+    params = dict(module.named_parameters())
+    for key, seq_len, remat in (('full_2049', 2048, True),
+                                ('full_2048_plain', 2047, False),
+                                ('full_2048', 2047, False)):
+        ids, mask = cts._batch(corpus, seq_len)
+        module.config = cts.nine_layers().replace(remat=remat)
+        res[key] = reference(key, params, cts.FULL_PROBES,
+                             training.train_config(module), ids, mask)
+    opt = training.make_optimizer(learning_rate=1e-4)
+    state = training.init_train_state(module, opt)
+    step = training.make_train_step(module, opt)
+    res['full_2048']['step_s'], res['full_2048']['peak_gib'] = one_step(
+        lambda: step(state, ids, mask))
+    del module, params, opt, state, step
+    torch.cuda.empty_cache()
+    torch.save(refs, os.path.join(d, 'cp_train_ref.pt'))
+    with open(os.path.join(d, 'cp_train_in.json'), 'w') as f:
+        json.dump({'corpus': corpus}, f)
+    return res
+
+
+def phase24_cp_training(torch, np, smi, launches, kernels, res20, corpus,
+                        d):
+    """Training under context parallelism: two ranks of the port on the
+    one card over gloo (chosen explicitly) as one cp = 2 mesh, through
+    `tools/cp_train_smoke.py model`, held to the single process on the
+    same weights and batches (`cp_train_inputs`). These times are gloo's
+    all-to-alls, sends and reduces through host memory on one card, and
+    say nothing of NCCL or of cp across cards."""
+    from evo_tpu_torch.parallel.distributed import launch_local
+    from evo_tpu_torch.tools import cp_train_smoke as cts
+    t24 = time.time()
+    log(f'== 24. training under context parallelism ({smi}): 2 ranks on '
+        f'one card as one cp = 2 mesh, torch.distributed backend gloo '
+        f'(passed explicitly)')
+    cp_kernel_grads(torch, kernels, smi)
+    os.makedirs(d)
+    ref = cp_train_inputs(torch, corpus, d)
+    ref_s = time.time() - t24
+    t = time.time()
+    launch_local(['-m', 'evo_tpu_torch.tools.cp_train_smoke', 'model', d], 2,
+                 env=dict(os.environ, PYTHONPATH=ROOT), timeout=900,
+                 log_dir=os.path.join(d, 'logs'))
+    ranks_s = time.time() - t
+    ranks = []
+    for r in (0, 1):
+        with open(os.path.join(d, f'cp_train_rank{r}.json')) as f:
+            ranks.append(json.load(f))
+
+    def expected(steps, remat, flash):
+        want = (train_launches(steps, 9, 1) if remat else
+                {'rmsnorm': 19 * steps, 'fir_gate': 8 * steps,
+                 'flash_attention': steps})
+        return {k: v for k, v in want.items()
+                if v and (flash or k != 'flash_attention')}
+
+    legs = [('full', name, key, remat, steps, attn == 'ulysses')
+            for name, attn, _, remat, steps, key in cts.FULL_LEGS]
+    legs += [('lora', name, key, True, steps, attn == 'ulysses')
+             for name, attn, steps, key in cts.LORA_LEGS]
+    for part, name, key, remat, steps, flash in legs:
+        single = ref[key]
+        # the single process as shipped: kernel 3, and at L = 2,049 the
+        # out-projection's transposed operand (phase 20's first loss)
+        as_shipped = ref[key.replace('_plain', '')]
+        shipped, peak_single, step_single = (
+            (res20['losses'][0], res20['peak_gib'], res20['step_median_s'])
+            if key == 'full_2049' else (as_shipped['loss'],
+                                        as_shipped['peak_gib'],
+                                        as_shipped['step_s']))
+        for r, res in enumerate(ranks):
+            leg = res[part][name]
+            step_ms = 1e3 * sum(leg['step_s'])
+            spent = leg['collectives_ms']
+            shares = {k: spent.get(k, 0.0) / step_ms
+                      for k in ('forward', 'backward', 'grad_sum')}
+            log(f'   24 ({"a" if part == "full" else "b"}) {name} rank {r}: '
+                f'L = {leg["seq_len"]:,}{", remat" if remat else ""}: losses '
+                f'{leg["losses"]} (single process in the ranks\' '
+                f'arithmetic {single["loss"]}, as shipped {shipped}, '
+                f'one-rounding yardstick {single["loss_yardstick"]:.2e}); s a '
+                f'step {leg["step_s"]} (single process {step_single:.3f}); cp '
+                f'collectives {100 * sum(shares.values()):.1f} % of the steps '
+                f'(forward {100 * shares["forward"]:.1f} %, backward '
+                f'{100 * shares["backward"]:.1f} %, gradient sum '
+                f'{100 * shares["grad_sum"]:.1f} %); peak '
+                f'{leg["peak_gib"]:.2f} GiB (single process '
+                f'{peak_single:.2f}); gradients, relative distance from the '
+                f'single process\'s (limit): ' + ', '.join(
+                    f'{n} {leg["grad_dist"][n]:.2e} '
+                    f'({single["grad_yardstick"][n]:.2e})'
+                    for n in leg['grad_dist']) + f'; replicated '
+                f'{"adapters" if part == "lora" else "masters"} equal across '
+                f'ranks {leg["replicated_equal"]}; launches {leg["launches"]}')
+            leg['shares'] = shares
+            check(leg['launches'] == expected(steps, remat, flash),
+                  f'24 {part} {name}: launches {leg["launches"]}, expected '
+                  f'{expected(steps, remat, flash)}')
+            check(abs(leg['losses'][0] - single['loss'])
+                  <= single['loss_yardstick'],
+                  f'24 {part} {name}: the first loss is past the '
+                  'one-rounding yardstick')
+            check(all(leg['grad_dist'][n] <= single['grad_yardstick'][n]
+                      for n in single['grad_yardstick']),
+                  f'24 {part} {name}: a gradient is past its yardstick')
+            check(all(leg['replicated_equal']) and all(
+                np.isfinite(leg['losses'])), f'24 {part} {name}: {leg}')
+            check(steps == 1 or leg['losses'][1] < leg['losses'][0],
+                  f'24 {part} {name}: the loss did not fall')
+            check(part == 'full' or leg['base_unchanged'],
+                  f'24 {part} {name}: LoRA moved the base weights')
+        check(ranks[0][part][name]['losses'] == ranks[1][part][name]['losses'],
+              f'24 {part} {name}: the ranks\' losses differ')
+        phase = f'cp_train_{"" if part == "full" else "lora_"}{name}'
+        launches[phase] = ranks[0][part][name]['launches']
+    log(f'   phase 24 seconds: {time.time() - t24:.1f} (kernels and '
+        f'single-process references {ref_s:.1f}, ranks {ranks_s:.1f}: (a) '
+        f'{ranks[0]["full_seconds"]:.1f}, (b) {ranks[0]["lora_seconds"]:.1f})')
+    return dict(ref=ref, ranks=ranks, seconds=time.time() - t24)
 
 
 def main():
@@ -3273,6 +3600,10 @@ def main():
         torch.cuda.empty_cache()
         phase21_parallel(torch, np, smi, launches, ref21, res20, corpus,
                          corpus_dir)
+        # -- 24. training under context parallelism, 2 ranks -------------
+        torch.cuda.empty_cache()
+        phase24_cp_training(torch, np, smi, launches, kernels, res20,
+                            corpus, os.path.join(corpus_dir, 'cp_train'))
     finally:
         shutil.rmtree(corpus_dir, ignore_errors=True)
 

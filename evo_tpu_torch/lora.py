@@ -38,11 +38,12 @@ alike from a generator seeded alike, in the shapes of the whole weights
 (so `adapters.npz` keeps its layout); each site uses the slice its shard
 meets (`layers/adapters.tp_factors`), and `merge_lora` folds into each
 rank's shard the same slice of A @ B. `make_lora_train_step` runs under
-(dp, tp): each rank passes its dp rank's rows, the loss is normalised by
-the whole batch's count as `training.make_sharded_train_step` does, each
-adapter gradient is summed over tp and then dp, the clip takes the norm of
-the whole (and equal) gradients, and AdamW steps every rank's copy of the
-adapters alike. Under cp it raises (`parallel.refuse_cp`).
+any (dp, cp, tp): each rank passes its dp rank's rows, the loss is
+`training.next_token_loss` normalised by the whole batch's count as
+`training.make_sharded_train_step` does (under cp each rank's share of
+its rows of the sequence), each adapter gradient is summed over tp, then
+cp, then dp, the clip takes the norm of the whole (and equal) gradients,
+and AdamW steps every rank's copy of the adapters alike.
 """
 
 from __future__ import annotations
@@ -60,7 +61,6 @@ from evo_tpu_torch.layers.adapters import (  # noqa: F401
     TARGETS as _TARGETS, delta1, delta2, tp_factors)
 from evo_tpu_torch.model import AttentionBlock
 from evo_tpu_torch.ops.fftconv import full_float32
-from evo_tpu_torch.parallel import refuse_cp
 from evo_tpu_torch.parallel.collectives import all_reduce_sum, sum_grads
 from evo_tpu_torch.parallel.sharding import full_shape
 from evo_tpu_torch.quant import QuantizedWeight
@@ -248,20 +248,20 @@ def make_lora_train_step(model, optimizer: training.Optimizer,
     only to them. Set `cfg.remat` for long sequences: the backward then
     recomputes each block instead of keeping every layer's activations.
 
-    Under the model's (dp, tp) mesh every rank calls the step with its dp
-    rank's rows of the global batch (each tp rank of a dp group the same
-    rows), and the loss returned on every rank is the global batch's
-    (module docstring); cp > 1 raises."""
+    Under the model's (dp, cp, tp) mesh every rank calls the step with its
+    dp rank's rows of the global batch, whole sequences (each tp and cp
+    rank of a dp group the same rows), and the loss returned on every rank
+    is the global batch's (module docstring)."""
     module = training.module_of(model)
     mesh = module.mesh
-    refuse_cp('the LoRA train step', mesh)
     cfg = training.train_config(module, adapters=True)
-    dp = mesh is not None and mesh.dp > 1
+    # the axes the loss is summed over: a cp rank's is its rows' share
+    axes = [a for a in ('cp', 'dp') if mesh is not None and mesh.shape[a] > 1]
 
     def train_step(state: LoraTrainState, ids, loss_mask=None):
         params = named_adapters(state.lora)
         count = None
-        if dp:
+        if 'dp' in axes:
             # the whole batch's count of scored positions, so that the
             # sum of the dp ranks' losses is the global mean
             count = all_reduce_sum(training.scored_positions(
@@ -283,8 +283,8 @@ def make_lora_train_step(model, optimizer: training.Optimizer,
         for t in params.values():
             t.grad = None
         loss = loss.detach()
-        if dp:
-            loss = all_reduce_sum(loss, mesh, 'dp')
+        for axis in axes:
+            loss = all_reduce_sum(loss, mesh, axis)
         return (LoraTrainState(state.lora, state.opt_state, state.step + 1),
                 loss)
 

@@ -39,7 +39,10 @@ Training (`training.py`, `lora.py`): the parameters are created with
 `requires_grad=False`, and the train steps turn on the ones they train.
 Under `cfg.remat` the cache-free forward recomputes each block on the
 backward pass (`torch.utils.checkpoint`), as the JAX package's forward
-does under `jax.checkpoint`.
+does under `jax.checkpoint`; under cp the recompute posts the block's
+collectives again, which every rank does for the same blocks in the same
+order. Under cp the loss reads this rank's rows of the logits
+(`forward_rows`), with no gather.
 """
 
 from __future__ import annotations
@@ -257,17 +260,19 @@ def _block(blk, cfg: ModelConfig, x: torch.Tensor, layers=None, i: int = 0,
 
 def _full_sequence(model: StripedHyena, ids: torch.Tensor, layers=None,
                    offset: int = 0, resume: bool = False,
-                   cfg: Optional[ModelConfig] = None):
-    """The full-sequence pass shared by `forward` and `prefill`. With
-    `layers` (the cache's list), each layer's decode state is written into
-    it; with `resume`, ids continue the sequence that filled `layers` up
-    to `offset`. Under `cfg.remat` the cache-free pass checkpoints each
-    block when grad mode is on.
+                   cfg: Optional[ModelConfig] = None, gather: bool = True):
+    """The full-sequence pass shared by `forward`, `forward_rows` and
+    `prefill`. With `layers` (the cache's list), each layer's decode state
+    is written into it; with `resume`, ids continue the sequence that
+    filled `layers` up to `offset`. Under `cfg.remat` the cache-free pass
+    checkpoints each block when grad mode is on, with the whole of
+    `_block`'s arguments.
 
     Under cp the ids are the whole sequence on every rank; the pass runs
     on this rank's rows of it, padded on the right to a multiple of cp
     (the ring attentions take no padding on a fresh sequence: they raise
-    the JAX package's ValueError), and returns the whole logits."""
+    the JAX package's ValueError), and returns the whole logits, or with
+    `gather=False` this rank's rows of the padded sequence's."""
     cfg = model.config if cfg is None else cfg
     remat = cfg.remat and layers is None and torch.is_grad_enabled()
     mesh = model.mesh
@@ -281,12 +286,13 @@ def _full_sequence(model: StripedHyena, ids: torch.Tensor, layers=None,
     x = _embed(model, ids)
     for i, blk in enumerate(model.blocks):
         if remat:
-            x = torch.utils.checkpoint.checkpoint(_block, blk, cfg, x,
-                                                  use_reentrant=False)
+            x = torch.utils.checkpoint.checkpoint(
+                _block, blk, cfg, x, layers, i, offset, resume, seq_len,
+                use_reentrant=False)
         else:
             x = _block(blk, cfg, x, layers, i, offset, resume, seq_len)
     logits = _unembed(model, x)
-    if seq_len is None:
+    if seq_len is None or not gather:
         return logits
     return gather_seq(logits, mesh)[:, :seq_len]
 
@@ -298,6 +304,20 @@ def forward(model: StripedHyena, ids: torch.Tensor,
     `cfg`: the config to run under, the model's own by default (the train
     steps pass one with the kernel switches that have no backward off)."""
     return _full_sequence(model, ids, cfg=cfg)
+
+
+def forward_rows(model: StripedHyena, ids: torch.Tensor,
+                 cfg: Optional[ModelConfig] = None):
+    """`forward` without the gather over cp: (logits, start), the logits
+    of rows [start, start + n) of the sequence padded on the right to a
+    multiple of cp that this cp rank holds (rows at L and past are
+    padding), float32 (B, n, vocab). Without cp, the whole logits and 0.
+    The train steps' loss reads these rows: the ids are whole on every
+    rank, so each rank knows the targets of its rows."""
+    logits = _full_sequence(model, ids, cfg=cfg, gather=False)
+    start = (model.mesh.index('cp') * logits.shape[1]
+             if has_cp(model.mesh) else 0)
+    return logits, start
 
 
 def prefill(model: StripedHyena, ids: torch.Tensor, cache: Cache,

@@ -11,9 +11,10 @@ the whole sequence of a block of channels or heads and back by an
 all-to-all over cp (or pass K/V around the cp group: `ops/
 ring_attention.py`). `distributed.py` starts the process group and runs
 the restartable sharded scoring jobs. Serving (`serving.py`: the first rank
-takes the requests and broadcasts them), speculation and LoRA run under
-any mesh, and the train steps under (dp, tp); training under cp is not
-ported yet and raises (`refuse_cp`).
+takes the requests and broadcasts them), speculation, LoRA and the full
+train step run under any (dp, cp, tp) mesh; under cp the collectives
+carry gradients (`collectives.py`, and the ring's hand-written backward in
+`ops/ring_attention.py`).
 
 The JAX package's exports, but for `param_shardings` and `data_sharding`:
 they build `NamedSharding`s for GSPMD to place, and a rank of the port
@@ -28,14 +29,3 @@ from evo_tpu_torch.parallel.mesh import (  # noqa: F401
 from evo_tpu_torch.parallel.sharding import (  # noqa: F401
     cache_shardings, shard_params,
 )
-
-QUEUE = 'ROADMAP.md, modules queue: parallelism: training under cp'
-
-
-def refuse_cp(what: str, mesh) -> None:
-    """Raise for a path that is not ported under context parallelism
-    yet."""
-    if has_cp(mesh):
-        raise NotImplementedError(
-            f'{what} under context parallelism (cp > 1) is not ported yet '
-            f'({QUEUE})')

@@ -25,10 +25,19 @@ or heads with one all-to-all over cp each way (`seq_to_heads`,
 (`cp_exchange`). The decode step sums over tp and cp together
 (`all_reduce_sum(x, mesh, CHANNEL)`). Each is a no-op at cp = 1.
 
+Under autograd the cp collectives carry gradients, as JAX transposes its
+collectives: the all-to-all's adjoint is the same all-to-all of the
+gradient; `gather_seq`'s is a reduce-scatter (the gradient summed over
+cp in float32, this rank's block kept), since the ranks that hold the
+gathered sequence may each compute something else from it (the Ulysses
+fallback keeps only its own rows); `split_seq` is a slice. Every rank
+posts the same collectives in the backward in the same order, so no
+gradient may be None on one rank and not on another.
+
 Serving and LoRA add three: `broadcast_object` (a server's requests,
 cancels and stops, from the first rank), `gather_rows_to_host` (a decode
 chunk's tokens and log-probs over dp, with the chunk's one readback) and
-`sum_grads` (adapter gradients over tp, then dp).
+`sum_grads` (gradients over tp, then cp, then dp).
 
 Gloo takes CUDA tensors for `all_reduce`, `broadcast` and `barrier` only;
 the gathers, all-to-alls and sends here go through CPU copies under gloo
@@ -183,9 +192,10 @@ def broadcast_object(obj):
 
 def sum_grads(tensors: Sequence[torch.Tensor], mesh: Optional[Mesh]
               ) -> None:
-    """Replace each tensor's `.grad` by its sum over tp, then over dp
-    (float32, in place), through one flat buffer an axis."""
-    live = [a for a in ('tp', 'dp') if _active(mesh, a)]
+    """Replace each tensor's `.grad` by its sum over tp, then cp, then dp
+    (float32, in place), through one flat buffer an axis (the adapters of
+    `lora.py`: small; the full train step sums its masters per tensor)."""
+    live = [a for a in ('tp', 'cp', 'dp') if _active(mesh, a)]
     if not live:
         return
     grads = [t.grad for t in tensors]
@@ -209,10 +219,11 @@ def _wire(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return t.view(torch.uint8) if t.dim() else t.reshape(1).view(torch.uint8)
 
 
-def all_to_all(x: torch.Tensor, mesh: Mesh, axis: str = 'cp'
-               ) -> torch.Tensor:
-    """x (n, ...), n the size of `axis`: block j goes to the axis's rank
-    j. Returns (n, ...) on x's device whose block j came from rank j."""
+def exchange_blocks(x: torch.Tensor, mesh: Mesh, axis: str = 'cp'
+                    ) -> torch.Tensor:
+    """The all-to-all itself, with no autograd history: x (n, ...), block
+    j to the axis's rank j; returns (n, ...) whose block j came from rank
+    j."""
     import torch.distributed as dist
     wire = _wire(x, mesh)
     out = torch.empty_like(wire)
@@ -220,20 +231,63 @@ def all_to_all(x: torch.Tensor, mesh: Mesh, axis: str = 'cp'
     return out.view(x.dtype).view(x.shape).to(x.device)
 
 
+class _AllToAll(torch.autograd.Function):
+    """A permutation of blocks between ranks: its adjoint sends each
+    block's gradient back the way it came, which is the same all-to-all
+    applied to the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return exchange_blocks(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return exchange_blocks(g, ctx.mesh, ctx.axis), None, None
+
+
+def all_to_all(x: torch.Tensor, mesh: Mesh, axis: str = 'cp'
+               ) -> torch.Tensor:
+    """x (n, ...), n the size of `axis`: block j goes to the axis's rank
+    j. Returns (n, ...) on x's device whose block j came from rank j.
+    Under autograd the gradient takes the same all-to-all back."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _AllToAll.apply(x, mesh, axis)
+    return exchange_blocks(x, mesh, axis)
+
+
 def split_seq(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     """This cp rank's rows of x (B, L, ...): the contiguous block cp_i of
-    cp along L (which cp must divide)."""
+    cp along L (which cp must divide). A slice: autograd's own."""
     if not _active(mesh, 'cp'):
         return x
     n = x.shape[1] // mesh.cp
     return x[:, mesh.index('cp') * n:(mesh.index('cp') + 1) * n]
 
 
+class _GatherSeq(torch.autograd.Function):
+    """Every cp rank's rows on every rank; backward, a reduce-scatter: the
+    gathered gradient summed over cp in float32 (each rank may have used
+    the whole sequence for something of its own), this rank's block
+    kept."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return torch.cat(gather_cpu(x, mesh, 'cp'), dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return split_seq(all_reduce_sum(g, ctx.mesh, 'cp'), ctx.mesh), None
+
+
 def gather_seq(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     """Inverse of `split_seq`: every cp rank's rows, in order, on every
-    rank."""
+    rank. Under autograd the gradient is summed over cp and split."""
     if not _active(mesh, 'cp'):
         return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GatherSeq.apply(x, mesh)
     return torch.cat(gather_cpu(x, mesh, 'cp'), dim=1)
 
 

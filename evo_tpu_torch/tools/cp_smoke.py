@@ -58,31 +58,47 @@ def _sync_time(fn, reps: int = 1):
 
 
 @contextlib.contextmanager
-def timed_collectives(spent: list):
-    """Each cp collective (all-to-all, gather, the ring's posts and waits,
-    their host copies included) between device syncs; the ms spent in
-    them are added to spent[0]."""
+def timed_collectives(spent: dict):
+    """Each cp collective (the all-to-all, gathers, the ring's posts and
+    waits, the float32 sums of `all_reduce_sum`, their host copies
+    included) between device syncs. The ms go to spent['forward'], or to
+    spent['backward'] inside autograd's backward (a remat recompute's
+    included), and a train step's gradient sums over the mesh to
+    spent['grad_sum']."""
+    from evo_tpu_torch import lora, training
     from evo_tpu_torch.ops import ring_attention
     from evo_tpu_torch.parallel import collectives as c
-    sites = ((c, 'all_to_all'), (c, 'gather_cpu'),
-             (ring_attention, 'cp_exchange'), (c._Pending, 'wait'))
-    real = [getattr(m, n) for m, n in sites]
+    sites = ((c, 'exchange_blocks'), (c, 'gather_cpu'),
+             (ring_attention, 'cp_exchange'), (c._Pending, 'wait'),
+             (c, 'all_reduce_sum'))
+    sums = ((training, 'all_reduce_sum'), (lora, 'sum_grads'))
+    real = {(m, n): getattr(m, n) for m, n in sites + sums}
+    depth = [0]                # a collective inside a timed one: not again
 
-    def wrap(fn):
+    def wrap(fn, key=None):
         def timed(*a, **k):
+            if depth[0]:
+                return fn(*a, **k)
+            depth[0] += 1
             torch.cuda.synchronize()
             t = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            spent[0] += 1e3 * (time.perf_counter() - t)
+            try:
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+            finally:
+                depth[0] -= 1
+            where = key or ('forward' if torch._C._current_graph_task_id()
+                            == -1 else 'backward')
+            spent[where] = spent.get(where, 0.0) + 1e3 * (
+                time.perf_counter() - t)
             return out
         return timed
-    for (m, n), fn in zip(sites, real):
-        setattr(m, n, wrap(fn))
+    for (m, n), fn in real.items():
+        setattr(m, n, wrap(fn, 'grad_sum' if (m, n) in sums else None))
     try:
-        yield
+        yield spent
     finally:
-        for (m, n), fn in zip(sites, real):
+        for (m, n), fn in real.items():
             setattr(m, n, fn)
 
 
@@ -114,12 +130,12 @@ def part_forward(inp, evo, mesh, rank, d) -> dict:
         cfg = evo.config.replace(cp_attn=mode)
         torch.cuda.synchronize()
         _build.LAUNCHES.clear()
-        spent = [0.0]
-        with timed_collectives(spent):
+        with timed_collectives({}) as spent:
             ms, logits = _sync_time(
                 lambda: model_lib.forward(module, ids, cfg))
+        in_them = sum(spent.values())
         r = dict(ms=ms, launches=dict(_build.LAUNCHES),
-                 collectives_ms=spent[0], collectives_share=spent[0] / ms)
+                 collectives_ms=in_them, collectives_share=in_them / ms)
         r.update(_compare(logits, ref))
         r['equal_across_ranks'] = _equal_across(logits, mesh)
         if mode == 'ulysses':
@@ -211,12 +227,12 @@ def part_long(inp, mesh) -> dict:
         return score_sequences_segmented([seq], evo.model, evo.tokenizer,
                                          segment_len=8192)[0]
     _build.LAUNCHES.clear()
-    spent = [0.0]
-    with timed_collectives(spent):
+    with timed_collectives({}) as spent:
         ms, got = _sync_time(score)
+    in_them = sum(spent.values())
     r = dict(seconds=ms / 1e3, launches=dict(_build.LAUNCHES), score=got,
-             diff=abs(got - inp['long_score']), collectives_s=spent[0] / 1e3,
-             collectives_share=spent[0] / ms)
+             diff=abs(got - inp['long_score']), collectives_s=in_them / 1e3,
+             collectives_share=in_them / ms)
     r['score_equal_across_ranks'] = _equal_across(torch.tensor([got]), mesh)
     return r
 

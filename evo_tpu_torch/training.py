@@ -32,15 +32,23 @@ moments plus a JSON of the step and the hyperparameters (one file pair a
 rank under a mesh, the mesh's shape in the JSON). The port reads no orbax
 directory (the JAX package's format) and says so.
 
-`make_sharded_train_step` is full fine-tuning over a (dp, tp) mesh
+`make_sharded_train_step` is full fine-tuning over a (dp, cp, tp) mesh
 (`parallel/`): each rank keeps float32 masters and both moments of its
 tp shards only, takes its dp rank's rows of the batch, and the layers'
-collectives carry the tensor-parallel forward and backward. The master
-gradients are summed over dp (each rank's loss is divided by the whole
-batch's count, so the sum is the JAX package's mean), the global-norm
-clip is taken over the whole logical tree (the squares of tp-sharded
-gradients summed over tp, replicated ones counted once) and AdamW steps
-each rank's shards.
+collectives carry the tensor- and context-parallel forward and backward.
+Under cp each rank's loss sums the next-token terms of its rows of the
+sequence (`model.forward_rows`: no gather of the logits), divided by the
+whole batch's count. The master gradients are summed over cp, then over
+dp, per tensor (one flat float32 buffer of 1.82 B parameters would be
+7.3 GB a rank), so that every rank's sum is the JAX package's gradient of
+the mean; the global-norm clip is taken over the whole logical tree (the
+squares of tp-sharded gradients summed over tp, replicated ones counted
+once) and AdamW steps each rank's shards.
+
+The full train step's AdamW runs tensor by tensor (`foreach=False`):
+torch's for-each update would hold one more float32 copy of every
+moment while it runs (6.8 GiB at 1.82 B parameters), the peak of a full
+step. LoRA's adapters are small and keep the for-each update.
 """
 
 from __future__ import annotations
@@ -55,7 +63,6 @@ import torch
 
 from evo_tpu_torch import model as model_lib
 from evo_tpu_torch.config import ModelConfig
-from evo_tpu_torch.parallel import refuse_cp
 from evo_tpu_torch.parallel.collectives import all_reduce_sum
 from evo_tpu_torch.parallel.sharding import tp_axis
 from evo_tpu_torch.quant import QuantizedWeight
@@ -81,17 +88,28 @@ def next_token_loss(model, cfg: Optional[ModelConfig], ids,
     Padding convention as in scoring: right-padded, no attention mask,
     correctness from masking the loss only. `cfg`: the config to run the
     forward under (None: the model's own). `count`: the divisor, the
-    mask's own sum by default (a dp rank passes the whole batch's)."""
+    mask's own sum by default (a dp rank passes the whole batch's).
+
+    Under cp (the model's mesh) it is this cp rank's share: the terms of
+    the positions whose logits the rank holds (`model.forward_rows`; the
+    last position and the padding dropped) over the whole sequence's
+    count, so that the sum over cp is the mean. The train steps sum it;
+    the gradient of each share is the rank's, and the collectives'
+    adjoints add the shares' terms once each."""
     module = module_of(model)
     ids = torch.as_tensor(ids, device=module.device).long()
-    logits = model_lib.forward(module, ids, cfg)
-    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
-    nll = -torch.gather(logp, -1, ids[:, 1:, None])[..., 0]
-    mask = (torch.ones_like(nll) if loss_mask is None else torch.as_tensor(
-        loss_mask, device=module.device)[:, 1:].to(torch.float32))
+    mask = (torch.ones(tuple(ids.shape), device=module.device)
+            if loss_mask is None else torch.as_tensor(
+                loss_mask, device=module.device).to(torch.float32))
     if count is None:
-        count = torch.sum(mask)
-    return torch.sum(nll * mask) / torch.clamp(count, min=1.0)
+        count = torch.sum(mask[:, 1:])
+    logits, start = model_lib.forward_rows(module, ids, cfg)
+    # the rows' positions that predict a token of the sequence
+    stop = max(start, min(start + logits.shape[1], ids.shape[1] - 1))
+    logp = torch.log_softmax(logits[:, :stop - start].float(), dim=-1)
+    nll = -torch.gather(logp, -1, ids[:, start + 1:stop + 1, None])[..., 0]
+    return (torch.sum(nll * mask[:, start + 1:stop + 1])
+            / torch.clamp(count, min=1.0))
 
 
 def scored_positions(module, ids, loss_mask=None) -> torch.Tensor:
@@ -198,7 +216,11 @@ class Optimizer:
         return float(lr(step) if callable(lr) else lr)
 
     def init(self, params: Dict[str, torch.Tensor],
-             cfg: Optional[ModelConfig] = None) -> torch.optim.AdamW:
+             cfg: Optional[ModelConfig] = None,
+             foreach: Optional[bool] = None) -> torch.optim.AdamW:
+        """`foreach`: torch's choice of the update's implementation (None:
+        its default; False: tensor by tensor, with no temporary the size
+        of all the moments)."""
         mask = decay_mask(params, cfg)
         groups = [{'params': [t for n, t in params.items() if mask[n]],
                    'weight_decay': self.weight_decay},
@@ -206,7 +228,7 @@ class Optimizer:
                    'weight_decay': 0.0}]
         return torch.optim.AdamW([g for g in groups if g['params']],
                                  lr=self.lr(0), betas=(self.b1, self.b2),
-                                 eps=1e-8)
+                                 eps=1e-8, foreach=foreach)
 
     def update(self, opt: torch.optim.AdamW,
                params: Dict[str, torch.Tensor], step: int,
@@ -250,7 +272,8 @@ def init_train_state(model, optimizer: Optimizer) -> TrainState:
     module = module_of(model)
     masters = {n: p.detach().to(torch.float32, copy=True)
                for n, p in module.named_parameters()}
-    return TrainState(masters, optimizer.init(masters, module.config), 0)
+    return TrainState(masters, optimizer.init(masters, module.config,
+                                              foreach=False), 0)
 
 
 def train_config(model, adapters: bool = False) -> ModelConfig:
@@ -308,10 +331,14 @@ def _train_step(module, optimizer: Optimizer, mesh):
         return torch.sqrt(all_reduce_sum(sq(sharded), mesh)
                           + sq([n for n in masters if n not in sharded]))
 
+    # the axes a gradient and the loss are summed over: a cp rank's loss
+    # is its rows' share, a dp rank's its rows'
+    axes = [a for a in ('cp', 'dp') if mesh is not None and mesh.shape[a] > 1]
+
     def train_step(state: TrainState, ids, loss_mask=None):
         load_masters(module, state)
         count = None
-        if mesh is not None and mesh.dp > 1:
+        if 'dp' in axes:
             # the whole batch's count of scored positions, so that the
             # sum of the dp ranks' losses is the global mean
             count = all_reduce_sum(scored_positions(module, ids, loss_mask),
@@ -327,16 +354,16 @@ def _train_step(module, optimizer: Optimizer, mesh):
             m.grad = (torch.zeros_like(m) if p.grad is None
                       else p.grad.to(torch.float32))
             p.grad = None
-            if count is not None:
-                m.grad = all_reduce_sum(m.grad, mesh, 'dp')
+            for axis in axes:
+                m.grad = all_reduce_sum(m.grad, mesh, axis)
         norm = None if mesh is None else global_norm(state.params)
         optimizer.update(state.opt_state, state.params, state.step, norm)
         for m in state.params.values():
             m.grad = None
         load_masters(module, state)
         loss = loss.detach()
-        if count is not None:
-            loss = all_reduce_sum(loss, mesh, 'dp')
+        for axis in axes:
+            loss = all_reduce_sum(loss, mesh, axis)
         return (TrainState(state.params, state.opt_state, state.step + 1),
                 loss)
 
@@ -345,17 +372,17 @@ def _train_step(module, optimizer: Optimizer, mesh):
 
 def make_sharded_train_step(model, optimizer: Optimizer, mesh):
     """step(state, ids, loss_mask=None) -> (state', loss) for full
-    fine-tuning of a model sharded over `mesh` (built with `mesh=`; see
-    the module docstring). Every rank calls the step; ids and loss_mask
-    are this dp rank's rows of the global batch (each tp rank of a dp
-    group passes the same rows), and the loss returned on every rank is
-    the global batch's. `init_train_state(model, optimizer)` makes each
-    rank's masters of its shards."""
+    fine-tuning of a model sharded over `mesh` (built with `mesh=`; any
+    (dp, cp, tp); see the module docstring). Every rank calls the step;
+    ids and loss_mask are this dp rank's rows of the global batch, whole
+    sequences (each tp and cp rank of a dp group passes the same rows; the
+    model splits them over cp itself), and the loss returned on every
+    rank is the global batch's. `init_train_state(model, optimizer)`
+    makes each rank's masters of its shards."""
     module = module_of(model)
     if module.mesh is not mesh:
         raise ValueError('make_sharded_train_step: the model was not built '
                          'on this mesh (pass mesh= when loading it)')
-    refuse_cp('the sharded train step', mesh)
     return _train_step(module, optimizer, mesh)
 
 

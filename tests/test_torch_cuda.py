@@ -1325,6 +1325,92 @@ def test_cp2_gloo_ranks_on_one_card(tmp_path):
     assert (got[0] - want[:, :199]).abs().max() <= 0.05 * want.abs().max()
 
 
+def test_cp2_train_step_gloo_ranks_on_one_card(tmp_path):
+    """Two ranks on cuda:0 over gloo as one cp = 2 mesh (`tools/
+    cp_train_smoke.py small`), one sharded train step of a small bf16
+    model under 'ulysses' and under 'zigzag', B = 2, L = 200, against the
+    single process in the ranks' arithmetic (for 'zigzag' the plain
+    float32 attention in kernel 3's place, as the zigzag's core is): the
+    first loss within one rounding step's yardstick (one extra bf16
+    rounding, 2^-8 of random sign, on the output of layer 0's first norm:
+    the RMS of the loss's move over four draws of the sign, since one
+    draw can be far below the scale), every gradient as the step sums it
+    within the larger of that yardstick's RMS relative distance and one
+    bf16 rounding step of the gradient itself (2^-8: each rank's bf16
+    gradient is a partial sum, rounded before the float32 sum over cp),
+    both ranks' gradients bit-equal, and the launches of kernels 1-3
+    under grad (kernel 3 at the Ulysses heads, never in the zigzag's
+    plain core)."""
+    import os
+    from pathlib import Path
+
+    from evo_tpu_torch import model as model_lib
+    from evo_tpu_torch import training
+    from evo_tpu_torch.config import tiny_config
+    from evo_tpu_torch.layers import attention
+    from evo_tpu_torch.parallel.distributed import launch_local
+    cfg = tiny_config(**TP_SMALL)
+    gen = torch.Generator().manual_seed(0)
+    ids = torch.randint(0, 512, (2, 200), generator=gen)
+    mask = (torch.rand((2, 200), generator=gen) < 0.8).float()
+    torch.save({'config': TP_SMALL, 'ids': ids, 'mask': mask},
+               tmp_path / 'small_in.pt')
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).parent.parent))
+    launch_local(['-m', 'evo_tpu_torch.tools.cp_train_smoke', 'small',
+                  str(tmp_path)], 2, env=env, timeout=600)
+    module = model_lib.random_init(
+        cfg, torch.Generator(device='cuda').manual_seed(0), 'cuda')
+    params = dict(module.named_parameters())
+
+    def loss_and_grads(seed, core):
+        sign = None if seed is None else torch.randint(
+            0, 2, (1, 1, cfg.hidden_size), device='cuda',
+            generator=torch.Generator('cuda').manual_seed(seed))
+        hook = module.blocks[0].pre_norm.register_forward_hook(
+            lambda mod, inp, out: out * (1 + (2 * sign - 1) * 2.0 ** -8).to(
+                out.dtype)) if sign is not None else None
+        real, attention.flash_attention_causal = (
+            attention.flash_attention_causal, core)
+        training.set_trainable(params.values(), True)
+        try:
+            loss = training.next_token_loss(module, training.train_config(
+                module), ids, mask)
+            loss.backward()
+        finally:
+            attention.flash_attention_causal = real
+            training.set_trainable(params.values(), False)
+        if hook is not None:
+            hook.remove()
+        grads = {n: p.grad.float() for n, p in params.items()}
+        for p in params.values():
+            p.grad = None
+        return float(loss.detach()), grads
+    for mode, core in (('ulysses', attention.flash_attention_causal),
+                       ('zigzag', attention_plain)):
+        want_loss, want = loss_and_grads(None, core)
+        nudged = [loss_and_grads(seed, core) for seed in (5, 6, 7, 8)]
+
+        def rms(xs):
+            return (sum(x * x for x in xs) / len(xs)) ** 0.5
+        got = [torch.load(tmp_path / f'small_{mode}_rank{r}.pt')
+               for r in (0, 1)]
+        assert got[0]['loss'] == got[1]['loss']
+        yard = rms([loss - want_loss for loss, _ in nudged])
+        assert abs(got[0]['loss'] - want_loss) <= yard, (
+            mode, got[0]['loss'], want_loss, yard)
+        for n, w in want.items():
+            g = got[0]['grads'][n].cuda()
+            assert torch.equal(got[1]['grads'][n].cuda(), g), (mode, n)
+            dist = float((g - w).norm() / w.norm())
+            yard = max(rms([float((moved[n] - w).norm() / w.norm())
+                            for _, moved in nudged]), 2.0 ** -8)
+            assert dist <= yard, (mode, n, dist, yard)
+        assert got[0]['launches'] == dict(
+            {'rmsnorm': 2 * cfg.num_layers + 1,
+             'fir_gate': cfg.num_layers - 1},
+            **({'flash_attention': 1} if mode == 'ulysses' else {})), mode
+
+
 def test_nccl_refuses_two_ranks_on_one_card(monkeypatch):
     """More local ranks than cards under NCCL raise before NCCL does, and
     name the gloo backend; nothing switches backends quietly."""

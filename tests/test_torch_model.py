@@ -169,11 +169,10 @@ def test_forced_prompt_matches_full_prefill(setup):
 
 def test_unported_paths_raise(setup):
     """What the port does not hold yet raises and names its ROADMAP item
-    (LoRA training under cp, weights kept in another type than the
-    activations); what it
-    now holds (a filled cache continued, segments, the int8 KV cache,
+    (weights kept in another type than the activations); what it now
+    holds (a filled cache continued, segments, the int8 KV cache,
     quantized weights, weights from a file, speculative decoding, serving
-    under a mesh) no longer does."""
+    under a mesh, LoRA training under cp) no longer does."""
     model, tok, _, _ = setup
     cache = model.initialize_inference_params(1, 32)
     model(np.zeros((1, 4), np.int32), inference_params_dict=cache)
@@ -184,15 +183,16 @@ def test_unported_paths_raise(setup):
         assert tiny_config(weight_quant=quant).weight_quant == quant
     assert tiny_config(weight_quant='int8', act_quant='int8').act_quant \
         == 'int8'
-    # cp > 1 is ported (tests/test_torch_context_parallel.py), and serving
-    # under a mesh (tests/test_torch_mesh_serving.py); training under cp
-    # is not
+    # cp > 1 is ported (tests/test_torch_context_parallel.py), serving
+    # under a mesh (tests/test_torch_mesh_serving.py) and training under
+    # cp (tests/test_torch_cp_training.py): the LoRA step builds on a cp
+    # mesh
     from evo_tpu_torch import lora, training
     from evo_tpu_torch.parallel.mesh import Mesh
     model.module.mesh = Mesh(1, 2, 1)
     try:
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            lora.make_lora_train_step(model, training.make_optimizer())
+        assert callable(lora.make_lora_train_step(
+            model, training.make_optimizer()))
     finally:
         model.module.mesh = None
     with pytest.raises(NotImplementedError, match='ROADMAP'):
