@@ -35,7 +35,12 @@ for an H100: the kernels target sm_90a). It
      and a library yardstick with CUDA events; then kernels 2 to 7 again
      at the shapes a tp = 2 rank of phase 21 gives them (2,048 channels,
      16 heads, on the sharded layers' layouts), under the same limits,
-     recorded as `tp2_shard` in each kernel's row;
+     recorded as `tp2_shard` in each kernel's row; kernels 1, 2 and 6
+     with float32 weights (param_dtype float32 under bf16 activations)
+     at full width and at a tp = 2 rank's, under their bf16 limits, timed
+     beside the same kernels on the weights in bf16; and kernel 8's
+     autograd Function at 1, 2 and 128 rows, its gradient of x against
+     the plain version's (1e-4 scaled), forward and backward timed;
   3. checks the whole port on a small bf16 model against the same model's
      plain PyTorch path on the CPU;
   4. scores with evo-1-8k-base at full width (32 layers, D=4096, random
@@ -153,7 +158,8 @@ for an H100: the kernels target sm_90a). It
      2` over 16 sequences, scores in input order within phase 4's 1e-2 of
      the single process's, then again after one shard's files are
      deleted, which only that shard's rank scores; (b) a tp = 2
-     evo-1-8k-base (`tools/tp_smoke.py model`): a forward at B=1, L=8,192
+     evo-1-8k-base on its first 16 layers (cut from 32 to keep the run
+     in its time; `tools/tp_smoke.py model`): a forward at B=1, L=8,192
      within phase 5's yardstick of the single process's (argmax agreement
      >= 0.75), greedy generation under the bf16 and the int8 KV cache
      (teacher forcing within phase 5's yardstick, 4x for int8), the fused
@@ -190,7 +196,8 @@ for an H100: the kernels target sm_90a). It
      after phase 20) serving, speculation and LoRA under a mesh as two
      ranks of the port on the one card over gloo, chosen explicitly
      (`tools/mesh_smoke.py model`): (a) a tp = 2 evo-1-8k-base at full
-     width and depth serving six ragged requests on 4 slots (prompts of
+     width on its first 16 layers (cut from 32 to keep the run in its
+     time) serving six ragged requests on 4 slots (prompts of
      96-1,500 nt, 32-48 new tokens, two sampled, a batched pair, one
      arriving after the second step), then two under the int8 KV cache:
      every request ends with its token count, the recorded log-probs
@@ -228,6 +235,24 @@ for an H100: the kernels target sm_90a). It
      of a step (forward, backward, gradient sum apart) and peak GiB a
      rank beside the single process's. Gloo through host memory: nothing
      of NCCL or of cp across cards;
+ 25. (after phase 20) LoRA over a quantized base and mixed types, on
+     evo-1-8k-base (seed 0) at full width: (a) LoRA rank 8 on the seven
+     targets over an int8 and an int4 base at full depth, B=1, L = 8,192,
+     remat, 3 steps, beside the bf16 base on the same window: fresh
+     adapters leave the logits bit-equal, the codes
+     and scales bit-unchanged, a falling loss, the first loss within phase
+     9's 0.05 / 0.15 of the bf16 base's, the launches of the schedule, s a
+     step, tokens/s and peak GiB beside phase 19's; a short int4 leg at
+     128 rows, where kernel 8 runs under grad through its Function (its
+     launches counted), the adapter gradients within phase 19's
+     one-rounding yardstick of the all-plain route's; 9 layers under int8
+     weights with int8 activations, the first loss within 0.1 of bf16's;
+     (b) float32 weights holding the bf16 model's values: the forward at
+     B=1, L = 8,192, unfused and fused, bit-equal to the bf16 model's,
+     greedy generation token-equal, the weights' bytes and the peak;
+     (c) phase 20's 9 layers fully fine-tuned with float32 parameters: the
+     first loss bit-equal to phase 20's, a falling loss, the step and the
+     peak beside phase 20's;
  14. (after phase 6) the same with evo-1-131k-base: 12,000 nt in one pass
      and in segments of 4,096, then 131,072 nt in segments of 8,192, with
      the launch counts worked out from the segment bounds (a ragged first
@@ -799,6 +824,372 @@ def phase20_full(torch, np, smi, launches, corpus):
     return res
 
 
+# -- LoRA over a quantized base, mixed types (phase 25) ------------------------
+
+# phase 9's limits on a quantized model's distance from bf16: a first loss
+# is a mean over 8,191 next-token terms, as a score is a mean of
+# log-likelihoods
+QUANT_LOSS_LIMITS = {'int8': 0.05, 'int8x8': 0.1, 'int4': 0.15}
+
+
+def quantized_buffers(module):
+    """Every buffer of the model's quantized weights (their codes and
+    scales), by name."""
+    from evo_tpu_torch.quant import QuantizedWeight
+    return {f'{n}.{b}': t for n, m in module.named_modules()
+            if isinstance(m, QuantizedWeight) for b, t in m.named_buffers()}
+
+
+def lora_leg(torch, np, module, ids, mask, steps, seed, label):
+    """LoRA rank 8 on the seven targets over `module` (its own config):
+    fresh adapters against the bare model's logits (bit for bit), `steps`
+    steps at lr 1e-3 on one batch, the codes and scales of a quantized
+    base compared bit for bit after them and its other weights by an
+    exact fingerprint, the launches, s a step, tokens/s and peak GiB."""
+    from evo_tpu_torch import lora, training
+    from evo_tpu_torch import model as model_lib
+    from evo_tpu_torch.ops import _build
+    from evo_tpu_torch.tools.cp_train_smoke import fingerprint
+    ids_t = torch.as_tensor(ids, device='cuda').long()
+    adapters = lora.init_lora(
+        torch.Generator(device='cuda').manual_seed(seed), module, rank=8)
+    # the codes and scales copied to the host, so that the peak is the
+    # step's own
+    codes = {n: t.cpu() for n, t in quantized_buffers(module).items()}
+    params = fingerprint(module.parameters())
+    with torch.no_grad():
+        base = model_lib.forward(module, ids_t)
+        lora.attach_lora(module, adapters, 16.0)
+        fresh = model_lib.forward(module, ids_t)
+        lora.detach_lora(module)
+    check(torch.equal(fresh, base), f'{label}: fresh adapters (B = 0) '
+          'changed the logits')
+    del base, fresh
+    opt = training.make_optimizer(learning_rate=1e-3)
+    state = lora.init_lora_train_state(adapters, opt)
+    step = lora.make_lora_train_step(module, opt, alpha=16.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.LAUNCHES.clear()
+    losses, secs = [], []
+    for _ in range(steps):
+        t = time.time()
+        state, loss = step(state, ids, mask)
+        losses.append(float(loss))
+        secs.append(time.time() - t)
+    counts = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    lora.attach_lora(module, state.lora, 16.0)
+    with torch.no_grad():
+        after = float(training.next_token_loss(module, None, ids, mask))
+    lora.detach_lora(module)
+    now = quantized_buffers(module)
+    check(all(torch.equal(t, now[n].cpu()) for n, t in codes.items()),
+          f'{label}: the codes or scales moved')
+    check(torch.equal(fingerprint(module.parameters()), params),
+          f'{label}: the base weights moved')
+    check(all(np.isfinite(losses)) and np.isfinite(after)
+          and after < losses[0], f'{label}: losses {losses}, after {after}')
+    step_s = statistics.median(secs)
+    return dict(losses=losses, loss_after=after, step_s=secs,
+                step_median_s=step_s, tokens_per_s=ids.size / step_s,
+                peak_gib=peak, launches=counts)
+
+
+def phase25_quant_lora_mixed(torch, np, smi, launches, res19, res20,
+                             corpus):
+    """Phase 25 on evo-1-8k-base (seed 0) at full width: (a) LoRA rank 8 on
+    the seven targets over an int8 and an int4 base at full depth (B=1, L =
+    8,192, remat, 3 steps at lr 1e-3), beside the bf16 base on the same
+    window, whose first loss theirs are held to; a short
+    int4 leg at 128 rows, where kernel 8 runs under grad through its
+    Function, whose adapter gradients are held against the all-plain
+    route's within phase 19's one-rounding yardstick; and 9 layers under
+    int8 weights with int8 activations (2 steps). (b) The model with
+    float32 weights holding the bf16 model's values (param_dtype float32):
+    its forward at B=1, L=8,192, unfused and fused, bit-equal to the bf16
+    model's, and greedy generation token-equal. (c) Phase 20's 9 layers
+    fully fine-tuned with float32 parameters: the first loss bit-equal to
+    phase 20's, a falling loss."""
+    from evo_tpu_torch import generate, lora, training
+    from evo_tpu_torch import model as model_lib
+    from evo_tpu_torch.io.dataset import PackedFastaDataset
+    from evo_tpu_torch.models import EvoModel, config_for_model
+    from evo_tpu_torch.ops import _build
+    from evo_tpu_torch.ops import int4 as int4_ops
+    from evo_tpu_torch.quant import quantize_params, quantized_bytes
+    from evo_tpu_torch.tokenizer import CharLevelTokenizer
+    t25 = time.time()
+    tok = CharLevelTokenizer(512)
+    cfg = config_for_model('evo-1-8k-base').replace(remat=True)
+
+    def bf16_model():
+        """evo-1-8k-base from seed 0 (phase 4's weights), made anew for
+        each leg so that each leg's peak holds its own model alone."""
+        return model_lib.random_init(
+            cfg, torch.Generator(device='cuda').manual_seed(0), 'cuda')
+
+    ds = PackedFastaDataset([corpus], tok, seq_len=8191, batch_size=1,
+                            seed=0)
+    ids, mask = next(ds.iter_batches())
+    check(ids.shape == (1, 8192), f'packed batch {ids.shape}')
+    res = {}
+    log(f'== 25. LoRA over a quantized base and mixed types, evo-1-8k-base '
+        f'({smi}), B=1, L=8,192')
+
+    # (a) the bf16 base, then int8 and int4 bases at full depth on the
+    # same window; the bf16 leg's first loss is the one the others are
+    # held to
+    for mode in ('bf16', 'int8', 'int4'):
+        q = (bf16_model() if mode == 'bf16' else
+             quantize_params(bf16_model(), free_source=True, mode=mode))
+        r = lora_leg(torch, np, q, ids, mask, 3, 25, f'25(a) {mode}')
+        want = train_launches(3, 32, 3)
+        check(r['launches'] == want, f'25(a) {mode}: launches '
+              f'{r["launches"]}, expected {want}')
+        if mode == 'bf16':
+            bf16_loss = res['bf16_first_loss'] = r['losses'][0]
+        gap = abs(r['losses'][0] - bf16_loss)
+        r['first_loss_gap'] = gap
+        r['weight_bytes'] = quantized_bytes(q)
+        log(f'   (a) LoRA over the {mode} base ({r["weight_bytes"] / 1e9:.2f}'
+            f' GB of weights): losses {r["losses"]}, after '
+            f'{r["loss_after"]:.4f}; first loss {gap:.4f} from the bf16 '
+            f'base\'s (limit {QUANT_LOSS_LIMITS.get(mode, 0.0)}); step '
+            f'{1e3 * r["step_median_s"]:.1f} ms median, '
+            f'{r["tokens_per_s"]:.0f} tokens/s, peak {r["peak_gib"]:.2f} GiB '
+            f'(phase 19, bf16 base at L = 8,193: '
+            f'{1e3 * res19["step_median_s"]:.1f} ms, '
+            f'{res19["tokens_per_s"]:.0f} tokens/s, peak '
+            f'{res19["peak_gib"]:.2f} GiB); launches {r["launches"]}')
+        check(gap <= QUANT_LOSS_LIMITS.get(mode, 0.0), f'25(a) {mode}: '
+              f'first loss {r["losses"][0]} against the bf16 base\'s '
+              f'{bf16_loss}')
+        res[mode] = r
+        launches[f'lora_{mode}_8192'] = r['launches']
+        del q
+        torch.cuda.empty_cache()
+
+    # (a) int4 at 128 rows: kernel 8 under grad
+    q = quantize_params(bf16_model(), free_source=True, mode='int4')
+    q.config = q.config.replace(remat=False)
+    short, short_mask = ids[:, :128], mask[:, :128]
+    g = torch.Generator(device='cuda').manual_seed(26)
+    adapters = lora.init_lora(g, q, rank=8)
+    for pairs in (p for e in adapters for p in e.values()):
+        for pr in pairs.values():       # B != 0: A gets a gradient too
+            pr['b'].normal_(0.0, 0.02, generator=g)
+    named = lora.named_adapters(adapters)
+    sign = torch.randint(0, 2, (1, 1, cfg.hidden_size), device='cuda',
+                         generator=g)
+
+    def adapter_grads(nudge=False):
+        hook = q.blocks[0].pre_norm.register_forward_hook(
+            lambda mod, inp, out: out * (1 + (2 * sign - 1) * 2.0 ** -8).to(
+                out.dtype)) if nudge else None
+        training.set_trainable(named.values(), True)
+        lora.attach_lora(q, adapters, 16.0)
+        try:
+            training.next_token_loss(
+                q, training.train_config(q, adapters=True), short,
+                short_mask).backward()
+        finally:
+            lora.detach_lora(q)
+            training.set_trainable(named.values(), False)
+            if hook is not None:
+                hook.remove()
+        out = torch.cat([t.grad.flatten() for t in named.values()])
+        for t in named.values():
+            t.grad = None
+        return out
+
+    _build.LAUNCHES.clear()
+    got = adapter_grads()
+    counts = dict(_build.LAUNCHES)
+    want_counts = {'rmsnorm': 65, 'fir_gate': 29, 'flash_attention': 3,
+                   'int4_matmul': 1, 'int4_matmul_grad': 159}
+    check(counts == want_counts, f'25(a) int4 at 128 rows launched {counts},'
+          f' expected {want_counts} (layer 0\'s in-projection reads the '
+          f'embedding, which needs no gradient)')
+    saved = int4_ops.int4_matmul
+    int4_ops.int4_matmul = int4_ops.int4_matmul_plain
+    try:
+        with plain_route():
+            _build.LAUNCHES.clear()
+            want, nudged = adapter_grads(), adapter_grads(nudge=True)
+            check(not _build.LAUNCHES, f'the plain route launched '
+                  f'{dict(_build.LAUNCHES)}')
+    finally:
+        int4_ops.int4_matmul = saved
+    dist = float((got - want).norm() / want.norm())
+    yard = float((nudged - want).norm() / want.norm())
+    opt = training.make_optimizer(learning_rate=1e-3)
+    state = lora.init_lora_train_state(adapters, opt)
+    step = lora.make_lora_train_step(q, opt, alpha=16.0)
+    _build.LAUNCHES.clear()
+    short_losses = []
+    for _ in range(2):
+        state, loss = step(state, short, short_mask)
+        short_losses.append(float(loss))
+    launches['lora_int4_128'] = counts2 = dict(_build.LAUNCHES)
+    check(counts2 == {k: 2 * v for k, v in want_counts.items()},
+          f'25(a) int4 steps at 128 rows launched {counts2}')
+    res['int4_128'] = dict(grad_distance=dist, yardstick=yard,
+                           losses=short_losses, launches=counts2)
+    log(f'   (a) int4 at 128 rows (kernel 8 under grad): adapter gradients '
+        f'{dist:.3e} from the all-plain route\'s (relative Frobenius; one '
+        f'bf16 rounding step at layer 0 {yard:.3e}, limit 1x); 2 steps, '
+        f'losses {short_losses}; launches {counts2}')
+    check(dist <= yard, f'25(a) int4 at 128 rows: gradients {dist} past '
+          f'the yardstick {yard}')
+    check(all(np.isfinite(short_losses)), f'25(a) short int4 losses '
+          f'{short_losses}')
+    del q, adapters, named, state, step, got, want, nudged, adapter_grads
+    torch.cuda.empty_cache()
+
+    # (b) float32 weights holding the bf16 model's values
+    cfg32 = cfg.replace(param_dtype='float32', remat=False)
+    torch.cuda.reset_peak_memory_stats()
+    module16 = bf16_model()
+    m32 = model_lib.StripedHyena(cfg32, 'cuda')
+    with torch.no_grad():
+        for (n, a), (_, b) in zip(m32.named_parameters(),
+                                  module16.named_parameters()):
+            a.copy_(b)
+    ids_t = torch.as_tensor(ids, device='cuda').long()
+    out = {}
+
+    def configure(**kw):
+        module16.config = module16.config.replace(**kw)
+        m32.config = m32.config.replace(**kw)
+
+    for fused in (False, True):
+        tag = 'mixed_fused_forward_8192' if fused else 'mixed_forward_8192'
+        configure(hyena_fused_mixer=fused, remat=False)
+        with torch.no_grad():
+            want = model_lib.forward(module16, ids_t)
+            _build.LAUNCHES.clear()
+            got = model_lib.forward(m32, ids_t)
+            torch.cuda.synchronize()
+        launches[tag] = counts = dict(_build.LAUNCHES)
+        core = ('hyena_mixer_w32', 29) if fused else ('fir_gate_w32', 29)
+        check(counts == {'rmsnorm_w32': 65, core[0]: core[1],
+                         'flash_attention': 3},
+              f'25(b) {tag}: launches {counts}')
+        equal = torch.equal(got, want)
+        out[tag] = dict(bit_equal=equal, launches=counts)
+        check(equal, f'25(b) {tag}: the float32-weight forward differs from '
+              f'the bf16 model\'s (max {float((got - want).abs().max())})')
+        del got, want
+    configure(hyena_fused_mixer=False)
+    prompts = ['ACGT' * 128, 'GATTACA' * 73 + 'A']
+    gen16 = generate(prompts, EvoModel(module16.config, module16), tok,
+                     n_tokens=32, verbose=0)
+    gen32 = generate(prompts, EvoModel(cfg32, m32), tok, n_tokens=32,
+                     verbose=0)
+    check(gen16[0] == gen32[0], f'25(b) greedy generation differs: '
+          f'{gen16[0]} against {gen32[0]}')
+    out['generation_token_equal'] = True
+    out['generation_scores'] = (gen16[1], gen32[1])
+    out['weight_bytes'] = quantized_bytes(m32)
+    out['bf16_weight_bytes'] = quantized_bytes(module16)
+    out['peak_gib'] = torch.cuda.max_memory_allocated() / 2**30
+    res['mixed'] = out
+    log(f'   (b) float32 weights ({out["weight_bytes"] / 1e9:.2f} GB; bf16 '
+        f'{out["bf16_weight_bytes"] / 1e9:.2f} GB) holding the bf16 model\'s'
+        f' values: forward at B=1, L=8,192 bit-equal unfused and fused '
+        f'({out["mixed_forward_8192"]["launches"]}, '
+        f'{out["mixed_fused_forward_8192"]["launches"]}); greedy 2 x 512 + '
+        f'32 token-equal, scores {gen16[1]} / {gen32[1]}; peak '
+        f'{out["peak_gib"]:.2f} GiB with both models on the card')
+    del m32, module16, configure
+    torch.cuda.empty_cache()
+
+    # (a) 9 layers under int8 weights and int8 activations
+    cfg9 = cfg.replace(num_layers=9, attn_layer_idxs=(8,),
+                       hyena_layer_idxs=())
+    base9 = model_lib.random_init(
+        cfg9, torch.Generator(device='cuda').manual_seed(25), 'cuda')
+    with torch.no_grad():
+        bf16_9 = float(training.next_token_loss(base9, None, ids, mask))
+    del base9
+    q9 = quantize_params(model_lib.random_init(
+        cfg9.replace(weight_quant='int8', act_quant='int8'),
+        torch.Generator(device='cuda').manual_seed(25), 'cuda'),
+        free_source=True, mode='int8')
+    r = lora_leg(torch, np, q9, ids, mask, 2, 27, '25(a) int8x8')
+    want = train_launches(2, 9, 1)
+    check(r['launches'] == want, f'25(a) int8x8 launches {r["launches"]}')
+    r['first_loss_gap'] = gap = abs(r['losses'][0] - bf16_9)
+    launches['lora_int8x8_9_layers'] = r['launches']
+    res['int8x8'] = r
+    log(f'   (a) LoRA over 9 layers of int8 weights with int8 activations: '
+        f'losses {r["losses"]}, after {r["loss_after"]:.4f}; first loss '
+        f'{gap:.4f} from the bf16 9 layers\' {bf16_9:.6f} (limit '
+        f'{QUANT_LOSS_LIMITS["int8x8"]}); step '
+        f'{1e3 * r["step_median_s"]:.1f} ms, peak {r["peak_gib"]:.2f} GiB')
+    check(gap <= QUANT_LOSS_LIMITS['int8x8'], f'25(a) int8x8: first loss '
+          f'{r["losses"][0]} against {bf16_9}')
+    del q9
+    torch.cuda.empty_cache()
+
+    # (c) phase 20's 9 layers, full fine-tuning with float32 parameters
+    cfg20 = config_for_model('evo-1-8k-base').replace(
+        num_layers=9, attn_layer_idxs=(8,), hyena_layer_idxs=(), remat=True)
+    src = model_lib.random_init(
+        cfg20, torch.Generator(device='cuda').manual_seed(20), 'cuda')
+    torch.cuda.reset_peak_memory_stats()
+    module = model_lib.StripedHyena(cfg20.replace(param_dtype='float32'),
+                                    'cuda')
+    with torch.no_grad():
+        for (n, a), (_, b) in zip(module.named_parameters(),
+                                  src.named_parameters()):
+            a.copy_(b)
+    del src
+    ds20 = PackedFastaDataset([corpus], tok, seq_len=2048, batch_size=1,
+                              seed=0)
+    ids20, mask20 = next(ds20.iter_batches())
+    opt = training.make_optimizer(learning_rate=1e-4)
+    state = training.init_train_state(module, opt)
+    step = training.make_train_step(module, opt)
+    _build.LAUNCHES.clear()
+    losses, secs = [], []
+    for _ in range(3):
+        t = time.time()
+        state, loss = step(state, ids20, mask20)
+        losses.append(float(loss))
+        secs.append(time.time() - t)
+    counts = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches['full_train_2048_float32'] = counts
+    w20 = train_launches(3, 9, 1)
+    want = {'rmsnorm_w32': w20['rmsnorm'], 'fir_gate_w32': w20['fir_gate'],
+            'flash_attention': w20['flash_attention']}
+    check(counts == want, f'25(c) launches {counts}, expected {want}')
+    with torch.no_grad():
+        after = float(training.next_token_loss(module, None, ids20, mask20))
+    step_s = statistics.median(secs)
+    res['full_float32'] = dict(losses=losses, loss_after=after, step_s=secs,
+                               step_median_s=step_s, peak_gib=peak,
+                               launches=counts)
+    log(f'   (c) full fine-tuning of phase 20\'s 9 layers with float32 '
+        f'parameters: losses {losses}, after {after:.4f}; first loss '
+        f'{"bit-equal to" if losses[0] == res20["losses"][0] else "NOT"} '
+        f'phase 20\'s {res20["losses"][0]}; step {1e3 * step_s:.1f} ms '
+        f'median (phase 20: {1e3 * res20["step_median_s"]:.1f}), peak '
+        f'{peak:.2f} GiB (phase 20: {res20["peak_gib"]:.2f}); launches '
+        f'{counts}')
+    check(losses[0] == res20['losses'][0], f'25(c) first loss {losses[0]} '
+          f'against phase 20\'s {res20["losses"][0]}')
+    check(all(np.isfinite(losses)) and after < losses[0],
+          f'25(c) losses {losses}, after {after}')
+    del module, state, step, opt
+    torch.cuda.empty_cache()
+    res['seconds'] = time.time() - t25
+    log(f'   phase 25 seconds: {res["seconds"]:.1f}')
+    return res
+
+
 def tp_shard_checks(torch, log, kernels, randn, D, H, Dh, S, chunk, buffers,
                     modal_params, prefix_case, ops):
     """Kernels 2-7 at the shapes a tp = 2 rank of evo-1-8k-base gives them
@@ -950,23 +1341,272 @@ def tp_shard_checks(torch, log, kernels, randn, D, H, Dh, S, chunk, buffers,
               'chunk 64), (1, 128), (2, 8), fresh and carried')
 
 
+def float32_weight_checks(torch, log, kernels, randn, D, S, chunk, peak,
+                          modal_params, ops):
+    """Kernels 1, 2 and 6 with float32 weights (a model whose param_dtype
+    is float32 under bf16 activations), each held against its plain
+    version on the same float32 weights under its bf16 limits, at full
+    width and at a tp = 2 rank's (kernel 1 runs on the full D there too;
+    kernels 2 and 6 at 2,048 channels), and timed beside its bound. The
+    rows `rmsnorm_w32`, `fir_gate_w32` and `hyena_mixer_w32` of the
+    kernels line."""
+    o = ops
+    dev = torch.device('cuda')
+    g = torch.Generator(device=dev).manual_seed(25)
+
+    def f32(*shape, scale=1.0):
+        # float32 values that are not bf16 ones: the kernel must read them
+        # as stored
+        return torch.randn(*shape, device=dev, generator=g) * scale
+
+    # kernel 1: |err| <= 1e-2 * max(1, |value|), as with a bf16 gain
+    rel = err = 0.0
+    for rows in (8192, 16004, 2, 1):
+        x, w = randn(rows, D), f32(D)
+        got, want = o['rmsnorm'](x, w), o['rmsnorm_plain'](x, w)
+        torch.cuda.synchronize()
+        check(got.dtype == torch.bfloat16, 'rmsnorm_w32 output type')
+        d = (got.float() - want.float()).abs()
+        err = max(err, float(d.max()))
+        rel = max(rel, float((d / want.float().abs().clamp(min=1)).max()))
+    rounded = o['rmsnorm'](x, w.bfloat16())
+    check(not torch.equal(rounded, got), 'rmsnorm_w32 equals the kernel on '
+          'the gain rounded to bf16: the float32 gain was not read')
+    log(f'   rmsnorm with a float32 gain (rows 8192, 16004, 2, 1): max abs '
+        f'err {err:.3e}, scaled {rel:.3e}')
+    check(rel <= 1e-2, f'rmsnorm kernel with a float32 gain disagrees: {rel}')
+    x, w = randn(8192, D), f32(D)
+    kernels['rmsnorm_w32'] = dict(
+        name='rmsnorm_w32', route='cuda',
+        source='evo_tpu_torch/csrc/rmsnorm.cu',
+        replaces='evo_tpu/ops/pallas_rmsnorm.py:21', max_abs_err=err,
+        max_scaled_err=rel,
+        ms=time_ms(torch, lambda: o['rmsnorm'](x, w)),
+        bf16_weight_ms=time_ms(torch, lambda: o['rmsnorm'](x, w.bfloat16())),
+        plain_ms=time_ms(torch, lambda: o['rmsnorm_plain'](x, w)),
+        bound_ms=1e3 * max((2 * x.numel() * 2 + D * 4) / peak['bytes_s'],
+                           4 * x.numel() / peak['fp32']),
+        bound_by='bytes', library_ms=None,
+        tp2_shard=dict(max_scaled_err=rel, shape='the full D on every tp '
+                       'rank (as with a bf16 gain)'),
+        shape='x (8192, 4096) bf16, w (4096,) float32; no single PyTorch '
+              'call takes bf16 rows with a float32 gain (F.rms_norm wants '
+              'one type)')
+
+    # kernel 2: bit-equal, fresh and carried, at C = 4096 and 2048
+    err, equal = 0.0, 1.0
+    for C, B, L in ((D, 1, 1), (D, 1, 3), (D, 1, 77), (D, 2, 1000),
+                    (D, 1, 8192), (D // 2, 2, 1000), (D // 2, 1, 8192)):
+        zl, fw, fb, b_in = (randn(B, L, 3, C), f32(3, C, 3), f32(3, C),
+                            randn(3, C))
+        z = zl.permute(0, 2, 3, 1)
+        for tail in (None, randn(B, 3, C, 2)):
+            for a, b in zip(o['fir_gate'](z, fw, fb, tail, b_in=b_in),
+                            o['fir_gate_plain'](z, fw, fb, tail, b_in=b_in)):
+                torch.cuda.synchronize()
+                err = max(err, float((a.float() - b.float()).abs().max()))
+                equal = min(equal, float((a == b).float().mean()))
+    log(f'   fir_gate with float32 taps and FIR bias (C 4096 and 2048): max '
+        f'abs err {err:.3e}, equal {equal:.6f}')
+    check(err == 0 and equal == 1.0,
+          f'fir_gate kernel with float32 taps disagrees: {err}, {equal}')
+    zl, fw, fb, b_in = randn(1, 8192, 3, D), f32(3, D, 3), f32(3, D), \
+        randn(3, D)
+    z = zl.permute(0, 2, 3, 1)
+    n_in = zl.numel()
+    nbytes = (n_in + 2 * n_in // 3 + b_in.numel()) * 2 \
+        + (fw.numel() + fb.numel()) * 4
+    zls = [zl] + [randn(1, 8192, 3, D) for _ in range(5)]
+    fw16, fb16 = fw.bfloat16(), fb.bfloat16()
+    kernels['fir_gate_w32'] = dict(
+        name='fir_gate_w32', route='cuda',
+        source='evo_tpu_torch/csrc/fir_gate.cu',
+        replaces='evo_tpu/ops/pallas_fir.py:28', max_abs_err=err,
+        bit_equal_fraction=equal,
+        ms=time_graph_ms(torch, [
+            (lambda zz: lambda: o['fir_gate'](zz.permute(0, 2, 3, 1), fw, fb,
+                                              b_in=b_in))(zz) for zz in zls]),
+        bf16_weight_ms=time_graph_ms(torch, [
+            (lambda zz: lambda: o['fir_gate'](zz.permute(0, 2, 3, 1), fw16,
+                                              fb16, b_in=b_in))(zz)
+            for zz in zls]),
+        plain_ms=time_ms(torch, lambda: o['fir_gate_plain'](z, fw, fb,
+                                                             b_in=b_in)),
+        bound_ms=1e3 * max(nbytes / peak['bytes_s'],
+                           25 * (n_in // 3) / peak['fp32']),
+        bound_by='bytes', library_ms=None,
+        tp2_shard=dict(max_abs_err=err, bit_equal_fraction=equal,
+                       shape='zl (B, L, 3, 2048) with b_in, (2, 1000) and '
+                             '(1, 8192), fresh and carried'),
+        shape='zl (1, 8192, 3, 4096) bf16 with b_in bf16, taps (3, 4096, 3) '
+              'and FIR bias (3, 4096) float32; ms by graph replay over six '
+              'cold inputs, bf16_weight_ms the same with the weights in '
+              'bf16')
+    del zls
+
+    # kernel 6: phase 2's limits (2^-6 scaled, >= 99 % equal, the state
+    # within 1e-4, the FIR tail equal)
+    err = scaled = state = 0.0
+    equal = 1.0
+    for C, B, L, carried in ((D, 1, 8192, False), (D, 1, 8192, True),
+                             (D, 2, 37, True), (D // 2, 1, 2048, False),
+                             (D // 2, 2, 512, True)):
+        zl = randn(B, L, 3, C)
+        z, b_in = zl.permute(0, 2, 3, 1), randn(3, C)
+        fw, fb, d_skip = f32(3, C, 3, scale=0.5), f32(3, C, scale=0.1), \
+            f32(C)
+        poles, residues = modal_params(C, S)
+        st = (randn(B, 3, C, 2), randn(B, C, S, 2).float()) if carried \
+            else None
+        got = o['hyena_mixer'](z, fw, fb, poles, residues, d_skip,
+                               chunk=chunk, state=st, b_in=b_in)
+        torch.cuda.synchronize()
+        want = o['hyena_mixer_plain'](z, fw, fb, poles, residues, d_skip,
+                                      chunk=chunk, state=st, b_in=b_in)
+        check(torch.equal(got[2], want[2]),
+              'hyena_mixer with float32 weights: FIR tail differs')
+        err = max(err, float((got[0].float() - want[0].float()).abs().max()))
+        scaled = max(scaled, scaled_err(got[0], want[0]))
+        equal = min(equal, float((got[0] == want[0]).float().mean()))
+        state = max(state, scaled_err(got[1].flatten(2), want[1].flatten(2)))
+        del zl, z, got, want, st
+    log(f'   hyena_mixer with float32 taps, FIR bias and d_skip (C 4096 and '
+        f'2048): max abs err {err:.3e}, scaled {scaled:.3e}, equal '
+        f'{equal:.6f}, modal state scaled {state:.3e}')
+    check(scaled <= 2 ** -6 and equal >= 0.99 and state <= 1e-4,
+          f'hyena_mixer kernel with float32 weights disagrees: {scaled}, '
+          f'{equal}, {state}')
+    zl = randn(1, 8192, 3, D)
+    z, b_in = zl.permute(0, 2, 3, 1), randn(3, D)
+    fw, fb, d_skip = f32(3, D, 3, scale=0.5), f32(3, D, scale=0.1), f32(D)
+    poles, residues = modal_params(D, S)
+    n_pos = zl.numel() // 3
+    nbytes = (zl.numel() + n_pos + b_in.numel()) * 2 \
+        + (fw.numel() + fb.numel() + D) * 4 + 2 * poles.numel() * 4 \
+        + D * S * 2 * 4
+    flops = (n_pos // chunk) * (chunk * (chunk + 1) + 8 * S * chunk) \
+        + 26 * n_pos
+    bound = (1e3 * nbytes / peak['bytes_s'], 1e3 * flops / peak['fp32'])
+    zls = [zl] + [randn(1, 8192, 3, D) for _ in range(5)]
+    w16 = (fw.bfloat16(), fb.bfloat16(), poles, residues, d_skip.bfloat16())
+    w32 = (fw, fb, poles, residues, d_skip)
+
+    def mixer_on(zz, ws):
+        return lambda: o['hyena_mixer'](zz.permute(0, 2, 3, 1), *ws,
+                                        chunk=chunk, b_in=b_in)
+    kernels['hyena_mixer_w32'] = dict(
+        name='hyena_mixer_w32', route='cuda',
+        source='evo_tpu_torch/csrc/hyena_mixer.cu',
+        replaces='evo_tpu/ops/pallas_hyena.py:69', max_abs_err=err,
+        max_scaled_err=scaled, bit_equal_fraction=equal,
+        max_scaled_err_state=state,
+        ms=time_graph_ms(torch, [mixer_on(zz, w32) for zz in zls]),
+        bf16_weight_ms=time_graph_ms(torch, [mixer_on(zz, w16)
+                                             for zz in zls]),
+        plain_ms=time_ms(torch, lambda: o['hyena_mixer_plain'](
+            z, *w32, chunk=chunk, b_in=b_in), reps=5, warmup=1),
+        bound_ms=max(bound),
+        bound_by='bytes' if bound[0] > bound[1] else 'operations',
+        library_ms=None,
+        tp2_shard=dict(max_abs_err=err, max_scaled_err=scaled,
+                       bit_equal_fraction=equal, max_scaled_err_state=state,
+                       shape='zl (B, L, 3, 2048) with b_in: (1, 2048) fresh, '
+                             '(2, 512) carried'),
+        shape='zl (1, 8192, 3, 4096) bf16 with b_in bf16, taps, FIR bias '
+              'and d_skip float32, chunk 64, 8 states; ms by graph replay '
+              'over six cold inputs, bf16_weight_ms the same with those '
+              'weights in bf16; no single PyTorch call computes this '
+              'function')
+    del zls, w16, w32
+    for name in ('rmsnorm_w32', 'fir_gate_w32', 'hyena_mixer_w32'):
+        kk = kernels[name]
+        log(f"   {name}: {kk['ms']:.4f} ms with float32 weights, "
+            f"{kk['bf16_weight_ms']:.4f} with bf16 ones (bound "
+            f"{kk['bound_ms']:.4f} ms, plain {kk['plain_ms']:.4f})")
+
+
+# Kernel 8 under autograd (LoRA over an int4 base at up to 128 rows): the
+# Function's backward is the plain version's gradient to x at the inputs
+# the forward saw, so it equals autograd's through the plain forward but
+# for the order of float32 sums inside the recomputed product: 1e-4 of
+# the larger of the value and its row's rms, kernel 8's own limit
+INT4_GRAD_LIMIT = 1e-4
+
+
+def int4_grad_checks(torch, log, kernels, randn, peak, int4_case,
+                     int4_bound_ms, ops):
+    """Kernel 8's autograd Function at M = 1, 2 and 128 rows of a
+    4096 x 12288 weight: the gradient of x against autograd's through the
+    plain version, within `INT4_GRAD_LIMIT`, and the forward, the backward
+    (plain VJP) and the plain backward timed by CUDA events. The row
+    `int4_matmul_grad` of the kernels line (its launches: phase 25's short
+    int4 leg)."""
+    o = ops
+    rows, worst, err = {}, 0.0, 0.0
+    for M in (1, 2, 128):
+        x0, packed, sc = int4_case(M, 4096, 12288)
+        x = x0.requires_grad_()
+        gy = randn(M, 12288)
+        r = time_grads(
+            torch, lambda: o['int4_matmul'](x, packed, sc, torch.bfloat16),
+            lambda: o['int4_matmul_plain'](x, packed, sc, torch.bfloat16),
+            (x,), (gy,), 10)
+        gk, = torch.autograd.grad(
+            o['int4_matmul'](x, packed, sc, torch.bfloat16), x, gy)
+        gp, = torch.autograd.grad(
+            o['int4_matmul_plain'](x, packed, sc, torch.bfloat16), x, gy)
+        r['grad_max_abs_err'] = float((gk.float() - gp.float()).abs().max())
+        err = max(err, r['grad_max_abs_err'])
+        r['plain_forward_ms'] = time_ms(torch, lambda: o['int4_matmul_plain'](
+            x.detach(), packed, sc, torch.bfloat16), reps=5, warmup=1)
+        rows[M] = r
+        worst = max(worst, r['grad_scaled_err'])
+        log(f'   int4_matmul under autograd, M={M}, 4096 x 12288: {r}')
+    check(worst <= INT4_GRAD_LIMIT,
+          f'int4_matmul backward disagrees with the plain gradient: {worst}')
+    by_rows = kernels['int4_matmul']['by_rows']
+    kernels['int4_matmul_grad'] = dict(
+        name='int4_matmul_grad', route='cuda',
+        source='evo_tpu_torch/csrc/int4_matmul.cu (forward), '
+               'evo_tpu_torch/ops/int4.py Int4MatmulFunction',
+        replaces='evo_tpu/ops/pallas_int4.py:87', max_abs_err=err,
+        max_scaled_err=worst, ms=rows[128]['forward_ms'],
+        plain_ms=rows[128]['plain_forward_ms'],
+        bound_ms=int4_bound_ms(128, 4096, 4096, 12288),
+        bound_by=('operations' if 2 * 128 * 4096 * 12288 / peak['bf16'] >
+                  (2048 * 12288 + 32 * 12288 * 4 + 128 * (4096 + 12288) * 2)
+                  / peak['bytes_s'] else 'bytes'),
+        library_ms=by_rows[128].get('library_ms'), by_rows=rows,
+        shape='x (128, 4096) bf16 requiring grad, packed (2048, 12288), '
+              'scales (32, 12288) -> y bf16: the forward through the '
+              'Function (the kernel); the errors are those of the gradient '
+              'of x; by_rows: forward, backward (plain VJP) '
+              'and plain backward ms at M = 1, 2, 128; library: '
+              'torch._weight_int4pack_mm forward at M = 128 (phase 2)')
+
+
 def phase21_inputs(torch, np, evo, prompts, seqs, nudged_forward, d):
     """What phase 21's ranks are held to, from the single-process
     evo-1-8k-base (seed 0) while it is on the card and unchanged: one
-    forward at B=1, L=8,192 and its one-rounding yardstick, phase 5's
-    prompts, phase 4's ragged sequences, and a FASTA of 16 sequences with
-    their scores in batches of 4. Written to `d`; the logits leave the
-    card."""
+    forward at B=1, L=8,192 of its first 16 layers (the depth of phase 21
+    (b)) and its one-rounding yardstick, phase 5's prompts, phase 4's
+    ragged sequences, and a FASTA of 16 sequences with their scores in
+    batches of 4; and the same forward and yardstick at full depth, which
+    phase 22 reads. Written to `d`; the logits leave the card."""
     from evo_tpu_torch.io.fasta import read_fasta, write_fasta
     from evo_tpu_torch.scoring import score_sequences
+    from evo_tpu_torch.tools.tp_smoke import SIXTEEN
     rng = np.random.default_rng(21)
     ids = torch.from_numpy(rng.integers(65, 85, (1, 8192)))
     logits = evo.model(ids)[0]
     floor = float((nudged_forward(evo.model, ids) - logits).abs().mean())
+    sixteen = truncated(evo.model, SIXTEEN)
+    logits16 = sixteen(ids)[0]
+    floor16 = float((nudged_forward(sixteen, ids) - logits16).abs().mean())
     torch.save({'ids': ids, 'logits': logits.float().cpu(),
-                'prompts': prompts, 'seqs': seqs},
-               os.path.join(d, 'model_in.pt'))
-    del logits
+                'logits16': logits16.float().cpu(), 'prompts': prompts,
+                'seqs': seqs}, os.path.join(d, 'model_in.pt'))
+    del logits, logits16, sixteen
     _, examples = read_fasta(os.path.join(ROOT, 'examples',
                                           'example_seqs.fasta'))
     # the 3 examples, the 4 ragged sequences, and 9 of their prefixes
@@ -979,7 +1619,8 @@ def phase21_inputs(torch, np, evo, prompts, seqs, nudged_forward, d):
     scores = []
     for i in range(0, 16, 4):
         scores += score_sequences(fasta16[i:i + 4], evo.model, evo.tokenizer)
-    return dict(floor=floor, fasta=path, seqs=fasta16, scores=scores)
+    return dict(floor=floor, floor16=floor16, fasta=path, seqs=fasta16,
+                scores=scores)
 
 
 def phase21_parallel(torch, np, smi, launches, ref, res20, corpus, d):
@@ -1041,16 +1682,17 @@ def phase21_parallel(torch, np, smi, launches, ref, res20, corpus, d):
           and after == before, 'the sharded CLI did not resume')
     out['a'] = dict(seconds=secs, resume_seconds=secs2, max_diff=worst)
 
-    # (b) a tp = 2 evo-1-8k-base
+    # (b) a tp = 2 evo-1-8k-base on its first 16 layers (15 Hyena layers,
+    # the attention at 8)
     _, secs = run(['-m', 'evo_tpu_torch.tools.tp_smoke', 'model', d],
                   'model')
     r0, r1 = rank_json('model')
-    per_forward = {'rmsnorm': 65, 'fir_gate': 29, 'flash_attention': 3}
+    per_forward = {'rmsnorm': 33, 'fir_gate': 15, 'flash_attention': 1}
     n_new = 32
-    want_gen = {'rmsnorm': 65 * n_new, 'fir_gate': 29, 'flash_attention': 3,
-                'flash_attention_buffer': 3 * (n_new - 1)}
-    want_gen8 = dict(want_gen, flash_attention_buffer_q8=3 * (n_new - 1),
-                     combine_partials=3 * (n_new - 1))
+    want_gen = {'rmsnorm': 33 * n_new, 'fir_gate': 15, 'flash_attention': 1,
+                'flash_attention_buffer': n_new - 1}
+    want_gen8 = dict(want_gen, flash_attention_buffer_q8=n_new - 1,
+                     combine_partials=n_new - 1)
     del want_gen8['flash_attention_buffer']
     logits = [torch.load(os.path.join(d, f'logits_rank{r}.pt'))
               for r in (0, 1)]
@@ -1058,12 +1700,13 @@ def phase21_parallel(torch, np, smi, launches, ref, res20, corpus, d):
         m = res['part']
         t_b, t_8 = m['teacher_bf16'], m['teacher_int8']
         log(f'   (b) rank {r}: weights {m["weight_gib"]:.2f} GiB, made in '
-            f'{m["init_s"]:.1f} s; forward B=1 L=8192 {m["forward_ms"]:.1f} '
-            f'ms; again with each of the 64 reduces between device syncs '
+            f'{m["init_s"]:.1f} s; 16 layers: forward B=1 L=8192 '
+            f'{m["forward_ms"]:.1f} ms; again with each of the 32 reduces '
+            f'between device syncs '
             f'{m["forward_instrumented_ms"]:.1f} ms, of which the reduces '
             f'{m["reduce_ms"]:.1f} ms, {100 * m["reduce_share"]:.1f} %; '
             f'against the single process: mean abs '
-            f'{m["forward_mean_abs"]:.5f} (yardstick {ref["floor"]:.5f}), '
+            f'{m["forward_mean_abs"]:.5f} (yardstick {ref["floor16"]:.5f}), '
             f'max {m["forward_max_abs"]:.4f}, argmax agreement '
             f'{m["forward_argmax_agree"]:.4f}; decode step '
             f'{m["decode_step_ms"]:.2f} ms at B=2; generate 2 x 512 + 32: '
@@ -1081,15 +1724,15 @@ def phase21_parallel(torch, np, smi, launches, ref, res20, corpus, d):
         check(m['launches_generate_int8'] == want_gen8,
               f'tp int8-KV generate launches {m["launches_generate_int8"]}')
         check(m['launches_fused_forward'] == {
-            'rmsnorm': 65, 'flash_attention': 3, 'hyena_mixer': 29},
+            'rmsnorm': 33, 'flash_attention': 1, 'hyena_mixer': 15},
               f'tp fused launches {m["launches_fused_forward"]}')
         check(m['launches_prefix_forward'] == {
-            'rmsnorm': 65, 'fir_gate': 29, 'modal_prefix': 29,
-            'flash_attention': 3},
+            'rmsnorm': 33, 'fir_gate': 15, 'modal_prefix': 15,
+            'flash_attention': 1},
               f'tp prefix launches {m["launches_prefix_forward"]}')
-        check(m['prefix_mean_abs'] <= ref['floor'],
+        check(m['prefix_mean_abs'] <= ref['floor16'],
               'tp forward under the prefix kernel past the yardstick')
-        check(m['forward_mean_abs'] <= ref['floor']
+        check(m['forward_mean_abs'] <= ref['floor16']
               and m['forward_argmax_agree'] >= 0.75,
               'tp logits moved past the one-rounding yardstick')
         check(t_b['mean_abs'] <= t_b['yardstick'] and t_b['argmax_agree']
@@ -1097,7 +1740,7 @@ def phase21_parallel(torch, np, smi, launches, ref, res20, corpus, d):
         check(t_8['mean_abs'] <= 4 * t_8['yardstick']
               and t_8['argmax_agree'] >= 0.75,
               f'tp teacher forcing, int8 KV: {t_8}')
-        check(m['fused_mean_abs'] <= ref['floor'],
+        check(m['fused_mean_abs'] <= ref['floor16'],
               'tp fused forward past the yardstick')
         check(m['all_finite'] and max(abs(a - b) for a, b in zip(
             m['scores_int8'], m['scores_bf16'])) <= 0.05,
@@ -1395,20 +2038,38 @@ def serve_launches(calls, chunks, layers, attn, int8=False, split_rows=4):
     return {k: v for k, v in want.items() if v}
 
 
+def truncated(model, overrides):
+    """An `EvoModel` over the first `overrides['num_layers']` blocks of
+    `model` (shared, not copied), with its embedding and final norm: the
+    model that `random_init` with the same seed makes at that depth."""
+    import copy
+
+    from torch import nn
+
+    from evo_tpu_torch.models import EvoModel
+    module = copy.copy(model.module)
+    module._modules = dict(module._modules)
+    module.blocks = nn.ModuleList(
+        list(model.module.blocks)[:overrides['num_layers']])
+    module.config = model.module.config.replace(**overrides)
+    return EvoModel(module.config, module)
+
+
 def phase23_mesh(np, smi, launches, big, tok, inp, d, helpers):
     """Serving, speculation and LoRA under a mesh: two ranks of the port on
     the one card over gloo (chosen explicitly; NCCL refuses two ranks on
     one card), `tools/mesh_smoke.py model`, held to the single process:
     `big` is the single-process evo-1-8k-base (seed 0, unchanged since
-    phase 4) and `helpers` phase 16's and 18's checks. (c)'s checks
-    wait for phase 20's loss (`phase23_lora_check`). These times are gloo's
+    phase 4), whose first 16 layers (a) and (b) run under tp = 2 and are
+    held to, and `helpers` phase 16's and 18's checks. (c)'s checks wait
+    for phase 20's loss (`phase23_lora_check`). These times are gloo's
     host-memory collectives on one card, and say nothing of NCCL or of a
     mesh across cards."""
     from types import SimpleNamespace
 
     from evo_tpu_torch.models import Evo, EvoModel
     from evo_tpu_torch.parallel.distributed import launch_local
-    from evo_tpu_torch.tools.mesh_smoke import NINE
+    from evo_tpu_torch.tools.mesh_smoke import NINE, SIXTEEN
     env = dict(os.environ, PYTHONPATH=ROOT)
     log(f'== 23. serving, speculation and LoRA under a mesh ({smi}): 2 ranks '
         f'on one card, torch.distributed backend gloo (passed explicitly)')
@@ -1467,10 +2128,14 @@ def phase23_mesh(np, smi, launches, big, tok, inp, d, helpers):
                     argmax_agreement=agree)
 
     out = {'seconds': secs}
-    out['a'] = served('a', big, reqs, 32, 3, 1, '(a) tp = 2, bf16 KV')
+    # (a) and (b) ran the first 16 layers of `big`: the same weights (the
+    # draws of random_init run layer by layer in order) and final norm
+    sixteen = truncated(big, SIXTEEN)
+    out['a'] = served('a', sixteen, reqs, 16, 1, 1, '(a) tp = 2, bf16 KV')
     out['a_int8'] = served(
-        'a_int8', EvoModel(big.config.replace(kv_quant='int8'), big.module),
-        inp['requests_int8'], 32, 3, 4, '(a) tp = 2, int8 KV')
+        'a_int8', EvoModel(sixteen.config.replace(kv_quant='int8'),
+                           sixteen.module),
+        inp['requests_int8'], 16, 1, 4, '(a) tp = 2, int8 KV')
     for r, m in enumerate(ranks):
         p, ts = m['a']['profiled_step'], m['a']['timed_step']
         log(f'   (a) rank {r}: one step() of 4 decoding slots in the '
@@ -1489,7 +2154,7 @@ def phase23_mesh(np, smi, launches, big, tok, inp, d, helpers):
     b = ranks[0]['b']
     for r, m in enumerate(ranks):
         x = m['b']
-        want = helpers['spec_launches'](x['lengths'])
+        want = helpers['spec_launches'](x['lengths'], layers=16, attn=1)
         check(x['launches'] == want, f'23(b) rank {r} launches '
               f'{x["launches"]}, expected {want}')
         full, replays = helpers['check_schedule_ran'](
@@ -1505,7 +2170,8 @@ def phase23_mesh(np, smi, launches, big, tok, inp, d, helpers):
           and ranks[1]['b']['logps'] == b['logps'],
           '23(b): the ranks\' results differ')
     d_, dmax, f_, agree = helpers['spec_teacher_forced'](
-        big, inp['spec_prompt'], np.asarray(b['tokens']), b['logps'])
+        sixteen, inp['spec_prompt'], np.asarray(b['tokens']), b['logps'])
+    del sixteen
     log(f'   (b): teacher forcing: mean abs log-prob diff {d_:.5f} (max '
         f'{dmax:.4f}), one rounding step {f_:.5f} (limit 1x), argmax '
         f'agreement {agree:.4f} (limit 0.75); ranks equal')
@@ -2690,6 +3356,14 @@ def main():
                         hyena_mixer_supported=hyena_mixer_supported,
                         modal_prefix=modal_prefix,
                         modal_prefix_plain=modal_prefix_plain))
+    float32_weight_checks(
+        torch, log, kernels, randn, D, S, chunk, peak, modal_params, dict(
+            rmsnorm=rmsnorm, rmsnorm_plain=rmsnorm_plain, fir_gate=fir_gate,
+            fir_gate_plain=fir_gate_plain, hyena_mixer=hyena_mixer,
+            hyena_mixer_plain=hyena_mixer_plain))
+    int4_grad_checks(torch, log, kernels, randn, peak, int4_case,
+                     int4_bound_ms, dict(int4_matmul=int4_matmul,
+                                         int4_matmul_plain=int4_matmul_plain))
     for kk in kernels.values():
         log(f"   {kk['name']}: {kk['ms']:.4f} ms (bound {kk['bound_ms']:.4f}"
             f" ms by {kk['bound_by']}, plain {kk['plain_ms']:.4f}, library "
@@ -3292,20 +3966,22 @@ def main():
               f'(lengths {lengths})')
         return full, collections.Counter(replays)
 
-    def spec_launches(lengths, quantized=False, int4=False):
-        """The launches a run of calls of these lengths makes."""
+    def spec_launches(lengths, quantized=False, int4=False, layers=32,
+                      attn=3):
+        """The launches a run of calls of these lengths makes (a model of
+        `layers` layers, `attn` of them attention)."""
         n_calls = len(lengths)
         want = collections.Counter({
-            'rmsnorm': 65 * n_calls, 'flash_attention': 3,
-            'fir_gate': 29 * sum(L >= 3 for L in lengths)})
+            'rmsnorm': (2 * layers + 1) * n_calls, 'flash_attention': attn,
+            'fir_gate': (layers - attn) * sum(L >= 3 for L in lengths)})
         if quantized:
-            want['flash_attention_buffer_q8'] = 3 * (n_calls - 1)
-            want['combine_partials'] = 3 * sum(
+            want['flash_attention_buffer_q8'] = attn * (n_calls - 1)
+            want['combine_partials'] = attn * sum(
                 L <= attention_buffer_mod.SPLIT_MAX_ROWS for L in lengths[1:])
         else:
-            want['flash_attention_buffer'] = 3 * (n_calls - 1)
+            want['flash_attention_buffer'] = attn * (n_calls - 1)
         if int4:
-            want['int4_matmul'] = 160 * sum(L <= 128 for L in lengths)
+            want['int4_matmul'] = 5 * layers * sum(L <= 128 for L in lengths)
         return {k: v for k, v in want.items() if v}
 
     def spec_teacher_forced(model, prompt, toks, logps):
@@ -3591,11 +4267,16 @@ def main():
         torch.cuda.empty_cache()
         log(f'== 19. gradients through kernels 1-3 ({smi})')
         check_kernel_grads(torch, np, kernels, smi)
-        phase19_lora(torch, np, evo, smi, launches, nudged_forward, corpus)
+        res19 = phase19_lora(torch, np, evo, smi, launches, nudged_forward,
+                             corpus)
         del evo
         torch.cuda.empty_cache()
         res20 = phase20_full(torch, np, smi, launches, corpus)
         phase23_lora_check(res23, res20)
+        # -- 25. LoRA over a quantized base, mixed types ------------------
+        torch.cuda.empty_cache()
+        phase25_quant_lora_mixed(torch, np, smi, launches, res19, res20,
+                                 corpus)
         # -- 21. data- and tensor-parallel execution, 2 ranks ------------
         torch.cuda.empty_cache()
         phase21_parallel(torch, np, smi, launches, ref21, res20, corpus,
@@ -4365,7 +5046,11 @@ def main():
                    '(divide by 4 for a step)', decode_steps(evo4.model, 4))
 
     # the phase that stands for each kernel's main path
-    main_phase = {'flash_attention_buffer': 'score_segmented_131k',
+    main_phase = {'rmsnorm_w32': 'mixed_forward_8192',
+                  'fir_gate_w32': 'mixed_forward_8192',
+                  'hyena_mixer_w32': 'mixed_fused_forward_8192',
+                  'int4_matmul_grad': 'lora_int4_128',
+                  'flash_attention_buffer': 'score_segmented_131k',
                   'flash_attention_buffer_q8': 'generate_int8',
                   'combine_partials': 'generate_int8',
                   'int4_matmul': 'generate_int4',

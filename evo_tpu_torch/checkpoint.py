@@ -849,6 +849,8 @@ def quantized_layers_from_jax(model: StripedHyena,
                                         else leaf[n][j]))
                     .to(model.device) for n in (cn, sn))
                 owner = getattr(blk, sub)
+                shape = tuple(getattr(owner, name).shape)
                 delattr(owner, name)
-                setattr(owner, name, QuantizedWeight(mode, codes, scales))
+                setattr(owner, name, QuantizedWeight(
+                    mode, codes, scales, logical_shape=shape))
     return model

@@ -130,8 +130,11 @@ class ModelConfig:
     use_interpolated_rotary_pos_emb: bool = False
     rotary_emb_scaling_factor: float = 1.0
     rotary_base: float = 10000.0
-    # activations / matmuls; poles and residues are always float32
-    # (reference `to_bfloat16_except_poles_residues`)
+    # activations / matmuls, and the stored weights; poles and residues
+    # are always float32 (reference `to_bfloat16_except_poles_residues`).
+    # The two may differ (float32 weights under bf16 activations): the
+    # sites cast each weight into the activation type where the JAX
+    # package does, and kernels 1, 2 and 6 read float32 weights as stored
     compute_dtype: str = 'bfloat16'
     param_dtype: str = 'bfloat16'
     # recompute each block on the backward pass (training; model.py wraps
@@ -194,11 +197,6 @@ class ModelConfig:
         if self.kv_quant not in ('none', 'int8'):
             raise ValueError(f"kv_quant must be 'none' or 'int8', got "
                              f'{self.kv_quant!r}')
-        if self.param_dtype != self.compute_dtype:
-            raise NotImplementedError(
-                'param_dtype != compute_dtype is not ported: the port keeps '
-                'its weights in the activation type (ROADMAP.md, modules '
-                'queue: mixed parameter and activation types)')
 
     @property
     def head_dim(self) -> int:

@@ -1,5 +1,6 @@
 // Shared helpers of the port's kernels: element conversion for bf16, the
-// one activation type the kernels take, the mma.sync product of the int4
+// one activation type the kernels take (and for the float32 weights that
+// kernels 1, 2 and 6 also read), the mma.sync product of the int4
 // matmul, bf16 packing, and the asynchronous copies of the kernels that
 // stage tiles with cp.async (the Hopper ones are in `sm90.cuh`).
 #pragma once
@@ -14,6 +15,9 @@ namespace evo {
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+
+// a float32 weight (param_dtype float32), read as stored
+__device__ __forceinline__ float to_float(float x) { return x; }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);

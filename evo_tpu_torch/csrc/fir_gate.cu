@@ -44,6 +44,13 @@
 // A missing bias is a zero one, which changes no output bit: the float32
 // sum starts at +0 and so is never -0, and a zero input's sign never
 // reaches it.
+//
+// The taps and the FIR bias are bf16 or float32 (a model whose
+// param_dtype is float32 under bf16 activations): a template on their
+// type, read as stored and upcast once a block, as the JAX kernel upcasts
+// `w_ref` and `b_ref`; the sums above are product-then-add in float32
+// either way, so the float32 taps meet the plain version's order too. A
+// bf16 weight compiles to the same code as before the template.
 
 #include <cstdint>
 
@@ -108,10 +115,12 @@ __device__ __forceinline__ void store_run(bf16* dst, const uint32_t* v,
     if (k < n) d[k] = (uint16_t)(v[k / 2] >> (16 * (k & 1)));
 }
 
-// one tile: positions t0 .. t0+63, channels c0 .. c0+63 of batch row b
+// one tile: positions t0 .. t0+63, channels c0 .. c0+63 of batch row b;
+// WT the type of the taps and the FIR bias (bf16 or float32)
+template <typename WT>
 __device__ __forceinline__ void fir_gate_tile(
-    Smem& sm, const bf16* __restrict__ zl, const bf16* __restrict__ w,
-    const bf16* __restrict__ fb, const bf16* __restrict__ bin,
+    Smem& sm, const bf16* __restrict__ zl, const WT* __restrict__ w,
+    const WT* __restrict__ fb, const bf16* __restrict__ bin,
     const bf16* __restrict__ tail, bf16* __restrict__ x2,
     bf16* __restrict__ u, int C, int L, int t0, int c0, int64_t b) {
   const int tid = threadIdx.x;
@@ -250,14 +259,27 @@ __device__ __forceinline__ void fir_gate_tile(
 
 // blocks along the sequence first: a tile's two halo rows were loaded by
 // the block before it, so they come from L2
+template <typename WT>
 __global__ void __launch_bounds__(kThreads, 4)
-    fir_gate_kernel(const bf16* __restrict__ zl, const bf16* __restrict__ w,
-                    const bf16* __restrict__ fb, const bf16* __restrict__ bin,
+    fir_gate_kernel(const bf16* __restrict__ zl, const WT* __restrict__ w,
+                    const WT* __restrict__ fb, const bf16* __restrict__ bin,
                     const bf16* __restrict__ tail, bf16* __restrict__ x2,
                     bf16* __restrict__ u, int C, int L) {
   __shared__ Smem sm;
-  fir_gate_tile(sm, zl, w, fb, bin, tail, x2, u, C, L, blockIdx.x * kTileT,
-                blockIdx.y * kTileC, blockIdx.z);
+  fir_gate_tile<WT>(sm, zl, w, fb, bin, tail, x2, u, C, L,
+                    blockIdx.x * kTileT, blockIdx.y * kTileC, blockIdx.z);
+}
+
+template <typename WT>
+int launch(const void* zl, const void* w, const void* fir_b,
+           const void* b_in, const void* tail, void* x2, void* u, int B,
+           int C, int L, int K, void* stream) {
+  if (K != kTaps || C % 8 != 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid((L + kTileT - 1) / kTileT, (C + kTileC - 1) / kTileC, B);
+  fir_gate_kernel<WT><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const bf16*)zl, (const WT*)w, (const WT*)fir_b, (const bf16*)b_in,
+      (const bf16*)tail, (bf16*)x2, (bf16*)u, C, L);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -269,10 +291,16 @@ extern "C" int evo_fir_gate_bf16(const void* zl, const void* w,
                                  const void* fir_b, const void* b_in,
                                  const void* tail, void* x2, void* u, int B,
                                  int C, int L, int K, void* stream) {
-  if (K != kTaps || C % 8 != 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((L + kTileT - 1) / kTileT, (C + kTileC - 1) / kTileC, B);
-  fir_gate_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const bf16*)zl, (const bf16*)w, (const bf16*)fir_b, (const bf16*)b_in,
-      (const bf16*)tail, (bf16*)x2, (bf16*)u, C, L);
-  return (int)cudaGetLastError();
+  return launch<bf16>(zl, w, fir_b, b_in, tail, x2, u, B, C, L, K, stream);
+}
+
+// the same with the taps w and the FIR bias fir_b in float32 (param_dtype
+// float32 under bf16 activations), read as stored; b_in stays bf16, as
+// the layer rounds it to the activation type before the FIR
+extern "C" int evo_fir_gate_bf16_wf32(const void* zl, const void* w,
+                                      const void* fir_b, const void* b_in,
+                                      const void* tail, void* x2, void* u,
+                                      int B, int C, int L, int K,
+                                      void* stream) {
+  return launch<float>(zl, w, fir_b, b_in, tail, x2, u, B, C, L, K, stream);
 }

@@ -74,6 +74,14 @@
 // size) runs the same code over zero-padded u; the state is carried with
 // p^Ct. No result depends on how blocks are scheduled.
 //
+// The taps, the FIR bias and d_skip are bf16 or float32 (a model whose
+// param_dtype is float32 under bf16 activations): a template on their
+// type, read as stored and upcast in registers, as the JAX kernel upcasts
+// its tap and bias slabs and folds d_skip into its float32 Toeplitz. With
+// float32 taps each product rounds, so the FIR runs product-then-add with
+// no contraction, as the plain version; a bf16 weight compiles to the same
+// code as before the template.
+//
 // Numerics: the bias add, the FIR and the gates are bit-equal to the plain
 // version (the leading `0 +` of its FIR sum is skipped, which can only turn
 // a -0 into +0). The long conv's sums run in another order than the plain
@@ -83,6 +91,7 @@
 // one bf16 step away.
 
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -183,14 +192,16 @@ __device__ __forceinline__ void load_window(float* w, const float* src) {
   w[7] = b.w;
 }
 
+// WT: the type of the taps, the FIR bias and d_skip (bf16 or float32)
+template <typename WT>
 __global__ void __launch_bounds__(kThreads, 2)
     hyena_mixer_kernel(const bf16* __restrict__ zl,
-                       const bf16* __restrict__ fir_w,
-                       const bf16* __restrict__ fir_b,
+                       const WT* __restrict__ fir_w,
+                       const WT* __restrict__ fir_b,
                        const bf16* __restrict__ b_in,
                        const float* __restrict__ poles,
                        const float* __restrict__ residues,
-                       const bf16* __restrict__ d_skip,
+                       const WT* __restrict__ d_skip,
                        const bf16* __restrict__ fir0,
                        const float* __restrict__ st0, bf16* __restrict__ y,
                        float* __restrict__ iir, int C, int64_t L, int Ct,
@@ -373,12 +384,21 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
         for (int k = 0; k < kRun; ++k) {
           const float z0 = evo::to_float(biased(t0 + k));
-          // taps and inputs are bf16, so each product is exact in float32
-          // and a fused multiply-add rounds as the plain version's
-          // product-then-add
-          float acc = w[s][0] * z2;
-          acc = fmaf(w[s][1], z1, acc);
-          acc = fmaf(w[s][2], z0, acc);
+          float acc;
+          if constexpr (std::is_same<WT, bf16>::value) {
+            // taps and inputs are bf16, so each product is exact in
+            // float32 and a fused multiply-add rounds as the plain
+            // version's product-then-add
+            acc = w[s][0] * z2;
+            acc = fmaf(w[s][1], z1, acc);
+            acc = fmaf(w[s][2], z0, acc);
+          } else {
+            // float32 taps: a product rounds, so product-then-add as the
+            // plain version, with no contraction
+            acc = __fmul_rn(w[s][0], z2);
+            acc = __fadd_rn(acc, __fmul_rn(w[s][1], z1));
+            acc = __fadd_rn(acc, __fmul_rn(w[s][2], z0));
+          }
           if (has_fb) acc = __fadd_rn(acc, fbv[s]);
           const float f = bf16_round(acc);
           if (s == 0) xv[k] = f;
@@ -486,6 +506,29 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+template <typename WT>
+int launch(const void* zl, const void* fir_w, const void* fir_b,
+           const void* b_in, const void* poles, const void* residues,
+           const void* d_skip, const void* fir0, const void* st0, void* y,
+           void* iir, int B, int C, long long L, int Ct, int S, int KF,
+           void* stream) {
+  if (Ct < 1 || Ct > kMaxChunk || L % Ct || S < 1 || S > kMaxS ||
+      KF != kTaps || C % 8)
+    return (int)cudaErrorInvalidValue;
+  const int smem = (int)sizeof(Smem);
+  const cudaError_t err = cudaFuncSetAttribute(
+      hyena_mixer_kernel<WT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((C + kCB - 1) / kCB, B);
+  hyena_mixer_kernel<WT><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const bf16*)zl, (const WT*)fir_w, (const WT*)fir_b,
+      (const bf16*)b_in, (const float*)poles, (const float*)residues,
+      (const WT*)d_skip, (const bf16*)fir0, (const float*)st0, (bf16*)y,
+      (float*)iir, C, (int64_t)L, Ct, S);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // zl: the in-projection's output (B, L, 3, C), contiguous, 16-byte aligned;
@@ -501,18 +544,17 @@ extern "C" int evo_hyena_mixer_bf16(const void* zl, const void* fir_w,
                                     const void* st0, void* y, void* iir,
                                     int B, int C, long long L, int Ct, int S,
                                     int KF, void* stream) {
-  if (Ct < 1 || Ct > kMaxChunk || L % Ct || S < 1 || S > kMaxS ||
-      KF != kTaps || C % 8)
-    return (int)cudaErrorInvalidValue;
-  const int smem = (int)sizeof(Smem);
-  const cudaError_t err = cudaFuncSetAttribute(
-      hyena_mixer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((C + kCB - 1) / kCB, B);
-  hyena_mixer_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const bf16*)zl, (const bf16*)fir_w, (const bf16*)fir_b,
-      (const bf16*)b_in, (const float*)poles, (const float*)residues,
-      (const bf16*)d_skip, (const bf16*)fir0, (const float*)st0, (bf16*)y,
-      (float*)iir, C, (int64_t)L, Ct, S);
-  return (int)cudaGetLastError();
+  return launch<bf16>(zl, fir_w, fir_b, b_in, poles, residues, d_skip, fir0,
+                      st0, y, iir, B, C, L, Ct, S, KF, stream);
+}
+
+// the same with fir_w, fir_b and d_skip in float32 (param_dtype float32
+// under bf16 activations), read as stored; b_in and fir0 stay bf16
+extern "C" int evo_hyena_mixer_bf16_wf32(
+    const void* zl, const void* fir_w, const void* fir_b, const void* b_in,
+    const void* poles, const void* residues, const void* d_skip,
+    const void* fir0, const void* st0, void* y, void* iir, int B, int C,
+    long long L, int Ct, int S, int KF, void* stream) {
+  return launch<float>(zl, fir_w, fir_b, b_in, poles, residues, d_skip, fir0,
+                       st0, y, iir, B, C, L, Ct, S, KF, stream);
 }

@@ -16,6 +16,11 @@
 // give the row's statistic. The second pass re-reads the row, which is at
 // most a few KB and still in L1/L2, so device memory sees one read of x,
 // one write of y, and the weight vector from L2.
+//
+// The gain is bf16 or float32 (a model whose param_dtype is float32 under
+// bf16 activations): a template on its type, read as stored and upcast in
+// registers, as the JAX kernel upcasts `w_ref` whatever its type. A bf16
+// gain compiles to the same code as before the template.
 
 #include <cstdint>
 
@@ -23,14 +28,37 @@
 
 namespace {
 
-template <typename T>
+// the 8 weights of 16-byte vector i of the activations, as float: one
+// 16-byte load of bf16 weights, two of float32 ones (read as stored)
+__device__ __forceinline__ void weights8(const __nv_bfloat16* w, int i,
+                                         float* out) {
+  const uint4 raw = reinterpret_cast<const uint4*>(w)[i];
+  const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) out[j] = evo::to_float(v[j]);
+}
+
+__device__ __forceinline__ void weights8(const float* w, int i, float* out) {
+  const float4* v = reinterpret_cast<const float4*>(w) + 2 * i;
+  const float4 a = v[0], b = v[1];
+  out[0] = a.x;
+  out[1] = a.y;
+  out[2] = a.z;
+  out[3] = a.w;
+  out[4] = b.x;
+  out[5] = b.y;
+  out[6] = b.z;
+  out[7] = b.w;
+}
+
+template <typename T, typename WT>
 __global__ void rmsnorm_kernel(const T* __restrict__ x,
-                               const T* __restrict__ w, T* __restrict__ y,
+                               const WT* __restrict__ w, T* __restrict__ y,
                                int cols, float eps) {
   constexpr int VEC = 16 / sizeof(T);
+  static_assert(VEC == 8, "weights8 reads 8 weights a vector");
   const int64_t row = blockIdx.x;
   const uint4* xr = reinterpret_cast<const uint4*>(x + row * cols);
-  const uint4* wv = reinterpret_cast<const uint4*>(w);
   uint4* yr = reinterpret_cast<uint4*>(y + row * cols);
   const int nvec = cols / VEC;
 
@@ -63,20 +91,19 @@ __global__ void rmsnorm_kernel(const T* __restrict__ x,
 
   for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
     uint4 raw = xr[i];
-    uint4 wraw = wv[i];
+    float wt[VEC];
+    weights8(w, i, wt);
     uint4 out;
     const T* v = reinterpret_cast<const T*>(&raw);
-    const T* wt = reinterpret_cast<const T*>(&wraw);
     T* o = reinterpret_cast<T*>(&out);
 #pragma unroll
     for (int j = 0; j < VEC; ++j)
-      o[j] = evo::from_float<T>(evo::to_float(v[j]) * inv *
-                                evo::to_float(wt[j]));
+      o[j] = evo::from_float<T>(evo::to_float(v[j]) * inv * wt[j]);
     yr[i] = out;
   }
 }
 
-template <typename T>
+template <typename T, typename WT>
 int launch(const void* x, const void* w, void* y, int rows, int cols,
            float eps, void* stream) {
   constexpr int VEC = 16 / sizeof(T);
@@ -84,8 +111,8 @@ int launch(const void* x, const void* w, void* y, int rows, int cols,
   int threads = ((nvec + 31) / 32) * 32;
   if (threads > 256) threads = 256;
   if (threads < 32) threads = 32;
-  rmsnorm_kernel<T><<<rows, threads, 0, (cudaStream_t)stream>>>(
-      (const T*)x, (const T*)w, (T*)y, cols, eps);
+  rmsnorm_kernel<T, WT><<<rows, threads, 0, (cudaStream_t)stream>>>(
+      (const T*)x, (const WT*)w, (T*)y, cols, eps);
   return (int)cudaGetLastError();
 }
 
@@ -95,5 +122,14 @@ int launch(const void* x, const void* w, void* y, int rows, int cols,
 // 8; pointers 16-byte aligned.
 extern "C" int evo_rmsnorm_bf16(const void* x, const void* w, void* y,
                                 int rows, int cols, float eps, void* stream) {
-  return launch<__nv_bfloat16>(x, w, y, rows, cols, eps, stream);
+  return launch<__nv_bfloat16, __nv_bfloat16>(x, w, y, rows, cols, eps,
+                                              stream);
+}
+
+// the same with w (cols,) float32 (param_dtype float32 under bf16
+// activations), read as stored; 16-byte aligned
+extern "C" int evo_rmsnorm_bf16_wf32(const void* x, const void* w, void* y,
+                                     int rows, int cols, float eps,
+                                     void* stream) {
+  return launch<__nv_bfloat16, float>(x, w, y, rows, cols, eps, stream);
 }

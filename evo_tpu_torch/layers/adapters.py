@@ -101,4 +101,6 @@ def refuse_in_decode(module: torch.nn.Module) -> None:
         raise RuntimeError(
             'decode steps do not read LoRA adapters (as in the JAX '
             'package); fold them into the weights with lora.merge_lora '
-            'and generate from the merged model, or detach_lora first')
+            'and generate from the merged model, or detach_lora first '
+            '(over a quantized base: merge into the float weights it was '
+            'quantized from, then quant.quantize_params)')

@@ -87,7 +87,7 @@ def _qkv(p: Attention, x: torch.Tensor):
     x = copy_to_tp(x, p.mesh)
     qkv = project(x, p.wqkv, 1, p.act_quant)         # (B, L, 3, H, Dh)
     if p.bqkv is not None:
-        qkv = qkv + p.bqkv
+        qkv = qkv + p.bqkv.to(x.dtype)
     qkv = add_lora(p, 'wqkv', x, qkv)
     return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
@@ -120,7 +120,7 @@ def _out(p: Attention, y: torch.Tensor, heads=None) -> torch.Tensor:
     else:
         o = all_reduce_sum(project(y, row_block(p.wo, *heads, CHANNEL), 2,
                                    p.act_quant), p.mesh, CHANNEL)
-    return o if p.bo is None else o + p.bo
+    return o if p.bo is None else o + p.bo.to(o.dtype)
 
 
 def kv_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

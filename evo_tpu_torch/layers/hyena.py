@@ -103,24 +103,27 @@ class _Core(NamedTuple):
     d_skip: torch.Tensor
 
 
-def _core(p: HyenaMixer) -> _Core:
+def _core(p: HyenaMixer, dtype: torch.dtype) -> _Core:
     """The core's tensors over the channels this rank mixes: the tp shard,
-    or under cp its block (contiguous copies, for the kernels)."""
+    or under cp its block (contiguous copies, for the kernels). `b_in`
+    comes in the activation type `dtype`, as the JAX package rounds it
+    before the FIR; the taps, FIR bias and d_skip keep their own type,
+    which the kernels and the plain versions read as stored."""
+    b_in = None if p.b_in is None else p.b_in.to(dtype)
     start, n = channel_block(p.mesh, p.d_skip.shape[0])
     if n == p.d_skip.shape[0]:
-        return _Core(p.fir_w, p.fir_b, p.b_in, p.poles, p.residues,
-                     p.d_skip)
+        return _Core(p.fir_w, p.fir_b, b_in, p.poles, p.residues, p.d_skip)
 
     def cut(t, axis):
         return None if t is None else t.narrow(axis, start, n).contiguous()
-    return _Core(cut(p.fir_w, 1), cut(p.fir_b, 1), cut(p.b_in, 1),
+    return _Core(cut(p.fir_w, 1), cut(p.fir_b, 1), cut(b_in, 1),
                  cut(p.poles, 0), cut(p.residues, 0), cut(p.d_skip, 0))
 
 
 def _out_proj(p: HyenaMixer, y: torch.Tensor) -> torch.Tensor:
     o = reduce_from_tp(add_lora(p, 'w_out', y, project(
         y, p.w_out, 1, p.act_quant)), p.mesh)
-    return o if p.b_out is None else o + p.b_out
+    return o if p.b_out is None else o + p.b_out.to(o.dtype)
 
 
 def _out_proj_block(p: HyenaMixer, y: torch.Tensor, start: int, n: int
@@ -130,7 +133,7 @@ def _out_proj_block(p: HyenaMixer, y: torch.Tensor, start: int, n: int
     the matching rows of w_out are summed over tp and cp in float32."""
     w = row_block(p.w_out, start, n, CHANNEL)
     o = all_reduce_sum(project(y, w, 1, p.act_quant), p.mesh, CHANNEL)
-    return o if p.b_out is None else o + p.b_out
+    return o if p.b_out is None else o + p.b_out.to(o.dtype)
 
 
 def _streams(zl: torch.Tensor, b_in: Optional[torch.Tensor]) -> torch.Tensor:
@@ -175,7 +178,7 @@ def hyena_full(p: HyenaMixer, cfg: ModelConfig, x: torch.Tensor, *,
     if seq_len is not None and seq_len < padded:
         zl = zl[:, :seq_len].contiguous()
     L = zl.shape[1]
-    w = _core(p)
+    w = _core(p, zl.dtype)
     B, C = zl.shape[0], zl.shape[-1]
     if (cfg.hyena_fused_mixer and L >= K
             and hyena_mixer_supported((B, 3, C, L), chunk, cfg.state_size,
@@ -248,7 +251,7 @@ def hyena_step(p: HyenaMixer, cfg: ModelConfig, x_t: torch.Tensor,
     refuse_in_decode(p)
     z_t = project(x_t[:, 0], p.w_in, 1, p.act_quant)   # (B, 3, C)
     start, n = channel_block(p.mesh, z_t.shape[-1])
-    w = _core(p)
+    w = _core(p, z_t.dtype)
     z_t = z_t.narrow(-1, start, n)
     if w.b_in is not None:
         z_t = z_t + w.b_in

@@ -33,6 +33,18 @@ Decode steps refuse attached adapters; `merge_lora` folds them into the
 weights (W + alpha / r * A @ B in float32, cast back) for generation and
 serving.
 
+The base may be quantized (int8, int8 with int8 activations, or int4;
+`quant.py`), as the JAX package adds the side paths beside whatever
+product a site runs: the adapters take the logical shapes of the weights,
+the codes and scales are buffers that no step moves, and the gradient
+reaches earlier layers through each base product as the JAX package
+differentiates it (int8 and int4 dequantized; int8 x int8 through the
+activation rows' scales alone, the rounded codes carrying none; kernel 8
+at up to 128 rows through its `ops/int4.Int4MatmulFunction`). Such a
+base does not merge: `merge_lora` raises and names the way, merging into
+the float weights and quantizing after (the JAX package's merge fails on
+a quantized leaf).
+
 Under a mesh (`parallel/`) the adapters are whole on every rank, drawn
 alike from a generator seeded alike, in the shapes of the whole weights
 (so `adapters.npz` keeps its layout); each site uses the slice its shard
@@ -66,6 +78,11 @@ from evo_tpu_torch.parallel.sharding import full_shape
 from evo_tpu_torch.quant import QuantizedWeight
 
 DEFAULT_TARGETS = tuple(_TARGETS)
+QUANTIZED_MERGE = (
+    'merge_lora folds into float weights, and this base is quantized: '
+    'merge the adapters into the float weights the base was quantized '
+    'from (an unquantized load of the same checkpoint), then quantize the '
+    'merged model with quant.quantize_params')
 
 Lora = List[Dict[str, Dict[str, Dict[str, torch.Tensor]]]]
 
@@ -75,8 +92,9 @@ def _mixer(blk) -> str:
 
 
 def _full_shape(owner, name: str) -> tuple:
-    """The shape of the whole weight `name` of `owner` (its tp shard's
-    under a mesh)."""
+    """The shape of the whole weight `name` of `owner`, from its tp shard
+    under a mesh; a `QuantizedWeight` gives the logical shape of the
+    weight it stands for."""
     return full_shape(f'{_TARGETS[name][0]}.{name}',
                       tuple(getattr(owner, name).shape), owner.mesh)
 
@@ -98,33 +116,29 @@ def init_lora(generator: torch.Generator, model, rank: int = 8,
     fan_in), drawn from `generator` on its own device, B zeros, both
     float32 on the model's device, in the shapes of the whole weights
     under a mesh too (every rank the same call, with a generator seeded
-    alike)."""
+    alike). A quantized base gives the logical shapes of its weights, so
+    the adapters are those of the float model it was quantized from."""
     targets = set(targets)
     unknown = targets - set(_TARGETS)
     if unknown:
         raise ValueError(f'unknown LoRA targets {sorted(unknown)}; '
                          f'choose from {sorted(_TARGETS)}')
     module = training.module_of(model)
+    device = module.device
     out: Lora = []
     for blk in module.blocks:
         entry = {_mixer(blk): {}, 'mlp': {}}
         for name, (sub, n_in) in _TARGETS.items():
             if name not in targets or sub not in entry:
                 continue
-            w = getattr(getattr(blk, sub), name)
-            if isinstance(w, QuantizedWeight):
-                raise NotImplementedError(
-                    'LoRA over int8 / int4 base weights is not ported yet '
-                    '(ROADMAP.md, modules queue: LoRA over a quantized '
-                    'base)')
             shape = _full_shape(getattr(blk, sub), name)
             in_dims, out_dims = shape[:n_in], shape[n_in:]
             a = torch.randn((*in_dims, rank), generator=generator,
                             device=generator.device, dtype=torch.float32)
             entry[sub][name] = {
-                'a': (a / math.sqrt(math.prod(in_dims))).to(w.device),
+                'a': (a / math.sqrt(math.prod(in_dims))).to(device),
                 'b': torch.zeros((rank, *out_dims), dtype=torch.float32,
-                                 device=w.device)}
+                                 device=device)}
         out.append(entry)
     return out
 
@@ -155,12 +169,7 @@ def attach_lora(model, lora: Lora, alpha: float = 16.0):
     scale = alpha / lora_rank(lora)
     owners = {}
     for owner, name, pr in _sites(module, lora):
-        w = getattr(owner, name)
         n_in = _TARGETS[name][1]
-        if isinstance(w, QuantizedWeight):
-            raise NotImplementedError(
-                'LoRA over int8 / int4 base weights is not ported yet '
-                '(ROADMAP.md, modules queue: LoRA over a quantized base)')
         shape = _full_shape(owner, name)
         if (tuple(pr['a'].shape[:-1]) != shape[:n_in]
                 or tuple(pr['b'].shape[1:]) != shape[n_in:]
@@ -212,6 +221,9 @@ def merge_lora(model, lora: Lora, alpha: float = 16.0,
     if attached(model):
         raise ValueError('merge_lora folds into the base weights: '
                          'detach_lora first')
+    for owner, name, _ in _sites(training.module_of(model), lora):
+        if isinstance(getattr(owner, name), QuantizedWeight):
+            raise ValueError(QUANTIZED_MERGE)
     scale = alpha / lora_rank(lora)
     target = model
     if not donate:

@@ -46,8 +46,10 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     # (x, w, y, rows, cols, eps, stream)
     'evo_rmsnorm_bf16': (_P, _P, _P, _I, _I, _F, _P),
+    'evo_rmsnorm_bf16_wf32': (_P, _P, _P, _I, _I, _F, _P),
     # (zl, w, fir_b, b_in, tail, x2, u, B, C, L, K, stream)
     'evo_fir_gate_bf16': (*(_P,) * 7, _I, _I, _I, _I, _P),
+    'evo_fir_gate_bf16_wf32': (*(_P,) * 7, _I, _I, _I, _I, _P),
     # (q, k, v, o, B, L, H, q/k/v batch, seq and head strides, scale, stream)
     'evo_flash_attention_bf16': (_P, _P, _P, _P, _I, _I, _I, *(_L,) * 9, _F,
                                  _P),
@@ -70,6 +72,7 @@ _SIGNATURES = {
     # (zl, fir_w, fir_b, b_in, poles, residues, d_skip, fir0, st0, y, iir,
     # B, C, L, Ct, S, KF, stream)
     'evo_hyena_mixer_bf16': (*(_P,) * 11, _I, _I, _L, _I, _I, _I, _P),
+    'evo_hyena_mixer_bf16_wf32': (*(_P,) * 11, _I, _I, _L, _I, _I, _I, _P),
     # (inj_r, inj_i, logmag, theta, s0, ent_r, ent_i, fin_r, fin_i, B, D,
     # K, S, batch and channel strides, chunk, stream)
     'evo_modal_prefix_f32': (*(_P,) * 9, _I, _I, _I, _I, _L, _L, _F, _P),

@@ -6,15 +6,17 @@ behind it, and raise nothing. The JAX package avoids the question by
 forcing its plain paths in both train steps (`use_pallas='never'`), since
 its Pallas kernels have no VJP.
 
-The port keeps the kernels on the card and gives the three that a training
-forward runs (RMSNorm, FIR + gate, causal flash attention) a
+The port keeps the kernels on the card and gives the four that a training
+forward runs (RMSNorm, FIR + gate, causal flash attention, and under LoRA
+over an int4 base the int4 matmul at up to 128 rows) a
 `torch.autograd.Function` each: the forward is the kernel, the backward is
 the gradient of the kernel's plain version, recomputed from the saved
-inputs (`plain_vjp`). A wrapper enters its Function only when one of its
-tensor arguments requires grad and grad mode is on, so scoring, generation
-and serving launch exactly as before. The other kernels have no backward:
-their wrappers refuse a tensor that requires grad (`refuse`), and the
-train steps turn their switches off as the JAX package does.
+inputs (`plain_vjp`), so a float32 weight gets a float32 gradient. A
+wrapper enters its Function only when one of its tensor arguments
+requires grad and grad mode is on, so scoring, generation and serving
+launch exactly as before. The other kernels have no backward: their
+wrappers refuse a tensor that requires grad (`refuse`), and the train
+steps turn their switches off as the JAX package does.
 """
 
 from __future__ import annotations

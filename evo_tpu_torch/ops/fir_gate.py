@@ -28,6 +28,12 @@ from evo_tpu_torch.ops._grad import needs_grad, plain_vjp
 from evo_tpu_torch.ops.fftconv import fir_causal_conv
 
 KERNEL_TAPS = 3     # the kernel's filter length (every published evo config)
+# the taps' and FIR bias's type -> (entry point, launch counter): a model
+# whose param_dtype is float32 under bf16 activations keeps them float32,
+# which the kernel reads as stored (the JAX kernel upcasts them); b_in
+# comes rounded to the activation type, as the layer rounds it
+WEIGHT_TYPES = {torch.bfloat16: ('evo_fir_gate_bf16', 'fir_gate'),
+                torch.float32: ('evo_fir_gate_bf16_wf32', 'fir_gate_w32')}
 
 
 def fir_gate_plain(z: torch.Tensor, w: torch.Tensor,
@@ -68,12 +74,18 @@ def check_kernel_args(z: torch.Tensor, w: torch.Tensor,
     K = w.shape[-1]
     if z.dtype != torch.bfloat16:
         raise TypeError(f'fir_gate kernel takes bf16, got {z.dtype}')
+    if w.dtype not in WEIGHT_TYPES or (b is not None and b.dtype != w.dtype):
+        raise TypeError(f'fir_gate kernel takes the taps and the FIR bias in '
+                        f'one type, bf16 or float32; got {w.dtype} and '
+                        f'{None if b is None else b.dtype}')
     for t in (w, b, tail, b_in):
-        if t is not None and (t.dtype != z.dtype or t.device != z.device
-                              or not t.is_contiguous()):
+        if t is not None and (t.device != z.device or not t.is_contiguous()):
             raise ValueError('fir_gate kernel needs w, b, tail and b_in '
-                             'contiguous, of one type and on one device '
-                             'with z')
+                             'contiguous and on one device with z')
+    for t in (tail, b_in):
+        if t is not None and t.dtype != z.dtype:
+            raise ValueError(f'fir_gate kernel needs the tail and b_in of '
+                             f'one type with z ({z.dtype}), got {t.dtype}')
     if K != KERNEL_TAPS:
         raise ValueError(f'fir_gate kernel is built for {KERNEL_TAPS} taps '
                          f'(short_filter_length), got {K}')
@@ -109,7 +121,8 @@ def fir_gate_kernel(z: torch.Tensor, w: torch.Tensor,
     x2 = torch.empty((B, C, L), dtype=z.dtype, device=z.device)
     u = torch.empty_like(x2)
     if x2.numel():
-        _build.launch('evo_fir_gate_bf16', 'fir_gate', z.data_ptr(),
+        entry, counter = WEIGHT_TYPES[w.dtype]
+        _build.launch(entry, counter, z.data_ptr(),
                       w.data_ptr(), _ptr(b), _ptr(b_in), _ptr(tail),
                       x2.data_ptr(), u.data_ptr(), B, C, L, w.shape[-1])
     return x2, u

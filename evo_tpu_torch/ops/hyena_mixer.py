@@ -41,6 +41,13 @@ FILTER_LENGTH = 3
 CHANNEL_MULTIPLE = 8
 
 State = Tuple[torch.Tensor, torch.Tensor]
+# the type of the taps, FIR bias and d_skip -> (entry point, launch
+# counter): a model whose param_dtype is float32 under bf16 activations
+# keeps them float32, which the kernel reads as stored (the JAX kernel
+# upcasts its slabs); b_in comes rounded to the activation type
+WEIGHT_TYPES = {torch.bfloat16: ('evo_hyena_mixer_bf16', 'hyena_mixer'),
+                torch.float32: ('evo_hyena_mixer_bf16_wf32',
+                                'hyena_mixer_w32')}
 
 
 def hyena_mixer_supported(shape, chunk: int, state_size: int = 8,
@@ -127,8 +134,9 @@ def _check_kernel_args(z, fir_w, fir_b, poles, residues, d_skip, fir0,
             f'{tuple(z.shape)}: fir_w {tuple(fir_w.shape)}, poles '
             f'{tuple(poles.shape)}, residues {tuple(residues.shape)}, '
             f'd_skip {tuple(d_skip.shape)}')
-    for t, dtype in ((fir_w, z.dtype), (fir_b, z.dtype), (b_in, z.dtype),
-                     (d_skip, z.dtype), (fir0, z.dtype),
+    wt = fir_w.dtype if fir_w.dtype in WEIGHT_TYPES else z.dtype
+    for t, dtype in ((fir_w, wt), (fir_b, wt), (d_skip, wt),
+                     (b_in, z.dtype), (fir0, z.dtype),
                      (poles, torch.float32), (residues, torch.float32),
                      (iir0, torch.float32)):
         if t is None:
@@ -137,10 +145,10 @@ def _check_kernel_args(z, fir_w, fir_b, poles, residues, d_skip, fir0,
             raise ValueError('hyena_mixer kernel needs its inputs on one '
                              'device')
         if t.dtype != dtype:
-            raise TypeError(f'hyena_mixer kernel takes fir_w, fir_b, b_in, '
-                            f'd_skip and the FIR tail in {z.dtype} and the '
-                            f'modal tables and state in float32; got '
-                            f'{t.dtype}')
+            raise TypeError(f'hyena_mixer kernel takes fir_w, fir_b and '
+                            f'd_skip in one type, bf16 or float32, b_in and '
+                            f'the FIR tail in {z.dtype} and the modal tables '
+                            f'and state in float32; got {t.dtype}')
     for t in (fir_w, fir_b, b_in, d_skip, poles, residues):
         if t is not None and not t.is_contiguous():
             raise ValueError('hyena_mixer kernel needs its parameters '
@@ -173,7 +181,8 @@ def hyena_mixer(z: torch.Tensor, fir_w: torch.Tensor,
         iir0 = iir0.contiguous()
     y = torch.empty((B, L, C), dtype=z.dtype, device=z.device)
     iir = torch.empty((B, C, S, 2), dtype=torch.float32, device=z.device)
-    _build.launch('evo_hyena_mixer_bf16', 'hyena_mixer', z.data_ptr(),
+    entry, counter = WEIGHT_TYPES[fir_w.dtype]
+    _build.launch(entry, counter, z.data_ptr(),
                   fir_w.data_ptr(), _ptr(fir_b), _ptr(b_in),
                   poles.data_ptr(), residues.data_ptr(), d_skip.data_ptr(),
                   _ptr(fir0), _ptr(iir0), y.data_ptr(), iir.data_ptr(), B, C,

@@ -14,7 +14,9 @@ of 128 natural rows, output column):
 with bf16 products summed in float32 and the scale applied in float32
 after each group's dot. x may stop at the weight's natural contraction K
 (columns K..Kp-1 count as zeros, so no padded copy is made), and y comes
-out in float32 or, rounded once, in bf16.
+out in float32 or, rounded once, in bf16. Under autograd (LoRA over an
+int4 base) the kernel runs inside `Int4MatmulFunction`, whose backward is
+the plain version's gradient to x (`ops/_grad.py`).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from evo_tpu_torch.ops import _build
-from evo_tpu_torch.ops._grad import refuse
+from evo_tpu_torch.ops._grad import needs_grad, plain_vjp
 
 # the kernel keeps all rows of x in one block's tiles: decode and
 # forced-token batches are far below this, a batch prefill is not
@@ -119,16 +121,13 @@ def int4_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
     return acc.to(out_dtype)
 
 
-def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
-                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """x (M, K) bf16 with K <= Kp, the weight's padded contraction (columns
-    K..Kp-1 count as zeros); packed (Kp/2, N) int8; scales (Kp/128, N)
-    float32 -> (M, N) in `out_dtype` (float32 or bfloat16: one rounding of
-    the float32 sum). A CUDA tensor launches the kernel (or raises on what
-    it does not take); a CPU tensor takes the plain version."""
-    if not _build.check_device(x, 'int4_matmul'):
-        return int4_matmul_plain(x, packed, scales, out_dtype)
-    refuse('int4_matmul', x)
+def int4_matmul_kernel(x: torch.Tensor, packed: torch.Tensor,
+                       scales: torch.Tensor,
+                       out_dtype: torch.dtype = torch.float32,
+                       counter: str = 'int4_matmul') -> torch.Tensor:
+    """Launch the kernel on CUDA tensors (raises on what it does not
+    take), counted under `counter`. Its output has no autograd
+    history."""
     M, K, Kp, N = _check_shapes(x, packed, scales)
     _check_out(out_dtype)
     if (x.dtype != torch.bfloat16 or packed.dtype != torch.int8
@@ -157,9 +156,53 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
             part = torch.empty(splits * M * N, dtype=torch.float32,
                                device=x.device)
             tickets = _tickets(x.device, tiles)
-    _build.launch('evo_int4_matmul_bf16', 'int4_matmul', x.data_ptr(),
+    _build.launch('evo_int4_matmul_bf16', counter, x.data_ptr(),
                   packed.data_ptr(), scales.data_ptr(), y.data_ptr(),
                   None if part is None else part.data_ptr(),
                   None if tickets is None else tickets.data_ptr(), M, K, Kp,
                   N, int(out_dtype == torch.bfloat16), int(gemv))
     return y
+
+
+class Int4MatmulFunction(torch.autograd.Function):
+    """`forward_impl(x, packed, scales, out_dtype)` (the kernel) with the
+    gradient of `int4_matmul_plain` to x, recomputed from the saved
+    inputs: dx = dy dequant(W)^T at x's K columns, in x's type (LoRA over
+    an int4 base at up to 128 rows). The codes and the scales get none:
+    they are frozen buffers."""
+
+    @staticmethod
+    def forward(ctx, x, packed, scales, out_dtype, forward_impl):
+        ctx.save_for_backward(x, packed, scales)
+        ctx.out_dtype = out_dtype
+        return forward_impl(x, packed, scales, out_dtype)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, packed, scales = ctx.saved_tensors
+        gx, _, _ = plain_vjp(
+            lambda a, p, s: int4_matmul_plain(a, p, s, ctx.out_dtype),
+            (x, packed, scales), (True, False, False), (gy,))
+        return gx, None, None, None, None
+
+
+def _kernel_under_grad(x, packed, scales, out_dtype):
+    return int4_matmul_kernel(x, packed, scales, out_dtype,
+                              'int4_matmul_grad')
+
+
+def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """x (M, K) bf16 with K <= Kp, the weight's padded contraction (columns
+    K..Kp-1 count as zeros); packed (Kp/2, N) int8; scales (Kp/128, N)
+    float32 -> (M, N) in `out_dtype` (float32 or bfloat16: one rounding of
+    the float32 sum). A CUDA tensor launches the kernel (or raises on what
+    it does not take), through `Int4MatmulFunction` when x requires grad
+    (counted as 'int4_matmul_grad'); a CPU tensor takes the plain
+    version."""
+    if not _build.check_device(x, 'int4_matmul'):
+        return int4_matmul_plain(x, packed, scales, out_dtype)
+    if needs_grad(x):
+        return Int4MatmulFunction.apply(x, packed, scales, out_dtype,
+                                        _kernel_under_grad)
+    return int4_matmul_kernel(x, packed, scales, out_dtype)

@@ -13,6 +13,12 @@ import torch
 from evo_tpu_torch.ops import _build
 from evo_tpu_torch.ops._grad import needs_grad, plain_vjp
 
+# the gain's type -> (entry point, launch counter): a model whose
+# param_dtype is float32 under bf16 activations keeps a float32 gain,
+# which the kernel reads as stored (the JAX kernel upcasts `w_ref`)
+WEIGHT_TYPES = {torch.bfloat16: ('evo_rmsnorm_bf16', 'rmsnorm'),
+                torch.float32: ('evo_rmsnorm_bf16_wf32', 'rmsnorm_w32')}
+
 
 def rmsnorm_plain(x: torch.Tensor, w: torch.Tensor,
                   eps: float = 1e-6) -> torch.Tensor:
@@ -27,11 +33,13 @@ def rmsnorm_plain(x: torch.Tensor, w: torch.Tensor,
 def rmsnorm_kernel(x: torch.Tensor, w: torch.Tensor,
                    eps: float = 1e-6) -> torch.Tensor:
     """Launch the kernel on CUDA tensors (raises on what it does not
-    take). Its output has no autograd history."""
+    take): bf16 x and a bf16 or float32 gain, which it reads as stored
+    (counted as 'rmsnorm' and 'rmsnorm_w32'). Its output has no autograd
+    history."""
     D = x.shape[-1]
-    if x.dtype != torch.bfloat16 or w.dtype != x.dtype:
-        raise TypeError(f'rmsnorm kernel takes bf16 x and w, got {x.dtype} '
-                        f'and {w.dtype}')
+    if x.dtype != torch.bfloat16 or w.dtype not in WEIGHT_TYPES:
+        raise TypeError(f'rmsnorm kernel takes bf16 x and a bf16 or float32 '
+                        f'w, got {x.dtype} and {w.dtype}')
     if w.shape != (D,) or w.device != x.device:
         raise ValueError(f'rmsnorm: weight {tuple(w.shape)} on {w.device} '
                          f'for rows of {D} on {x.device}')
@@ -42,8 +50,9 @@ def rmsnorm_kernel(x: torch.Tensor, w: torch.Tensor,
     y = torch.empty_like(x)
     rows = x.numel() // D
     if rows:
-        _build.launch('evo_rmsnorm_bf16', 'rmsnorm', x.data_ptr(),
-                      w.data_ptr(), y.data_ptr(), rows, D, float(eps))
+        entry, counter = WEIGHT_TYPES[w.dtype]
+        _build.launch(entry, counter, x.data_ptr(), w.data_ptr(),
+                      y.data_ptr(), rows, D, float(eps))
     return y
 
 

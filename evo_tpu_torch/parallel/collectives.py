@@ -72,15 +72,45 @@ def all_reduce_sum(x: torch.Tensor, mesh: Optional[Mesh],
     return acc.to(x.dtype)
 
 
-def all_reduce_max(x: torch.Tensor, mesh: Optional[Mesh],
-                   axis: Axis = 'tp') -> torch.Tensor:
-    """Element-wise max over `axis` (a copy; exact in any type)."""
-    if not _active(mesh, axis):
-        return x
+def _max_over(x: torch.Tensor, mesh: Mesh, axis: Axis) -> torch.Tensor:
     import torch.distributed as dist
-    out = x.clone()
+    out = x.detach().clone()
     dist.all_reduce(out, op=dist.ReduceOp.MAX, group=mesh.group(axis))
     return out
+
+
+class _AllReduceMax(torch.autograd.Function):
+    """The max over `axis` with the max's own VJP: the gradient of the
+    result, summed over the ranks that used it, goes to the rank that
+    holds the maximum, split evenly among ranks that tie, as `amax`
+    splits it among equal elements. (The int8 x int8 product's row
+    scales under tp; JAX's max over the whole row transposes alike.)"""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        out = _max_over(x, mesh, axis)
+        ctx.mesh, ctx.axis = mesh, axis
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        holds = (x == out).to(g.dtype)
+        total = all_reduce_sum(g, ctx.mesh, ctx.axis)
+        ties = all_reduce_sum(holds, ctx.mesh, ctx.axis)
+        return total * holds / ties, None, None
+
+
+def all_reduce_max(x: torch.Tensor, mesh: Optional[Mesh],
+                   axis: Axis = 'tp') -> torch.Tensor:
+    """Element-wise max over `axis` (a copy; exact in any type), with a
+    backward (`_AllReduceMax`) where x requires grad."""
+    if not _active(mesh, axis):
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _AllReduceMax.apply(x, mesh, axis)
+    return _max_over(x, mesh, axis)
 
 
 class _CopyToTP(torch.autograd.Function):

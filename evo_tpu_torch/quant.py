@@ -66,19 +66,29 @@ class QuantizedWeight(nn.Module):
     `row_mesh`: the mesh whose tp ranks split its contraction (a
     row-parallel shard), else None; `row_axis`: the mesh axes over which
     the contraction is split, tp, or tp and cp for a decode step's block
-    (`row_block`)."""
+    (`row_block`). `shape`: the logical shape of the weight it stands for
+    (its shard's under a mesh), which the int8 codes have and the packed
+    int4 codes, padded to Kp rows, do not; `logical_shape` gives it for
+    int4. The codes and scales are buffers: nothing trains them."""
 
     def __init__(self, mode: str, codes: torch.Tensor, scales: torch.Tensor,
-                 row_mesh=None, row_axis='tp'):
+                 row_mesh=None, row_axis='tp', logical_shape=None):
         super().__init__()
         self.row_mesh = row_mesh
         self.row_axis = row_axis
         if mode not in ('int8', 'int4'):
             raise ValueError(f'unknown quantization mode {mode!r}')
+        if mode == 'int4' and logical_shape is None:
+            raise ValueError('an int4 weight needs its logical shape')
         self.mode = mode
+        self._shape = None if logical_shape is None else tuple(logical_shape)
         names = ('q', 's') if mode == 'int8' else ('q4', 's4')
         self.register_buffer(names[0], codes)
         self.register_buffer(names[1], scales)
+
+    @property
+    def shape(self) -> tuple:
+        return tuple(self.q.shape) if self.mode == 'int8' else self._shape
 
 
 def quantize_weight(w: torch.Tensor, axes: Tuple[int, ...], mesh=None
@@ -113,7 +123,8 @@ def quantize_weight_int4(w: torch.Tensor, nc: int) -> QuantizedWeight:
     s = (wg.abs().amax(dim=1) / 7.0).clamp(min=1e-12)          # (G, N)
     q = torch.round(wg / s[:, None]).clamp(-7, 7).to(torch.int8)
     return QuantizedWeight('int4', int4_ops.pack_int4(q.reshape(Kp, N)),
-                           s.reshape((G,) + out))
+                           s.reshape((G,) + out),
+                           logical_shape=tuple(w.shape))
 
 
 def is_quantized(w: Any) -> bool:

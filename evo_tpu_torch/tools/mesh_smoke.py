@@ -12,7 +12,8 @@ caller to check against the single process.
 `model` reads `<dir>/mesh_in.json` (the traffic, the speculation prompt,
 the training corpus):
 
-  (a) tp = 2, evo-1-8k-base at full width and depth (seed 0): a
+  (a) tp = 2, evo-1-8k-base at full width on its first 16 layers (seed
+      0; 15 Hyena layers and the attention at 8): a
       `GenerationServer` on 4 slots over ragged requests (some sampled,
       one arriving after the second step), bf16 KV; then requests under
       the int8 KV cache. Tokens and log-probs of every request, the
@@ -56,6 +57,9 @@ import torch
 
 # the first 9 layers of evo-1-8k-base: 8 Hyena layers and attention at 8
 NINE = dict(num_layers=9, attn_layer_idxs=(8,), hyena_layer_idxs=())
+# its first 16 layers, (a)'s and (b)'s depth: 15 Hyena layers and attention
+# at 8 (the full 32 took ~115 s of collectives through the host)
+SIXTEEN = dict(num_layers=16, attn_layer_idxs=(8,), hyena_layer_idxs=())
 _COLLECTIVES = ('all_reduce', 'all_gather', 'all_to_all_single',
                 'broadcast_object_list', 'batch_isend_irecv')
 
@@ -391,10 +395,11 @@ def part_model(d: str, rank: int) -> dict:
     with open(os.path.join(d, 'mesh_in.json')) as f:
         inp = json.load(f)
     res = {}
-    # (a) and (b): tp = 2 at full depth
+    # (a) and (b): tp = 2 on the first 16 layers
     tp = make_mesh(dp=1, tp=2)
     t = time.perf_counter()
-    evo = Evo('evo-1-8k-base', 'cuda', random_init=True, seed=0, mesh=tp)
+    evo = Evo('evo-1-8k-base', 'cuda', random_init=True, seed=0, mesh=tp,
+              config_overrides=SIXTEEN)
     torch.cuda.synchronize()
     res['init_s'] = time.perf_counter() - t
     res['weight_gib'] = torch.cuda.memory_allocated() / 2**30

@@ -17,7 +17,15 @@ Kernels: a training forward on the card runs RMSNorm, FIR + gate and
 causal flash attention as CUDA kernels with gradients (`ops/_grad.py`);
 the train steps turn off `hyena_fused_mixer` and `hyena_pallas_prefix`,
 whose kernels have no backward, as `use_pallas='never'` turns them off in
-the JAX package, and refuse quantized weights and activations.
+the JAX package. Full fine-tuning refuses quantized weights and
+activations, a difference by choice: the codes are frozen buffers. LoRA
+trains over a quantized base (`lora.py`).
+
+Mixed types (`param_dtype='float32'` under `compute_dtype='bfloat16'`):
+the masters are copied into float32 parameters, so nothing is rounded
+there, and the sites round what they cast, as the JAX package's `_down`
+casts the masters into `param_dtype` and its layers cast into the
+activation type.
 
 The optax chain of the JAX package (`clip_by_global_norm`, `scale_by_adam`,
 `add_decayed_weights` under the decay mask, `scale_by_learning_rate`) is
@@ -280,16 +288,13 @@ def train_config(model, adapters: bool = False) -> ModelConfig:
     """The config a train step runs under: the model's own with the
     kernels that have no backward turned off (`hyena_fused_mixer`,
     `hyena_pallas_prefix`, as `use_pallas='never'` does in the JAX
-    package). Raises on quantized weights or activations."""
+    package). Full fine-tuning (`adapters=False`) raises on quantized
+    weights or activations; adapters train over any base."""
     module = module_of(model)
     cfg = module.config
     quantized = cfg.act_quant != 'none' or any(
         isinstance(m, QuantizedWeight) for m in module.modules())
-    if quantized and adapters:
-        raise NotImplementedError(
-            'LoRA over int8 / int4 base weights is not ported yet '
-            '(ROADMAP.md, modules queue: LoRA over a quantized base)')
-    if quantized:
+    if quantized and not adapters:
         raise ValueError('full fine-tuning trains float weights: load the '
                          'model without weight_quant / act_quant')
     return cfg.replace(hyena_fused_mixer=False, hyena_pallas_prefix=False)

@@ -218,6 +218,9 @@ def _state_files(state, model, mesh, d, out):
     from evo_tpu_torch.parallel.mesh import Mesh
     path = os.path.join(d, f'state_{mesh.dp}{mesh.cp}{mesh.tp}')
     training.save_train_state(state, path, mesh)
+    # every rank's pair written before any rank reads the directory: the
+    # refusal without a mesh lists the files it found
+    torch.distributed.barrier()
     again = training.load_train_state(path, training.init_train_state(
         model, training.make_optimizer(learning_rate=LR)), mesh)
     out['state/round_trip'] = np.asarray(again.step == state.step and all(

@@ -733,7 +733,7 @@ def test_new_kernels_refuse_what_they_do_not_take(randn):
     with pytest.raises(TypeError):
         hyena_mixer(z64.float(), w.float(), None, poles, residues,
                     d.float(), chunk=64)
-    with pytest.raises(TypeError):                       # weights in fp32
+    with pytest.raises(TypeError):    # fp32 taps beside a bf16 d_skip
         hyena_mixer(z64, w.float(), None, poles, residues, d, chunk=64)
     with pytest.raises(ValueError, match='do not match'):
         hyena_mixer(z64, w, None, poles[:4], residues, d, chunk=64)
@@ -1423,3 +1423,104 @@ def test_nccl_refuses_two_ranks_on_one_card(monkeypatch):
         distributed.initialize_distributed(backend='nccl', device='cuda')
     with pytest.raises(RuntimeError, match='--dist-backend gloo'):
         distributed.initialize_distributed(device='cuda')
+
+
+# -- float32 weights (param_dtype float32 under bf16 activations) ------------
+
+def _f32(*shape, seed=1, scale=1.0):
+    """float32 values that are not bf16 ones: a kernel must read them as
+    stored."""
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    return torch.randn(*shape, device='cuda', generator=g) * scale
+
+
+@pytest.mark.parametrize('rows,D', [(1, 4096), (5, 64), (8192, 4096)])
+def test_rmsnorm_kernel_with_a_float32_gain(randn, rows, D):
+    """Kernel 1 reads a float32 gain as stored (its own counter), within the
+    bf16 gain's limit of its plain version, and differs from the kernel on
+    the gain rounded to bf16."""
+    x, w = randn(rows, D), _f32(D)
+    before = _build.LAUNCHES['rmsnorm_w32']
+    got = rmsnorm(x, w)
+    assert _build.LAUNCHES['rmsnorm_w32'] == before + 1
+    want = rmsnorm_plain(x, w)
+    assert got.dtype == torch.bfloat16
+    assert ((got.float() - want.float()).abs()
+            / want.float().abs().clamp(min=1)).max() <= 1e-2
+    if rows * D >= 4096:
+        assert not torch.equal(got, rmsnorm(x, w.bfloat16()))
+
+
+@pytest.mark.parametrize('B,C,L', [(1, 64, 1), (2, 40, 77), (1, 2048, 300),
+                                   (1, 4096, 64)])
+def test_fir_gate_kernel_with_float32_taps(randn, B, C, L):
+    """Kernel 2 with float32 taps and FIR bias (b_in and the tail bf16):
+    bit-equal to its plain version, fresh and carried."""
+    zl = randn(B, L, 3, C)
+    w, fb, b_in = _f32(3, C, 3), _f32(3, C, seed=2), randn(3, C)
+    for tail in (None, randn(B, 3, C, 2)):
+        before = _build.LAUNCHES['fir_gate_w32']
+        got = fir_gate(_in_place(zl), w, fb, tail, b_in=b_in)
+        assert _build.LAUNCHES['fir_gate_w32'] == before + 1
+        want = fir_gate_plain(_in_place(zl), w, fb, tail, b_in=b_in)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    with pytest.raises(TypeError, match='one type'):
+        fir_gate(_in_place(zl), w, fb.bfloat16(), b_in=b_in)
+
+
+@pytest.mark.parametrize('B,C,L,carried', [(1, 64, 128, False),
+                                           (2, 40, 37, True),
+                                           (1, 2048, 512, True)])
+def test_hyena_mixer_kernel_with_float32_weights(randn, B, C, L, carried):
+    """Kernel 6 with float32 taps, FIR bias and d_skip (b_in and the FIR
+    tail bf16), under its bf16 limits: 2^-6 scaled, 99 % equal, the state
+    within 1e-4, the FIR tail equal."""
+    from evo_tpu_torch.ops.hyena_mixer import hyena_mixer, hyena_mixer_plain
+    poles, residues = _modal(C, 8)
+    z, b_in = _in_place(randn(B, L, 3, C)), randn(3, C)
+    w, fb, d = _f32(3, C, 3, scale=0.5), _f32(3, C, seed=2, scale=0.1), \
+        _f32(C, seed=3)
+    st = (randn(B, 3, C, 2), randn(B, C, 8, 2).float()) if carried else None
+    before = _build.LAUNCHES['hyena_mixer_w32']
+    y, iir, fir = hyena_mixer(z, w, fb, poles, residues, d, chunk=64,
+                              state=st, b_in=b_in)
+    assert _build.LAUNCHES['hyena_mixer_w32'] == before + 1
+    y_w, iir_w, fir_w = hyena_mixer_plain(z, w, fb, poles, residues, d,
+                                          chunk=64, state=st, b_in=b_in)
+    assert torch.equal(fir, fir_w)
+    rms = y_w.float().pow(2).mean(-1, keepdim=True).sqrt()
+    assert ((y.float() - y_w.float()).abs()
+            / y_w.float().abs().maximum(rms)).max() <= 2 ** -6
+    assert (y == y_w).float().mean() >= 0.99
+    srms = iir_w.flatten(2).pow(2).mean(-1, keepdim=True).sqrt()
+    assert ((iir.flatten(2) - iir_w.flatten(2)).abs()
+            / iir_w.flatten(2).abs().maximum(srms)).max() <= 1e-4
+
+
+@pytest.mark.parametrize('M,Kp,N', [(1, 4096, 12288), (2, 11008, 4096),
+                                    (128, 4096, 4096), (3, 256, 40)])
+def test_int4_function_gradient(M, Kp, N):
+    """Kernel 8 under autograd: its Function's forward is the kernel
+    (counted as 'int4_matmul_grad'), its backward the plain version's
+    gradient to x, against autograd's through the plain version within
+    kernel 8's limit (1e-4 of the larger of the value and its row's rms;
+    the recomputed product sums in another order)."""
+    x0, packed, s = _int4_case(M, Kp, N, seed=M)
+    x = x0[:, :Kp - 17].contiguous().requires_grad_()
+    g = torch.Generator(device='cuda').manual_seed(1)
+    gy = torch.randn(M, N, device='cuda', generator=g).bfloat16()
+    before = dict(_build.LAUNCHES)
+    y = int4_matmul(x, packed, s, torch.bfloat16)
+    assert _build.LAUNCHES['int4_matmul_grad'] == \
+        before.get('int4_matmul_grad', 0) + 1
+    assert _build.LAUNCHES['int4_matmul'] == before.get('int4_matmul', 0)
+    (gx,) = torch.autograd.grad(y, x, gy)
+    x2 = x.detach().requires_grad_()
+    (want,) = torch.autograd.grad(int4_matmul_plain(x2, packed, s,
+                                                    torch.bfloat16), x2, gy)
+    assert gx.dtype == torch.bfloat16 and gx.shape == x.shape
+    gx, want = gx.float(), want.float()
+    rms = want.pow(2).mean(-1, keepdim=True).sqrt()
+    assert ((gx - want).abs() / want.abs().maximum(rms)).max() <= 1e-4
+    assert packed.grad is None and s.grad is None

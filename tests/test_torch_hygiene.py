@@ -69,7 +69,12 @@ def test_import_leaves_jax_unloaded():
             'evo_tpu_torch.runtime, evo_tpu_torch.io.fastio, '
             'evo_tpu_torch.io.prefetch, evo_tpu_torch.training, '
             'evo_tpu_torch.lora, evo_tpu_torch.io.dataset, '
-            'evo_tpu_torch.cli.finetune; '
+            'evo_tpu_torch.cli.finetune, evo_tpu_torch.utils, '
+            'evo_tpu_torch.cli.example_inference, '
+            'evo_tpu_torch.cli.generation_to_folding, '
+            'evo_tpu_torch.cli.verify_parity, '
+            'evo_tpu_torch.examples.hello_evo, '
+            'evo_tpu_torch.examples.long_context; '
             'assert "jax" not in sys.modules and "evo_tpu" not in '
             'sys.modules, sorted(sys.modules)')
     subprocess.run([sys.executable, '-c', code], cwd=ROOT, check=True,

@@ -269,13 +269,18 @@ def test_decode_refuses_adapters_and_merged_model_generates(setup):
 
 
 def test_quantized_base_is_not_ported(setup):
+    """Named for what it held before LoRA over a quantized base was
+    ported: the same three calls now work over an int4 base (against the
+    JAX package: tests/test_torch_lora_quant.py)."""
     from evo_tpu_torch.quant import quantize_params
-    jcfg, params, adapters, _, _ = setup
+    jcfg, params, adapters, ids, mask = setup
     model, ad = port(jcfg, params, adapters)
     q = quantize_params(model, mode='int4')
-    with pytest.raises(NotImplementedError, match='quantized base'):
-        lora.init_lora(torch.Generator(), q)
-    with pytest.raises(NotImplementedError, match='quantized base'):
-        lora.attach_lora(q, ad)
-    with pytest.raises(NotImplementedError, match='quantized base'):
-        lora.make_lora_train_step(q, training.make_optimizer())
+    fresh = lora.init_lora(torch.Generator(), q)
+    assert lora.lora_rank(fresh) == 8
+    assert lora.attach_lora(q, ad) is q and lora.attached(q)
+    lora.detach_lora(q)
+    opt = training.make_optimizer()
+    state, loss = lora.make_lora_train_step(q, opt)(
+        lora.init_lora_train_state(ad, opt), ids, mask)
+    assert state.step == 1 and np.isfinite(float(loss))

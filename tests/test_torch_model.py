@@ -195,8 +195,11 @@ def test_unported_paths_raise(setup):
             model, training.make_optimizer()))
     finally:
         model.module.mesh = None
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tiny_config(param_dtype='float32', compute_dtype='bfloat16')
+    # mixed parameter and activation types are ported (tests/
+    # test_torch_mixed_types.py): the pair is accepted
+    mixed = tiny_config(param_dtype='float32', compute_dtype='bfloat16')
+    assert (mixed.param_dtype, mixed.compute_dtype) == ('float32',
+                                                        'bfloat16')
     from evo_tpu_torch.cli import generate as generate_cli
     seqs, scores = generate_cli.main(['--tiny', '--device', 'cpu', '--prompt',
                                       'ACGT', '--n-samples', '1',

@@ -29,7 +29,9 @@ no JAX then):
     token-exact against tests/golden/tiny_greedy.npz, int8 weights and
     the int8 KV cache against JAX under the same mesh, act_quant='int8'
     with and without the MAX reduce of the row scales (the latter must
-    miss the JAX logits), and both ranks' results equal;
+    miss the JAX logits), and both ranks' results equal; a LoRA step over
+    an int8 base and over int8 x int8 against the same step in one
+    process (first loss, every adapter gradient);
   * dp = 2: scores and logits against JAX; `allgather_to_all_hosts`;
   * make_sharded_train_step at (dp 2, tp 1) and (dp 1, tp 2), 2 steps,
     against JAX make_train_step on the same batch: losses rtol 1e-5, the
@@ -114,6 +116,31 @@ def _train(sd, cfg, mesh, ref, out):
             out[key] = np.asarray(str(e))
 
 
+def _lora_quant(sd, mesh, ref, out):
+    """A LoRA step over an int8 base and over int8 weights with int8
+    activations (whose row maxima go through the MAX reduce and its
+    backward), under the mesh and in this rank alone: the first loss and
+    the adapters' gradients as the step sums them."""
+    from evo_tpu_torch import lora
+    from evo_tpu_torch.config import tiny_config
+    from evo_tpu_torch.tools.cp_train_smoke import Recording
+    for tag, ov in (('int8', dict(weight_quant='int8')),
+                    ('int8x8', dict(weight_quant='int8', act_quant='int8'))):
+        for where, m in (('mesh', mesh), ('single', None)):
+            model = _port_model(sd, tiny_config(**ov), m)
+            adapters = lora.init_lora(torch.Generator().manual_seed(3),
+                                      model, rank=4)
+            for t in lora.named_adapters(adapters).values():
+                t.add_(0.05)            # B != 0: A has a gradient too
+            opt = Recording(learning_rate=TRAIN_LR)
+            state = lora.init_lora_train_state(adapters, opt)
+            state, loss = lora.make_lora_train_step(model, opt, alpha=8.0)(
+                state, ref['train_ids'], ref['train_mask'])
+            out[f'lora_{tag}_{where}_loss'] = np.asarray(float(loss))
+            for n, g in opt.grads.items():
+                out[f'lora_{tag}_{where}/{n}'] = g.numpy()
+
+
 def _worker(mode: str, d: str) -> None:
     import torch.distributed as dist
 
@@ -186,6 +213,7 @@ def _worker(mode: str, d: str) -> None:
         cfga = tiny_config(weight_quant='int8', act_quant='int8')
         ma = _port_model(sd, cfga, mesh)
         out['logits_act'] = ma(ref['ids'])[0].numpy()
+        _lora_quant(sd, mesh, ref, out)
         # without the MAX reduce each rank quantizes its half-rows with
         # their own scales: another function than the JAX package's
         quant.all_reduce_max = lambda x, mesh, axis='tp': x
@@ -368,6 +396,32 @@ def test_tp_act_quant_needs_the_row_max_over_tp(jax_ref, tp_run):
         np.testing.assert_allclose(got['logits_act'], want, rtol=1e-4,
                                    atol=1e-4)
         assert np.abs(got['logits_act_nomax'] - want).max() > 1e-3
+
+
+@pytest.mark.parametrize('base', ['int8', 'int8x8'])
+def test_tp_lora_over_a_quantized_base_matches_one_process(tp_run, base):
+    """LoRA over int8 weights, and over int8 weights with int8
+    activations, at tp = 2 against the same step in one process: the
+    first loss to 1e-5 relative and every adapter gradient, summed over
+    tp, to 1e-4 of its largest element (float32; the row-parallel sums
+    and the activation rows' maxima taken over tp). Under int8
+    activations the gradient of a row-parallel product's input reaches it
+    through the row scale's maximum over tp, whose backward routes it to
+    the rank that holds the maximum."""
+    for got in tp_run:
+        np.testing.assert_allclose(got[f'lora_{base}_mesh_loss'],
+                                   got[f'lora_{base}_single_loss'],
+                                   rtol=1e-5)
+        names = [k.split('/', 1)[1] for k in got
+                 if k.startswith(f'lora_{base}_single/')]
+        assert len(names) == 4 * 5 * 2     # 4 layers, 5 targets, A and B
+        for n in names:
+            want = got[f'lora_{base}_single/{n}']
+            err = np.abs(got[f'lora_{base}_mesh/{n}'] - want).max()
+            assert err <= 1e-4 * np.abs(want).max(), (base, n, err)
+    for k in tp_run[0]:
+        if k.startswith('lora_'):
+            np.testing.assert_array_equal(tp_run[0][k], tp_run[1][k], k)
 
 
 @pytest.mark.parametrize('mode', ['tp', 'dp'])
