@@ -40,7 +40,11 @@ for an H100: the kernels target sm_90a). It
      at full width and at a tp = 2 rank's, under their bf16 limits, timed
      beside the same kernels on the weights in bf16; and kernel 8's
      autograd Function at 1, 2 and 128 rows, its gradient of x against
-     the plain version's (1e-4 scaled), forward and backward timed;
+     the plain version's (1e-4 scaled), forward and backward timed; and
+     kernel 8's other modes, 'block' (its kBlock instance, 1e-4 scaled)
+     and 'dots8' (`csrc/int4_dots8.cu`, bit-equal), at 1 to 128 rows on
+     every int4 weight shape of a layer, timed at 4096 x 12288 by graph
+     replay in turns with 'unroll' and torch._weight_int4pack_mm;
   3. checks the whole port on a small bf16 model against the same model's
      plain PyTorch path on the CPU;
   4. scores with evo-1-8k-base at full width (32 layers, D=4096, random
@@ -75,11 +79,12 @@ for an H100: the kernels target sm_90a). It
      weights with int8 activations, and int4, against the bf16 scores;
  10. writes the random-init evo-1-8k-base as a sharded reference snapshot
      into a temporary directory, loads it with Evo(checkpoint_path=) and
-     requires bit-equal scores (8 layers at full width where the disk has
-     less than 40 GB free);
+     requires bit-equal scores (its first 8 layers at full width: 3.2 GB
+     written and read where the 32 took 12.9 GB);
  11. runs `python -m evo_tpu_torch.cli.score` and `...cli.generate` with
      --random-init --quant int4 in processes of their own, and
-     `...cli.serve` the same way in JSONL mode on three requests;
+     `...cli.serve` the same way in JSONL mode on three requests, the
+     three side by side;
  12. profiles one forward at B=1, L=8192, a prefill with 8 decode steps,
      one resumed segment at offset 122,880 and single decode steps in bf16
      and int4, and one forward under the fused mixer, and prints the
@@ -117,7 +122,7 @@ for an H100: the kernels target sm_90a). It
      within phase 8's yardstick, and kernel 5 with device offsets beside
      an int offset;
  18. (after phase 16, while evo-1-8k-base is on the card) generates
-     with n-gram speculative decoding (`generate_speculative`, g = 8, 128
+     with n-gram speculative decoding (`generate_speculative`, g = 8, 32
      new tokens from a repetitive and a random 512-nt prompt) beside the
      port's greedy `generate` on the same prompts, in turns: tokens/s,
      acceptance, tokens a device call, the launch counts of the run's own
@@ -158,8 +163,8 @@ for an H100: the kernels target sm_90a). It
      2` over 16 sequences, scores in input order within phase 4's 1e-2 of
      the single process's, then again after one shard's files are
      deleted, which only that shard's rank scores; (b) a tp = 2
-     evo-1-8k-base on its first 16 layers (cut from 32 to keep the run
-     in its time; `tools/tp_smoke.py model`): a forward at B=1, L=8,192
+     evo-1-8k-base on its first 9 layers (cut from 32 to keep the run in
+     its time; `tools/tp_smoke.py model`): a forward at B=1, L=2,048
      within phase 5's yardstick of the single process's (argmax agreement
      >= 0.75), greedy generation under the bf16 and the int8 KV cache
      (teacher forcing within phase 5's yardstick, 4x for int8), the fused
@@ -167,7 +172,8 @@ for an H100: the kernels target sm_90a). It
      yardstick of the unfused tp forward's), scores under int8 weights
      within 0.05 of bf16, the
      launch counts of one process, ranks bit-equal; (c) 2 sharded train
-     steps of phase 20's 9 layers (first loss within the one-rounding
+     steps of phase 20's 9 layers, in the same launch as (b) (first loss
+     within the one-rounding
      yardstick of phase 20's, the loss falls, replicated masters
      bit-equal across ranks). Its times are gloo's reduces through host
      memory on one card: nothing of NCCL or of tp across cards;
@@ -175,30 +181,32 @@ for an H100: the kernels target sm_90a). It
      references taken from phase 4's model before phase 19 trains it)
      context parallelism as two ranks of the port on the one card over
      gloo, chosen explicitly, as one cp = 2 mesh (`tools/cp_smoke.py
-     model`): (a) evo-1-8k-base, a forward at B=1, L=8,192 under each
+     model`): (a) evo-1-8k-base, a forward at B=1, L=2,048 under each
      cp_attn ('ulysses', 'ring', 'zigzag') within phase 5's yardstick of
      the single process's (argmax agreement >= 0.75), with kernel 3 three
      times under Ulysses and never under the rings (their core is plain
      float32, as the JAX package's), and the share of each forward spent
      in the cp collectives, and 2,048 positions under the fused mixer and
      under the prefix kernel at C/cp channels (kernels 6 and 7, within
-     the yardstick of the Ulysses logits); (b) greedy generation from phase 5's prompts,
-     32 tokens, under the bf16 and the int8 KV cache, kernels 4 / 5 three
+     the yardstick of the Ulysses logits); (b) greedy generation from
+     phase 5's prompts, 16 tokens, under the bf16 and the int8 KV cache,
+     kernels 4 / 5 three
      times a step over a 16-head cache, and teacher forcing with the
      single process's tokens within its one-rounding yardstick (4x for
-     int8); (c) evo-1-131k-base, 32,768 nt in segments of 8,192 (a fresh
+     int8); (c) evo-1-131k-base, 16,384 nt in segments of 8,192 (a fresh
      first segment of 8,193, padded inside the model) within 1e-2 of the
-     single process's score; (d) `cli.score --cp 2` over phase 21's
-     FASTA within 1e-2 of the single-process scores; ranks bit-equal.
+     single process's score; (d) `cli.score --cp 2` over the first 4
+     sequences of phase 21's FASTA within 1e-2 of the single-process
+     scores; ranks bit-equal.
      Its times are gloo's all-to-alls and sends through host memory on
      one card: nothing of NCCL or of cp across cards;
  23. (after phase 18, beside its unchanged evo-1-8k-base; (c) checked
      after phase 20) serving, speculation and LoRA under a mesh as two
      ranks of the port on the one card over gloo, chosen explicitly
      (`tools/mesh_smoke.py model`): (a) a tp = 2 evo-1-8k-base at full
-     width on its first 16 layers (cut from 32 to keep the run in its
+     width on its first 9 layers (cut from 32 to keep the run in its
      time) serving six ragged requests on 4 slots (prompts of
-     96-1,500 nt, 32-48 new tokens, two sampled, a batched pair, one
+     96-1,500 nt, 16-24 new tokens, two sampled, a batched pair, one
      arriving after the second step), then two under the int8 KV cache:
      every request ends with its token count, the recorded log-probs
      within phase 5's yardstick of one single-process forward (4x for
@@ -209,25 +217,29 @@ for an H100: the kernels target sm_90a). It
      on phase 20's 9 layers, 2 steps (the first loss within phase 20's
      yardstick, a falling loss, the base bit-unchanged, adapters equal
      across ranks, kernels 1-3 under autograd); (d) dp = 2 and (e) cp = 2
-     serving on 9 layers under (a)'s limits (each dp rank decoding its 2
-     of the 4 slots; per-slot device offsets through the cp decode
-     branch); (f) `cli.serve --tp 2 --dist-backend gloo` in JSONL mode on
-     a small bf16 checkpoint against a one-process run. Its times are
+     serving on the same 9 layers under (a)'s limits (each dp rank
+     decoding its 2 of the 4 slots; per-slot device offsets through the
+     cp decode branch); (f) `cli.serve --tp 2 --dist-backend gloo` in JSONL mode on
+     a small bf16 checkpoint against a one-process run beside it. Its
+     times are
      gloo's collectives through host memory on one card;
  24. (after phase 21) training under context parallelism as two ranks of
      the port on the one card over gloo, chosen explicitly, as one cp = 2
      mesh (`tools/cp_train_smoke.py model`), on phase 20's 9 layers
      (seed 20) at full width: (a) full fine-tuning, a window of L =
-     2,048, 2 steps under Ulysses, 1 under 'ring' and 1 under 'zigzag',
-     and a ragged L = 2,049 under Ulysses with remat (1 step), each leg
-     from the seed's weights; (b) LoRA rank 8 on the seven targets at L
-     = 8,192 with remat, 2 steps under Ulysses and 1 under 'zigzag'.
+     2,048, 1 step under Ulysses, and a ragged L = 2,049 under Ulysses
+     with remat (1 step), each leg from the seed's weights; (b) LoRA rank
+     8 on the seven targets at L = 8,192 with remat, 2 steps under
+     Ulysses, 1 under 'ring' and 1 under 'zigzag' (every leg but one
+     under LoRA, whose gradient sum is small: a full step's took 9-20 s
+     through gloo).
      Held to the single process on the same weights and batches: the
      first loss within its one-rounding yardstick, a falling loss over
-     two steps, the probed gradients (layer 0's w_in, the attention's
-     wqkv, the final norm; the adapters' B factors of the first two) as
-     the step sums them within the larger of the yardstick's relative
-     distance and one bf16 rounding of the gradient (2^-8), replicated
+     LoRA's two steps, the probed gradients (layer 0's w_in, the
+     attention's wqkv, the final norm; the adapters' B factors of the
+     first two) as the step sums them within the larger of the
+     yardstick's relative distance and one bf16 rounding of the gradient
+     (2^-8), replicated
      masters or adapters bit-equal across ranks after each step, LoRA's
      base unchanged, kernels 1-3's launches under grad (forward and
      recompute), and kernels 1-3's gradient Functions at a rank's shapes
@@ -257,7 +269,21 @@ for an H100: the kernels target sm_90a). It
      and in segments of 4,096, then 131,072 nt in segments of 8,192, with
      the launch counts worked out from the segment bounds (a ragged first
      segment falls through, the aligned ones take the fused kernel with a
-     carried state), time and peak memory beside the unfused run's.
+     carried state), time and peak memory beside the unfused run's;
+ 26. the FFT long-conv backend (`hyena_conv_backend='fft'`; cuFFT after
+     the same FIR + gate kernel): (a, after phase 13) evo-1-8k-base, same
+     seed, with `hyena_fused_mixer=True` set and ignored: one forward at
+     B=1, L=8192 (65 / 29 / 3 launches of kernels 1-3, none of the fused
+     mixer) within the one-rounding yardstick of the matmul backend's
+     logits, both timed in turns with their peaks; (b) greedy generation
+     from phase 5's prompts, 32 tokens (one FFT prefill, the modal state
+     scanned for decode), its step logits within phase 5's yardstick of
+     the matmul backend's teacher-forced ones, argmax agreement >= 0.75;
+     (c, after phase 14) evo-1-131k-base with its published
+     hyena_fft_chunk = 8,192: a forward of 32,768 positions (4 chunks)
+     against the chunk at 0 and against the matmul backend, then 131,072
+     nt in segments of 16,384 against phase 6's score within its drift,
+     with time and peak memory.
 
 Any failed check raises; nothing is caught. The last line of standard
 output is {"ok": true, "device": {...}}; the line before it holds the
@@ -280,9 +306,10 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # The H100 SXM's published peaks (NVIDIA data sheet, dense): memory
-# bytes/s, bf16 tensor-core FLOP/s and float32 (non-tensor) FLOP/s. The
+# bytes/s, bf16 tensor-core FLOP/s, float32 (non-tensor) FLOP/s and int8
+# tensor-core operations/s. The
 # bounds hold for that card only; any other card name raises.
-H100_SXM = dict(bytes_s=3.35e12, bf16=989e12, fp32=67e12)
+H100_SXM = dict(bytes_s=3.35e12, bf16=989e12, fp32=67e12, int8=1979e12)
 
 
 def check(cond, what):
@@ -1585,28 +1612,139 @@ def int4_grad_checks(torch, log, kernels, randn, peak, int4_case,
               'torch._weight_int4pack_mm forward at M = 128 (phase 2)')
 
 
+# Kernel 8's other modes (phase 2). 'block' rounds each dequantized weight
+# to bf16 before its product and sums in float32 in another order than its
+# plain version: 1e-4 of the larger of the value and its row's rms, kernel
+# 8's own limit. 'dots8' takes exact integer dots and its plain version
+# adds their scaled float32 sums in the kernel's order: bit-equal (the
+# stated limit had the order differed: 1e-6 scaled).
+def int4_mode_checks(torch, log, kernels, peak, int4_case, layer_calls,
+                     tinygemm, int4_matmul, unroll_plain, block_plain,
+                     dots8_plain):
+    """Both modes against their plain versions at M = 1, 2, 4, 9 and 128 on
+    every int4 weight shape of a layer (and two ragged ones), bit-equal run
+    to run, the bf16 output the float32 one rounded; then timed by graph
+    replay over cold weights at 4096 x 12288 in turns with 'unroll' and
+    tinygemm, in the same calls; their rows of the kernels line. Returns
+    the launches of each mode's stand-in main-path call (M = 1 at 4096 x
+    12288), counted from 0: no model path calls either mode."""
+    from evo_tpu_torch.ops import _build
+    plains = {'block': block_plain, 'dots8': dots8_plain}
+    errs = {m: [0.0, 0.0] for m in plains}
+    for M, K, Kp, N in ([(M, K, Kp, N) for K, Kp, N in layer_calls
+                         for M in (1, 2, 4, 9, 128)]
+                        + [(5, 500, 512, 1001), (3, 130, 256, 40)]):
+        x, packed, sc = int4_case(M, Kp, N)
+        x = x[:, :K].contiguous()
+        for mode, plain in plains.items():
+            got = int4_matmul(x, packed, sc, mode=mode)
+            again = int4_matmul(x, packed, sc, mode=mode)
+            got16 = int4_matmul(x, packed, sc, torch.bfloat16, mode=mode)
+            torch.cuda.synchronize()
+            want = plain(x, packed, sc)
+            e, r = float((got - want).abs().max()), scaled_err(got, want)
+            check(torch.equal(got, again), f'{mode} differs run to run')
+            check(torch.equal(got16, got.bfloat16()),
+                  f'{mode}: the bf16 output is not the float32 one rounded')
+            check(r <= 1e-4 if mode == 'block' else torch.equal(got, want),
+                  f'int4_matmul mode {mode!r} M={M} K={K} N={N}: scaled '
+                  f'error {r} against its plain version')
+            errs[mode] = [max(errs[mode][0], e), max(errs[mode][1], r)]
+    log(f'   int4_matmul block / dots8 against their plain versions (max '
+        f'abs, scaled): {errs} (limits 1e-4 scaled / bit-equal)')
+
+    K, Kp, N = 4096, 4096, 12288
+
+    def bound(mode, M):
+        nbytes = Kp // 2 * N + (Kp // 128) * N * 4 + M * K * 2 + M * N * 2
+        t_ops = 2 * M * K * N / peak['int8' if mode == 'dots8' else 'bf16']
+        t_bytes = nbytes / peak['bytes_s']
+        return 1e3 * max(t_ops, t_bytes), (
+            'operations' if t_ops > t_bytes else 'bytes')
+
+    by_rows = {}
+    for M in (1, 2, 4, 9, 128):
+        ws = [int4_case(M, Kp, N) for _ in range(int(110e6 // (Kp // 2 * N))
+                                                  + 1)]
+        tg = [tinygemm(p, s) for _x, p, s in ws]
+
+        def calls(name):
+            if name == 'library':
+                return [(lambda x=x, t=t: torch._weight_int4pack_mm(
+                    x, t[0], 128, t[1])) for (x, _p, _s), t in zip(ws, tg)]
+            return [(lambda c=c: int4_matmul(*c, torch.bfloat16, mode=name))
+                    for c in ws]
+        times = collections.defaultdict(list)
+        for name in ('unroll', 'block', 'dots8', 'library', 'library',
+                     'dots8', 'block', 'unroll'):
+            times[name].append(time_graph_ms(torch, calls(name)))
+        row = {name: t for name, t in times.items()}
+        for mode, plain in plains.items():
+            row[f'{mode}_plain_ms'] = time_ms(torch, lambda: plain(
+                *ws[0], torch.bfloat16), reps=3, warmup=1)
+            row[f'{mode}_bound'] = bound(mode, M)
+        by_rows[M] = row
+        del ws, tg
+    log(f'   int4_matmul modes at 4096 x 12288 by rows (graph replay ms, in '
+        f'turns; library: torch._weight_int4pack_mm): {by_rows}')
+
+    launches = {}
+    x, packed, sc = int4_case(1, Kp, N)
+    for mode in plains:
+        _build.LAUNCHES.clear()
+        int4_matmul(x, packed, sc, torch.bfloat16, mode=mode)
+        torch.cuda.synchronize()
+        launches[f'int4_{mode}_call'] = dict(_build.LAUNCHES)
+        check(launches[f'int4_{mode}_call'] == {f'int4_matmul_{mode}': 1},
+              f'launches {launches[f"int4_{mode}_call"]}')
+        row = by_rows[1]
+        bound_ms, bound_by = row[f'{mode}_bound']
+        kernels[f'int4_matmul_{mode}'] = dict(
+            name=f'int4_matmul_{mode}', route='cuda',
+            source=('evo_tpu_torch/csrc/int4_matmul.cu' if mode == 'block'
+                    else 'evo_tpu_torch/csrc/int4_dots8.cu'),
+            replaces=('evo_tpu/ops/pallas_int4.py:163' if mode == 'block'
+                      else 'evo_tpu/ops/pallas_int4.py:115'),
+            max_abs_err=errs[mode][0], max_scaled_err=errs[mode][1],
+            ms=min(row[mode]), plain_ms=row[f'{mode}_plain_ms'],
+            bound_ms=bound_ms, bound_by=bound_by,
+            # no single PyTorch call computes either function; tinygemm,
+            # the nearest, is in by_rows
+            library_ms=None,
+            by_rows={M: dict(ms=r[mode], unroll_ms=r['unroll'],
+                             tinygemm_ms=r['library'],
+                             plain_ms=r[f'{mode}_plain_ms'],
+                             bound_ms=r[f'{mode}_bound'][0],
+                             bound_by=r[f'{mode}_bound'][1])
+                     for M, r in by_rows.items()},
+            shape='x (1, 4096) bf16, packed (2048, 12288) int8, scales '
+                  '(32, 12288) fp32 -> y bf16 (by_rows: M = 1, 2, 4, 9, 128, '
+                  'each time graph replay in turns, twice)')
+    return launches
+
+
 def phase21_inputs(torch, np, evo, prompts, seqs, nudged_forward, d):
     """What phase 21's ranks are held to, from the single-process
     evo-1-8k-base (seed 0) while it is on the card and unchanged: one
-    forward at B=1, L=8,192 of its first 16 layers (the depth of phase 21
+    forward at B=1, L=2,048 of its first 9 layers (the depth of phase 21
     (b)) and its one-rounding yardstick, phase 5's prompts, phase 4's
     ragged sequences, and a FASTA of 16 sequences with their scores in
     batches of 4; and the same forward and yardstick at full depth, which
     phase 22 reads. Written to `d`; the logits leave the card."""
     from evo_tpu_torch.io.fasta import read_fasta, write_fasta
     from evo_tpu_torch.scoring import score_sequences
-    from evo_tpu_torch.tools.tp_smoke import SIXTEEN
+    from evo_tpu_torch.tools.tp_smoke import NINE
     rng = np.random.default_rng(21)
-    ids = torch.from_numpy(rng.integers(65, 85, (1, 8192)))
+    ids = torch.from_numpy(rng.integers(65, 85, (1, 2048)))
     logits = evo.model(ids)[0]
     floor = float((nudged_forward(evo.model, ids) - logits).abs().mean())
-    sixteen = truncated(evo.model, SIXTEEN)
-    logits16 = sixteen(ids)[0]
-    floor16 = float((nudged_forward(sixteen, ids) - logits16).abs().mean())
+    nine = truncated(evo.model, NINE)
+    logits9 = nine(ids)[0]
+    floor9 = float((nudged_forward(nine, ids) - logits9).abs().mean())
     torch.save({'ids': ids, 'logits': logits.float().cpu(),
-                'logits16': logits16.float().cpu(), 'prompts': prompts,
+                'logits9': logits9.float().cpu(), 'prompts': prompts,
                 'seqs': seqs}, os.path.join(d, 'model_in.pt'))
-    del logits, logits16, sixteen
+    del logits, logits9, nine
     _, examples = read_fasta(os.path.join(ROOT, 'examples',
                                           'example_seqs.fasta'))
     # the 3 examples, the 4 ragged sequences, and 9 of their prefixes
@@ -1619,7 +1757,7 @@ def phase21_inputs(torch, np, evo, prompts, seqs, nudged_forward, d):
     scores = []
     for i in range(0, 16, 4):
         scores += score_sequences(fasta16[i:i + 4], evo.model, evo.tokenizer)
-    return dict(floor=floor, floor16=floor16, fasta=path, seqs=fasta16,
+    return dict(floor=floor, floor9=floor9, fasta=path, seqs=fasta16,
                 scores=scores)
 
 
@@ -1682,14 +1820,16 @@ def phase21_parallel(torch, np, smi, launches, ref, res20, corpus, d):
           and after == before, 'the sharded CLI did not resume')
     out['a'] = dict(seconds=secs, resume_seconds=secs2, max_diff=worst)
 
-    # (b) a tp = 2 evo-1-8k-base on its first 16 layers (15 Hyena layers,
-    # the attention at 8)
-    _, secs = run(['-m', 'evo_tpu_torch.tools.tp_smoke', 'model', d],
-                  'model')
+    # (b) a tp = 2 evo-1-8k-base on its first 9 layers (8 Hyena layers,
+    # the attention at 8), and (c) the sharded train step, in one launch
+    with open(os.path.join(d, 'train_in.json'), 'w') as f:
+        json.dump({'corpus': corpus}, f)
+    _, secs_bc = run(['-m', 'evo_tpu_torch.tools.tp_smoke', 'model+train',
+                      d], 'model')
     r0, r1 = rank_json('model')
-    per_forward = {'rmsnorm': 33, 'fir_gate': 15, 'flash_attention': 1}
-    n_new = 32
-    want_gen = {'rmsnorm': 33 * n_new, 'fir_gate': 15, 'flash_attention': 1,
+    per_forward = {'rmsnorm': 19, 'fir_gate': 8, 'flash_attention': 1}
+    n_new = 16
+    want_gen = {'rmsnorm': 19 * n_new, 'fir_gate': 8, 'flash_attention': 1,
                 'flash_attention_buffer': n_new - 1}
     want_gen8 = dict(want_gen, flash_attention_buffer_q8=n_new - 1,
                      combine_partials=n_new - 1)
@@ -1700,16 +1840,17 @@ def phase21_parallel(torch, np, smi, launches, ref, res20, corpus, d):
         m = res['part']
         t_b, t_8 = m['teacher_bf16'], m['teacher_int8']
         log(f'   (b) rank {r}: weights {m["weight_gib"]:.2f} GiB, made in '
-            f'{m["init_s"]:.1f} s; 16 layers: forward B=1 L=8192 '
-            f'{m["forward_ms"]:.1f} ms; again with each of the 32 reduces '
+            f'{m["init_s"]:.1f} s; 9 layers: forward B=1 L=2048 '
+            f'{m["forward_ms"]:.1f} ms; again with each of the 18 reduces '
             f'between device syncs '
             f'{m["forward_instrumented_ms"]:.1f} ms, of which the reduces '
             f'{m["reduce_ms"]:.1f} ms, {100 * m["reduce_share"]:.1f} %; '
             f'against the single process: mean abs '
-            f'{m["forward_mean_abs"]:.5f} (yardstick {ref["floor16"]:.5f}), '
+            f'{m["forward_mean_abs"]:.5f} (yardstick {ref["floor9"]:.5f}), '
             f'max {m["forward_max_abs"]:.4f}, argmax agreement '
             f'{m["forward_argmax_agree"]:.4f}; decode step '
-            f'{m["decode_step_ms"]:.2f} ms at B=2; generate 2 x 512 + 32: '
+            f'{m["decode_step_ms"]:.2f} ms at B=2; generate 2 x 512 + '
+            f'{n_new}: '
             f'bf16 {m["generate_bf16_s"]:.2f} s, teacher forcing {t_b}; '
             f'int8 KV {m["generate_int8_s"]:.2f} s, {t_8}; fused mixer, '
             f'L=2048: mean abs {m["fused_mean_abs"]:.5f} from the unfused '
@@ -1724,15 +1865,15 @@ def phase21_parallel(torch, np, smi, launches, ref, res20, corpus, d):
         check(m['launches_generate_int8'] == want_gen8,
               f'tp int8-KV generate launches {m["launches_generate_int8"]}')
         check(m['launches_fused_forward'] == {
-            'rmsnorm': 33, 'flash_attention': 1, 'hyena_mixer': 15},
+            'rmsnorm': 19, 'flash_attention': 1, 'hyena_mixer': 8},
               f'tp fused launches {m["launches_fused_forward"]}')
         check(m['launches_prefix_forward'] == {
-            'rmsnorm': 33, 'fir_gate': 15, 'modal_prefix': 15,
+            'rmsnorm': 19, 'fir_gate': 8, 'modal_prefix': 8,
             'flash_attention': 1},
               f'tp prefix launches {m["launches_prefix_forward"]}')
-        check(m['prefix_mean_abs'] <= ref['floor16'],
+        check(m['prefix_mean_abs'] <= ref['floor9'],
               'tp forward under the prefix kernel past the yardstick')
-        check(m['forward_mean_abs'] <= ref['floor16']
+        check(m['forward_mean_abs'] <= ref['floor9']
               and m['forward_argmax_agree'] >= 0.75,
               'tp logits moved past the one-rounding yardstick')
         check(t_b['mean_abs'] <= t_b['yardstick'] and t_b['argmax_agree']
@@ -1740,7 +1881,7 @@ def phase21_parallel(torch, np, smi, launches, ref, res20, corpus, d):
         check(t_8['mean_abs'] <= 4 * t_8['yardstick']
               and t_8['argmax_agree'] >= 0.75,
               f'tp teacher forcing, int8 KV: {t_8}')
-        check(m['fused_mean_abs'] <= ref['floor16'],
+        check(m['fused_mean_abs'] <= ref['floor9'],
               'tp fused forward past the yardstick')
         check(m['all_finite'] and max(abs(a - b) for a, b in zip(
             m['scores_int8'], m['scores_bf16'])) <= 0.05,
@@ -1752,18 +1893,14 @@ def phase21_parallel(torch, np, smi, launches, ref, res20, corpus, d):
           == r1['part']['tokens_bf16'] and r0['part']['tokens_int8']
           == r1['part']['tokens_int8'], 'the ranks\' results differ')
     m = r0['part']
-    launches['tp2_forward_8192'] = m['launches_forward']
+    launches['tp2_forward_2048'] = m['launches_forward']
     launches['tp2_generate'] = m['launches_generate_bf16']
     launches['tp2_generate_int8'] = m['launches_generate_int8']
     launches['tp2_fused_forward_2048'] = m['launches_fused_forward']
     launches['tp2_prefix_forward_2048'] = m['launches_prefix_forward']
-    out['b'] = dict(seconds=secs, ranks=[r0, r1])
+    out['b'] = dict(seconds=r0['seconds'], ranks=[r0, r1])
 
     # (c) the sharded train step
-    with open(os.path.join(d, 'train_in.json'), 'w') as f:
-        json.dump({'corpus': corpus}, f)
-    _, secs = run(['-m', 'evo_tpu_torch.tools.tp_smoke', 'train', d],
-                  'train')
     t0, t1 = (x['part'] for x in rank_json('train'))
     yard = res20['first_loss_yardstick']
     want = train_launches(2, 9, 1)
@@ -1781,18 +1918,18 @@ def phase21_parallel(torch, np, smi, launches, ref, res20, corpus, d):
               f'sharded training: {t}')
     check(t0['losses'] == t1['losses'], 'the ranks\' losses differ')
     launches['tp2_train_2048'] = t0['launches']
-    out['c'] = dict(seconds=secs, ranks=[t0, t1])
+    out['c'] = dict(seconds=rank_json('train')[0]['seconds'], ranks=[t0, t1])
     log(f'   phase 21 seconds: (a) {out["a"]["seconds"]:.1f} + '
-        f'{out["a"]["resume_seconds"]:.1f}, (b) {out["b"]["seconds"]:.1f}, '
-        f'(c) {out["c"]["seconds"]:.1f}')
+        f'{out["a"]["resume_seconds"]:.1f}, (b) {out["b"]["seconds"]:.1f} '
+        f'and (c) {out["c"]["seconds"]:.1f} in one launch of {secs_bc:.1f}')
     return out
 
 
 def phase22_inputs(torch, evo, prompts, nudged_forward, d, model_in):
     """What phase 22's ranks are held to from the single-process
     evo-1-8k-base (seed 0), while it is on the card and unchanged: phase
-    21's forward at B=1, L=8,192 and its yardstick, and greedy generation
-    from phase 5's prompts, 32 tokens under the bf16 and the int8 KV cache
+    21's forward at B=1, L=2,048 and its yardstick, and greedy generation
+    from phase 5's prompts, 16 tokens under the bf16 and the int8 KV cache
     (tokens, each step's logits, and the one-rounding yardstick over the
     same positions). Written to `d`/cp_in.pt, on the host."""
     from evo_tpu_torch.generation import Generator
@@ -1800,7 +1937,7 @@ def phase22_inputs(torch, evo, prompts, nudged_forward, d, model_in):
     from evo_tpu_torch.scoring import prepare_batch
     inp = torch.load(model_in)
     prompt_ids = prepare_batch(prompts, evo.tokenizer, prepend_bos=False)[0]
-    P, n_new = prompt_ids.shape[1], 32
+    P, n_new = prompt_ids.shape[1], 16
     gen = {}
     for label, kv in (('bf16', 'none'), ('int8', 'int8')):
         m = EvoModel(evo.config.replace(kv_quant=kv), evo.model.module)
@@ -1833,7 +1970,7 @@ def phase22_context_parallel(torch, np, smi, launches, ref21, model, tok,
     env = dict(os.environ, PYTHONPATH=ROOT)
     floor = ref21['floor']
     rng = np.random.default_rng(22)
-    long_seq = ''.join(rng.choice(list('ACGT'), 32768))
+    long_seq = ''.join(rng.choice(list('ACGT'), 16384))
     t = time.time()
     long_score = score_sequences_segmented([long_seq], model, tok,
                                            segment_len=8192)[0]
@@ -1844,7 +1981,7 @@ def phase22_context_parallel(torch, np, smi, launches, ref21, model, tok,
     torch.save(inp, path)
     log(f'== 22. context parallelism ({smi}): 2 ranks on one card as one '
         f'cp = 2 mesh, torch.distributed backend gloo (passed explicitly); '
-        f'the single process scores 32,768 nt with evo-1-131k-base in '
+        f'the single process scores 16,384 nt with evo-1-131k-base in '
         f'segments of 8,192 in {long_single_s:.2f} s: {long_score:.6f}')
 
     def run(argv, tag):
@@ -1859,7 +1996,7 @@ def phase22_context_parallel(torch, np, smi, launches, ref21, model, tok,
     for r in (0, 1):
         with open(os.path.join(d, f'model_rank{r}.json')) as f:
             ranks.append(json.load(f)['part'])
-    n_new = 32
+    n_new = 16
     per_forward = {'rmsnorm': 65, 'fir_gate': 29, 'flash_attention': 3}
     ring_forward = {'rmsnorm': 65, 'fir_gate': 29}
     want_gen = {'rmsnorm': 65 * n_new, 'fir_gate': 29, 'flash_attention': 3,
@@ -1867,10 +2004,10 @@ def phase22_context_parallel(torch, np, smi, launches, ref21, model, tok,
     want_gen8 = {'rmsnorm': 65 * n_new, 'fir_gate': 29, 'flash_attention': 3,
                  'flash_attention_buffer_q8': 3 * (n_new - 1),
                  'combine_partials': 3 * (n_new - 1)}
-    # 32,769 tokens with the BOS: a fresh segment of 8,193 (padded to
-    # 8,194 for cp = 2) and 3 resumed ones of 8,192
-    want_long = {'rmsnorm': 65 * 4, 'fir_gate': 29 * 4, 'flash_attention': 3,
-                 'flash_attention_buffer': 3 * 3}
+    # 16,385 tokens with the BOS: a fresh segment of 8,193 (padded to
+    # 8,194 for cp = 2) and a resumed one of 8,192
+    want_long = {'rmsnorm': 65 * 2, 'fir_gate': 29 * 2, 'flash_attention': 3,
+                 'flash_attention_buffer': 3}
     for r, m in enumerate(ranks):
         for key, want in (('fused', {'rmsnorm': 65, 'flash_attention': 3,
                                      'hyena_mixer': 29}),
@@ -1889,7 +2026,7 @@ def phase22_context_parallel(torch, np, smi, launches, ref21, model, tok,
                   f'cp {key} forward past the yardstick')
             launches[f'cp2_{key}_forward_2048'] = f['launches']
         for mode, f in m['forward'].items():
-            log(f'   (a) rank {r}, cp_attn={mode}: forward B=1 L=8192, each '
+            log(f'   (a) rank {r}, cp_attn={mode}: forward B=1 L=2048, each '
                 f'cp collective between device syncs, {f["ms"]:.1f} ms, of '
                 f'which the collectives {f["collectives_ms"]:.1f} ms, '
                 f'{100 * f["collectives_share"]:.1f} %; against the single '
@@ -1922,7 +2059,7 @@ def phase22_context_parallel(torch, np, smi, launches, ref21, model, tok,
             check(g['tokens_equal_across_ranks'],
                   f'cp {label}: the ranks\' tokens differ')
         c = m['long']
-        log(f'   (c) rank {r}: evo-1-131k-base 32,768 nt in segments of '
+        log(f'   (c) rank {r}: evo-1-131k-base 16,384 nt in segments of '
             f'8,192: {c["score"]:.6f} in {c["seconds"]:.2f} s (single '
             f'process {long_score:.6f} in {long_single_s:.2f} s; '
             f'difference {c["diff"]:.3e}, limit 1e-2), each collective '
@@ -1947,14 +2084,15 @@ def phase22_context_parallel(torch, np, smi, launches, ref21, model, tok,
           'the ranks\' results differ')
     m = ranks[0]
     for mode, f in m['forward'].items():
-        launches[f'cp2_forward_{mode}_8192'] = f['launches']
+        launches[f'cp2_forward_{mode}_2048'] = f['launches']
     launches['cp2_generate'] = m['generate']['bf16']['launches']
     launches['cp2_generate_int8'] = m['generate']['int8']['launches']
-    launches['cp2_score_segmented_32k'] = m['long']['launches']
+    launches['cp2_score_segmented_16k'] = m['long']['launches']
 
-    # (d) the score CLI under --cp 2 over phase 21's FASTA
-    fasta = os.path.join(d, 'sixteen.fasta')
-    write_fasta(fasta, [f's{i}' for i in range(16)], ref21['seqs'])
+    # (d) the score CLI under --cp 2 over the first 4 sequences of phase
+    # 21's FASTA, one batch
+    fasta = os.path.join(d, 'four.fasta')
+    write_fasta(fasta, [f's{i}' for i in range(4)], ref21['seqs'][:4])
     tsv = os.path.join(d, 'cli', 'scores.tsv')
     os.makedirs(os.path.dirname(tsv))
     _, cli_s = run(['-m', 'evo_tpu_torch.cli.score', '--cp', '2',
@@ -1964,11 +2102,11 @@ def phase22_context_parallel(torch, np, smi, launches, ref21, model, tok,
     with open(tsv) as f:
         rows = [ln.rstrip('\n').split('\t') for ln in f][1:]
     got = [float(x[1]) for x in rows]
-    worst = max(abs(a - b) for a, b in zip(got, ref21['scores']))
+    worst = max(abs(a - b) for a, b in zip(got, ref21['scores'][:4]))
     log(f'   (d) cli.score --cp 2 over {len(rows)} sequences (batch 4): '
         f'{cli_s:.1f} s; largest difference from the single-process scores '
         f'{worst:.2e} (limit 1e-2, phase 4\'s)')
-    check([x[0] for x in rows] == ref21['seqs'] and worst <= 1e-2
+    check([x[0] for x in rows] == ref21['seqs'][:4] and worst <= 1e-2
           and all(np.isfinite(got)), f'cp CLI scores {got}')
     log(f'   phase 22 seconds: ranks {secs:.1f}, CLI {cli_s:.1f}')
     return dict(seconds=secs, cli_seconds=cli_s, ranks=ranks)
@@ -1976,20 +2114,22 @@ def phase22_context_parallel(torch, np, smi, launches, ref21, model, tok,
 
 def phase23_inputs(torch, np, d, corpus, spec_prompt):
     """The traffic of phase 23, written to `d`/mesh_in.json: six ragged
-    requests (96-1,500 nt prompts, 32-48 new tokens, two sampled, a
+    requests (96-1,500 nt prompts, 16-24 new tokens, two sampled, a
     same-length pair for one batched fill, one arriving after the second
-    step), two under the int8 KV cache, phase 18's random 512-nt prompt
-    and oracle schedule, the training corpus, and (f)'s three requests of
-    24 tokens with the small bf16 model they go to (512 channels, 4 heads
-    of 128, 4 layers, seed 0), written as a native checkpoint: the
-    kernels take bf16 only, so the CLIs' float32 `--tiny` does not run on
-    the card."""
+    step), two of 16 tokens under the int8 KV cache, phase 18's random
+    512-nt prompt and oracle schedule, the training corpus, and (f)'s three
+    requests of 24 tokens with the small bf16 model they go to (512
+    channels, 4 heads of 128, 4 layers, seed 0), written as a native
+    checkpoint: the kernels take bf16 only, so the CLIs' float32 `--tiny`
+    does not run on the card."""
     from evo_tpu_torch import checkpoint as ckpt
     from evo_tpu_torch import model as model_lib
     from evo_tpu_torch.config import tiny_config
     rng = np.random.default_rng(23)
     plens = [512, 512, 96, 700, 1500, 900]
-    news = [int(n) for n in rng.integers(32, 49, len(plens))]
+    # halved draws of 32-48: a decode step of 9 layers under tp = 2 is 18
+    # gloo reduces of ~4 ms each, most of its time
+    news = [int(n) // 2 for n in rng.integers(32, 49, len(plens))]
     sampled, late = (1, 4), (5,)
     requests = [dict(prompt=''.join(rng.choice(list('ACGT'), n)),
                      num_tokens=news[i],
@@ -1997,7 +2137,7 @@ def phase23_inputs(torch, np, d, corpus, spec_prompt):
                      top_k=4 if i in sampled else 0, seed=2300 + i,
                      late=i in late) for i, n in enumerate(plens)]
     requests_int8 = [dict(prompt=''.join(rng.choice(list('ACGT'), n)),
-                          num_tokens=32, temperature=0.0, top_k=0,
+                          num_tokens=16, temperature=0.0, top_k=0,
                           seed=2310 + i, late=False)
                      for i, n in enumerate((300, 1000))]
     cfg = tiny_config(hidden_size=512, num_filters=512, num_attention_heads=4,
@@ -2060,16 +2200,16 @@ def phase23_mesh(np, smi, launches, big, tok, inp, d, helpers):
     the one card over gloo (chosen explicitly; NCCL refuses two ranks on
     one card), `tools/mesh_smoke.py model`, held to the single process:
     `big` is the single-process evo-1-8k-base (seed 0, unchanged since
-    phase 4), whose first 16 layers (a) and (b) run under tp = 2 and are
+    phase 4), whose first 9 layers (a) and (b) run under tp = 2 and are
     held to, and `helpers` phase 16's and 18's checks. (c)'s checks wait
     for phase 20's loss (`phase23_lora_check`). These times are gloo's
     host-memory collectives on one card, and say nothing of NCCL or of a
     mesh across cards."""
     from types import SimpleNamespace
 
-    from evo_tpu_torch.models import Evo, EvoModel
+    from evo_tpu_torch.models import EvoModel
     from evo_tpu_torch.parallel.distributed import launch_local
-    from evo_tpu_torch.tools.mesh_smoke import NINE, SIXTEEN
+    from evo_tpu_torch.tools.mesh_smoke import NINE
     env = dict(os.environ, PYTHONPATH=ROOT)
     log(f'== 23. serving, speculation and LoRA under a mesh ({smi}): 2 ranks '
         f'on one card, torch.distributed backend gloo (passed explicitly)')
@@ -2128,14 +2268,14 @@ def phase23_mesh(np, smi, launches, big, tok, inp, d, helpers):
                     argmax_agreement=agree)
 
     out = {'seconds': secs}
-    # (a) and (b) ran the first 16 layers of `big`: the same weights (the
+    # (a) and (b) ran the first 9 layers of `big`: the same weights (the
     # draws of random_init run layer by layer in order) and final norm
-    sixteen = truncated(big, SIXTEEN)
-    out['a'] = served('a', sixteen, reqs, 16, 1, 1, '(a) tp = 2, bf16 KV')
+    nine = truncated(big, NINE)
+    out['a'] = served('a', nine, reqs, 9, 1, 1, '(a) tp = 2, bf16 KV')
     out['a_int8'] = served(
-        'a_int8', EvoModel(sixteen.config.replace(kv_quant='int8'),
-                           sixteen.module),
-        inp['requests_int8'], 16, 1, 4, '(a) tp = 2, int8 KV')
+        'a_int8', EvoModel(nine.config.replace(kv_quant='int8'),
+                         nine.module),
+        inp['requests_int8'], 9, 1, 4, '(a) tp = 2, int8 KV')
     for r, m in enumerate(ranks):
         p, ts = m['a']['profiled_step'], m['a']['timed_step']
         log(f'   (a) rank {r}: one step() of 4 decoding slots in the '
@@ -2154,7 +2294,7 @@ def phase23_mesh(np, smi, launches, big, tok, inp, d, helpers):
     b = ranks[0]['b']
     for r, m in enumerate(ranks):
         x = m['b']
-        want = helpers['spec_launches'](x['lengths'], layers=16, attn=1)
+        want = helpers['spec_launches'](x['lengths'], layers=9, attn=1)
         check(x['launches'] == want, f'23(b) rank {r} launches '
               f'{x["launches"]}, expected {want}')
         full, replays = helpers['check_schedule_ran'](
@@ -2170,23 +2310,20 @@ def phase23_mesh(np, smi, launches, big, tok, inp, d, helpers):
           and ranks[1]['b']['logps'] == b['logps'],
           '23(b): the ranks\' results differ')
     d_, dmax, f_, agree = helpers['spec_teacher_forced'](
-        sixteen, inp['spec_prompt'], np.asarray(b['tokens']), b['logps'])
-    del sixteen
+        nine, inp['spec_prompt'], np.asarray(b['tokens']), b['logps'])
     log(f'   (b): teacher forcing: mean abs log-prob diff {d_:.5f} (max '
         f'{dmax:.4f}), one rounding step {f_:.5f} (limit 1x), argmax '
         f'agreement {agree:.4f} (limit 0.75); ranks equal')
     check(d_ <= f_ and agree >= 0.75,
           '23(b): speculative log-probs disagree with teacher forcing')
     out['b'] = dict(mean_abs=d_, yardstick=f_, argmax_agreement=agree)
-    # (d) dp = 2 and (e) cp = 2 on the first 9 layers
-    nine = Evo('evo-1-8k-base', random_init=True, seed=0, device='cuda',
-               config_overrides=NINE)
-    out['d'] = served('d', nine.model, reqs, 9, 1, 1, '(d) dp = 2')
+    # (d) dp = 2 and (e) cp = 2 on the same 9 layers
+    out['d'] = served('d', nine, reqs, 9, 1, 1, '(d) dp = 2')
     for r, m in enumerate(ranks):
         check(m['d']['rows'] == 2 and m['d']['base'] == 2 * r,
               f'23(d) rank {r} decoded rows {m["d"]["rows"]} from '
               f'{m["d"]["base"]}')
-    out['e'] = served('e', nine.model, reqs, 9, 1, 1, '(e) cp = 2')
+    out['e'] = served('e', nine, reqs, 9, 1, 1, '(e) cp = 2')
     for r, m in enumerate(ranks):
         e = m['e']
         log(f'   (e) rank {r}: {e["steps_seen"]} decode steps\' attention, '
@@ -2255,17 +2392,24 @@ def phase23_cli(torch, np, inp, res23, d):
                                 'prompt': p}) + '\n')
     flags = [*cli['flags'], '--requests-jsonl', reqs]
     env = dict(os.environ, PYTHONPATH=ROOT)
+    # the one-process run beside the tp = 2 launch: both times are of
+    # three processes sharing the card and the host
     t = time.time()
-    launch_local(['-m', 'evo_tpu_torch.cli.serve', '--tp', '2',
-                  '--dist-backend', 'gloo', *flags, '--output-jsonl',
-                  os.path.join(d, 'tp2.jsonl')], 2, env=env, timeout=600,
-                 log_dir=os.path.join(d, 'cli'))
-    tp_s = time.time() - t
-    t = time.time()
-    subprocess.run([sys.executable, '-m', 'evo_tpu_torch.cli.serve', *flags,
-                    '--output-jsonl', os.path.join(d, 'one.jsonl')],
-                   env=env, check=True, timeout=600, cwd=ROOT)
-    one_s = time.time() - t
+    one = subprocess.Popen([sys.executable, '-m', 'evo_tpu_torch.cli.serve',
+                            *flags, '--output-jsonl',
+                            os.path.join(d, 'one.jsonl')], env=env, cwd=ROOT)
+    try:
+        launch_local(['-m', 'evo_tpu_torch.cli.serve', '--tp', '2',
+                      '--dist-backend', 'gloo', *flags, '--output-jsonl',
+                      os.path.join(d, 'tp2.jsonl')], 2, env=env, timeout=600,
+                     log_dir=os.path.join(d, 'cli'))
+        tp_s = time.time() - t
+        check(one.wait(timeout=600) == 0, '23(f): the one-process CLI failed')
+        one_s = time.time() - t
+    finally:
+        if one.poll() is None:
+            one.kill()
+            one.wait()
     got, one = ([json.loads(ln) for ln in open(os.path.join(d, n))]
                 for n in ('tp2.jsonl', 'one.jsonl'))
     ref = res23['ranks'][0]['f']
@@ -2302,7 +2446,8 @@ def phase23_cli(torch, np, inp, res23, d):
     agree = float(torch.cat(agree).mean())
     log(f'   (f) cli.serve --tp 2 --dist-backend gloo, JSONL, 3 requests of '
         f'{cli["num_tokens"]} tokens on a small bf16 checkpoint: {tp_s:.1f} s '
-        f'(one process {one_s:.1f} s); rank 0\'s lines equal the tp = 2 '
+        f'(one process beside it {one_s:.1f} s); rank 0\'s lines equal the '
+        f'tp = 2 '
         f'server\'s; equal to the one process\'s: {got == one}; the tp '
         f'generations against one forward of the one-process model: mean '
         f'abs log-prob diff {d_:.5f}, one rounding step {f_:.5f} (limit 1x), '
@@ -2493,7 +2638,6 @@ def cp_train_inputs(torch, corpus, d):
     # (a) full fine-tuning: the ragged window under remat, then L = 2,048
     params = dict(module.named_parameters())
     for key, seq_len, remat in (('full_2049', 2048, True),
-                                ('full_2048_plain', 2047, False),
                                 ('full_2048', 2047, False)):
         ids, mask = cts._batch(corpus, seq_len)
         module.config = cts.nine_layers().replace(remat=remat)
@@ -2645,8 +2789,10 @@ def main():
     from evo_tpu_torch.ops.fir_gate import fir_gate, fir_gate_plain
     from evo_tpu_torch.ops.hyena_mixer import (hyena_mixer, hyena_mixer_plain,
                                                hyena_mixer_supported)
-    from evo_tpu_torch.ops.int4 import (int4_matmul, int4_matmul_plain,
-                                        pack_int4, unpack_int4)
+    from evo_tpu_torch.ops.int4 import (int4_matmul, int4_matmul_block_plain,
+                                        int4_matmul_dots8_plain,
+                                        int4_matmul_plain, pack_int4,
+                                        unpack_int4)
     from evo_tpu_torch.ops.mlp_gate import fused_gate, fused_gate_plain
     from evo_tpu_torch.ops.modal_prefix import (modal_prefix,
                                                 modal_prefix_plain)
@@ -3133,6 +3279,10 @@ def main():
     log(f'   int4_matmul by rows at 4096 x 12288: {by_rows}; by call of '
         f'a layer at M=2: {per_layer}')
     del qw
+    phase2_launches = int4_mode_checks(
+        torch, log, kernels, peak, int4_case, layer_calls, tinygemm,
+        int4_matmul, int4_matmul_plain, int4_matmul_block_plain,
+        int4_matmul_dots8_plain)
 
     # The fused Hyena mixer on the in-projection's (B, L, 3, C) output read
     # in place, with the in-projection bias folded in. Its bias add and FIR
@@ -3402,7 +3552,7 @@ def main():
             for n in (1000, 2300, 3100, 4000)]
     score_sequences(seqs[:1], evo.model, evo.tokenizer)   # warm-up
     torch.cuda.synchronize()
-    launches = {}
+    launches = dict(phase2_launches)
 
     _build.LAUNCHES.clear()
     t0 = time.time()
@@ -3700,7 +3850,88 @@ def main():
     logit_drift(f'forward B=1 L=8192 under hyena_pallas_prefix '
                 f'({prefix_s:.4f} s, {8192 / prefix_s:.0f} tokens/s)',
                 prefix_logits)
-    del evo_p, prefix_logits, unfused_logits, floor
+    del evo_p, prefix_logits
+
+    # -- 26. the FFT long-conv backend, evo-1-8k-base at full width --------
+    # Same seed, so the same weights; `hyena_conv_backend='fft'` swaps each
+    # Hyena layer's chunked Toeplitz conv for real FFTs (cuFFT) after the
+    # same FIR + gate kernel, and ignores `hyena_fused_mixer` (set here to
+    # show it). (a) one forward at B=1, L=8192: the launches, the logits
+    # against the matmul backend's within the one-rounding yardstick, time
+    # and peak memory of both in turns.
+    t26 = time.time()
+    log(f'== 26. the FFT long-conv backend, evo-1-8k-base ({smi})')
+    evo_fft = Evo('evo-1-8k-base', random_init=True, seed=0, device='cuda',
+                  config_overrides=dict(hyena_conv_backend='fft',
+                                        hyena_fused_mixer=True))
+    check(torch.equal(evo_fft.model.module.blocks[0].hyena.poles,
+                      evo.model.module.blocks[0].hyena.poles),
+          'the FFT model is not the matmul one under another config')
+    evo_fft.model(ids)
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    fft_logits, _ = evo_fft.model(ids)
+    torch.cuda.synchronize()
+    launches['fft_forward_8192'] = dict(_build.LAUNCHES)
+    check(launches['fft_forward_8192'] == per_forward,
+          f'launches {launches["fft_forward_8192"]}: the FFT backend runs '
+          f'kernels 1-3 as the matmul one does, and no fused mixer')
+    logit_drift('FFT backend forward B=1 L=8192', fft_logits)
+    del fft_logits
+    turns = [(name, *timed_forward(m)) for name, m in (
+        ('matmul', evo.model), ('fft', evo_fft.model), ('matmul', evo.model),
+        ('fft', evo_fft.model), ('matmul', evo.model),
+        ('fft', evo_fft.model))]
+    log('   forward B=1 L=8192 in turns (seconds, tokens/s, peak GiB '
+        'above what was allocated before): ' + ', '.join(f'{name} {dt:.4f} s {8192 / dt:.0f} tok/s '
+                                 f'{gib:.2f} GiB'
+                                 for name, dt, gib in turns))
+    res26 = dict(forward_8192={name: [(dt, gib) for n, dt, gib in turns
+                                      if n == name]
+                               for name in ('matmul', 'fft')})
+
+    # (b) greedy generation from phase 5's prompts, 32 tokens: a monolithic
+    # FFT prefill of 512, the modal state scanned for decode
+    # (modal_prefill_state), decode steps as before; the step logits
+    # against the matmul backend's teacher-forced forward over prompt +
+    # generation, within phase 5's yardstick
+    n_fft = 32
+    gen = Generator(evo_fft.model, evo_fft.tokenizer, top_k=1,
+                    temperature=0.0)
+    gen.generate(input_ids=prompt_ids, num_tokens=2)      # warm-up
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    t0 = time.time()
+    toks, step_logits, _ = gen.generate(input_ids=prompt_ids,
+                                        num_tokens=n_fft)
+    torch.cuda.synchronize()
+    gen_fft_s = time.time() - t0
+    launches['fft_generate'] = dict(_build.LAUNCHES)
+    check(launches['fft_generate'] == {
+        'rmsnorm': 65 * n_fft, 'fir_gate': 29, 'flash_attention': 3,
+        'flash_attention_buffer': 3 * (n_fft - 1)},
+        f'launches {launches["fft_generate"]}')
+    full = torch.cat([torch.as_tensor(prompt_ids, device=dev).long(), toks],
+                     dim=1)
+    ref, _ = evo.model(full)
+    ref = ref[:, 511:511 + n_fft]
+    diff = (step_logits - ref).abs()
+    agree = float((step_logits.argmax(-1) == ref.argmax(-1)).float().mean())
+    floor_g = (nudged_forward(evo.model, full)[:, 511:511 + n_fft]
+               - ref).abs()
+    log(f'   generate 2 x 512 nt + {n_fft} under the FFT backend: '
+        f'{gen_fft_s:.3f} s; step logits against the matmul backend '
+        f'teacher-forced: mean abs diff {float(diff.mean()):.5f} (max '
+        f'{float(diff.max()):.4f}), argmax agreement {agree:.4f}; one '
+        f'rounding step at layer 0 moves them by mean '
+        f'{float(floor_g.mean()):.5f}; launches {launches["fft_generate"]}')
+    check(float(diff.mean()) <= float(floor_g.mean()) and agree >= 0.75,
+          'FFT-backend generation disagrees with the matmul backend')
+    res26.update(generate_s=gen_fft_s, generate_diff=float(diff.mean()),
+                 generate_floor=float(floor_g.mean()), agree=agree)
+    del evo_fft, gen, toks, step_logits, full, ref, diff, floor_g
+    res26['seconds_8k'] = time.time() - t26
+    del unfused_logits, floor
 
     # -- 16. continuous-batching serving, evo-1-8k-base at full width -------
     # `GenerationServer` over the unfused bf16 model: 4 slots of 2,048
@@ -3896,7 +4127,7 @@ def main():
     del server16, kb16, vb16, q16
 
     # -- 18. n-gram speculative decoding, evo-1-8k-base at full width ------
-    # `generate_speculative` at B=1, g = 8, 128 new tokens from a 512-nt
+    # `generate_speculative` at B=1, g = 8, 32 new tokens from a 512-nt
     # prompt, a tandem repeat of a 64-nt unit and a random one, beside the
     # port's greedy `generate` on the same prompt (in turns: greedy, spec,
     # spec, greedy over the two prompts). Every engine call is recorded by
@@ -4001,7 +4232,7 @@ def main():
                 float((ref.argmax(-1) == nxt).float().mean()))
 
     tok = evo.tokenizer
-    n18, g18 = 128, 8
+    n18, g18 = 32, 8
     spec_run(evo.model, prompts18['non-repetitive'][:200], 12, g18)  # warm
     generate([prompts18['non-repetitive'][:200]], evo.model, tok,
              n_tokens=4, verbose=0)
@@ -4262,8 +4493,8 @@ def main():
                                  os.path.join(mesh_dir, 'f'))
         f23 = res23['f']
         log(f'   phase 23 seconds: {time.time() - t23:.1f} (ranks '
-            f'{res23["seconds"]:.1f}, CLI {f23["seconds"]:.1f} + '
-            f'{f23["one_process_seconds"]:.1f})')
+            f'{res23["seconds"]:.1f}, CLI {f23["seconds"]:.1f}, the one '
+            f'process beside it {f23["one_process_seconds"]:.1f})')
         torch.cuda.empty_cache()
         log(f'== 19. gradients through kernels 1-3 ({smi})')
         check_kernel_grads(torch, np, kernels, smi)
@@ -4445,6 +4676,85 @@ def main():
           and abs(long_score_f - long_score) <= lp_floor,
           f'fused 131k score {long_score_f} against {long_score}')
     del fused131
+
+    # -- 26 (c). the FFT backend on evo-1-131k-base, with the published
+    # hyena_fft_chunk = 8,192: one forward of 32,768 positions (4 chunks
+    # with the modal state carried between them) against the same forward
+    # with the chunk at 0 (one FFT of 65,536) and against the matmul
+    # backend, within the one-rounding yardstick; then 131,072 nt in
+    # segments of 16,384 (every resumed segment two chunks from a carried
+    # state) against the matmul backend's score within phase 6's drift,
+    # with its time and peak memory
+    t26c = time.time()
+    evo_fft = Evo('evo-1-131k-base', random_init=True, seed=0, device='cuda',
+                  config_overrides=dict(hyena_conv_backend='fft'))
+    cfg_fft = evo_fft.config
+    check(cfg_fft.hyena_fft_chunk == 8192,
+          f'the 131k config reads its chunk: {cfg_fft.hyena_fft_chunk}')
+    ids32k = torch.as_tensor(np.random.default_rng(26).integers(
+        65, 85, (1, 32768)), device=dev)
+    ref32, _ = model(ids32k)
+    floor32 = float((nudged_forward(model, ids32k) - ref32).abs().mean())
+    _build.LAUNCHES.clear()
+    t0 = time.time()
+    chunked32, _ = evo_fft.model(ids32k)
+    torch.cuda.synchronize()
+    chunked_s = time.time() - t0
+    launches['fft_forward_32k'] = dict(_build.LAUNCHES)
+    check(launches['fft_forward_32k'] == per_forward,
+          f'launches {launches["fft_forward_32k"]}')
+    t0 = time.time()
+    mono32 = model_lib.forward(evo_fft.model.module, ids32k,
+                               cfg_fft.replace(hyena_fft_chunk=0))
+    torch.cuda.synchronize()
+    mono_s = time.time() - t0
+    d_mono = float((chunked32 - mono32).abs().mean())
+    d_matmul = float((chunked32 - ref32).abs().mean())
+    log(f'== 26 (c). evo-1-131k-base under the FFT backend, hyena_fft_chunk '
+        f'8,192: forward B=1 L=32,768 {chunked_s:.3f} s chunked, '
+        f'{mono_s:.3f} s with the chunk at 0; mean abs logit diff chunked '
+        f'vs one FFT {d_mono:.5f}, vs the matmul backend {d_matmul:.5f}; '
+        f'one rounding step at layer 0 moves them by mean {floor32:.5f}; '
+        f'launches {launches["fft_forward_32k"]}')
+    check(bool(torch.isfinite(chunked32).all()) and d_mono <= floor32
+          and d_matmul <= floor32,
+          'the chunked FFT forward disagrees with one FFT or the matmul '
+          'backend')
+    del ref32, chunked32, mono32
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_fft_gib = torch.cuda.memory_allocated() / 2**30
+    _build.LAUNCHES.clear()
+    t0 = time.time()
+    long_score_fft = score_sequences_segmented([long_seq], evo_fft.model,
+                                               tok, segment_len=16384)[0]
+    long_fft_s = time.time() - t0
+    peak_fft_gib = torch.cuda.max_memory_allocated() / 2**30
+    launches['fft_score_segmented_131k'] = dict(_build.LAUNCHES)
+    bounds = _segment_bounds(131073, 16384)
+    lens = [e - s for s, e in zip(bounds[:-1], bounds[1:])]
+    log(f'   131,072 nt in segments {lens[0]}, then {len(lens) - 1} of '
+        f'{lens[-1]}: score {long_score_fft:.6f} (matmul backend in '
+        f'segments of 8,192: {long_score:.6f}, difference '
+        f'{abs(long_score_fft - long_score):.3e}; one rounding step '
+        f'{lp_floor:.3e}) in {long_fft_s:.2f} s ({131072 / long_fft_s:.0f} '
+        f'nt/s; matmul {long_s:.2f} s); peak {peak_fft_gib:.2f} GiB, '
+        f'{peak_fft_gib - base_fft_gib:.2f} GiB above what was allocated '
+        f'before (matmul: {long_peak_gib - base_gib:.2f}); launches '
+        f'{launches["fft_score_segmented_131k"]}')
+    check(launches['fft_score_segmented_131k'] == {
+        'rmsnorm': 65 * len(lens), 'fir_gate': 29 * len(lens),
+        'flash_attention': 3, 'flash_attention_buffer': 3 * (len(lens) - 1)},
+        f'launches {launches["fft_score_segmented_131k"]}')
+    check(np.isfinite(long_score_fft)
+          and abs(long_score_fft - long_score) <= lp_floor,
+          f'FFT 131k score {long_score_fft} against {long_score}')
+    del evo_fft
+    res26.update(seconds_131k=time.time() - t26c, score_131k_s=long_fft_s,
+                 peak_131k_gib=peak_fft_gib - base_fft_gib,
+                 forward_32k_s=dict(chunked=chunked_s, one_fft=mono_s))
+    log(f'   phase 26 took {res26["seconds_8k"]:.1f} + '
+        f'{res26["seconds_131k"]:.1f} s: {json.dumps(res26)}')
 
     # -- 7. generation: segments, resumed calls, the int8 KV cache ---------
     # Free-running greedy generations part ways at the first near-tie
@@ -4892,15 +5202,13 @@ def main():
               'a scoring forward must not take the int4 kernel')
         del evo_q
 
-    # -- 10. checkpoint round trip at full width -----------------------------
+    # -- 10. checkpoint round trip at full width, 8 layers deep -------------
     tmp = tempfile.mkdtemp(prefix='evo_snapshot_')
     try:
         free_gb = shutil.disk_usage(tmp).free / 1e9
-        full_depth = free_gb >= 40
-        overrides = None if full_depth else dict(
-            num_layers=8, attn_layer_idxs=(7,), hyena_layer_idxs=())
         src = Evo('evo-1-8k-base', random_init=True, seed=0, device='cuda',
-                  config_overrides=overrides)
+                  config_overrides=dict(num_layers=8, attn_layer_idxs=(7,),
+                                        hyena_layer_idxs=()))
         want = score_sequences(seqs[:2], src.model, src.tokenizer)
         t0 = time.time()
         write_reference_snapshot(src.model.module, tmp, num_shards=4)
@@ -4913,9 +5221,8 @@ def main():
         torch.cuda.synchronize()
         load_s = time.time() - t0
         got = score_sequences(seqs[:2], loaded.model, loaded.tokenizer)
-        log(f'== 10. checkpoint round trip, '
-            f'{"32 layers" if full_depth else "8 layers (7 Hyena, 1 attention)"}'
-            f' at full width ({free_gb:.0f} GB free on disk): '
+        log(f'== 10. checkpoint round trip, 8 layers (7 Hyena, 1 attention) '
+            f'at full width ({free_gb:.0f} GB free on disk): '
             f'{nbytes / 1e9:.2f} GB in {sorted(os.listdir(tmp))}; written '
             f'in {write_s:.1f} s ({nbytes / 1e9 / write_s:.2f} GB/s), '
             f'loaded in {load_s:.1f} s ({nbytes / 1e9 / load_s:.2f} GB/s); '
@@ -4926,38 +5233,11 @@ def main():
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # -- 11. the command lines, each in a process of its own -----------------
+    # -- 11. the command lines, each in a process of its own, the three
+    # side by side ---------------------------------------------------------
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix='evo_cli_') as tmp:
         tsv = os.path.join(tmp, 'scores.tsv')
-        for label, cmd in (
-                ('score', ['evo_tpu_torch.cli.score', '--input-fasta',
-                           os.path.join(ROOT, 'examples',
-                                        'example_seqs.fasta'),
-                           '--output-tsv', tsv, '--random-init', '--quant',
-                           'int4']),
-                ('generate', ['evo_tpu_torch.cli.generate', '--random-init',
-                              '--quant', 'int4', '--kv-quant', 'int8',
-                              '--prompt', 'ACGT', '--n-tokens', '16',
-                              '--temperature', '0', '--top-k', '1'])):
-            t0 = time.time()
-            r = subprocess.run([sys.executable, '-m'] + cmd, cwd=ROOT,
-                               capture_output=True, text=True, timeout=600)
-            log(f'== 11. python -m {" ".join(cmd[:1])} ...: exit code '
-                f'{r.returncode} in {time.time() - t0:.1f} s; last lines: '
-                f'{r.stdout.strip().splitlines()[-2:]}')
-            check(r.returncode == 0, f'{label} CLI failed:\n{r.stderr[-3000:]}')
-            if label == 'generate':
-                outs = [ln for ln in r.stdout.splitlines()
-                        if ln.startswith('Prompt: "ACGT",\tOutput: "')]
-                check(len(outs) == 3 and len(set(outs)) == 1,
-                      f'generate CLI output: {r.stdout[-2000:]}')
-        with open(tsv) as f:
-            rows = [ln.rstrip('\n').split('\t') for ln in f]
-        check(rows[0] == ['seqs', 'scores'] and len(rows) == 4
-              and all(len(r) == 2 and np.isfinite(float(r[1]))
-                      and float(r[1]) < 0 for r in rows[1:]),
-              f'score CLI TSV: {rows}')
-        # the serve command line in JSONL mode on three requests
         reqs = os.path.join(tmp, 'requests.jsonl')
         outs = os.path.join(tmp, 'results.jsonl')
         with open(reqs, 'w') as f:
@@ -4965,15 +5245,54 @@ def main():
                 f.write(json.dumps({'id': f'r{i}',
                                     'prompt': 'ACGT' * (n // 4),
                                     'num_tokens': 16 + 8 * i}) + '\n')
-        cmd = ['evo_tpu_torch.cli.serve', '--random-init', '--quant',
-               'int4', '--requests-jsonl', reqs, '--output-jsonl', outs,
-               '--max-slots', '4', '--max-len', '1024']
+        cmds = {
+            'score': ['evo_tpu_torch.cli.score', '--input-fasta',
+                      os.path.join(ROOT, 'examples', 'example_seqs.fasta'),
+                      '--output-tsv', tsv, '--random-init', '--quant',
+                      'int4'],
+            'generate': ['evo_tpu_torch.cli.generate', '--random-init',
+                         '--quant', 'int4', '--kv-quant', 'int8',
+                         '--prompt', 'ACGT', '--n-tokens', '16',
+                         '--temperature', '0', '--top-k', '1'],
+            # the serve command line in JSONL mode on three requests
+            'serve': ['evo_tpu_torch.cli.serve', '--random-init', '--quant',
+                      'int4', '--requests-jsonl', reqs, '--output-jsonl',
+                      outs, '--max-slots', '4', '--max-len', '1024']}
+        procs, runs = {}, {}
         t0 = time.time()
-        r = subprocess.run([sys.executable, '-m'] + cmd, cwd=ROOT,
-                           capture_output=True, text=True, timeout=600)
-        log(f'== 11. python -m {cmd[0]} ...: exit code {r.returncode} in '
-            f'{time.time() - t0:.1f} s')
-        check(r.returncode == 0, f'serve CLI failed:\n{r.stderr[-3000:]}')
+        try:
+            for label, cmd in cmds.items():
+                with open(os.path.join(tmp, f'{label}.out'), 'w') as fo, \
+                        open(os.path.join(tmp, f'{label}.err'), 'w') as fe:
+                    procs[label] = subprocess.Popen(
+                        [sys.executable, '-m'] + cmd, cwd=ROOT, stdout=fo,
+                        stderr=fe)
+            for label, proc in procs.items():
+                rc = proc.wait(timeout=600)
+                runs[label] = (rc, time.time() - t0, *(
+                    open(os.path.join(tmp, f'{label}.{x}')).read()
+                    for x in ('out', 'err')))
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        for label, cmd in cmds.items():
+            rc, secs, out, err = runs[label]
+            log(f'== 11. python -m {cmd[0]} ...: exit code {rc} in '
+                f'{secs:.1f} s (the three side by side); last lines: '
+                f'{out.strip().splitlines()[-2:]}')
+            check(rc == 0, f'{label} CLI failed:\n{err[-3000:]}')
+        outs_g = [ln for ln in runs['generate'][2].splitlines()
+                  if ln.startswith('Prompt: "ACGT",\tOutput: "')]
+        check(len(outs_g) == 3 and len(set(outs_g)) == 1,
+              f'generate CLI output: {runs["generate"][2][-2000:]}')
+        with open(tsv) as f:
+            rows = [ln.rstrip('\n').split('\t') for ln in f]
+        check(rows[0] == ['seqs', 'scores'] and len(rows) == 4
+              and all(len(r) == 2 and np.isfinite(float(r[1]))
+                      and float(r[1]) < 0 for r in rows[1:]),
+              f'score CLI TSV: {rows}')
         with open(outs) as f:
             lines = [json.loads(ln) for ln in f]
         log('   results: '
@@ -5050,6 +5369,8 @@ def main():
                   'fir_gate_w32': 'mixed_forward_8192',
                   'hyena_mixer_w32': 'mixed_fused_forward_8192',
                   'int4_matmul_grad': 'lora_int4_128',
+                  'int4_matmul_block': 'int4_block_call',
+                  'int4_matmul_dots8': 'int4_dots8_call',
                   'flash_attention_buffer': 'score_segmented_131k',
                   'flash_attention_buffer_q8': 'generate_int8',
                   'combine_partials': 'generate_int8',

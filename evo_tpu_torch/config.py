@@ -3,13 +3,16 @@
 The port's own copy of `evo_tpu/config.py`: it cannot import that module,
 because importing anything under `evo_tpu` runs `evo_tpu/__init__.py`,
 which imports JAX. Field names match the reference YAML keys. The fields
-of the JAX package that the port has no use for (`use_pallas`, the
-FFT-backend knobs, and `mlp_init_method` / `mlp_output_init_method`,
-which no code of the JAX package reads) are dropped: `from_dict` ignores
-unknown keys, so the published YAMLs still load. `cp_attn` picks the
-context-parallel attention (`parallel/`), as there. `hyena_fused_mixer` and
-`hyena_pallas_prefix` keep their JAX names: they select kernels that the
-port has too. `remat` recomputes blocks on the backward pass, as there.
+of the JAX package that the port has no use for (`use_pallas`, and
+`mlp_init_method` / `mlp_output_init_method`, which no code of the JAX
+package reads) are dropped: `from_dict` ignores unknown keys, so the
+published YAMLs still load. `cp_attn` picks the context-parallel attention
+(`parallel/`), as there. `hyena_fused_mixer` and `hyena_pallas_prefix`
+keep their JAX names: they select kernels that the port has too. The long
+conv's backend (`hyena_conv_backend`, 'matmul' or 'fft'), the FFT chunk
+(`hyena_fft_chunk`) and the chunk of the modal-state scan after a
+monolithic FFT (`state_prefill_chunk`) are the JAX fields, with the JAX
+defaults. `remat` recomputes blocks on the backward pass, as there.
 
 The two published inference configs are held as dict constants below,
 transcribed from `evo_tpu/configs/*.yml`, because PyYAML is not a
@@ -66,8 +69,9 @@ EVO_1_8K_BASE = {
 }
 
 # evo_tpu/configs/evo-1-131k-base_inference.yml: the 8k config plus rotary
-# position interpolation (and a chunk knob of the JAX FFT backend, which
-# the port's matmul-only long conv does not read)
+# position interpolation and the FFT backend's chunk (read under
+# hyena_conv_backend='fft': a sequence longer than 8,192 runs the FFT conv
+# chunk by chunk with the modal state carried between them)
 EVO_1_131K_BASE = dict(
     EVO_1_8K_BASE,
     use_interpolated_rotary_pos_emb=True,
@@ -140,7 +144,20 @@ class ModelConfig:
     # recompute each block on the backward pass (training; model.py wraps
     # every block of the cache-free forward in torch.utils.checkpoint)
     remat: bool = False
-    # chunk (= Toeplitz tile) of the long conv, ops/fftconv.py
+    # chunk of the modal-state scan that a monolithic FFT conv runs to hand
+    # its state to decode (ops/fftconv.modal_prefill_state)
+    state_prefill_chunk: int = 128
+    # under the FFT backend: a sequence longer than this runs as a loop of
+    # chunk-local FFTs with the modal state carried between chunks, which
+    # bounds the FFT buffers to O(chunk); 0 = always one FFT of the whole
+    # length
+    hyena_fft_chunk: int = 0
+    # the long conv of the unfused Hyena layer: 'matmul' = chunked Toeplitz
+    # products (ops/fftconv.conv_matmul_chunked), 'fft' = real FFTs
+    # (cuFFT on the card; monolithic, or chunked under hyena_fft_chunk),
+    # the numerics oracle; the fused mixer runs under 'matmul' only
+    hyena_conv_backend: str = 'matmul'
+    # chunk (= Toeplitz tile) of the matmul long conv, ops/fftconv.py
     hyena_matmul_chunk: int = 64
     # opt-in: the whole mixer core between the two projections (FIR, gates,
     # chunked conv, modal carry) as one kernel, ops/hyena_mixer.py, where
@@ -166,6 +183,10 @@ class ModelConfig:
 
     def __post_init__(self):
         assert self.cp_attn in ('ulysses', 'ring', 'zigzag'), self.cp_attn
+        if self.hyena_conv_backend not in ('matmul', 'fft'):
+            raise ValueError(f'unknown hyena_conv_backend '
+                             f"{self.hyena_conv_backend!r} (expected "
+                             f"'matmul' or 'fft')")
         object.__setattr__(self, 'attn_layer_idxs',
                            tuple(self.attn_layer_idxs))
         if not self.hyena_layer_idxs:
@@ -278,7 +299,7 @@ def cli_quant_overrides(quant: str) -> dict:
 
 def tiny_config(**overrides) -> ModelConfig:
     """A small CPU-runnable config with the schema of evo-1-8k-base (the
-    same values as `evo_tpu.config.tiny_config`, minus the fields the port
+    same values as `evo_tpu.config.tiny_config`, minus the field the port
     drops)."""
     base = dict(
         vocab_size=512,
@@ -294,6 +315,7 @@ def tiny_config(**overrides) -> ModelConfig:
         inner_size_multiple_of=16,
         compute_dtype='float32',
         param_dtype='float32',
+        state_prefill_chunk=32,
     )
     base.update(overrides)
     return ModelConfig(**base)

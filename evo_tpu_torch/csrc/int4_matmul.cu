@@ -11,9 +11,14 @@
 // and natural row Kp/2 + j in its high nibble in two's complement (the
 // `pack_int4` layout, in which weights cross between the two packages).
 //
-// Replaces: evo_tpu/ops/pallas_int4.py `_int4_kernel` in its default mode
-// ('unroll'), called through `int4_matmul`. One launch per quantized
-// projection of a decode step: five a layer, 160 a step of evo-1.
+// Replaces: evo_tpu/ops/pallas_int4.py `_int4_kernel` in its modes
+// 'unroll' (the default) and 'dots', which compute this one function, and,
+// as the instance with kBlock set, in its mode 'block': there each weight
+// is dequantized and rounded to bf16, w = bf16(q * s), and the products
+// of x with w are summed in float32 with no scale after the sum (the JAX
+// test's `_oracle_block`). Called through `int4_matmul(mode=...)`. One
+// launch per quantized projection of a decode step: five a layer, 160 a
+// step of evo-1. ('dots8' is another function: `int4_dots8.cu`.)
 //
 // Bound on the card: bytes. A decode step (M = batch) reads every packed
 // weight once, half a byte per weight plus 4 bytes of scale per 128 of
@@ -43,6 +48,10 @@
 // split order, so a run is bit-reproducible. (A cluster of a tile's
 // splits summing through distributed shared memory was slower: the
 // clusters' placement cost more than the ticket's round trips.)
+//
+// 'block' costs a multiply and a rounding to bf16 a weight more in both
+// designs (the streaming one in registers, the mma.sync one as it unpacks
+// into shared memory), and drops the scale from each group's sum.
 //
 // M = 5..128 (`int4_matmul_kernel`): a block of 4 warps owns 32 output
 // columns for all M rows and walks the byte rows in steps of 128. What a
@@ -104,6 +113,11 @@ __device__ __forceinline__ float nibble_at(uint32_t w, uint32_t k) {
   return __uint_as_float(r) - kOff;
 }
 
+// q * s rounded to bf16, as a float32 value ('block' mode)
+__device__ __forceinline__ float scaled_bf16(float q, float s) {
+  return __bfloat162float(__float2bfloat16_rn(__fmul_rn(q, s)));
+}
+
 // The k of `nibble_at<P>`
 template <int P>
 __device__ __forceinline__ uint32_t nibble_key(bool high) {
@@ -112,8 +126,9 @@ __device__ __forceinline__ uint32_t nibble_key(bool high) {
 
 // A block: 512 columns x one step t = blockIdx.y (128 byte rows, scale
 // groups t and T + t). Warp w owns columns 128 (w % 4).. and, of each
-// stage of 32 rows, the half w / 4; M <= MT rows of x.
-template <int MT>
+// stage of 32 rows, the half w / 4; M <= MT rows of x. kBlock: 'block'
+// mode.
+template <int MT, bool kBlock>
 __global__ void __launch_bounds__(kGvThreads, 2)
     int4_gemv_kernel(const __nv_bfloat16* __restrict__ x,
                      const int8_t* __restrict__ packed,
@@ -232,13 +247,20 @@ __global__ void __launch_bounds__(kGvThreads, 2)
                              nibble_at<16>(w, k16), nibble_at<8>(w2, k8)};
         const float vh[4] = {nibble_at<4>(w, k4), nibble_at<12>(w, k12),
                              nibble_at<4>(w2, k4), nibble_at<12>(w2, k12)};
+        float wl[4], wh[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          wl[j] = kBlock ? scaled_bf16(vl[j], sc[0][j]) : vl[j];
+          wh[j] = kBlock ? scaled_bf16(vh[j], sc[1][j]) : vh[j];
+        }
 #pragma unroll
         for (int j = 0; j < 4; ++j)
 #pragma unroll
           for (int m = 0; m < MT; ++m) {
-            // bf16 x int4 is exact in float32: only the sum rounds
-            plo[m][j] = fmaf(xl[m][r], vl[j], plo[m][j]);
-            phi[m][j] = fmaf(xh[m][r], vh[j], phi[m][j]);
+            // bf16 x int4 (or x bf16) is exact in float32: only the sum
+            // rounds
+            plo[m][j] = fmaf(xl[m][r], wl[j], plo[m][j]);
+            phi[m][j] = fmaf(xh[m][r], wh[j], phi[m][j]);
           }
       }
     }
@@ -258,15 +280,17 @@ __global__ void __launch_bounds__(kGvThreads, 2)
   __syncthreads();
   if (!half) {
     // each group's sum times its scale, rounded apart as the plain
-    // version does; with one split that is y, else this split's part
+    // version does ('block': the two sums, the scales being in them);
+    // with one split that is y, else this split's part
 #pragma unroll
     for (int m = 0; m < MT; ++m)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float lo = __fadd_rn(plo[m][j], hw[(m * 8 + j) * 32]);
         const float hi = __fadd_rn(phi[m][j], hw[(m * 8 + 4 + j) * 32]);
-        const float v =
-            __fadd_rn(__fmul_rn(lo, sc[0][j]), __fmul_rn(hi, sc[1][j]));
+        const float v = kBlock ? __fadd_rn(lo, hi)
+                               : __fadd_rn(__fmul_rn(lo, sc[0][j]),
+                                           __fmul_rn(hi, sc[1][j]));
         if (m < M && n + j < N) {
           if (splits == 1)
             store_y(y, out_bf16 != 0, (int64_t)m * N + n + j, v);
@@ -322,7 +346,7 @@ __global__ void __launch_bounds__(kGvThreads, 2)
   if (tid == 0) counters[blockIdx.x] = 0;  // ready for the next launch
 }
 
-template <int MT>
+template <int MT, bool kBlock>
 int launch_gemv(const void* x, const void* packed, const void* scales,
                 void* y, void* part, void* counters, int M, int K, int Kp,
                 int N, int out_bf16, void* stream) {
@@ -332,7 +356,7 @@ int launch_gemv(const void* x, const void* packed, const void* scales,
   const int vec = (N % 16 == 0) && ((uintptr_t)packed % 16 == 0);
   const int bytes =
       kBK * kGvCols + (MT * 2 * kBK + 4 * MT * 8 * 32) * (int)sizeof(float);
-  auto kernel = int4_gemv_kernel<MT>;
+  auto kernel = int4_gemv_kernel<MT, kBlock>;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -393,7 +417,14 @@ __device__ __forceinline__ uint32_t nibbles_to_bf16(uint32_t v,
   return *reinterpret_cast<const uint32_t*>(&r);
 }
 
-template <int MT>
+// A pair of bf16 weights times one scale, rounded to bf16 again ('block')
+__device__ __forceinline__ uint32_t scale_pair(uint32_t pair, float s) {
+  const float2 f =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&pair));
+  return evo::pack_bf16(__fmul_rn(f.x, s), __fmul_rn(f.y, s));
+}
+
+template <int MT, bool kBlock>
 __global__ void __launch_bounds__(kThreads)
     int4_matmul_kernel(const __nv_bfloat16* __restrict__ x,
                        const int8_t* __restrict__ packed,
@@ -475,9 +506,19 @@ __global__ void __launch_bounds__(kThreads)
         {col < N ? sp_hi[col] : 0.f, col + 1 < N ? sp_hi[col + 1] : 0.f}};
 
     // unpack: a thread takes two byte rows (k, k + 1) of 16 columns, so
-    // that each column's pair along k is one 32-bit store
+    // that each column's pair along k is one 32-bit store; 'block' scales
+    // each weight by its column's scale of the group and rounds it
     {
       const int rp = tid & 63, ch = tid >> 6;
+      float slo[16], shi[16];
+      if (kBlock) {
+#pragma unroll
+        for (int c = 0; c < 16; ++c) {
+          const int n = n0 + ch * 16 + c;
+          slo[c] = n < N ? __ldg(sp_lo + n) : 0.f;
+          shi[c] = n < N ? __ldg(sp_hi + n) : 0.f;
+        }
+      }
       const uint8_t* rows =
           Raw + ((t % kStages) * kBK + 2 * rp) * kBN + ch * 16;
       const uint4 ra = *reinterpret_cast<const uint4*>(rows);
@@ -490,9 +531,14 @@ __global__ void __launch_bounds__(kThreads)
         const uint32_t v =
             __byte_perm(wa[c >> 2], wb[c >> 2], 0x4400 + (c & 3) * 0x1111);
         const int at = (ch * 16 + c) * kStride + 2 * rp;
-        *reinterpret_cast<uint32_t*>(Wlo + at) = nibbles_to_bf16(v, 0x4300);
-        *reinterpret_cast<uint32_t*>(Whi + at) =
-            nibbles_to_bf16(v >> 4, 0x4308);
+        uint32_t lo = nibbles_to_bf16(v, 0x4300);
+        uint32_t hi = nibbles_to_bf16(v >> 4, 0x4308);
+        if (kBlock) {
+          lo = scale_pair(lo, slo[c]);
+          hi = scale_pair(hi, shi[c]);
+        }
+        *reinterpret_cast<uint32_t*>(Wlo + at) = lo;
+        *reinterpret_cast<uint32_t*>(Whi + at) = hi;
       }
     }
     __syncthreads();
@@ -528,12 +574,14 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
       // low nibbles belong to scale group t, high ones to group T + t
+      // ('block': the scales are in the weights)
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          acc[mt][e] = __fadd_rn(acc[mt][e],
-                                 __fmul_rn(part[mt][e], sc[half][e & 1]));
+          acc[mt][e] = __fadd_rn(
+              acc[mt][e],
+              kBlock ? part[mt][e] : __fmul_rn(part[mt][e], sc[half][e & 1]));
     }
   }
 
@@ -548,7 +596,7 @@ __global__ void __launch_bounds__(kThreads)
     }
 }
 
-template <int MT>
+template <int MT, bool kBlock>
 int launch(const void* x, const void* packed, const void* scales, void* y,
            int M, int K, int Kp, int N, int out_bf16, void* stream) {
   if (K % 8 || (uintptr_t)x % 16) return (int)cudaErrorInvalidValue;
@@ -556,7 +604,7 @@ int launch(const void* x, const void* packed, const void* scales, void* y,
   const int bytes = (2 * kBN + stages_for(MT) * 2 * MT * 16) * kStride *
                         (int)sizeof(__nv_bfloat16) +
                     stages_for(MT) * kBK * kBN;
-  auto kernel = int4_matmul_kernel<MT>;
+  auto kernel = int4_matmul_kernel<MT, kBlock>;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -566,6 +614,35 @@ int launch(const void* x, const void* packed, const void* scales, void* y,
       (const __nv_bfloat16*)x, (const int8_t*)packed, (const float*)scales,
       y, M, K, Kp, N, vec, out_bf16);
   return (int)cudaGetLastError();
+}
+
+// The instance of the design that M and `gemv` pick
+template <bool kBlock>
+int dispatch(const void* x, const void* packed, const void* scales, void* y,
+             void* part, void* counters, int M, int K, int Kp, int N,
+             int out_bf16, int gemv, void* stream) {
+  if (gemv) {
+    if (M <= 1)
+      return launch_gemv<1, kBlock>(x, packed, scales, y, part, counters, M,
+                                    K, Kp, N, out_bf16, stream);
+    if (M <= 2)
+      return launch_gemv<2, kBlock>(x, packed, scales, y, part, counters, M,
+                                    K, Kp, N, out_bf16, stream);
+    return launch_gemv<4, kBlock>(x, packed, scales, y, part, counters, M, K,
+                                  Kp, N, out_bf16, stream);
+  }
+  const int tiles = (M + 15) / 16;
+  if (tiles <= 1)
+    return launch<1, kBlock>(x, packed, scales, y, M, K, Kp, N, out_bf16,
+                             stream);
+  if (tiles <= 2)
+    return launch<2, kBlock>(x, packed, scales, y, M, K, Kp, N, out_bf16,
+                             stream);
+  if (tiles <= 4)
+    return launch<4, kBlock>(x, packed, scales, y, M, K, Kp, N, out_bf16,
+                             stream);
+  return launch<8, kBlock>(x, packed, scales, y, M, K, Kp, N, out_bf16,
+                           stream);
 }
 
 }  // namespace
@@ -578,30 +655,16 @@ int launch(const void* x, const void* packed, const void* scales, void* y,
 // block takes one step of 128 byte rows, so the contraction is split into
 // Kp / 256 parts; with more than one, `part` holds parts x M x N fp32 and
 // `counters` one zeroed int32 per 512 columns, which the kernel leaves
-// zeroed.
+// zeroed. `block` picks the 'block' mode's instance.
 extern "C" int evo_int4_matmul_bf16(const void* x, const void* packed,
                                     const void* scales, void* y, void* part,
                                     void* counters, int M, int K, int Kp,
-                                    int N, int out_bf16, int gemv,
+                                    int N, int out_bf16, int gemv, int block,
                                     void* stream) {
   if (K > Kp || Kp % 256 || (gemv && M > 4))
     return (int)cudaErrorInvalidValue;
-  if (gemv) {
-    if (M <= 1)
-      return launch_gemv<1>(x, packed, scales, y, part, counters, M, K, Kp,
-                            N, out_bf16, stream);
-    if (M <= 2)
-      return launch_gemv<2>(x, packed, scales, y, part, counters, M, K, Kp,
-                            N, out_bf16, stream);
-    return launch_gemv<4>(x, packed, scales, y, part, counters, M, K, Kp, N,
-                          out_bf16, stream);
-  }
-  const int tiles = (M + 15) / 16;
-  if (tiles <= 1)
-    return launch<1>(x, packed, scales, y, M, K, Kp, N, out_bf16, stream);
-  if (tiles <= 2)
-    return launch<2>(x, packed, scales, y, M, K, Kp, N, out_bf16, stream);
-  if (tiles <= 4)
-    return launch<4>(x, packed, scales, y, M, K, Kp, N, out_bf16, stream);
-  return launch<8>(x, packed, scales, y, M, K, Kp, N, out_bf16, stream);
+  return block ? dispatch<true>(x, packed, scales, y, part, counters, M, K,
+                                Kp, N, out_bf16, gemv, stream)
+               : dispatch<false>(x, packed, scales, y, part, counters, M, K,
+                                 Kp, N, out_bf16, gemv, stream);
 }

@@ -26,10 +26,14 @@ over tp and cp together.
 Decode state (`HyenaState`): fir (B, 3, C, K-1) trailing pre-FIR inputs
 and iir (B, C, S, 2) float32 modal state. Paths: a full sequence or a
 segment that continues from a carried state (`hyena_full`), and the decode
-step (`hyena_step`). Under `hyena_fused_mixer` the whole core between the
+step (`hyena_step`). The long conv has the JAX package's two backends
+(`hyena_conv_backend`): 'matmul', the chunked Toeplitz products, and
+'fft', real FFTs (monolithic with the modal state scanned afterwards for
+decode, or chunked under `hyena_fft_chunk` with the state carried between
+chunks). Under 'matmul' and `hyena_fused_mixer` the whole core between the
 projections is one kernel (`ops/hyena_mixer.py`) wherever its shape rule
-holds; under `hyena_pallas_prefix` the unfused long conv takes the prefix
-kernel (`ops/modal_prefix.py`). On both paths the in-projection's output
+holds; under `hyena_pallas_prefix` the unfused matmul conv takes the
+prefix kernel (`ops/modal_prefix.py`). On both paths the in-projection's output
 stays in its (B, L, 3, C) layout: the FIR + gate kernel and the fused
 mixer read it in place and add the in-projection bias themselves.
 Adapters attached by `lora.attach_lora` add their side paths after w_in
@@ -156,12 +160,13 @@ def hyena_full(p: HyenaMixer, cfg: ModelConfig, x: torch.Tensor, *,
     FIR reads the carried tail before t=0 and the long conv starts from
     the carried modal state, both exactly.
 
-    Under `cfg.hyena_fused_mixer` the fused kernel takes every shape it
-    supports, fresh or continued, with L >= short_filter_length (a
-    shorter one would return a truncated FIR state); the choice is made
-    from the flag and the shape alone. Otherwise the FIR + gate kernel
-    runs when L >= short_filter_length, and a shorter sequence takes
-    `fir_causal_conv`, as in the JAX package.
+    Under `cfg.hyena_fused_mixer` and the matmul backend the fused kernel
+    takes every shape it supports, fresh or continued, with L >=
+    short_filter_length (a shorter one would return a truncated FIR
+    state); the choice is made from the flags and the shape alone.
+    Otherwise the FIR + gate kernel runs when L >= short_filter_length,
+    and a shorter sequence takes `fir_causal_conv`, as in the JAX
+    package; the long conv follows `cfg.hyena_conv_backend`.
 
     Under cp, x holds this rank's rows of a sequence padded to a multiple
     of cp, whose first `seq_len` positions are real: the core runs on
@@ -180,7 +185,8 @@ def hyena_full(p: HyenaMixer, cfg: ModelConfig, x: torch.Tensor, *,
     L = zl.shape[1]
     w = _core(p, zl.dtype)
     B, C = zl.shape[0], zl.shape[-1]
-    if (cfg.hyena_fused_mixer and L >= K
+    if (cfg.hyena_fused_mixer and cfg.hyena_conv_backend == 'matmul'
+            and L >= K
             and hyena_mixer_supported((B, 3, C, L), chunk, cfg.state_size,
                                       K)):
         # the kernel reads zl where the product left it, adds b_in and
@@ -205,6 +211,24 @@ def hyena_full(p: HyenaMixer, cfg: ModelConfig, x: torch.Tensor, *,
         zf, fir_state = fftconv.fir_causal_conv(_streams(zl, w.b_in),
                                                 w.fir_w, w.fir_b, tail)
         x2, u = zf[:, 0], zf[:, 1] * zf[:, 2]
+    if cfg.hyena_conv_backend == 'fft':
+        y, iir = _fft_long_conv(cfg, w, u, state, collect_state)
+    else:
+        y, iir = _matmul_long_conv(cfg, w, u, state)
+    y = x2 * y.to(x.dtype)
+    out = _out_proj(p, _to_rows(p, y.transpose(1, 2), padded))
+    if not collect_state:
+        return out, None
+    # a copy of the FIR tail, so the streams themselves are freed here
+    return out, HyenaState(fir=fir_state.contiguous(), iir=iir)
+
+
+def _matmul_long_conv(cfg: ModelConfig, w: _Core, u: torch.Tensor,
+                      state: Optional[HyenaState]):
+    """The matmul backend's long conv of u (B, C, L): (y including the
+    d_skip term, float32, the state at L)."""
+    chunk = cfg.hyena_matmul_chunk
+    L = u.shape[-1]
     iir = None if state is None else state.iir
     prefix = cfg.hyena_pallas_prefix
     if state is not None and L > chunk and L % chunk:
@@ -218,17 +242,44 @@ def hyena_full(p: HyenaMixer, cfg: ModelConfig, x: torch.Tensor, *,
         y2, iir = fftconv.conv_matmul_chunked(
             u[..., split:], w.poles, w.residues, chunk, state=iir,
             d_skip=w.d_skip, pallas_prefix=prefix)
-        y = torch.cat([y1, y2], dim=-1)
+        return torch.cat([y1, y2], dim=-1), iir
+    return fftconv.conv_matmul_chunked(
+        u, w.poles, w.residues, chunk, state=iir, d_skip=w.d_skip,
+        pallas_prefix=prefix)
+
+
+def _fft_long_conv(cfg: ModelConfig, w: _Core, u: torch.Tensor,
+                   state: Optional[HyenaState], collect_state: bool):
+    """The FFT backend's long conv of u (B, C, L), as the JAX layer
+    branches (`evo_tpu/layers/hyena.py:215-253`): a continued segment runs
+    the chunked conv from the carried state, in chunks of hyena_fft_chunk
+    where L is a longer multiple of it, else as one chunk of L; a fresh L
+    longer than hyena_fft_chunk (> 0) runs it chunked from zeros (left
+    padded); anything else is one FFT with the materialized filter, after
+    which the state for decode is scanned in chunks of
+    state_prefill_chunk. Returns (y + d_skip u in float32, the state at L
+    or None). Each layer builds its filter here and frees it on return, so
+    no filter outlives its layer (the JAX package ties it to the
+    activations with an optimization_barrier so that XLA cannot hoist all
+    29 layers' filters to the start of the program; eager code has no such
+    hoisting)."""
+    fc = cfg.hyena_fft_chunk
+    L = u.shape[-1]
+    chunked = bool(fc) and L > fc
+    if state is not None:
+        y, iir = fftconv.fft_causal_conv_chunked(
+            u, w.poles, w.residues, fc if chunked and L % fc == 0 else L,
+            state=state.iir)
+    elif chunked:
+        y, iir = fftconv.fft_causal_conv_chunked(u, w.poles, w.residues, fc)
     else:
-        y, iir = fftconv.conv_matmul_chunked(
-            u, w.poles, w.residues, chunk, state=iir, d_skip=w.d_skip,
-            pallas_prefix=prefix)
-    y = x2 * y.to(x.dtype)
-    out = _out_proj(p, _to_rows(p, y.transpose(1, 2), padded))
-    if not collect_state:
-        return out, None
-    # a copy of the FIR tail, so the streams themselves are freed here
-    return out, HyenaState(fir=fir_state.contiguous(), iir=iir)
+        h = fftconv.materialize_filter(w.poles, w.residues, L)
+        y = fftconv.fft_causal_conv(u, h)
+        del h
+        iir = (fftconv.modal_prefill_state(u, w.poles,
+                                           cfg.state_prefill_chunk)
+               if collect_state else None)
+    return y + w.d_skip.float()[None, :, None] * u.float(), iir
 
 
 def _to_rows(p: HyenaMixer, y: torch.Tensor, padded: int) -> torch.Tensor:

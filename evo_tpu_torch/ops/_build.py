@@ -32,8 +32,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG / 'build'
 SOURCES = ('rmsnorm.cu', 'fir_gate.cu', 'flash_attention.cu',
-           'flash_attention_buffer.cu', 'int4_matmul.cu', 'hyena_mixer.cu',
-           'modal_prefix.cu', 'mlp_gate.cu')
+           'flash_attention_buffer.cu', 'int4_matmul.cu', 'int4_dots8.cu',
+           'hyena_mixer.cu', 'modal_prefix.cu', 'mlp_gate.cu')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -67,8 +67,11 @@ _SIGNATURES = {
     # (m, l, acc, o, B, H, Lq, S, stream)
     'evo_combine_partials': (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # (x, packed, scales, y, partials, tickets, M, K, Kp, N, bf16 output,
-    # streaming design, stream)
-    'evo_int4_matmul_bf16': (*(_P,) * 6, _I, _I, _I, _I, _I, _I, _P),
+    # streaming design, 'block' mode, stream)
+    'evo_int4_matmul_bf16': (*(_P,) * 6, *(_I,) * 7, _P),
+    # (x, packed, scales, y, xq, xs, partials, tickets, M, K, Kp, N, rows a
+    # block, steps a block, bf16 output, stream)
+    'evo_int4_dots8_bf16': (*(_P,) * 8, *(_I,) * 7, _P),
     # (zl, fir_w, fir_b, b_in, poles, residues, d_skip, fir0, st0, y, iir,
     # B, C, L, Ct, S, KF, stream)
     'evo_hyena_mixer_bf16': (*(_P,) * 11, _I, _I, _L, _I, _I, _I, _P),

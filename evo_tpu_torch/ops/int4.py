@@ -1,8 +1,8 @@
-"""Weight-only int4 matmul: the nibble packing, the CUDA kernel
-(`csrc/int4_matmul.cu`) and its plain version.
+"""Weight-only int4 matmul: the nibble packing, the CUDA kernels
+(`csrc/int4_matmul.cu`, `csrc/int4_dots8.cu`) and their plain versions.
 
 Port of `evo_tpu/ops/pallas_int4.py` (`pack_int4`, `unpack_int4_jnp`,
-`int4_matmul` in its default mode). Layout, kept because weights cross
+`int4_matmul` in its four modes). Layout, kept because weights cross
 between the two packages in it: the contraction axis is padded to a
 multiple of 256; byte row j of the (Kp/2, N) packed array holds natural
 row j in its low nibble, stored as value + 8, and natural row Kp/2 + j in
@@ -17,6 +17,20 @@ after each group's dot. x may stop at the weight's natural contraction K
 out in float32 or, rounded once, in bf16. Under autograd (LoRA over an
 int4 base) the kernel runs inside `Int4MatmulFunction`, whose backward is
 the plain version's gradient to x (`ops/_grad.py`).
+
+That is the function of the modes 'unroll' (the default, which every
+model path takes, as `evo_tpu/quant.py` does) and 'dots'. Two more modes
+are other functions, each with its own kernel instance and plain version,
+and no backward (they refuse a tensor that requires grad):
+
+  'block'  each weight dequantized and rounded to bf16, bf16(q * s), and
+           the products with x summed in float32, no scale after the sum
+           (kernel 8's kBlock instance; counter `int4_matmul_block`);
+  'dots8'  each row of x quantized to int8 (scale max|x| / 127, at least
+           1e-12; codes rounded half to even, clipped to +-127), exact
+           integer dots with the int4 codes a scale group at a time, the
+           group scales and then the row scale applied in float32
+           (`csrc/int4_dots8.cu`; counter `int4_matmul_dots8`).
 """
 
 from __future__ import annotations
@@ -24,7 +38,10 @@ from __future__ import annotations
 import torch
 
 from evo_tpu_torch.ops import _build
-from evo_tpu_torch.ops._grad import needs_grad, plain_vjp
+from evo_tpu_torch.ops._grad import needs_grad, plain_vjp, refuse
+
+# `int4_matmul`'s modes, with the JAX names
+MODES = ('unroll', 'dots', 'block', 'dots8')
 
 # the kernel keeps all rows of x in one block's tiles: decode and
 # forced-token batches are far below this, a batch prefill is not
@@ -121,26 +138,103 @@ def int4_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
     return acc.to(out_dtype)
 
 
+def int4_matmul_block_plain(x: torch.Tensor, packed: torch.Tensor,
+                            scales: torch.Tensor,
+                            out_dtype: torch.dtype = torch.float32
+                            ) -> torch.Tensor:
+    """'block' mode in plain PyTorch (the JAX test's `_oracle_block`): the
+    weight dequantized in float32 and rounded to bf16, x rounded to bf16
+    and read as zeros past K, one product summed in float32, rounded once
+    to `out_dtype`."""
+    M, K, Kp, N = _check_shapes(x, packed, scales)
+    _check_out(out_dtype)
+    G = Kp // 128
+    w = (unpack_int4(packed).float().reshape(G, 128, N) * scales[:, None]
+         ).reshape(Kp, N).bfloat16().float()
+    xg = x.bfloat16().float()
+    if K < Kp:
+        xg = torch.nn.functional.pad(xg, (0, Kp - K))
+    return (xg @ w).to(out_dtype)
+
+
+def quantize_rows(x: torch.Tensor):
+    """'dots8''s activation codes: x (M, K) rounded to bf16, then per row
+    xs = max(max|x| / 127, 1e-12) and codes clip(round(x / xs), +-127)
+    (round half to even). Returns (codes (M, K) as float32 integers, xs
+    (M, 1) float32)."""
+    x32 = x.bfloat16().float()
+    amax = x32.abs().amax(dim=1, keepdim=True)
+    # divided by a tensor, not by the number 127: on the card PyTorch
+    # multiplies by a scalar divisor's reciprocal, which can be an ulp off
+    # the division the kernel (and the JAX test's oracle) takes
+    xs = (amax / torch.full_like(amax, 127.0)).clamp(min=1e-12)
+    return torch.clamp(torch.round(x32 / xs), -127, 127), xs
+
+
+def dots8_plan(M: int, Kp: int, N: int):
+    """(rows of x a block, splits of the contraction, steps of 128 byte
+    rows a split) of the 'dots8' kernel: the columns (512 a block) and rows
+    (1, 2, 4 or 8 a block) give the blocks, and the contraction is split
+    until there are about 384 of them (three an SM)."""
+    mt = 1 if M <= 1 else 2 if M <= 2 else 4 if M <= 4 else 8
+    T = Kp // 256
+    base = -(-M // mt) * -(-N // 512)
+    steps = -(-T // min(T, max(1, -(-384 // base))))
+    return mt, -(-T // steps), steps
+
+
+def int4_matmul_dots8_plain(x: torch.Tensor, packed: torch.Tensor,
+                            scales: torch.Tensor,
+                            out_dtype: torch.dtype = torch.float32
+                            ) -> torch.Tensor:
+    """'dots8' mode in plain PyTorch, in the kernel's order of float32
+    operations, so the two agree bit for bit: for each step t (byte rows
+    128 t.., scale groups t and T + t) the exact integer dots lo and hi
+    give (lo * s_t) + (hi * s_T+t); the steps of a split (`dots8_plan`)
+    add up in order, the splits in order, and the sum is multiplied by the
+    row's scale, then rounded once to `out_dtype`."""
+    _check_shapes(x, packed, scales)
+    _check_out(out_dtype)
+    codes, xs = quantize_rows(x)
+    return dots8_products(codes, xs, packed, scales).to(out_dtype)
+
+
+def dots8_products(codes: torch.Tensor, xs: torch.Tensor,
+                   packed: torch.Tensor, scales: torch.Tensor
+                   ) -> torch.Tensor:
+    """The product part of 'dots8' on given codes (M, K <= Kp) and row
+    scales (M, 1), in the kernel's order: float32 (M, N)."""
+    M, K, Kp, N = _check_shapes(codes, packed, scales)
+    G, T = Kp // 128, Kp // 256
+    if K < Kp:
+        codes = torch.nn.functional.pad(codes, (0, Kp - K))
+    w = unpack_int4(packed).float().reshape(G, 128, N)
+    xg = codes.reshape(M, G, 128)
+    _, _, steps = dots8_plan(M, Kp, N)
+    total = None
+    for s0 in range(0, T, steps):
+        run = None
+        for t in range(s0, min(T, s0 + steps)):
+            # integer dots of at most 128 x 127 x 8 in magnitude: exact in
+            # float32, whatever the order of the sum
+            p = (xg[:, t] @ w[t]) * scales[t] + \
+                (xg[:, T + t] @ w[T + t]) * scales[T + t]
+            run = p if run is None else run + p
+        total = run if total is None else total + run
+    return total * xs
+
+
 def int4_matmul_kernel(x: torch.Tensor, packed: torch.Tensor,
                        scales: torch.Tensor,
                        out_dtype: torch.dtype = torch.float32,
-                       counter: str = 'int4_matmul') -> torch.Tensor:
+                       counter: str = 'int4_matmul',
+                       block: bool = False) -> torch.Tensor:
     """Launch the kernel on CUDA tensors (raises on what it does not
-    take), counted under `counter`. Its output has no autograd
-    history."""
+    take), counted under `counter`; `block`: the 'block' mode's instance.
+    Its output has no autograd history."""
     M, K, Kp, N = _check_shapes(x, packed, scales)
     _check_out(out_dtype)
-    if (x.dtype != torch.bfloat16 or packed.dtype != torch.int8
-            or scales.dtype != torch.float32):
-        raise TypeError(f'int4_matmul kernel takes bf16 x, int8 packed and '
-                        f'float32 scales, got {x.dtype}, {packed.dtype} and '
-                        f'{scales.dtype}')
-    if packed.device != x.device or scales.device != x.device:
-        raise ValueError('int4_matmul: x, packed and scales must lie on one '
-                         'device')
-    if not (x.is_contiguous() and packed.is_contiguous()
-            and scales.is_contiguous()):
-        raise ValueError('int4_matmul kernel needs contiguous operands')
+    _check_operands(x, packed, scales)
     gemv = M <= GEMV_M_MAX
     if not gemv and (K % 8 or x.data_ptr() % 16):
         # the mma.sync design copies 16-byte chunks of x
@@ -160,7 +254,49 @@ def int4_matmul_kernel(x: torch.Tensor, packed: torch.Tensor,
                   packed.data_ptr(), scales.data_ptr(), y.data_ptr(),
                   None if part is None else part.data_ptr(),
                   None if tickets is None else tickets.data_ptr(), M, K, Kp,
-                  N, int(out_dtype == torch.bfloat16), int(gemv))
+                  N, int(out_dtype == torch.bfloat16), int(gemv), int(block))
+    return y
+
+
+def _check_operands(x, packed, scales):
+    if (x.dtype != torch.bfloat16 or packed.dtype != torch.int8
+            or scales.dtype != torch.float32):
+        raise TypeError(f'int4_matmul kernel takes bf16 x, int8 packed and '
+                        f'float32 scales, got {x.dtype}, {packed.dtype} and '
+                        f'{scales.dtype}')
+    if packed.device != x.device or scales.device != x.device:
+        raise ValueError('int4_matmul: x, packed and scales must lie on one '
+                         'device')
+    if not (x.is_contiguous() and packed.is_contiguous()
+            and scales.is_contiguous()):
+        raise ValueError('int4_matmul kernel needs contiguous operands')
+
+
+def int4_dots8_kernel(x: torch.Tensor, packed: torch.Tensor,
+                      scales: torch.Tensor,
+                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Launch the 'dots8' kernel on CUDA tensors (raises on what it does
+    not take), counted under 'int4_matmul_dots8'."""
+    M, K, Kp, N = _check_shapes(x, packed, scales)
+    _check_out(out_dtype)
+    _check_operands(x, packed, scales)
+    y = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    if not (M and N):
+        return y
+    mt, splits, steps = dots8_plan(M, Kp, N)
+    xq = torch.empty((M, Kp), dtype=torch.int8, device=x.device)
+    xs = torch.empty(M, dtype=torch.float32, device=x.device)
+    part = tickets = None      # one split: no workspace
+    if splits > 1:
+        part = torch.empty(splits * M * N, dtype=torch.float32,
+                           device=x.device)
+        tickets = _tickets(x.device, -(-N // 512) * -(-M // mt))
+    _build.launch('evo_int4_dots8_bf16', 'int4_matmul_dots8', x.data_ptr(),
+                  packed.data_ptr(), scales.data_ptr(), y.data_ptr(),
+                  xq.data_ptr(), xs.data_ptr(),
+                  None if part is None else part.data_ptr(),
+                  None if tickets is None else tickets.data_ptr(), M, K, Kp,
+                  N, mt, steps, int(out_dtype == torch.bfloat16))
     return y
 
 
@@ -192,14 +328,31 @@ def _kernel_under_grad(x, packed, scales, out_dtype):
 
 
 def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
-                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                out_dtype: torch.dtype = torch.float32,
+                mode: str = 'unroll') -> torch.Tensor:
     """x (M, K) bf16 with K <= Kp, the weight's padded contraction (columns
     K..Kp-1 count as zeros); packed (Kp/2, N) int8; scales (Kp/128, N)
     float32 -> (M, N) in `out_dtype` (float32 or bfloat16: one rounding of
-    the float32 sum). A CUDA tensor launches the kernel (or raises on what
-    it does not take), through `Int4MatmulFunction` when x requires grad
-    (counted as 'int4_matmul_grad'); a CPU tensor takes the plain
-    version."""
+    the float32 sum). `mode`: the JAX kernel's, 'unroll' (the default) or
+    'dots' (one function), 'block' or 'dots8' (the module docstring);
+    another raises. A CUDA tensor launches the mode's kernel (or raises on
+    what it does not take), under 'unroll' / 'dots' through
+    `Int4MatmulFunction` when x requires grad (counted as
+    'int4_matmul_grad'); 'block' and 'dots8' refuse x that requires grad.
+    A CPU tensor takes the mode's plain version."""
+    if mode not in MODES:
+        raise ValueError(f'unknown int4_matmul mode {mode!r} (expected one '
+                         f'of {MODES})')
+    if mode in ('block', 'dots8'):
+        refuse(f'int4_matmul mode {mode!r}', x)
+        plain = (int4_matmul_block_plain if mode == 'block'
+                 else int4_matmul_dots8_plain)
+        if not _build.check_device(x, 'int4_matmul'):
+            return plain(x, packed, scales, out_dtype)
+        if mode == 'dots8':
+            return int4_dots8_kernel(x, packed, scales, out_dtype)
+        return int4_matmul_kernel(x, packed, scales, out_dtype,
+                                  'int4_matmul_block', block=True)
     if not _build.check_device(x, 'int4_matmul'):
         return int4_matmul_plain(x, packed, scales, out_dtype)
     if needs_grad(x):

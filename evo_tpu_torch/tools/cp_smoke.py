@@ -13,18 +13,19 @@ ids) and writes the logits under each `cp_attn`, and under Ulysses at one
 position fewer (a test's probe). `model`
 reads `<dir>/cp_in.pt` (what the single process gave on the same inputs):
 
-  (a) evo-1-8k-base (seed 0): one forward at B=1, L=8,192 under each
-      `cp_attn` ('ulysses', 'ring', 'zigzag'), with launches, its time and
+  (a) evo-1-8k-base (seed 0): one forward of the ids (B=1, L=2,048)
+      under each `cp_attn` ('ulysses', 'ring', 'zigzag'), with launches,
+      its time and
       the time spent in the cp collectives (each between device syncs);
       the logits against the single process's; then forwards of
       2,048 positions under the fused mixer and under the prefix kernel
       (kernels 6 and 7 at C/cp channels), against the Ulysses logits;
-  (b) greedy generation from two 512-nt prompts, 32 tokens, under the bf16
+  (b) greedy generation from two 512-nt prompts, 16 tokens, under the bf16
       and the int8 KV cache: tokens, launches, the local cache's heads, and
       teacher forcing: the single process's tokens fed to the cp model,
       its logits at each step against the single process's; one decode
       step's time;
-  (c) evo-1-131k-base (seed 0): a 32,768-nt sequence scored in segments of
+  (c) evo-1-131k-base (seed 0): a 16,384-nt sequence scored in segments of
       8,192, with launches, time and the time in the collectives.
 
 Times are taken with both ranks on one card over gloo, whose all-to-alls
@@ -215,7 +216,7 @@ def part_generate(inp, evo, mesh) -> dict:
 
 
 def part_long(inp, mesh) -> dict:
-    """(c): 32,768 nt with evo-1-131k-base in segments of 8,192."""
+    """(c): the long sequence with evo-1-131k-base in segments of 8,192."""
     from evo_tpu_torch.models import Evo
     from evo_tpu_torch.ops import _build
     from evo_tpu_torch.scoring import score_sequences_segmented

@@ -318,8 +318,8 @@ _CONVERT = (
         const float vl[4] = {fw, fw2, -fw, -fw2};
         const float vh[4] = {fw2, fw, -fw2, -fw};""")
 _MATH = (
-    """            plo[m][j] = fmaf(xl[m][r], vl[j], plo[m][j]);
-            phi[m][j] = fmaf(xh[m][r], vh[j], phi[m][j]);""",
+    """            plo[m][j] = fmaf(xl[m][r], wl[j], plo[m][j]);
+            phi[m][j] = fmaf(xh[m][r], wh[j], phi[m][j]);""",
     """            if (m == 0 && j == 0) plo[0][0] += __uint_as_float(w);""")
 _COMBINE = ('  if (splits == 1) return;\n', '  return;\n')
 _LOADS = ('                         valid > 0 ? 16 : 0);',

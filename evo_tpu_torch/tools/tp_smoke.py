@@ -1,23 +1,25 @@
 """One rank of the tensor-parallel smoke runs on the card.
 
-    python -m evo_tpu_torch.tools.tp_smoke {model,train,small} <dir>
+    python -m evo_tpu_torch.tools.tp_smoke {model,train,small}[+...] <dir>
 
 launched as two ranks with torchrun's environment (`parallel.distributed.
 launch_local` does that). The ranks join over gloo, chosen explicitly, so
 that both may share one card (NCCL refuses that); each holds its
 tensor-parallel half (tp = 2) of the model and runs the port's entry
 points, and writes what it saw to `<dir>/<part>_rank<r>.json` (tensors
-beside it as `.pt`) for the caller to check. What each part reads:
+beside it as `.pt`) for the caller to check. Parts joined by '+' run in
+that order in one launch. What each part reads:
 
   model  `<dir>/model_in.pt`: evo-1-8k-base (seed 0) at full width on
-         its first 16 layers (15 Hyena layers, the attention at 8): one
-         forward at B=1, L=8,192 against the single-process logits of
-         those layers and their one-rounding yardstick; greedy generation under the bf16
-         and the int8 KV cache with teacher forcing; forwards of 2,048
-         positions under the fused mixer and under the prefix kernel;
-         scores of ragged sequences with bf16 and int8 weights; launches,
-         times, peak memory, and a second forward with each tp reduce
-         between device syncs for the time spent in them;
+         its first 9 layers (8 Hyena layers, the attention at 8): one
+         forward of the ids (B=1, L=2,048) against the single-process
+         logits of those layers and their one-rounding yardstick; greedy
+         generation under the bf16 and the int8 KV cache with teacher
+         forcing; forwards of 2,048 positions under the fused mixer and
+         under the prefix kernel; scores of ragged sequences with bf16
+         and int8 weights; launches, times, peak memory, and a second
+         forward with each tp reduce between device syncs for the time
+         spent in them;
   train  `<dir>/train_in.json`: full fine-tuning of the first 9 layers
          (seed 20) at L = 2,049, 2 sharded train steps;
   small  `<dir>/small_in.pt`: a small config's logits (a test's probe).
@@ -36,10 +38,10 @@ import time
 
 import torch
 
-# the first 16 layers of evo-1-8k-base, the model part's depth: 15 Hyena
+# the first 9 layers of evo-1-8k-base, the model part's depth: 8 Hyena
 # layers and the attention at 8 (the full 32 took ~120 s of reduces
 # through the host)
-SIXTEEN = dict(num_layers=16, attn_layer_idxs=(8,), hyena_layer_idxs=())
+NINE = dict(num_layers=9, attn_layer_idxs=(8,), hyena_layer_idxs=())
 
 
 def _sync_time(fn, reps: int = 3):
@@ -90,7 +92,7 @@ def part_model(d: str, mesh, rank: int) -> dict:
     res = {}
     t0 = time.time()
     evo = Evo('evo-1-8k-base', 'cuda', random_init=True, seed=0, mesh=mesh,
-              config_overrides=SIXTEEN)
+              config_overrides=NINE)
     torch.cuda.synchronize()
     res['init_s'] = time.time() - t0
     res['weight_gib'] = torch.cuda.memory_allocated() / 2**30
@@ -126,7 +128,7 @@ def part_model(d: str, mesh, rank: int) -> dict:
     res['reduce_ms'] = 1e3 * spent[0]
     res['reduce_share'] = res['reduce_ms'] / res['forward_instrumented_ms']
     torch.save(logits.cpu(), os.path.join(d, f'logits_rank{rank}.pt'))
-    ref = inp['logits16'].cuda()
+    ref = inp['logits9'].cuda()
     diff = (logits - ref).abs()
     res['forward_mean_abs'] = float(diff.mean())
     res['forward_max_abs'] = float(diff.max())
@@ -139,7 +141,7 @@ def part_model(d: str, mesh, rank: int) -> dict:
     sign = torch.randint(0, 2, (1, 1, evo.config.hidden_size), device='cuda',
                          generator=torch.Generator('cuda').manual_seed(5))
     prompt_ids = prepare_batch(inp['prompts'], tok, prepend_bos=False)[0]
-    P, n_new = prompt_ids.shape[1], 32
+    P, n_new = prompt_ids.shape[1], 16
     for label, m in (('bf16', model),
                      ('int8', EvoModel(evo.config.replace(kv_quant='int8'),
                                        model.module))):
@@ -208,7 +210,7 @@ def part_model(d: str, mesh, rank: int) -> dict:
     del evo, model
     torch.cuda.empty_cache()
     evo8 = Evo('evo-1-8k-base', 'cuda', random_init=True, seed=0, mesh=mesh,
-               config_overrides=dict(SIXTEEN, weight_quant='int8'))
+               config_overrides=dict(NINE, weight_quant='int8'))
     res['scores_int8'] = score_sequences(inp['seqs'], evo8.model,
                                          evo8.tokenizer)
     res['all_finite'] = bool(np.all(np.isfinite(res['scores_bf16'] +
@@ -282,12 +284,13 @@ def main(argv=None) -> int:
     initialize_distributed(backend='gloo', device='cuda')
     mesh = make_mesh(dp=1, tp=2)
     rank = mesh.rank
-    t = time.time()
-    res = {'part': {'model': part_model, 'train': part_train,
-                    'small': part_small}[part](d, mesh, rank)}
-    res['seconds'] = time.time() - t
-    with open(os.path.join(d, f'{part}_rank{rank}.json'), 'w') as f:
-        json.dump(res, f)
+    for name in part.split('+'):
+        t = time.time()
+        res = {'part': {'model': part_model, 'train': part_train,
+                        'small': part_small}[name](d, mesh, rank)}
+        res['seconds'] = time.time() - t
+        with open(os.path.join(d, f'{name}_rank{rank}.json'), 'w') as f:
+            json.dump(res, f)
     import torch.distributed as dist
     dist.barrier()
     dist.destroy_process_group()

@@ -17,7 +17,9 @@ dp = 2, cp = 2 on 4 for the forward, the seam and the golden files):
   * logits under 'ulysses', 'ring' and 'zigzag' at L = 64 against the
     JAX forward unsharded and under the same make_mesh(dp=1, cp=2, tp=...)
     virtual mesh (rtol = atol = 2e-4, tests/test_parallel.py:131-133), and
-    the ring again in query-row blocks of one row;
+    the ring again in query-row blocks of one row; under Ulysses also the
+    FFT long-conv backend (`hyena_conv_backend='fft'`, monolithic and with
+    `hyena_fft_chunk=16`) against the JAX FFT forward unsharded;
   * a ragged L = 61 under Ulysses against JAX; 'ring' and 'zigzag'
     raising the JAX package's ValueError on it (and 'zigzag' on 62);
   * the prefill + one decode step seam of tests/test_parallel.py:135-161;
@@ -122,6 +124,13 @@ def _worker(run: str, d: str) -> None:
                 out[f'logits_{attn}_{n}'] = m(ids[:, :n])[0].numpy()
             except ValueError as e:
                 out[f'error_{attn}_{n}'] = np.asarray(str(e))
+        if attn == 'ulysses':
+            # the FFT long conv on the rank's channel block over the whole
+            # sequence, fresh and chunked (hyena_fft_chunk 16 < L)
+            for chunk in (0, 16):
+                out[f'logits_fft_{chunk}'] = _port_model(sd, cfg.replace(
+                    hyena_conv_backend='fft', hyena_fft_chunk=chunk),
+                    mesh)(ids)[0].numpy()
         if attn == 'ring':
             keep = ring_attention.SCORE_BYTES
             ring_attention.SCORE_BYTES = 1      # one query row a block
@@ -249,6 +258,9 @@ def runs(tmp_path_factory):
     for t in threads:
         t.start()
     want['logits_ragged'] = fwd(params, cfg, ids[:, :RAGGED])
+    for chunk in (0, 16):
+        want[f'logits_fft_{chunk}'] = fwd(params, cfg.replace(
+            hyena_conv_backend='fft', hyena_fft_chunk=chunk), ids)
     want['seam_step'] = fwd(params, cfg, np.concatenate(
         [ids, want['seam_tok'][:, None]], axis=1))[:, -1]
     q8 = quantize_params(params)
@@ -290,6 +302,21 @@ def test_logits_match_jax(runs, run, attn):
         for ref in refs:
             np.testing.assert_allclose(r[f'logits_{attn}'], ref, rtol=2e-4,
                                        atol=2e-4)
+
+
+@pytest.mark.parametrize('run,chunk', [(r, c) for r in FULL for c in (0, 16)])
+def test_fft_backend_matches_jax(runs, run, chunk):
+    """hyena_conv_backend='fft' under cp (Ulysses): each rank's logits
+    against the JAX FFT forward unsharded, within 2e-4, and against the
+    matmul backend's under the same mesh."""
+    want, got = runs
+    for r in got[run]:
+        np.testing.assert_allclose(r[f'logits_fft_{chunk}'],
+                                   want[f'logits_fft_{chunk}'], rtol=2e-4,
+                                   atol=2e-4)
+        np.testing.assert_allclose(r[f'logits_fft_{chunk}'],
+                                   r['logits_ulysses'], rtol=2e-4,
+                                   atol=2e-4)
 
 
 @pytest.mark.parametrize('run', FULL)

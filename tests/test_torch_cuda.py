@@ -445,6 +445,75 @@ def test_int4_matmul_in_a_cuda_graph():
     assert int(tickets[:tiles].abs().sum()) == 0
 
 
+@pytest.mark.parametrize('M,K,Kp,N', [
+    *[(M, K, Kp, N) for K, Kp, N in _LAYER_SHAPES
+      for M in (1, 2, 4, 5, 9, 128)],
+    *[(M, 1000, 1024, 1001) for M in (1, 3, 9, 33)],    # ragged N, K
+    (1, 40, 256, 24), (8, 130, 512, 136), (2, 4300, 4352, 600)])
+@pytest.mark.parametrize('mode', ['block', 'dots8'])
+def test_int4_other_modes_kernel(mode, M, K, Kp, N):
+    """Kernel 8's 'block' instance (both designs) and the 'dots8' kernel
+    against their plain versions: 'block' within 1e-4 of the larger of the
+    value and its row's rms (the same bf16 products, float32 sums in
+    another order); 'dots8' bit-equal (exact integer dots, its float32 sums
+    in the plain version's order); both bit-equal run to run, the bf16
+    output the float32 one rounded once, one launch a call under its own
+    counter."""
+    from evo_tpu_torch.ops.int4 import (int4_matmul_block_plain,
+                                        int4_matmul_dots8_plain)
+    x, packed, s = _int4_case(M, Kp, N, seed=M + K + N)
+    x = x[:, :K].contiguous()
+    counter = f'int4_matmul_{mode}'
+    before = _build.LAUNCHES[counter]
+    got = int4_matmul(x, packed, s, mode=mode)
+    again = int4_matmul(x, packed, s, mode=mode)
+    got16 = int4_matmul(x, packed, s, torch.bfloat16, mode=mode)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[counter] == before + 3
+    assert torch.equal(got, again)
+    assert torch.equal(got16, got.bfloat16())
+    if mode == 'dots8':
+        assert torch.equal(got, int4_matmul_dots8_plain(x, packed, s))
+    else:
+        want = int4_matmul_block_plain(x, packed, s)
+        rms = want.pow(2).mean(-1, keepdim=True).sqrt()
+        assert ((got - want).abs() / want.abs().maximum(rms)).max() <= 1e-4
+
+
+def test_int4_other_modes_refuse_grad():
+    x, packed, s = _int4_case(2, 256, 64)
+    x.requires_grad_()
+    for mode in ('block', 'dots8'):
+        with pytest.raises(RuntimeError, match='no backward'):
+            int4_matmul(x, packed, s, mode=mode)
+
+
+def test_fft_backend_forward_on_the_card():
+    """A small bf16 model under hyena_conv_backend='fft' (monolithic and
+    chunked) on the card: kernels 1-3 launch as under 'matmul', the fused
+    mixer never, and the logits stay within one bf16 rounding's drift of
+    the matmul backend's (2^-5 of the logits' scale)."""
+    from evo_tpu_torch import model as model_lib
+    from evo_tpu_torch.config import tiny_config
+    base = tiny_config(hidden_size=256, num_filters=256,
+                       num_attention_heads=2, compute_dtype='bfloat16',
+                       param_dtype='bfloat16', hyena_fused_mixer=True)
+    g = torch.Generator(device='cuda').manual_seed(0)
+    model = model_lib.random_init(base, g, 'cuda')
+    ids = torch.randint(0, 512, (2, 192), device='cuda', generator=g)
+    want = model_lib.forward(model, ids, base.replace(
+        hyena_fused_mixer=False))
+    for chunk in (0, 64):
+        cfg = base.replace(hyena_conv_backend='fft', hyena_fft_chunk=chunk)
+        _build.LAUNCHES.clear()
+        got = model_lib.forward(model, ids, cfg)
+        torch.cuda.synchronize()
+        assert dict(_build.LAUNCHES) == {'rmsnorm': 2 * cfg.num_layers + 1,
+                                         'fir_gate': 3,
+                                         'flash_attention': 1}
+        assert (got - want).abs().max() <= 2 ** -5 * want.abs().max()
+
+
 def test_int4_kernel_refuses_what_it_does_not_take():
     x, packed, s = _int4_case(4, 256, 64)
     with pytest.raises(TypeError):

@@ -26,14 +26,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, 'evo_tpu_torch')
 FORBIDDEN = ('jax', 'jaxlib', 'evo_tpu')
 # fields of the JAX config that the port drops: the kernel on/off switch
-# (in the port a tensor's device decides), the knobs of
-# long-conv backends the port does not have, and the two init-method
-# strings that no code of the JAX package reads. The kernel selectors
-# `hyena_fused_mixer` and `hyena_pallas_prefix` and `remat` are fields of
-# both.
-TPU_FIELDS = {'use_pallas', 'state_prefill_chunk',
-              'hyena_fft_chunk', 'hyena_conv_backend', 'mlp_init_method',
-              'mlp_output_init_method'}
+# (in the port a tensor's device decides) and the two init-method strings
+# that no code of the JAX package reads. The kernel selectors
+# `hyena_fused_mixer` and `hyena_pallas_prefix`, the long conv's backend
+# and its knobs (`hyena_conv_backend`, `hyena_fft_chunk`,
+# `state_prefill_chunk`) and `remat` are fields of both.
+TPU_FIELDS = {'use_pallas', 'mlp_init_method', 'mlp_output_init_method'}
 
 
 def _port_files():
@@ -134,6 +132,27 @@ def test_kernel_selectors_are_fields_of_both_packages(field):
     assert getattr(config.tiny_config().replace(**{field: True}), field)
 
 
+@pytest.mark.parametrize('field,value', [('hyena_conv_backend', 'fft'),
+                                         ('hyena_fft_chunk', 8192),
+                                         ('state_prefill_chunk', 32)])
+def test_fft_backend_fields_are_fields_of_both_packages(field, value):
+    """The FFT backend's fields keep the JAX names, types and defaults, so
+    `from_dict`, the YAMLs and `config_overrides` treat them alike; the
+    tiny configs set state_prefill_chunk alike, and an unknown backend
+    raises."""
+    port = {f.name: f for f in dataclasses.fields(config.ModelConfig)}
+    ref = {f.name: f for f in dataclasses.fields(JaxModelConfig)}
+    assert field not in TPU_FIELDS
+    assert port[field].default == ref[field].default
+    assert port[field].type == ref[field].type
+    assert getattr(config.ModelConfig.from_dict({field: value}), field) == \
+        value
+    assert getattr(config.tiny_config(), field) == \
+        getattr(jax_tiny_config(), field)
+    with pytest.raises(ValueError, match='hyena_conv_backend'):
+        config.tiny_config(hyena_conv_backend='toeplitz')
+
+
 def test_from_yaml_reads_published_file():
     path = os.path.join(ROOT, 'evo_tpu', 'configs',
                         'evo-1-131k-base_inference.yml')
@@ -141,3 +160,4 @@ def test_from_yaml_reads_published_file():
     assert cfg == config_for_model('evo-1-131k-base')
     assert cfg.use_interpolated_rotary_pos_emb
     assert cfg.rotary_emb_scaling_factor == 16
+    assert cfg.hyena_fft_chunk == 8192
