@@ -21,8 +21,10 @@ for an H100: the kernels target sm_90a). It
      offsets 8,191, 65,535 and 122,879 and in both its regimes at 1 to 8
      rows, and the combine kernel of its split key range against its
      plain twin (and bit-equal on a second run); the weight-only int4
-     matmul at 1 to 128 rows for each projection of a layer, x of K <= Kp
-     columns, float32 and bf16 output, bit-equal run to run, beside
+     matmul at 1 to 128 rows for each projection of a layer (both its
+     designs: 1, 2 streaming, 5 to 128 on wgmma), x of K <= Kp columns,
+     float32 and bf16 output, bit-equal run to run, timed at 10 row counts
+     of 4096 x 12288 and at 8 and 128 rows of each weight shape beside
      torch._weight_int4pack_mm; the fused
      Hyena mixer on the in-projection's output zl (1, 8192, 3, 4096) read
      in place with its bias, fresh and with a carried state, at two batch
@@ -120,7 +122,11 @@ for an H100: the kernels target sm_90a). It
      ragged prompts on 2 slots, 32 tokens each, kernel 8 160 times and
      kernel 5's split + combine 3 times a decode step, teacher forcing
      within phase 8's yardstick, and kernel 5 with device offsets beside
-     an int offset;
+     an int offset; then (b) at the serve CLI's server shape (8 slots,
+     decode chunks of 32 steps, prompts filled in chunks of 128): 8
+     greedy requests of 64-512 nt and 16-24 new tokens, kernel 8 160
+     times a decode step at 8 rows, the same teacher forcing, and one
+     decode chunk profiled: device ms a step and the idle share;
  18. (after phase 16, while evo-1-8k-base is on the card) generates
      with n-gram speculative decoding (`generate_speculative`, g = 8, 32
      new tokens from a repetitive and a random 512-nt prompt) beside the
@@ -2802,6 +2808,7 @@ def main():
     from evo_tpu_torch.scoring import (_segment_bounds, logits_to_logprobs,
                                        prepare_batch)
     from evo_tpu_torch import serving as serving_mod
+    from evo_tpu_torch.ops import int4 as int4_mod
     from evo_tpu_torch.serving import GenerationServer
 
     dev = torch.device('cuda')
@@ -3160,19 +3167,26 @@ def main():
     # Weight-only int4 matmul. The kernel multiplies the same bf16 values
     # as the plain version (bf16 x int4 is exact in float32) and differs
     # only in the order of the float32 sums inside a group of 128 (FMAs
-    # down the rows at up to 4 rows of x, mma.sync above) and, in the
-    # streaming design, in the order in which the groups' scaled sums are
-    # added (split by split): up to 11,008 terms at float32 epsilon.
+    # down the rows at up to 2 rows of x, wgmma above) and in the order in
+    # which the groups' scaled sums are added (split by split, or block by
+    # block): up to 11,008 terms at float32 epsilon.
     # Required |err| <= 1e-4 of the larger of |want| and its row's rms; x
     # of K <= Kp columns (the kernel reads zeros past K); the bf16 output
     # the float32 one rounded once, bit for bit; and a second run
     # bit-equal to the first.
-    def int4_case(M, Kp, N):
-        x = randn(M, Kp)
-        q = torch.randint(-8, 8, (Kp, N), device=dev, generator=g,
+    def int4_case(M, Kp, N, gen=None):
+        gen = g if gen is None else gen
+        x = torch.randn(M, Kp, device=dev, generator=gen).bfloat16()
+        q = torch.randint(-8, 8, (Kp, N), device=dev, generator=gen,
                           dtype=torch.int8)
-        s = torch.rand(Kp // 128, N, device=dev, generator=g) * 0.09 + 0.01
+        s = torch.rand(Kp // 128, N, device=dev, generator=gen) * 0.09 + 0.01
         return x, pack_int4(q), s
+
+    # Kernel 8's cases beyond those of the earlier runs draw from a
+    # generator of their own: `g`'s stream, and with it every later phase's
+    # inputs and the yardstick's random signs (phase 5), stays as it was
+    g8 = torch.Generator(device=dev).manual_seed(8)
+    earlier_rows = (1, 2, 4, 7, 8, 128)
 
     # (K, Kp, N): w1 / w2, w3 (K padded to Kp), w_in / wqkv, w_out
     layer_calls = ((4096, 4096, 10928), (10928, 11008, 4096),
@@ -3182,8 +3196,9 @@ def main():
             [(8, 256, 256, 512), (1, 4096, 4096, 688), (16, 1536, 1536, 512),
              (128, 512, 512, 1024), (5, 500, 512, 1001), (3, 130, 256, 40)]
             + [(M, K, Kp, N) for K, Kp, N in layer_calls
-               for M in (1, 2, 7, 8, 128)]):
-        x, packed, sc = int4_case(M, Kp, N)
+               for M in (1, 2, 5, 7, 8, 9, 16, 32, 64, 128)]):
+        x, packed, sc = int4_case(
+            M, Kp, N, None if M in earlier_rows or Kp < 4096 else g8)
         x = x[:, :K].contiguous()
         got = int4_matmul(x, packed, sc)
         got16 = int4_matmul(x, packed, sc, torch.bfloat16)
@@ -3234,9 +3249,9 @@ def main():
         return w4, torch.stack([sc.bfloat16(), torch.zeros_like(
             sc).bfloat16()], -1).contiguous()
 
-    def int4_times(M, K, Kp, N, plain=False):
-        ws = [int4_case(M, Kp, N) for _ in range(int(110e6 // (Kp // 2 * N))
-                                                  + 1)]
+    def int4_times(M, K, Kp, N, plain=False, gen=None):
+        ws = [int4_case(M, Kp, N, gen)
+              for _ in range(int(110e6 // (Kp // 2 * N)) + 1)]
         ws = [(x[:, :K].contiguous(), p, s) for x, p, s in ws]
         fns = [(lambda c=c: int4_matmul(*c, torch.bfloat16)) for c in ws]
         out = dict(ms=time_graph_ms(torch, fns),
@@ -3262,22 +3277,30 @@ def main():
         del ws, fns
         return out
 
-    by_rows = {M: int4_times(M, 4096, 4096, 12288, plain=True)
-               for M in (1, 2, 4, 8, 128)}
+    by_rows = {M: int4_times(M, 4096, 4096, 12288, plain=M in (1, 8, 128),
+                             gen=None if M in earlier_rows else g8)
+               for M in (1, 2, 4, 5, 8, 9, 16, 32, 64, 128)}
     per_layer = {f'{K}x{N}': int4_times(2, K, Kp, N)
                  for K, Kp, N in layer_calls}
+    per_layer_rows = {f'{K}x{N}/M={M}': int4_times(M, K, Kp, N, gen=g8)
+                      for K, Kp, N in layer_calls for M in (8, 128)}
     kernels['int4_matmul'] = dict(
         name='int4_matmul', route='cuda',
         source='evo_tpu_torch/csrc/int4_matmul.cu',
         replaces='evo_tpu/ops/pallas_int4.py:87', max_abs_err=err8,
         max_scaled_err=scaled8, **by_rows[1], bound_by='bytes',
+        design='M <= 2: streaming (float32 FMAs, cp.async); M = 3-128: '
+               'wgmma, weights dequantized in registers into its A '
+               'fragments, TMA ring, stream-K blocks',
         by_rows=by_rows, by_call_at_2_rows=per_layer,
+        by_call_at_8_and_128_rows=per_layer_rows,
         shape='x (1, 4096) bf16, packed (2048, 12288) int8, scales '
               '(32, 12288) fp32 -> y bf16 (decode, M = 1; by_rows: M = 1, 2, '
-              '4, 8, 128; by_call_at_2_rows: each weight of a layer); '
+              '4, 5, 8, 9, 16, 32, 64, 128; by_call_at_2_rows, '
+              'by_call_at_8_and_128_rows: each weight of a layer); '
               'library: torch._weight_int4pack_mm')
     log(f'   int4_matmul by rows at 4096 x 12288: {by_rows}; by call of '
-        f'a layer at M=2: {per_layer}')
+        f'a layer at M=2: {per_layer}; at M=8 and 128: {per_layer_rows}')
     del qw
     phase2_launches = int4_mode_checks(
         torch, log, kernels, peak, int4_case, layer_calls, tinygemm,
@@ -5008,15 +5031,132 @@ def main():
     log('   kernel 5 (split + combine) at one query row, B=2, T=2,048 (graph '
         'replay; bound by the live bytes): ' + ', '.join(
             f'{k} {v[0]:.4f} ms (bound {v[1]:.4f})' for k, v in k5.items()))
-    serving_mod._decode_chunk = real_chunk
     del server17, results17, st17, q17
+
+    # -- 17 (b). the serve CLI's server shape: 8 slots, int4 + int8 KV ------
+    # `cli/serve.py`'s defaults (8 slots, max_len 8,192, decode chunks of
+    # 32 steps, prompts filled in chunks of 128, fills of up to 8 batched)
+    # over the model of phase 8: 8 greedy requests, prompts of 64-512 nt,
+    # 16-24 new tokens each. Every decode step runs kernel 8 on the five
+    # projections of 32 layers at M = 8 (the slot batch): the wgmma design;
+    # the fills run it on chunks of up to 128 rows. The rows of each call
+    # are recorded around the kernel's wrapper.
+    rng17b = np.random.default_rng(171)
+    plens17b = [64, 96, 150, 200, 256, 333, 420, 512]
+    news17b = [int(n) for n in rng17b.integers(16, 25, len(plens17b))]
+    prompts17b = [''.join(rng17b.choice(list('ACGT'), n)) for n in plens17b]
+    rows17b = collections.Counter()
+    real_k8 = int4_mod.int4_matmul_kernel
+
+    def counted_k8(x, *a, **kw):
+        rows17b[x.shape[0]] += 1
+        return real_k8(x, *a, **kw)
+
+    def new_server17b():
+        return GenerationServer(evo4.model, tok, max_slots=8, max_len=8192,
+                                steps_per_sync=32, prompt_chunk=128,
+                                prefill_batch=8)
+
+    warm = new_server17b()
+    for p17 in prompts17b[:2]:
+        warm.submit(prompt=p17, num_tokens=9)
+    warm.run()
+    del warm
+    server17b = new_server17b()
+    int4_mod.int4_matmul_kernel = counted_k8
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    chunk_events.clear()
+    t0 = time.time()
+    rids17b = {i: server17b.submit(prompt=p17, num_tokens=news17b[i])
+               for i, p17 in enumerate(prompts17b)}
+    results17b = server17b.run()
+    torch.cuda.synchronize()
+    serve17b_s = time.time() - t0
+    launches['serve_int4_8_slots'] = dict(_build.LAUNCHES)
+    rows_run17b = dict(rows17b)
+    chunk17b_ms = [a.elapsed_time(b) for a, b in chunk_events]
+    steps17b = 32 * len(chunk17b_ms)
+    check(all(len(results17b[r].token_ids) == news17b[i]
+              for i, r in rids17b.items()),
+          'a request of phase 17 (b) did not end with its token count')
+    # decode: 160 calls a step at the slot batch's 8 rows; fills: chunks
+    # and tails of at most 128 rows; nothing else calls kernel 8
+    check(rows17b[8] == 160 * steps17b
+          and sum(rows17b.values()) == launches['serve_int4_8_slots'][
+              'int4_matmul']
+          and max(rows17b) <= 128,
+          f'kernel 8 rows {rows_run17b} for {steps17b} decode steps')
+    d17b, dmax17b, f17b, agree17b = teacher_forced(
+        evo4.model, tok, prompts17b, results17b, rids17b, list(rids17b))
+    check(d17b <= f17b and agree17b >= 0.75,
+          'served int4 log-probs (8 slots) disagree with teacher forcing')
+    # one step() that is a decode chunk alone (its requests admitted and
+    # filled the step before), in the profiler: device ms a step, the idle
+    # share, and kernel 8's calls by rows
+    for i in range(8):
+        server17b.submit(prompt=prompts17b[7][64 * i % 448:][:64],
+                         num_tokens=40)
+    server17b.step()
+    check(server17b._fill is None and not server17b._queue
+          and all(r is not None for r in server17b._slots),
+          'the profiled step of phase 17 (b) would run a fill')
+    from torch.profiler import ProfilerActivity, profile
+    rows17b.clear()
+    _build.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof17b:
+        t = time.time()
+        server17b.step()
+        torch.cuda.synchronize()
+        wall17b_ms = 1e3 * (time.time() - t)
+    int4_mod.int4_matmul_kernel = real_k8
+    ops17b = [e for e in prof17b.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, 'is_user_annotation', False)]
+    busy17b_ms = sum(e.self_device_time_total for e in ops17b) / 1e3
+    k8_17b_ms = sum(e.self_device_time_total for e in ops17b
+                    if 'int4_mma_kernel' in e.key) / 1e3
+    check(dict(rows17b) == {8: 160 * 32}
+          and _build.LAUNCHES['int4_matmul'] == 160 * 32,
+          f'the profiled decode chunk ran kernel 8 at rows {dict(rows17b)}')
+    server17b.run()
+    res17b = dict(
+        seconds=serve17b_s, tokens=sum(news17b),
+        tokens_per_s=sum(news17b) / serve17b_s,
+        chunk_ms=chunk17b_ms, step_ms=statistics.median(chunk17b_ms) / 32,
+        kernel8_rows=rows_run17b,
+        profiled_chunk=dict(device_ms_a_step=busy17b_ms / 32,
+                            kernel8_ms_a_step=k8_17b_ms / 32,
+                            wall_ms_a_step=wall17b_ms / 32,
+                            idle_share=1 - busy17b_ms / wall17b_ms),
+        teacher_forcing=dict(mean_abs=d17b, max_abs=dmax17b,
+                             yardstick=f17b, argmax_agreement=agree17b))
+    log(f'== 17 (b). serving at the serve CLI\'s shape, evo-1-131k-base int4 '
+        f'+ int8 KV ({smi}): 8 requests ({plens17b} nt, {sum(news17b)} new '
+        f'tokens) on 8 slots: {serve17b_s:.3f} s, '
+        f'{sum(news17b) / serve17b_s:.1f} generated tokens/s; '
+        f'{len(chunk17b_ms)} decode chunks of 32 steps, '
+        f'{res17b["step_ms"]:.2f} ms a step (CUDA events); kernel 8 calls '
+        f'by rows {rows_run17b}; launches {launches["serve_int4_8_slots"]}; '
+        f'teacher forcing: mean abs log-prob diff {d17b:.5f} (max '
+        f'{dmax17b:.4f}), one rounding step {f17b:.5f} (limit 1x), argmax '
+        f'agreement {agree17b:.4f} (limit 0.75); profiled decode chunk: '
+        f'device busy {busy17b_ms / 32:.3f} ms a step of '
+        f'{wall17b_ms / 32:.2f} ms wall (idle share '
+        f'{res17b["profiled_chunk"]["idle_share"]:.3f}), kernel 8 '
+        f'{k8_17b_ms / 32:.3f} ms a step in 160 calls at M = 8')
+    log(f'   phase 17 (b): {json.dumps(res17b)}')
+    serving_mod._decode_chunk = real_chunk
+    del server17b, results17b
 
     # -- 18 (continued). speculative decoding under int4 weights and the
     # int8 KV cache: the model of phase 8, 32 tokens from the repetitive
     # prompt at g = 3 (verify passes of 4 rows: kernel 5's split + combine
-    # and kernel 8's streaming design) and g = 8 (9 rows: kernel 5's
-    # mainloop and kernel 8's mma.sync design), launch counts from the
-    # run's schedule, teacher forcing within phase 8's yardstick.
+    # and kernel 8's wgmma design) and g = 8 (9 rows: kernel 5's mainloop
+    # and kernel 8's wgmma design), launch counts from the run's schedule,
+    # teacher forcing within phase 8's yardstick.
     spec_int4 = {}
     spec_run(evo4.model, prompts18['non-repetitive'][:200], 12, 8)  # warm
     for gamma in (3, 8):
@@ -5050,9 +5190,9 @@ def main():
         check(d18 <= f18 and agree18 >= 0.75,
               f'int4 speculative log-probs disagree (g = {gamma})')
     # one run with the oracle drafter at g = 8: full, partial and no
-    # acceptance; replays of 1 and 3 positions (kernel 5's split, kernel
-    # 8's streaming design) and of 6 and 7 (kernel 5's mainloop, kernel
-    # 8's mma.sync design)
+    # acceptance; replays of 1 and 3 positions (kernel 5's split; kernel
+    # 8's streaming design at one row, its wgmma design at three) and of 6
+    # and 7 (kernel 5's mainloop, kernel 8's wgmma design)
     res, counts = oracle_run(
         evo4.model, prompts18['non-repetitive'], 32, 8, [5, 8, 6, 2, 0, 8],
         'int4 + int8 KV, g = 8', quantized=True, int4=True)

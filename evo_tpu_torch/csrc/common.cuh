@@ -1,8 +1,8 @@
 // Shared helpers of the port's kernels: element conversion for bf16, the
 // one activation type the kernels take (and for the float32 weights that
-// kernels 1, 2 and 6 also read), the mma.sync product of the int4
-// matmul, bf16 packing, and the asynchronous copies of the kernels that
-// stage tiles with cp.async (the Hopper ones are in `sm90.cuh`).
+// kernels 1, 2 and 6 also read), bf16 packing, and the asynchronous copies
+// of the kernels that stage tiles with cp.async (the Hopper ones are in
+// `sm90.cuh`).
 #pragma once
 
 #include <cstdint>
@@ -26,16 +26,6 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// c (16x8 fp32) += a (16x16 bf16, row major) * b (16x8 bf16, column major)
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
-                                               const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 // two floats rounded to bf16 (nearest even), low half first
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
@@ -43,15 +33,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // 16 bytes from device memory into shared memory, without a register in
-// between; complete after cp_async_wait()
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-// the same, reading `bytes` (0 or 16) and filling the rest with zeros
+// between, reading `bytes` (0 or 16) of them and filling the rest with
+// zeros; complete after cp_async_wait()
 __device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
                                                  int bytes) {
   const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);

@@ -20,14 +20,15 @@
 // launch per quantized projection of a decode step: five a layer, 160 a
 // step of evo-1. ('dots8' is another function: `int4_dots8.cu`.)
 //
-// Bound on the card: bytes. A decode step (M = batch) reads every packed
-// weight once, half a byte per weight plus 4 bytes of scale per 128 of
-// them, and computes 2 * M operations per weight: far below the 295
-// operations per byte at which the tensor cores would be the limit.
+// Bound on the card: bytes at decode, operations near 128 rows. A call
+// reads every packed weight once, half a byte per weight plus 4 bytes of
+// scale per 128 of them, and computes 2 * M operations per weight: at 4096
+// x 12288 the bytes take 0.0080 ms at 3.35 TB/s, and the operations pass
+// them (0.0130 ms at 989 TFLOP/s) only from M = 80 on.
 //
-// Two designs, chosen by the caller by M:
+// Two designs, chosen by the caller by M (`ops/int4.GEMV_M_MAX`):
 //
-// M <= 4 (decode; `int4_gemv_kernel`): a streaming design, no tensor
+// M <= 2 (decode; `int4_gemv_kernel`): a streaming design, no tensor
 // cores. A block of 8 warps owns 512 columns and one step of 128 byte rows
 // (scale groups t and T + t); the rows arrive by 16-byte cp.async copies
 // (512 contiguous bytes a row) in four stages of 32 rows, one stage in
@@ -47,40 +48,60 @@
 // of a tile to finish (an integer ticket, no float atomics) adds them in
 // split order, so a run is bit-reproducible. (A cluster of a tile's
 // splits summing through distributed shared memory was slower: the
-// clusters' placement cost more than the ticket's round trips.)
+// clusters' placement cost more than the ticket's round trips.) It is the
+// faster design up to 2 rows.
+//
+// M = 3..128 (`int4_mma_kernel`): the products on the tensor cores by
+// wgmma, the operands swapped: y^T tiles = W^T x^T, so the weight's
+// columns are wgmma's 64-row side and x's rows, padded to n = 16, 32, 64
+// or 128 (zeros that TMA fills), its N side. The weights are dequantized
+// in registers straight into wgmma's A fragments (register-A wgmma): a
+// thread reads the packed bytes of its own fragment rows from shared
+// memory, both rows of a fragment pair as one 16- or 32-bit load (the
+// fragment rows are assigned to physical columns so that a thread's
+// columns are adjacent; the epilogue undoes it), and turns each nibble
+// into bf16 with a permute, a LOP3 and a bf16 subtract; there is no bf16
+// copy of W in shared memory. x^T is wgmma's B, K-major, read from shared
+// memory by the tensor cores. A block is one producer warpgroup (one
+// thread issues TMA: the step's byte rows in 128 x 128 boxes under the
+// 128-byte swizzle, the two groups' scales, x's two 128-column slices as
+// four 64-column atoms, all counted in bytes on an mbarrier) and two
+// consumer warpgroups of 128 or 256 columns in all, a ring of 2 to 4
+// stages between them. Each step is two chains, the low nibbles (group t)
+// against x's first slice and the high nibbles (group T + t) against the
+// second, each a float32 dot overwritten at its group's start and added
+// as acc += dot * scale when the next chain starts; 'block' scales the
+// fragments instead (bf16(q * s)) and adds the dots as they are. The
+// tensor maps (the weight's, its scales', x's) are encoded once a
+// pointer and shape and kept. Blocks are persistent, one an SM: block b of G
+// takes an equal run of the tiles' (column tile, step) units (stream-K),
+// so every SM does the same work at every shape; a tile split between
+// blocks is added up in block order by its last block at the end of that
+// block's run, the others signalling with an integer count (no float
+// atomics: bit-reproducible, and the counts are left at zero). This path
+// needs K % 8 == 0 and a 16-byte aligned x (the wrapper pads otherwise);
+// a weight TMA cannot take (N % 16 != 0, misaligned) is copied into the
+// same layout by the producer warpgroup's threads.
 //
 // 'block' costs a multiply and a rounding to bf16 a weight more in both
-// designs (the streaming one in registers, the mma.sync one as it unpacks
-// into shared memory), and drops the scale from each group's sum.
-//
-// M = 5..128 (`int4_matmul_kernel`): a block of 4 warps owns 32 output
-// columns for all M rows and walks the byte rows in steps of 128. What a
-// step reads, the 32 bytes of each of its 128 byte rows and the two
-// 128-column slices of x, arrives by cp.async in a ring of two to four
-// stages. A thread unpacks two byte rows of 16 columns, both nibbles to
-// bf16 by bit operations, and writes them transposed, [column][k], so
-// that the pairs along k that an mma.sync B fragment wants are one 32-bit
-// word. Each warp then owns 8 columns: per group 8 mma.sync m16n8k16
-// steps per 16-row tile of x into a partial sum, and at the group's end
-// acc += partial * scale. M is padded to 16-row tiles with zeros in shared
-// memory only. This path needs K % 8 == 0 and a 16-byte aligned x.
+// designs (in registers), and drops the scale from each group's sum.
 
+#include <algorithm>
 #include <cstdint>
+#include <cstring>
+#include <mutex>
+#include <type_traits>
 
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
-using evo::cp_async16;
 using evo::cp_async16_zfill;
 using evo::cp_async_commit;
 using evo::cp_async_wait;
-using evo::mma_bf16_16816;
 
-constexpr int kBN = 32;        // output columns per block
-constexpr int kBK = 128;       // byte rows per block step = scale group
-constexpr int kThreads = 128;  // one thread per byte row of a step
-constexpr int kStride = kBK + 8;  // smem row stride: conflict-free reads
+constexpr int kBK = 128;  // byte rows a step = one scale group a nibble
 
 __device__ __forceinline__ void store_y(void* y, bool out_bf16, int64_t i,
                                         float v) {
@@ -90,7 +111,7 @@ __device__ __forceinline__ void store_y(void* y, bool out_bf16, int64_t i,
     static_cast<float*>(y)[i] = v;
 }
 
-// ---- M <= 4 -------------------------------------------------------------
+// ---- M <= 2 -------------------------------------------------------------
 
 constexpr int kGvCols = 512;   // columns of a block: 128 a warp, 4 a lane
 constexpr int kGvRows = 32;    // byte rows of a stage
@@ -369,38 +390,7 @@ int launch_gemv(const void* x, const void* packed, const void* scales,
   return (int)cudaGetLastError();
 }
 
-// ---- M = 5..128 ---------------------------------------------------------
-
-// Stages of the ring by row tiles: what is in flight has to cover the
-// memory's latency (about 20 KB an SM at full rate), and a stage holds
-// 4 KB of packed bytes; the slices of x bound the count from above.
-__host__ __device__ constexpr int stages_for(int mt) {
-  return mt <= 2 ? 4 : (mt <= 4 ? 3 : 2);
-}
-
-// The 32 bytes of one byte row from column n0 on into `dst` (shared
-// memory); `valid` of them exist. 16-byte copies where the row allows
-// them, else bytes, with zeros past the row's end.
-__device__ __forceinline__ void fetch_row(const int8_t* __restrict__ p,
-                                          int valid, bool vec,
-                                          uint8_t* dst) {
-#pragma unroll
-  for (int c = 0; c < 2; ++c) {
-    if (vec && valid >= 16 * (c + 1)) {
-      cp_async16(dst + 16 * c, p + 16 * c);
-    } else {
-      uint32_t w[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const int col = 16 * c + i;
-        if (col < valid)
-          w[i >> 2] |= (uint32_t)(uint8_t)p[col] << (8 * (i & 3));
-      }
-      *reinterpret_cast<uint4*>(dst + 16 * c) =
-          make_uint4(w[0], w[1], w[2], w[3]);
-    }
-  }
-}
+// ---- M = 3..128 ---------------------------------------------------------
 
 // The nibbles in bits 0-3 and 16-19 of v as two bf16 values, without a
 // conversion: 0x4300 | n is bf16(128 + n), and subtracting bf16(136) in
@@ -409,7 +399,11 @@ __device__ __forceinline__ void fetch_row(const int8_t* __restrict__ p,
 // (the high one) into value + 8 first.
 __device__ __forceinline__ uint32_t nibbles_to_bf16(uint32_t v,
                                                     uint32_t bits) {
-  const uint32_t biased = (v & 0x000f000fu) ^ (bits | (bits << 16));
+  // (v & 0x000f000f) ^ (bits, twice) as one lop3
+  uint32_t biased;
+  asm("lop3.b32 %0, %1, %2, %3, 0x6a;"
+      : "=r"(biased)
+      : "r"(v), "n"(0x000f000f), "r"(bits | (bits << 16)));
   const uint32_t k136 = 0x43084308u;
   const __nv_bfloat162 r =
       __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&biased),
@@ -424,195 +418,600 @@ __device__ __forceinline__ uint32_t scale_pair(uint32_t pair, float s) {
   return evo::pack_bf16(__fmul_rn(f.x, s), __fmul_rn(f.y, s));
 }
 
-template <int MT, bool kBlock>
-__global__ void __launch_bounds__(kThreads)
-    int4_matmul_kernel(const __nv_bfloat16* __restrict__ x,
-                       const int8_t* __restrict__ packed,
-                       const float* __restrict__ scales,
-                       void* __restrict__ y, int M, int K, int Kp, int N,
-                       int vec, int out_bf16) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int kXRows = MT * 16;
-  constexpr int kStages = stages_for(MT);
-  __nv_bfloat16* Wlo = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Whi = Wlo + kBN * kStride;
-  // the ring: stage s holds x slices Xs + s * 2 * kXRows * kStride (low
-  // half, then high half) and byte rows Raw + s * kBK * kBN
-  __nv_bfloat16* Xs = Whi + kBN * kStride;
-  uint8_t* Raw =
-      reinterpret_cast<uint8_t*>(Xs + kStages * 2 * kXRows * kStride);
+// The wgmma design's instance for x's rows padded to NI (wgmma's N side):
+// TM 64-column tiles a consumer warpgroup, two consumer warpgroups a block
+// (kBN columns), a ring of kStages steps. A stage holds one step, as TMA
+// writes it: x's two 128-column slices (low nibbles' groups, then high
+// nibbles'), each as two atoms of 64 columns x NI rows under the 128-byte
+// swizzle; the 128 byte rows of the block's columns in boxes of 128
+// columns under the same swizzle (so the consumers' reads of four rows at
+// once fall in distinct banks); the two groups' scales of the columns.
+template <int NI>
+struct MmaLayout {
+  static constexpr int kTM = NI <= 32 ? 2 : 1;
+  static constexpr int kStages = NI <= 64 ? 4 : 2;
+  static constexpr int kBN = 2 * kTM * 64;
+  static constexpr int kAtom = NI * 128;
+  static constexpr int kXBytes = 4 * kAtom;
+  static constexpr int kBox = kBK * 128;  // a box of byte rows
+  static constexpr int kWBytes = kBN / 128 * kBox;
+  static constexpr int kScales = kXBytes + kWBytes;  // offset
+  static constexpr int kStageBytes =
+      (kScales + 2 * kBN * 4 + 1023) / 1024 * 1024;
+  static constexpr int kSmem = kStages * kStageBytes + 1024;
+};
 
-  const int n0 = blockIdx.x * kBN;
-  const int valid = min(kBN, N - n0);
-  const int T = Kp / 256;  // steps; scale groups G = 2 T
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int col = n0 + warp * 8 + tq * 2;  // this thread's columns: col, +1
-  const int8_t* wp = packed + n0;
+constexpr int kMmaProducers = 128;  // one warpgroup
+constexpr int kMmaConsumers = 256;  // two warpgroups
+constexpr int kMmaThreads = kMmaProducers + kMmaConsumers;
 
-  float acc[MT][4];
+// fence_regs for the accumulators and fragments of one warpgroup
+template <int A, int B>
+__device__ __forceinline__ void fence_tiles(float (&d)[A][B]) {
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+  for (int i = 0; i < A; ++i)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[mt][e] = 0.f;
-
-  // rows of x past M stay zeros in every stage
-  for (int i = tid; i < kStages * 2 * kXRows * (kBK / 8); i += kThreads) {
-    const int row = (i / (kBK / 8)) % kXRows;
-    if (row >= M)
-      *reinterpret_cast<uint4*>(Xs + (i / (kBK / 8)) * kStride +
-                                (i % (kBK / 8)) * 8) =
-          make_uint4(0u, 0u, 0u, 0u);
-  }
-
-  // start the copies of step t into its stage; columns of x at K and past
-  // it (K % 8 == 0, so a 16-byte chunk lies wholly on one side) arrive as
-  // zeros
-  auto fetch = [&](int t) {
-    const int stage = t % kStages;
-    fetch_row(wp + ((int64_t)t * kBK + tid) * N, valid, vec != 0,
-              Raw + (stage * kBK + tid) * kBN);
-    __nv_bfloat16* xs = Xs + stage * 2 * kXRows * kStride;
-    for (int i = tid; i < 2 * M * (kBK / 8); i += kThreads) {
-      const int half = i / (M * (kBK / 8));
-      const int rem = i % (M * (kBK / 8));
-      const int row = rem / (kBK / 8), ch = rem % (kBK / 8);
-      const int k = (half ? Kp / 2 : 0) + t * kBK + ch * 8;
-      cp_async16_zfill(xs + (half * kXRows + row) * kStride + ch * 8,
-                       k < K ? x + (int64_t)row * K + k : x,
-                       k < K ? 16 : 0);
-    }
-  };
-
-  // one group of copies per step, empty past the last step, so that the
-  // count of groups in flight says which step has landed
-  for (int t = 0; t < kStages - 1; ++t) {
-    if (t < T) fetch(t);
-    cp_async_commit();
-  }
-
-  for (int t = 0; t < T; ++t) {
-    // step t has landed, and every warp is done with step t - 1, whose
-    // stage the copies of step t + kStages - 1 now take
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    if (t + kStages - 1 < T) fetch(t + kStages - 1);
-    cp_async_commit();
-    const float* sp_lo = scales + (int64_t)t * N;
-    const float* sp_hi = scales + (int64_t)(T + t) * N;
-    const float sc[2][2] = {
-        {col < N ? sp_lo[col] : 0.f, col + 1 < N ? sp_lo[col + 1] : 0.f},
-        {col < N ? sp_hi[col] : 0.f, col + 1 < N ? sp_hi[col + 1] : 0.f}};
-
-    // unpack: a thread takes two byte rows (k, k + 1) of 16 columns, so
-    // that each column's pair along k is one 32-bit store; 'block' scales
-    // each weight by its column's scale of the group and rounds it
-    {
-      const int rp = tid & 63, ch = tid >> 6;
-      float slo[16], shi[16];
-      if (kBlock) {
-#pragma unroll
-        for (int c = 0; c < 16; ++c) {
-          const int n = n0 + ch * 16 + c;
-          slo[c] = n < N ? __ldg(sp_lo + n) : 0.f;
-          shi[c] = n < N ? __ldg(sp_hi + n) : 0.f;
-        }
-      }
-      const uint8_t* rows =
-          Raw + ((t % kStages) * kBK + 2 * rp) * kBN + ch * 16;
-      const uint4 ra = *reinterpret_cast<const uint4*>(rows);
-      const uint4 rb = *reinterpret_cast<const uint4*>(rows + kBN);
-      const uint32_t wa[4] = {ra.x, ra.y, ra.z, ra.w};
-      const uint32_t wb[4] = {rb.x, rb.y, rb.z, rb.w};
-#pragma unroll
-      for (int c = 0; c < 16; ++c) {
-        // byte c of row k in bits 0-7, of row k + 1 in bits 16-23
-        const uint32_t v =
-            __byte_perm(wa[c >> 2], wb[c >> 2], 0x4400 + (c & 3) * 0x1111);
-        const int at = (ch * 16 + c) * kStride + 2 * rp;
-        uint32_t lo = nibbles_to_bf16(v, 0x4300);
-        uint32_t hi = nibbles_to_bf16(v >> 4, 0x4308);
-        if (kBlock) {
-          lo = scale_pair(lo, slo[c]);
-          hi = scale_pair(hi, shi[c]);
-        }
-        *reinterpret_cast<uint32_t*>(Wlo + at) = lo;
-        *reinterpret_cast<uint32_t*>(Whi + at) = hi;
-      }
-    }
-    __syncthreads();
-
-    const __nv_bfloat16* xstage =
-        Xs + (t % kStages) * 2 * kXRows * kStride;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const __nv_bfloat16* Ws = half ? Whi : Wlo;
-      const __nv_bfloat16* xh = xstage + half * kXRows * kStride;
-      float part[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) part[mt][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
-        const int k = kk * 16 + tq * 2;
-        uint32_t b[2];
-        b[0] = *reinterpret_cast<const uint32_t*>(
-            Ws + (warp * 8 + g) * kStride + k);
-        b[1] = *reinterpret_cast<const uint32_t*>(
-            Ws + (warp * 8 + g) * kStride + k + 8);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          const __nv_bfloat16* xr = xh + (mt * 16 + g) * kStride + k;
-          uint32_t a[4];
-          a[0] = *reinterpret_cast<const uint32_t*>(xr);
-          a[1] = *reinterpret_cast<const uint32_t*>(xr + 8 * kStride);
-          a[2] = *reinterpret_cast<const uint32_t*>(xr + 8);
-          a[3] = *reinterpret_cast<const uint32_t*>(xr + 8 * kStride + 8);
-          mma_bf16_16816(part[mt], a, b);
-        }
-      }
-      // low nibbles belong to scale group t, high ones to group T + t
-      // ('block': the scales are in the weights)
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          acc[mt][e] = __fadd_rn(
-              acc[mt][e],
-              kBlock ? part[mt][e] : __fmul_rn(part[mt][e], sc[half][e & 1]));
-    }
-  }
-
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int row = mt * 16 + g + ((e & 2) ? 8 : 0);
-      const int c = col + (e & 1);
-      if (row < M && c < N)
-        store_y(y, out_bf16 != 0, (int64_t)row * N + c, acc[mt][e]);
-    }
+    for (int j = 0; j < B; ++j) asm volatile("" : "+f"(d[i][j])::"memory");
 }
 
-template <int MT, bool kBlock>
-int launch(const void* x, const void* packed, const void* scales, void* y,
-           int M, int K, int Kp, int N, int out_bf16, void* stream) {
-  if (K % 8 || (uintptr_t)x % 16) return (int)cudaErrorInvalidValue;
-  const int vec = (N % 16 == 0) && ((uintptr_t)packed % 16 == 0);
-  const int bytes = (2 * kBN + stages_for(MT) * 2 * MT * 16) * kStride *
-                        (int)sizeof(__nv_bfloat16) +
-                    stages_for(MT) * kBK * kBN;
-  auto kernel = int4_matmul_kernel<MT, kBlock>;
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
+template <int TM>
+__device__ __forceinline__ void fence_frags(uint32_t (&f)[4][TM][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        asm volatile("" : "+r"(f[j][i][e])::"memory");
+}
+
+// A thread's 2 TM bytes of one byte row
+template <int TM>
+__device__ __forceinline__ uint32_t row_bytes(const uint8_t* p) {
+  if constexpr (TM == 1)
+    return *reinterpret_cast<const uint16_t*>(p);
+  else
+    return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// wgmma's A fragments of four 16-row slabs (s0 / 16 ..) of one nibble (H:
+// 0 low, 1 high) for a thread's TM tiles, straight from the packed bytes.
+// A fragment holds rows g and g + 8 of its warp's 16, k pairs (2 tq, +1)
+// and (2 tq + 8, +9); row g of tile i is byte 2 i of the thread's columns
+// and row g + 8 byte 2 i + 1, so one permute takes both rows' bytes of two
+// byte rows, and the bf16 conversion of `nibbles_to_bf16` the pairs along
+// k. The thread's bytes of byte row r are at w0 + 128 r for r = 2 tq (mod
+// 8), at w1 + 128 r for r = 2 tq + 1 (the swizzle moves them by row).
+// 'block': each value times its column's scale, rounded to bf16.
+template <int TM, int H, bool kBlock>
+__device__ __forceinline__ void convert_slabs(const uint8_t* w0,
+                                              const uint8_t* w1, int s0,
+                                              int tq, const float* sc,
+                                              uint32_t (&f)[4][TM][4]) {
+  constexpr uint32_t kBits = H ? 0x4308u : 0x4300u;
+  constexpr int kShift = H ? 4 : 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int r = (s0 + j) * 16 + 2 * tq;
+    const uint32_t b0 = row_bytes<TM>(w0 + r * 128);
+    const uint32_t b1 = row_bytes<TM>(w1 + (r + 1) * 128);
+    const uint32_t b8 = row_bytes<TM>(w0 + (r + 8) * 128);
+    const uint32_t b9 = row_bytes<TM>(w1 + (r + 9) * 128);
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      // bytes: column 2 i, 2 i + 1 of the first row, then of the second
+      constexpr uint32_t kSel0 = 0x5410u;
+      const uint32_t sel = kSel0 + 0x2222u * i;
+      const uint32_t v01 = __byte_perm(b0, b1, sel);
+      const uint32_t v89 = __byte_perm(b8, b9, sel);
+      uint32_t* a = f[j][i];
+      a[0] = nibbles_to_bf16(v01 >> kShift, kBits);
+      a[1] = nibbles_to_bf16(v01 >> (kShift + 8), kBits);
+      a[2] = nibbles_to_bf16(v89 >> kShift, kBits);
+      a[3] = nibbles_to_bf16(v89 >> (kShift + 8), kBits);
+      if (kBlock) {
+        a[0] = scale_pair(a[0], sc[2 * i]);
+        a[1] = scale_pair(a[1], sc[2 * i + 1]);
+        a[2] = scale_pair(a[2], sc[2 * i]);
+        a[3] = scale_pair(a[3], sc[2 * i + 1]);
+      }
+    }
   }
-  kernel<<<(N + kBN - 1) / kBN, kThreads, bytes, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)x, (const int8_t*)packed, (const float*)scales,
-      y, M, K, Kp, N, vec, out_bf16);
+}
+
+// The products of four slabs (s0 / 16 ..) against x's slice `xs` (two
+// atoms): d += A B, or d = A B by the first of slab 0
+template <int NI, int TM>
+__device__ __forceinline__ void issue_slabs(float (&d)[TM][NI / 2],
+                                            uint32_t (&f)[4][TM][4],
+                                            const uint8_t* xs, int s0) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int s = s0 + j;
+    const uint64_t db = evo_sm90::sw128_desc(
+        xs + (s / 4) * MmaLayout<NI>::kAtom + (s % 4) * 32, 16, 1024);
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+      evo_sm90::WgmmaRsK<NI>::run(d[i], f[j][i], db, s > 0);
+  }
+}
+
+// 2 TM values of one row of y (or of a block's part) at consecutive
+// elements from `at`; `valid` of them exist; `vec`: one vector store
+template <int TM>
+__device__ __forceinline__ void store_cols(void* out, bool bf16, int64_t at,
+                                           const float* v, int valid,
+                                           bool vec) {
+  if (vec && valid >= 2 * TM) {
+    if (bf16) {
+      if constexpr (TM == 1)
+        *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(out) + at) =
+            evo::pack_bf16(v[0], v[1]);
+      else
+        *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(out) + at) =
+            make_uint2(evo::pack_bf16(v[0], v[1]),
+                       evo::pack_bf16(v[2], v[3]));
+    } else {
+      if constexpr (TM == 1)
+        *reinterpret_cast<float2*>(static_cast<float*>(out) + at) =
+            make_float2(v[0], v[1]);
+      else
+        *reinterpret_cast<float4*>(static_cast<float*>(out) + at) =
+            make_float4(v[0], v[1], v[2], v[3]);
+    }
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 2 * TM; ++e)
+    if (e < valid) store_y(out, bf16, at + e, v[e]);
+}
+
+// The tile's last contributor: y[m, n0..n0 + bn) = the `parts` parts
+// added in order, V columns a load (V = 4 needs N % 4 == 0); a thread
+// keeps kU groups of V columns and four parts of each in flight
+template <int V>
+__device__ __forceinline__ void combine_parts(const float* part, void* y,
+                                              bool bf16, int M, int N,
+                                              int n0, int bn, int parts,
+                                              int ctid) {
+  constexpr int kU = 4, kAhead = 4;
+  using Vec = typename std::conditional<V == 4, float4, float>::type;
+  const int nv = M * (bn / V);
+  for (int i0 = ctid; i0 < nv; i0 += kU * kMmaConsumers) {
+    float v[kU][V];
+    int64_t at[kU];
+    bool live[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int i = i0 + u * kMmaConsumers;
+      const int m = i / (bn / V), c = n0 + (i % (bn / V)) * V;
+      live[u] = i < nv && c < N;
+      at[u] = (int64_t)m * N + c;
+    }
+    for (int s0 = 0; s0 < parts; s0 += kAhead) {
+      Vec ps[kAhead][kU];
+#pragma unroll
+      for (int a = 0; a < kAhead; ++a)
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          const bool on = live[u] && s0 + a < parts;
+          const Vec* src = reinterpret_cast<const Vec*>(
+              part + (int64_t)(s0 + a) * M * N + at[u]);
+          ps[a][u] = on ? __ldcg(src) : Vec{};
+        }
+#pragma unroll
+      for (int a = 0; a < kAhead; ++a)
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          const float* p = reinterpret_cast<const float*>(&ps[a][u]);
+#pragma unroll
+          for (int e = 0; e < V; ++e)
+            if (s0 + a < parts)
+              v[u][e] = s0 + a == 0 ? p[e] : __fadd_rn(v[u][e], p[e]);
+        }
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      if (!live[u]) continue;
+      if constexpr (V == 4)
+        store_cols<2>(y, bf16, at[u], v[u], 4, true);
+      else
+        store_y(y, bf16, at[u], v[u][0]);
+    }
+  }
+}
+
+// The first unit of block b of G over U units, and the block of unit u
+__host__ __device__ __forceinline__ int unit_start(int b, int U, int G) {
+  return (int)((int64_t)b * U / G);
+}
+__host__ __device__ __forceinline__ int unit_block(int u, int U, int G) {
+  return (int)(((int64_t)(u + 1) * G + U - 1) / U) - 1;
+}
+
+// Block b of G takes the units [b U / G, (b + 1) U / G) of the U = tiles x
+// T units (column tile, step), tile by tile: a run of a tile's steps is a
+// segment. A segment that is the whole tile writes y; else it writes its
+// part, and the tile's last contributor in block order (`unit_block`)
+// adds the parts in that order at the end of its range. No float atomics:
+// a run is bit-reproducible. Warpgroup 0 is the producer
+// (40 registers a thread): one thread fills the ring by TMA, a step's
+// byte rows, scales and x's slices counted in bytes on the stage's `full`
+// barrier (zeros past N, K and M). A weight whose rows TMA cannot take
+// (N % 16, misaligned) is copied by all its threads instead. Warpgroups 1
+// and 2 are the consumers (232 registers), TM tiles each; each consumer
+// warp releases a stage on `empty` once the products that read it are
+// done. Per step and nibble (chain), in two halves of four slabs: the
+// fragments of a half are made in registers from the packed bytes while
+// the products before them run; a chain's group sum is added, acc += dot
+// * scale (float32; 'block': acc += dot, the scales being in the weights),
+// when the next chain starts.
+template <int NI, bool kBlock>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+    int4_mma_kernel(const __grid_constant__ CUtensorMap xmap,
+                    const __grid_constant__ CUtensorMap wmap,
+                    const __grid_constant__ CUtensorMap smap,
+                    const int8_t* __restrict__ packed,
+                    const float* __restrict__ scales, void* __restrict__ y,
+                    float* __restrict__ part, int* __restrict__ counters,
+                    int M, int Kp, int N, int tma_w, int out_bf16) {
+  using Lay = MmaLayout<NI>;
+  constexpr int TM = Lay::kTM, S = Lay::kStages, BN = Lay::kBN;
+  extern __shared__ uint8_t msm_raw[];
+  // the swizzle atoms need 1024-byte alignment
+  uint8_t* const ring =
+      msm_raw + ((1024 - (evo_sm90::smem_u32(msm_raw) & 1023)) & 1023);
+  __shared__ __align__(8) uint64_t full[S], empty[S];
+
+  const int T = Kp / 256;
+  const int tiles = (N + BN - 1) / BN;
+  const int U = tiles * T, G = gridDim.x;
+  const int u_begin = unit_start(blockIdx.x, U, G);
+  const int u_end = unit_start(blockIdx.x + 1, U, G);
+  const int tid = threadIdx.x, lane = tid & 31;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      evo_sm90::mbar_init(&full[s], 1);
+      evo_sm90::mbar_init(&empty[s], kMmaConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < kMmaProducers) {
+    // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tma_w && tid) return;
+    int q = 0;  // position in the ring
+    for (int u = u_begin; u < u_end;) {
+      const int n0 = u / T * BN;
+      const int t0 = u % T, t1 = min(T, t0 + u_end - u);
+      u += t1 - t0;
+      for (int t = t0; t < t1; ++t, ++q) {
+        const int s = q % S;
+        if (q >= S) evo_sm90::mbar_wait(&empty[s], ((q / S) & 1) ^ 1);
+        uint8_t* const st = ring + s * Lay::kStageBytes;
+        uint8_t* const wd = st + Lay::kXBytes;
+        float* const sd = reinterpret_cast<float*>(st + Lay::kScales);
+        if (!tma_w) {
+          // byte rows 128 t.. in the swizzled boxes, and the scales of
+          // groups t and T + t (zeros past N), by every producer thread
+          const int8_t* const src = packed + (int64_t)t * kBK * N + n0;
+          for (int i = tid; i < kBK * (BN / 16); i += kMmaProducers) {
+            const int r = i / (BN / 16), c = i % (BN / 16);
+            uint32_t w[4] = {0u, 0u, 0u, 0u};
+            for (int b = 0; b < 16 && n0 + 16 * c + b < N; ++b)
+              w[b >> 2] |= (uint32_t)(uint8_t)src[(int64_t)r * N + 16 * c + b]
+                           << (8 * (b & 3));
+            *reinterpret_cast<uint4*>(wd + (c >> 3) * Lay::kBox + r * 128 +
+                                      (((c & 7) ^ (r & 7)) << 4)) =
+                make_uint4(w[0], w[1], w[2], w[3]);
+          }
+          for (int i = tid; i < 2 * BN; i += kMmaProducers) {
+            const int h = i / BN, c = n0 + i % BN;
+            sd[i] = c < N ? scales[(int64_t)(h ? T + t : t) * N + c] : 0.f;
+          }
+          asm volatile("bar.sync 2, %0;\n" ::"n"(kMmaProducers) : "memory");
+          if (tid) continue;
+        }
+        evo_sm90::mbar_expect_tx(
+            &full[s], Lay::kXBytes +
+                          (tma_w ? Lay::kWBytes + 2 * BN * 4 : 0));
+        if (tma_w) {
+#pragma unroll
+          for (int b = 0; b < BN / 128; ++b)
+            evo_sm90::tma_load_2d(wd + b * Lay::kBox, &wmap, &full[s],
+                                  n0 + 128 * b, t * kBK);
+          evo_sm90::tma_load_2d(sd, &smap, &full[s], n0, t);
+          evo_sm90::tma_load_2d(sd + BN, &smap, &full[s], n0, T + t);
+        }
+        // x's slices: columns h Kp/2 + 128 t.., all rows
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+          evo_sm90::tma_load_2d(st + a * Lay::kAtom, &xmap, &full[s],
+                                (a >> 1) * (Kp / 2) + t * kBK + (a & 1) * 64,
+                                0);
+      }
+    }
+    return;
+  }
+
+  // the consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int ctid = tid - kMmaProducers;
+  const int wg = ctid >> 7, wi = (ctid >> 5) & 3;
+  const int g = lane >> 2, tq = lane & 3;
+  // this thread's 2 TM columns of the block: byte 2 i + h is tile i's
+  // fragment row g + 8 h; where they lie in a stage's boxes of byte rows
+  const int cb = wg * TM * 64 + wi * 16 * TM + g * 2 * TM;
+  const int wbox = (cb >> 7) * Lay::kBox + (cb & 15);
+  const int wo0 = wbox + ((((cb & 127) >> 4) ^ (2 * tq)) << 4);
+  const int wo1 = wbox + ((((cb & 127) >> 4) ^ (2 * tq + 1)) << 4);
+  const bool vec_out = N % (2 * TM) == 0;
+  float acc[TM][NI / 2], dot[TM][NI / 2];
+  uint32_t fa[4][TM][4], fb[4][TM][4];
+  float pend[2 * TM];  // the scales of dot's chain
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < NI / 2; ++j) dot[i][j] = 0.f;
+#pragma unroll
+  for (int e = 0; e < 2 * TM; ++e) pend[e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) fa[j][i][e] = fb[j][i][e] = 0u;
+
+  // dot's chain done: acc += dot * its scales (rows g, g + 8: columns
+  // 2 i, 2 i + 1); 'block': acc += dot
+  auto add_dot = [&]() {
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < NI / 2; ++j)
+        acc[i][j] = kBlock ? __fadd_rn(acc[i][j], dot[i][j])
+                           : fmaf(dot[i][j], pend[2 * i + ((j >> 1) & 1)],
+                                  acc[i][j]);
+  };
+  // every thread of the warp is done with stage s
+  auto release = [&](int s) {
+    __syncwarp();
+    if (lane == 0) evo_sm90::mbar_arrive(&empty[s]);
+  };
+
+  int q = 0;
+  // tiles whose parts this block adds. Only a block's first segment can
+  // end a tile that it did not begin, so held1 stays -1; a build with one
+  // slot ran slower at 8 and 32 rows all the same (PERF.md, PR 20)
+  int held0 = -1, held1 = -1;
+  for (int u = u_begin; u < u_end;) {
+    const int tile = u / T, n0 = tile * BN, n = n0 + cb;
+    const int t0 = u % T, t1 = min(T, t0 + u_end - u);
+    u += t1 - t0;
+    // contributors to the tile: blocks b0 .. b1; this one is k = b - b0
+    const bool whole = t0 == 0 && t1 == T;
+    const int b0 = unit_block(tile * T, U, G);
+    const int b1 = unit_block(tile * T + T - 1, U, G);
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < NI / 2; ++j) acc[i][j] = 0.f;
+    for (int t = t0; t < t1; ++t, ++q) {
+      const int s = q % S, prev = (q + S - 1) % S;
+      evo_sm90::mbar_wait(&full[s], (q / S) & 1);
+      const uint8_t* const st = ring + s * Lay::kStageBytes;
+      const uint8_t* const w0 = st + Lay::kXBytes + wo0;
+      const uint8_t* const w1 = st + Lay::kXBytes + wo1;
+      // low nibbles belong to scale group t, high ones to group T + t
+      float sc[2][2 * TM];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2 * TM; ++e)
+          sc[h][e] = reinterpret_cast<const float*>(
+              st + Lay::kScales)[h * BN + cb + e];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint8_t* const xs = st + 2 * h * Lay::kAtom;
+        // everything but the previous chain's second half is done: fa is
+        // free
+        evo_sm90::wgmma_wait<1>();
+        fence_frags(fa);
+        if (h == 0)
+          convert_slabs<TM, 0, kBlock>(w0, w1, 0, tq, sc[0], fa);
+        else
+          convert_slabs<TM, 1, kBlock>(w0, w1, 0, tq, sc[1], fa);
+        // the previous chain is done: add its sum, then reuse dot
+        evo_sm90::wgmma_wait<0>();
+        fence_frags(fb);
+        fence_tiles(dot);
+        if (h == 1 || t > t0) add_dot();
+#pragma unroll
+        for (int e = 0; e < 2 * TM; ++e) pend[e] = sc[h][e];
+        if (h == 0 && t > t0) release(prev);
+        evo_sm90::wgmma_fence();
+        issue_slabs<NI, TM>(dot, fa, xs, 0);
+        evo_sm90::wgmma_commit();
+        if (h == 0)
+          convert_slabs<TM, 0, kBlock>(w0, w1, 4, tq, sc[0], fb);
+        else
+          convert_slabs<TM, 1, kBlock>(w0, w1, 4, tq, sc[1], fb);
+        evo_sm90::wgmma_fence();
+        issue_slabs<NI, TM>(dot, fb, xs, 4);
+        evo_sm90::wgmma_commit();
+      }
+      if (t + 1 == t1) {
+        // the segment's last step: its last chain's sum, and its stage
+        evo_sm90::wgmma_wait<0>();
+        fence_frags(fa);
+        fence_frags(fb);
+        fence_tiles(dot);
+        add_dot();
+        release(s);
+      }
+    }
+
+    // y, or this block's part: element j of tile i is row 8 (j / 4) +
+    // 2 tq + (j & 1) of x, column 2 i + (j / 2) % 2 of the thread's
+    float* const dst = part + (int64_t)(blockIdx.x - b0) * M * N;
+#pragma unroll
+    for (int jj = 0; jj < NI / 8; ++jj)
+#pragma unroll
+      for (int lo = 0; lo < 2; ++lo) {
+        const int m = 8 * jj + 2 * tq + lo;
+        if (m < M && n < N) {
+          float v[2 * TM];
+#pragma unroll
+          for (int i = 0; i < TM; ++i)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+              v[2 * i + hh] = acc[i][4 * jj + 2 * hh + lo];
+          if (whole)
+            store_cols<TM>(y, out_bf16 != 0, (int64_t)m * N + n, v, N - n,
+                           vec_out);
+          else
+            store_cols<TM>(dst, false, (int64_t)m * N + n, v, N - n,
+                           vec_out);
+        }
+      }
+    if (whole) continue;
+    if (blockIdx.x == b1) {
+      // the tile's last contributor adds the parts once its own range is
+      // done (a block's first segment ends a tile, its last begins one)
+      (held0 < 0 ? held0 : held1) = tile;
+    } else {
+      // this part is written: each warp counts itself on the tile's ticket
+      __syncwarp();
+      if (lane == 0)
+        asm volatile("red.release.gpu.global.add.s32 [%0], 1;" ::"l"(
+                         counters + tile)
+                     : "memory");
+    }
+  }
+
+  // the tiles this block ends: once the lower blocks' warps have counted
+  // their parts (they were placed on SMs before this one, so waiting for
+  // them cannot stall them), their sum in block order is y
+  for (int r = 0; r < 2; ++r) {
+    const int tile = r ? held1 : held0;
+    if (tile < 0) continue;
+    const int b0 = unit_block(tile * T, U, G);
+    const int parts = blockIdx.x - b0 + 1;
+    if (ctid == 0) {
+      const int want = (parts - 1) * (kMmaConsumers / 32);
+      int got;
+      do {
+        asm volatile("ld.acquire.gpu.global.s32 %0, [%1];"
+                     : "=r"(got)
+                     : "l"(counters + tile)
+                     : "memory");
+      } while (got < want);
+      counters[tile] = 0;  // ready for the next launch
+    }
+    __threadfence();  // this block's own part, for the loads below
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kMmaConsumers) : "memory");
+    if (N % 4 == 0)
+      combine_parts<4>(part, y, out_bf16 != 0, M, N, tile * BN, BN, parts,
+                       ctid);
+    else
+      combine_parts<1>(part, y, out_bf16 != 0, M, N, tile * BN, BN, parts,
+                       ctid);
+  }
+}
+
+// Tensor maps encoded once a (pointer, shape, box) and kept: a map is a
+// function of those alone, a weight is read by every call, and the
+// caching allocator hands x's few shapes the same addresses again
+struct MapCache {
+  struct Entry {
+    const void* p = nullptr;
+    int key[5] = {0, 0, 0, 0, 0};  // rows, cols, esize, box
+    CUtensorMap map;
+  };
+  static constexpr int kSlots = 2048;
+  std::mutex mu;
+  Entry slots[kSlots];
+};
+
+// rows x cols of `type` (`esize` bytes an element) at p (row stride cols),
+// boxes of box_cols x box_rows, under `swizzle` (the type and swizzle
+// follow from esize at every call)
+CUresult cached_map(CUtensorMap* out, const void* p, int rows, int cols,
+                    CUtensorMapDataType type, int esize, int box_cols,
+                    int box_rows, CUtensorMapSwizzle swizzle) {
+  static MapCache cache;
+  const int key[5] = {rows, cols, esize, box_cols, box_rows};
+  uint64_t h = (uintptr_t)p >> 4;
+  for (int k : key) h = (h ^ (uint64_t)k) * 0x9e3779b97f4a7c15ull;
+  MapCache::Entry& e = cache.slots[(h >> 32) % MapCache::kSlots];
+  std::lock_guard<std::mutex> lock(cache.mu);
+  if (e.p != p || memcmp(e.key, key, sizeof(key)) != 0) {
+    const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+    const cuuint64_t strides[1] = {(cuuint64_t)cols * esize};
+    const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+    const CUresult r =
+        evo_sm90::encode(&e.map, type, 2, p, dims, strides, box, swizzle);
+    if (r != CUDA_SUCCESS) {
+      e.p = nullptr;
+      return r;
+    }
+    e.p = p;
+    memcpy(e.key, key, sizeof(key));
+  }
+  *out = e.map;
+  return CUDA_SUCCESS;
+}
+
+template <int NI, bool kBlock>
+int launch_mma(const void* x, const void* packed, const void* scales,
+               void* y, void* part, void* counters, int M, int K, int Kp,
+               int N, int blocks, int out_bf16, void* stream) {
+  using Lay = MmaLayout<NI>;
+  const int U = (N + Lay::kBN - 1) / Lay::kBN * (Kp / 256);
+  if (K % 8 || (uintptr_t)x % 16 || blocks < 1 || blocks > U || M > NI)
+    return (int)cudaErrorInvalidValue;
+  // a tile is split unless every block's units are whole tiles
+  if (U % blocks || (U / blocks) % (Kp / 256)) {
+    if (part == nullptr || counters == nullptr)
+      return (int)cudaErrorInvalidValue;
+  }
+  // x's slices as 64-column atoms of NI rows (zeros past K and M)
+  CUtensorMap xm, wm, sm;
+  CUresult r = cached_map(&xm, x, M, K, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                          64, NI, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (r != CUDA_SUCCESS) return evo_sm90::kEncodeError + (int)r;
+  // byte rows in 128 x 128 boxes, the scales a row of kBN: TMA takes
+  // 16-byte aligned rows
+  const int tma_w = N % 16 == 0 && (uintptr_t)packed % 16 == 0 &&
+                    (uintptr_t)scales % 16 == 0;
+  memset(&wm, 0, sizeof(wm));
+  memset(&sm, 0, sizeof(sm));
+  if (tma_w) {
+    r = cached_map(&wm, packed, Kp / 2, N, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1,
+                   128, kBK, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (r == CUDA_SUCCESS)
+      r = cached_map(&sm, scales, Kp / 128, N,
+                     CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, Lay::kBN, 1,
+                     CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (r != CUDA_SUCCESS) return evo_sm90::kEncodeError + (int)r;
+  }
+  auto kernel = int4_mma_kernel<NI, kBlock>;
+  static uint64_t configured = 0;  // a bit a device
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (!(configured >> (dev & 63) & 1)) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::kSmem);
+    if (err != cudaSuccess) return (int)err;
+    configured |= 1ull << (dev & 63);
+  }
+  kernel<<<blocks, kMmaThreads, Lay::kSmem, (cudaStream_t)stream>>>(
+      xm, wm, sm, (const int8_t*)packed, (const float*)scales, y,
+      (float*)part, (int*)counters, M, Kp, N, tma_w, out_bf16);
   return (int)cudaGetLastError();
 }
 
@@ -620,51 +1019,48 @@ int launch(const void* x, const void* packed, const void* scales, void* y,
 template <bool kBlock>
 int dispatch(const void* x, const void* packed, const void* scales, void* y,
              void* part, void* counters, int M, int K, int Kp, int N,
-             int out_bf16, int gemv, void* stream) {
+             int out_bf16, int gemv, int blocks, void* stream) {
   if (gemv) {
     if (M <= 1)
       return launch_gemv<1, kBlock>(x, packed, scales, y, part, counters, M,
                                     K, Kp, N, out_bf16, stream);
-    if (M <= 2)
-      return launch_gemv<2, kBlock>(x, packed, scales, y, part, counters, M,
-                                    K, Kp, N, out_bf16, stream);
-    return launch_gemv<4, kBlock>(x, packed, scales, y, part, counters, M, K,
+    return launch_gemv<2, kBlock>(x, packed, scales, y, part, counters, M, K,
                                   Kp, N, out_bf16, stream);
   }
-  const int tiles = (M + 15) / 16;
-  if (tiles <= 1)
-    return launch<1, kBlock>(x, packed, scales, y, M, K, Kp, N, out_bf16,
-                             stream);
-  if (tiles <= 2)
-    return launch<2, kBlock>(x, packed, scales, y, M, K, Kp, N, out_bf16,
-                             stream);
-  if (tiles <= 4)
-    return launch<4, kBlock>(x, packed, scales, y, M, K, Kp, N, out_bf16,
-                             stream);
-  return launch<8, kBlock>(x, packed, scales, y, M, K, Kp, N, out_bf16,
-                           stream);
+  if (M <= 16)
+    return launch_mma<16, kBlock>(x, packed, scales, y, part, counters, M, K,
+                                  Kp, N, blocks, out_bf16, stream);
+  if (M <= 32)
+    return launch_mma<32, kBlock>(x, packed, scales, y, part, counters, M, K,
+                                  Kp, N, blocks, out_bf16, stream);
+  if (M <= 64)
+    return launch_mma<64, kBlock>(x, packed, scales, y, part, counters, M, K,
+                                  Kp, N, blocks, out_bf16, stream);
+  return launch_mma<128, kBlock>(x, packed, scales, y, part, counters, M, K,
+                                 Kp, N, blocks, out_bf16, stream);
 }
 
 }  // namespace
 
 // x: (M, K) bf16, contiguous, 1 <= M <= 128, K <= Kp, Kp a multiple of
-// 256 (for the mma.sync design also K % 8 == 0 and x 16-byte aligned);
+// 256 (for the wgmma design also K % 8 == 0 and x 16-byte aligned);
 // packed: (Kp/2, N) int8, contiguous; scales: (Kp/128, N) fp32,
 // contiguous; y: (M, N) fp32, or bf16 when out_bf16, contiguous. `gemv`
-// (M <= 4) picks the streaming design, else the mma.sync one: there a
-// block takes one step of 128 byte rows, so the contraction is split into
-// Kp / 256 parts; with more than one, `part` holds parts x M x N fp32 and
-// `counters` one zeroed int32 per 512 columns, which the kernel leaves
-// zeroed. `block` picks the 'block' mode's instance.
+// (M <= 2) picks the streaming design, whose blocks take one step of 128
+// byte rows each (Kp / 256 splits); else the wgmma design on `blocks`
+// blocks (`ops/int4.mma_plan`). With more than one split or contributor
+// to a tile, `part` holds that many x M x N fp32 and `counters` one zeroed
+// int32 a column tile (512 columns, or the wgmma instance's), which the
+// kernel leaves zeroed. `block` picks the 'block' mode's instance.
 extern "C" int evo_int4_matmul_bf16(const void* x, const void* packed,
                                     const void* scales, void* y, void* part,
                                     void* counters, int M, int K, int Kp,
                                     int N, int out_bf16, int gemv, int block,
-                                    void* stream) {
-  if (K > Kp || Kp % 256 || (gemv && M > 4))
+                                    int blocks, void* stream) {
+  if (K > Kp || Kp % 256 || M < 1 || M > 128 || (gemv && M > 2))
     return (int)cudaErrorInvalidValue;
   return block ? dispatch<true>(x, packed, scales, y, part, counters, M, K,
-                                Kp, N, out_bf16, gemv, stream)
+                                Kp, N, out_bf16, gemv, blocks, stream)
                : dispatch<false>(x, packed, scales, y, part, counters, M, K,
-                                 Kp, N, out_bf16, gemv, stream);
+                                 Kp, N, out_bf16, gemv, blocks, stream);
 }

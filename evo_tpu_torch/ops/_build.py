@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -67,8 +68,8 @@ _SIGNATURES = {
     # (m, l, acc, o, B, H, Lq, S, stream)
     'evo_combine_partials': (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # (x, packed, scales, y, partials, tickets, M, K, Kp, N, bf16 output,
-    # streaming design, 'block' mode, stream)
-    'evo_int4_matmul_bf16': (*(_P,) * 6, *(_I,) * 7, _P),
+    # streaming design, 'block' mode, blocks of the wgmma design, stream)
+    'evo_int4_matmul_bf16': (*(_P,) * 6, *(_I,) * 8, _P),
     # (x, packed, scales, y, xq, xs, partials, tickets, M, K, Kp, N, rows a
     # block, steps a block, bf16 output, stream)
     'evo_int4_dots8_bf16': (*(_P,) * 8, *(_I,) * 7, _P),
@@ -182,6 +183,13 @@ def launch(name: str, counter: str, *args) -> None:
     if err:
         raise RuntimeError(f'{name} failed to launch: cudaError_t {err}')
     LAUNCHES[counter] += 1
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SMs of CUDA card `index`, for kernels whose grids follow it."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check_device(t, what: str) -> bool:

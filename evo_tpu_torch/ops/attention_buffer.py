@@ -15,7 +15,6 @@ finite values everywhere (the cache is made of zeros, never left empty).
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import Optional, Sequence, Union
 
@@ -36,11 +35,6 @@ Offset = Union[int, torch.Tensor]
 # wins up to 4, the most rows it is compiled for (254 registers there).
 SPLIT_MAX_ROWS = 4
 SPLIT_STEP = 64           # keys a block of the split kernel takes a step
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _offsets(offset: Offset, B: int, device) -> torch.Tensor:
@@ -289,7 +283,7 @@ def flash_attention_buffer(q: torch.Tensor, k_buf: torch.Tensor,
         # keys past the live prefix need no block; with device offsets the
         # prefix is not known here, and blocks past a row's end drop out
         n_keys = min(T, offset + Lq) if isinstance(offset, int) else T
-        chunk, S = key_splits(n_keys, B * H, _sm_count(
+        chunk, S = key_splits(n_keys, B * H, _build.sm_count(
             q.device.index if q.device.index is not None
             else torch.cuda.current_device()))
         m = torch.empty((B, H, Lq, S), dtype=torch.float32, device=q.device)

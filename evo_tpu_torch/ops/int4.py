@@ -35,6 +35,8 @@ and no backward (they refuse a tensor that requires grad):
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from evo_tpu_torch.ops import _build
@@ -46,10 +48,14 @@ MODES = ('unroll', 'dots', 'block', 'dots8')
 # the kernel keeps all rows of x in one block's tiles: decode and
 # forced-token batches are far below this, a batch prefill is not
 M_MAX = 128
-# up to this many rows (a decode step's batch) the kernel streams the
-# weight with float32 FMAs; more rows take its mma.sync design, the faster
-# one from 5 rows on (PERF.md, kernel 8)
-GEMV_M_MAX = 4
+# up to this many rows the kernel streams the weight with float32 FMAs
+# (its entry point takes no more there); more rows take its wgmma design,
+# the faster one from 3 rows on at each of evo-1's weight shapes (PERF.md,
+# kernel 8)
+GEMV_M_MAX = 2
+# the SMs of the card the CPU tests plan for (H100 SXM); on a card the
+# wrapper asks the device
+SMS = 132
 
 
 def pack_int4(q: torch.Tensor) -> torch.Tensor:
@@ -83,7 +89,35 @@ def gemv_plan(Kp: int, N: int):
     return Kp // 256, -(-N // 512)
 
 
-# per device: the streaming design's tickets, one int32 per column tile,
+def _unit_block(u: int, U: int, G: int) -> int:
+    """The block of unit u when G blocks take U units in equal runs (the
+    kernel's `unit_block`)."""
+    return ((u + 1) * G + U - 1) // U - 1
+
+
+@functools.lru_cache(maxsize=4096)
+def mma_plan(M: int, Kp: int, N: int, sms: int = SMS):
+    """(n, cols, blocks, parts) of the kernel's wgmma design at M rows: x's
+    rows padded to n (16, 32, 64 or 128: the product's N side), column
+    tiles of `cols` (256 at n <= 32, else 128), and the U = tiles x Kp/256
+    units (tile, step of 128 byte rows) shared out in equal runs over
+    `blocks` = min(U, sms) persistent blocks, one an SM; a tile whose
+    steps fall to more than one block is added up from their `parts`
+    (the most any tile has) partial sums, or `parts` is 0 when no tile
+    is split."""
+    n = 16 if M <= 16 else 32 if M <= 32 else 64 if M <= 64 else 128
+    cols = 256 if n <= 32 else 128
+    T = Kp // 256
+    U = -(-N // cols) * T
+    G = min(U, sms)
+    if U % G == 0 and (U // G) % T == 0:
+        return n, cols, G, 0
+    parts = max(_unit_block(t * T + T - 1, U, G) - _unit_block(t * T, U, G)
+                + 1 for t in range(U // T))
+    return n, cols, G, parts
+
+
+# per device: the kernel's tickets, one int32 per column tile,
 # zeros between launches (the last block of a tile resets its own)
 _TICKETS: dict = {}
 
@@ -94,6 +128,21 @@ def _tickets(device, tiles: int) -> torch.Tensor:
         t = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=device)
         _TICKETS[device] = t
     return t
+
+
+# per device: the split tiles' partial sums, float32, taken by one call at
+# a time as the tickets are (a decode step's 160 calls allocate nothing).
+# The last buffer is the one in use; one that a larger call outgrew stays
+# allocated, so a CUDA graph that captured its address still finds it.
+_WORKSPACE: dict = {}
+
+
+def _workspace(device, numel: int) -> torch.Tensor:
+    held = _WORKSPACE.setdefault(device, [])
+    if not held or held[-1].numel() < numel:
+        held.append(torch.empty(max(numel, 1 << 20), dtype=torch.float32,
+                                device=device))
+    return held[-1]
 
 
 def _check_shapes(x, packed, scales):
@@ -237,24 +286,29 @@ def int4_matmul_kernel(x: torch.Tensor, packed: torch.Tensor,
     _check_operands(x, packed, scales)
     gemv = M <= GEMV_M_MAX
     if not gemv and (K % 8 or x.data_ptr() % 16):
-        # the mma.sync design copies 16-byte chunks of x
+        # the wgmma design copies 16-byte chunks of x
         x = torch.nn.functional.pad(x, (0, Kp - K))
         K = Kp
     y = torch.empty((M, N), dtype=out_dtype, device=x.device)
     if not (M and N):
         return y
-    part = tickets = None      # one split: no workspace
     if gemv:
-        splits, tiles = gemv_plan(Kp, N)
-        if splits > 1:
-            part = torch.empty(splits * M * N, dtype=torch.float32,
-                               device=x.device)
-            tickets = _tickets(x.device, tiles)
+        (splits, tiles), blocks = gemv_plan(Kp, N), 0
+        parts = splits if splits > 1 else 0
+    else:
+        _n, cols, blocks, parts = mma_plan(M, Kp, N,
+                                           _build.sm_count(x.device.index))
+        tiles = -(-N // cols)
+    part = tickets = None      # no split: no workspace
+    if parts:
+        part = _workspace(x.device, parts * M * N)
+        tickets = _tickets(x.device, tiles)
     _build.launch('evo_int4_matmul_bf16', counter, x.data_ptr(),
                   packed.data_ptr(), scales.data_ptr(), y.data_ptr(),
                   None if part is None else part.data_ptr(),
                   None if tickets is None else tickets.data_ptr(), M, K, Kp,
-                  N, int(out_dtype == torch.bfloat16), int(gemv), int(block))
+                  N, int(out_dtype == torch.bfloat16), int(gemv), int(block),
+                  blocks)
     return y
 
 

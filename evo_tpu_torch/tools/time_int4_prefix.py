@@ -3,11 +3,17 @@ what they feed, on one CUDA card, for the checkout at --root:
 
     python3 evo_tpu_torch/tools/time_int4_prefix.py --root . [--model]
 
-Prints one JSON line: the card; kernel 8 at M = 1, 2, 8, 128 rows on each
-of evo-1's four weight shapes, as device ms per call replayed from a CUDA
-graph over enough weights to exceed the 50 MB L2 (a decode step finds
-each weight cold) and as CUDA events around one call, beside its bound
-and beside `torch._weight_int4pack_mm` (tinygemm: the same int4 values and
+Prints one JSON line: the card; kernel 8 at M = 1, 2, 3, 4, 5, 8, 9, 16, 32,
+64, 128 rows on each of evo-1's four weight shapes (at the rows that take
+the streaming design, `GEMV_M_MAX` and fewer, also the wgmma design on
+them, `streaming_graph_ms` and `multi_row_graph_ms`: a checkout's own
+crossover; at 3-4 rows the parent of the wgmma design took the streaming
+one, so timing the two checkouts in turns gives the crossover there), as
+device ms per call replayed from a CUDA graph over enough weights to
+exceed the 50 MB L2 (a decode step finds each weight cold), as CUDA
+events around one call and as host microseconds a call to enqueue
+(`route_host_us`), beside its bound and beside
+`torch._weight_int4pack_mm` (tinygemm: the same int4 values and
 group-128 scales in bf16, another function's rounding; a yardstick the
 port never calls) with its scaled error against the plain version; kernel
 7 at (1, 4096, 128, 8), chunk 64, alone by graph replay and with its
@@ -21,7 +27,11 @@ L=8192 unfused, under `hyena_pallas_prefix` and under
 `hyena_fused_mixer`; one resumed segment of 8,192 at offset 122,880
 under `hyena_pallas_prefix`; decode steps at B=2 after a 512-token
 prompt with bf16 weights and with int4 weights and the int8 KV cache,
-each also profiled (device ms and kernels a step, from `torch.profiler`).
+and at B=8 (the serve CLI's slot count) with int4 weights and the int8
+KV cache, each also profiled (device ms and kernels a step, from
+`torch.profiler`, and kernel 8's device ms a step). `--decode` runs only
+those decode steps of --model. `--quick --rows 8`: kernel 8 alone at
+4096 x 12288 and 8 rows, a process short enough to repeat in turns.
 
 To compare two versions, run this once per checkout in turns (A, B, B, A)
 in one call on one card: the script imports `evo_tpu_torch` from --root,
@@ -86,6 +96,19 @@ def time_graph_ms(torch, fns, rounds=5):
     return statistics.median(times)
 
 
+def host_us(torch, fn, n=200):
+    """Host microseconds a call of fn() takes to enqueue (wrapper and
+    launch), over n calls back to back with no synchronize among them."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return 1e6 * dt / n
+
+
 def wall_s(torch, fn, runs):
     """Host seconds of each of `runs` calls of fn() after one warm-up."""
     out = []
@@ -117,8 +140,12 @@ def tinygemm_operands(torch, unpack_int4, packed, scales):
     return w, sz
 
 
-def int4_section(torch, out, shapes=LAYER_SHAPES, rows=(1, 2, 8, 128),
+ROWS = (1, 2, 3, 4, 5, 8, 9, 16, 32, 64, 128)
+
+
+def int4_section(torch, out, shapes=LAYER_SHAPES, rows=ROWS,
                  yardstick=True):
+    from evo_tpu_torch.ops import int4 as int4_mod
     from evo_tpu_torch.ops.int4 import (int4_matmul, int4_matmul_plain,
                                         unpack_int4)
     takes_k = 'out_dtype' in inspect.signature(int4_matmul).parameters
@@ -166,7 +193,17 @@ def int4_section(torch, out, shapes=LAYER_SHAPES, rows=(1, 2, 8, 128),
                 route_graph_ms=time_graph_ms(
                     torch, [lambda p=p, s=s: route(p, s) for p, s in ws]),
                 route_events_ms=time_ms(torch, lambda: route(*ws[0])),
+                route_host_us=host_us(torch, lambda: route(*ws[0])),
                 bound_ms=1e3 * max(nbytes / BYTES_S, 2 * M * K * N / BF16_S))
+            keep = getattr(int4_mod, 'GEMV_M_MAX', 0)
+            if M <= keep:
+                # the crossover: both designs at the rows the streaming
+                # one takes
+                for name, limit in (('streaming', keep), ('multi_row', 0)):
+                    int4_mod.GEMV_M_MAX = limit
+                    row[f'{name}_graph_ms'] = time_graph_ms(
+                        torch, [lambda p=p, s=s: route(p, s) for p, s in ws])
+                int4_mod.GEMV_M_MAX = keep
             if tg is not None:
                 row['tinygemm_graph_ms'] = time_graph_ms(
                     torch, [lambda w=w, sz=sz: torch._weight_int4pack_mm(
@@ -216,11 +253,12 @@ def prefix_section(torch, out):
 
 
 def profiled_steps(torch, model_lib, m, prompt, n_steps=4):
-    """(device ms, kernels) a decode step, from the profiler over
-    `n_steps` steps after a prefill outside the window, and the wall ms a
-    step of 16 more steps unprofiled."""
+    """(device ms, kernels) a decode step of the prompt's batch, from the
+    profiler over `n_steps` steps after a prefill outside the window, kernel
+    8's share of it, and the wall ms a step of 16 more steps unprofiled."""
     from torch.profiler import ProfilerActivity, profile
-    cache = m.initialize_inference_params(2, 512 + n_steps + 20)
+    cache = m.initialize_inference_params(prompt.shape[0],
+                                          prompt.shape[1] + n_steps + 20)
     logits, cache = m(prompt, inference_params_dict=cache)
     tok = logits[:, -1].argmax(-1)
     for _ in range(2):
@@ -239,27 +277,30 @@ def profiled_steps(torch, model_lib, m, prompt, n_steps=4):
     busy = sum(e.self_device_time_total for e in ops) / 1e3 / n_steps
     count = sum(e.count for e in ops) / n_steps
     top = sorted(ops, key=lambda e: -e.self_device_time_total)[:3]
+    k8 = sum(e.self_device_time_total for e in ops
+             if 'int4_' in e.key) / 1e3 / n_steps
     torch.cuda.synchronize()
     t = time.time()
     for _ in range(12):
         step, cache = model_lib.decode_step(m.module, tok, cache)
         tok = step.argmax(-1)
     torch.cuda.synchronize()
-    return dict(device_ms=busy, kernels=count,
+    return dict(device_ms=busy, kernels=count, kernel8_ms=k8,
                 wall_ms=1e3 * (time.time() - t) / 12,
                 top=[(e.key[:60], e.self_device_time_total / 1e3 / n_steps)
                      for e in top])
 
 
-def model_section(torch, out):
+def model_section(torch, out, decode_only=False):
     from evo_tpu_torch import Evo
     from evo_tpu_torch import model as model_lib
     from evo_tpu_torch.ops import _build
     L = 8192
     ids = torch.randint(65, 85, (1, L), generator=torch.Generator()
                         .manual_seed(0))
-    prompt = torch.randint(65, 85, (2, 512), generator=torch.Generator()
-                           .manual_seed(1))
+    prompt8 = torch.randint(65, 85, (8, 512), generator=torch.Generator()
+                            .manual_seed(1))
+    prompt = prompt8[:2]
     evo = Evo('evo-1-131k-base', random_init=True, seed=0, device='cuda')
     model, base = evo.model, evo.model.config
 
@@ -267,10 +308,10 @@ def model_section(torch, out):
         cfg = base.replace(**flags)
         model.config = model.module.config = cfg
 
-    for key, flags in (('forward_8192_s', {}),
-                       ('prefix_forward_8192_s',
-                        {'hyena_pallas_prefix': True}),
-                       ('fused_forward_8192_s', {'hyena_fused_mixer': True})):
+    for key, flags in (() if decode_only else (
+            ('forward_8192_s', {}),
+            ('prefix_forward_8192_s', {'hyena_pallas_prefix': True}),
+            ('fused_forward_8192_s', {'hyena_fused_mixer': True}))):
         configure(**flags)
         out[key] = wall_s(torch, lambda: model(ids), 3)
         if flags.get('hyena_pallas_prefix'):
@@ -280,14 +321,15 @@ def model_section(torch, out):
             if _build.LAUNCHES['modal_prefix'] != 29:
                 raise RuntimeError(f'{_build.LAUNCHES}: the prefix forward '
                                    'did not take kernel 7 29 times')
-    configure(hyena_pallas_prefix=True)
-    cache = model.initialize_inference_params(1, 131072 + 1024)
+    if not decode_only:
+        configure(hyena_pallas_prefix=True)
+        cache = model.initialize_inference_params(1, 131072 + 1024)
 
-    def segment():
-        cache['offset'] = 122880
-        model(ids, inference_params_dict=cache, resume=True)
-    out['prefix_resumed_segment_s'] = wall_s(torch, segment, 2)
-    del cache
+        def segment():
+            cache['offset'] = 122880
+            model(ids, inference_params_dict=cache, resume=True)
+        out['prefix_resumed_segment_s'] = wall_s(torch, segment, 2)
+        del cache
     configure()
     out['decode_bf16'] = profiled_steps(torch, model_lib, model, prompt)
     del evo, model
@@ -299,6 +341,10 @@ def model_section(torch, out):
     out['decode_int4_int8kv'] = profiled_steps(torch, model_lib, evo4.model,
                                                prompt)
     out['decode_int4_launches'] = dict(_build.LAUNCHES)
+    _build.LAUNCHES.clear()
+    out['decode_int4_int8kv_b8'] = profiled_steps(torch, model_lib,
+                                                  evo4.model, prompt8)
+    out['decode_int4_b8_launches'] = dict(_build.LAUNCHES)
 
 
 # Edits of csrc/int4_matmul.cu that take one part of kernel 8's work out
@@ -366,8 +412,13 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument('--root', required=True)
     ap.add_argument('--model', action='store_true')
+    ap.add_argument('--decode', action='store_true',
+                    help="only --model's decode steps")
     ap.add_argument('--quick', action='store_true',
-                    help='kernel 8 alone, at 4096 x 12288 and M = 1, 2')
+                    help='kernel 8 alone, at 4096 x 12288 and the rows of '
+                         '--rows')
+    ap.add_argument('--rows', default='1,2',
+                    help="--quick's row counts, comma-separated")
     ap.add_argument('--variants', default='',
                     help='also time the edits of VARIANTS in copies of the '
                          'package written under this directory')
@@ -383,14 +434,15 @@ def main():
          '--format=csv,noheader'], capture_output=True, text=True,
         timeout=60).stdout.strip())
     if args.quick:
-        int4_section(torch, out, shapes=LAYER_SHAPES[2:3], rows=(1, 2),
+        int4_section(torch, out, shapes=LAYER_SHAPES[2:3],
+                     rows=tuple(int(m) for m in args.rows.split(',')),
                      yardstick=False)
         print(json.dumps(out), flush=True)
         return 0
     int4_section(torch, out)
     prefix_section(torch, out)
-    if args.model:
-        model_section(torch, out)
+    if args.model or args.decode:
+        model_section(torch, out, decode_only=args.decode)
     if args.variants:
         out['kernel8_variants_graph_ms'] = time_variants(root, args.variants)
     print(json.dumps(out), flush=True)

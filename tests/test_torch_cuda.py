@@ -391,13 +391,23 @@ _LAYER_SHAPES = [(4096, 4096, 10928), (10928, 11008, 4096),
                  (4096, 4096, 12288), (4096, 4096, 4096)]
 
 
+# the wgmma design's row counts: each of its instances (n = 16, 32, 64,
+# 128) at its ends and inside
+_MMA_ROWS = (5, 9, 16, 17, 24, 32, 33, 64, 65, 100, 127, 128)
+
+
 @pytest.mark.parametrize('M,K,Kp,N', [
     *[(M, K, Kp, N) for K, Kp, N in _LAYER_SHAPES
       for M in (1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 128)],
+    *[(M, K, Kp, N) for K, Kp, N in _LAYER_SHAPES
+      for M in (17, 24, 32, 33, 64, 65, 100, 127)],
     *[(M, 1000, 1024, 1001) for M in (1, 2, 5, 8, 9, 33)],  # ragged N, K
-    # 17 steps: two a block, the last block's one
-    *[(M, 4300, 4352, 600) for M in (1, 3, 4)],
-    (1, 40, 256, 24), (8, 130, 512, 136)])
+    *[(M, 1000, 1024, 1001) for M in _MMA_ROWS if M not in (5, 9, 33)],
+    # 17 steps (Kp / 256): an odd count, at the streaming design's rows
+    # and the wgmma design's fewest
+    *[(M, 4300, 4352, 600) for M in (1, 2, 3, 4)],
+    *[(M, 4300, 4352, 600) for M in _MMA_ROWS],
+    (1, 40, 256, 24), (8, 130, 512, 136), (100, 130, 512, 136)])
 def test_int4_matmul_rows_and_outputs(M, K, Kp, N):
     """Kernel 8 on an x of K <= Kp columns (the rest read as zeros) at every
     row count of its two designs: within 1e-4 of the plain version in
@@ -445,11 +455,45 @@ def test_int4_matmul_in_a_cuda_graph():
     assert int(tickets[:tiles].abs().sum()) == 0
 
 
+@pytest.mark.parametrize('M', [9, 128])
+def test_int4_matmul_wgmma_in_a_cuda_graph(M):
+    """Kernel 8's wgmma design replayed from a CUDA graph: tiles split
+    between blocks are added in block order, so every replay is bit-equal
+    to the eager call, and the tickets are back at zero after each
+    launch; an eager call between replays takes the same workspace of
+    partial sums as the graph and leaves it fit for the next replay."""
+    from evo_tpu_torch.ops import int4 as int4_mod
+    x, packed, s = _int4_case(M, 4096, 12288, seed=M)
+    _n, cols, _blocks, parts = int4_mod.mma_plan(
+        M, 4096, 12288, _build.sm_count(x.device.index))
+    assert M > int4_mod.GEMV_M_MAX and parts > 1
+    tiles = -(-12288 // cols)
+    first = int4_matmul(x, packed, s, torch.bfloat16)
+    torch.cuda.synchronize()
+    tickets = int4_mod._TICKETS[x.device]
+    assert int(tickets[:tiles].abs().sum()) == 0
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = int4_matmul(x, packed, s, torch.bfloat16)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, first)
+        assert int(tickets[:tiles].abs().sum()) == 0
+        assert torch.equal(int4_matmul(x, packed, s, torch.bfloat16), first)
+
+
 @pytest.mark.parametrize('M,K,Kp,N', [
     *[(M, K, Kp, N) for K, Kp, N in _LAYER_SHAPES
       for M in (1, 2, 4, 5, 9, 128)],
     *[(M, 1000, 1024, 1001) for M in (1, 3, 9, 33)],    # ragged N, K
-    (1, 40, 256, 24), (8, 130, 512, 136), (2, 4300, 4352, 600)])
+    (1, 40, 256, 24), (8, 130, 512, 136), (2, 4300, 4352, 600),
+    # the wgmma design's instances, at evo-1's w3 (K < Kp) and ragged
+    *[(M, K, Kp, N) for K, Kp, N in [_LAYER_SHAPES[1], (1000, 1024, 1001),
+                                      (4300, 4352, 600)]
+      for M in _MMA_ROWS if (M, K) not in ((5, 10928), (9, 10928),
+                                           (9, 1000), (33, 1000))],
+    (100, 130, 512, 136)])
 @pytest.mark.parametrize('mode', ['block', 'dots8'])
 def test_int4_other_modes_kernel(mode, M, K, Kp, N):
     """Kernel 8's 'block' instance (both designs) and the 'dots8' kernel

@@ -48,7 +48,7 @@ def test_int4_plain_unpadded_x_matches_jax_kernel(M, K, Kp, N):
     """x of K columns against the JAX kernel on x padded to Kp: float32
     within 2e-4 (the bound the older test of the padded call holds; the
     group sums run in another order), and the bf16 output the float32 one
-    rounded once. (On the card a K off multiples of 8 goes to the mma.sync
+    rounded once. (On the card a K off multiples of 8 goes to the wgmma
     design padded; the plain version pads every x.)"""
     rng = np.random.default_rng(M + K)
     x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
