@@ -17,10 +17,14 @@ for an H100: the kernels target sm_90a). It
      attention over a bf16 and an int8 KV buffer, up to a segment of 8,192
      queries at offset 122,880 of a 131,072-long buffer, and one query row
      for decode, with SDPA under the lower-right causal bias over the
-     live prefix as kernel 4's yardstick; kernel 5 at one query row at
-     offsets 8,191, 65,535 and 122,879 and in both its regimes at 1 to 8
-     rows, and the combine kernel of its split key range against its
-     plain twin (and bit-equal on a second run); the weight-only int4
+     live prefix as kernel 4's yardstick; kernel 4's split key range at
+     1 to 16 rows (more shapes, strided 16-head views, bit-equal on a
+     rerun), timed at one row at offsets 8,191, 65,535 and 122,879 beside
+     SDPA and in both its regimes at 1 to 16 rows; kernel 5 at one query
+     row at the same offsets (with int and device offsets) and in both
+     its regimes at 1 to 8 rows, and the combine kernel of the split key
+     ranges against its plain twin (and bit-equal on a second run); the
+     weight-only int4
      matmul at 1 to 128 rows for each projection of a layer (both its
      designs: 1, 2 streaming, 5 to 128 on wgmma), x of K <= Kp columns,
      float32 and bf16 output, bit-equal run to run, timed at 10 row counts
@@ -54,7 +58,8 @@ for an H100: the kernels target sm_90a). It
      forward at B=1, L=8192, checking finite scores, padding invariance
      and the kernels' launch counts (65 / 29 / 3 per forward);
   5. generates greedily from 2 prompts of 512 nt, 64 new tokens, checking
-     the launch counts (kernel 4 three times a decode step) and that
+     the launch counts (kernel 4's split and the combine kernel three
+     times a decode step) and that
      prefill + decode logits agree with one
      forward over prompt + generation, and times prefill and decode steps;
   6. scores in segments with evo-1-131k-base at full width: a 12,000-nt
@@ -373,6 +378,17 @@ def sdpa_over_live_prefix(q, k_buf, v_buf, offset):
                   for t in (q, k_buf[:, :live], v_buf[:, :live]))
     return F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=causal_lower_right(lq, live))
+
+
+def graph_or_events_ms(torch, fns):
+    """time_graph_ms, or CUDA events around the first call where the
+    library's kernels refuse the graph capture."""
+    try:
+        return time_graph_ms(torch, fns)
+    except RuntimeError as exc:
+        log(f'   (no graph capture: {str(exc)[:120]}; CUDA events)')
+        torch.cuda.synchronize()
+        return time_ms(torch, fns[0])
 
 
 def live_kv_bound_ms(peak, offsets, quantized, heads=32, head_dim=128):
@@ -1836,7 +1852,8 @@ def phase21_parallel(torch, np, smi, launches, ref, res20, corpus, d):
     per_forward = {'rmsnorm': 19, 'fir_gate': 8, 'flash_attention': 1}
     n_new = 16
     want_gen = {'rmsnorm': 19 * n_new, 'fir_gate': 8, 'flash_attention': 1,
-                'flash_attention_buffer': n_new - 1}
+                'flash_attention_buffer': n_new - 1,
+                'combine_partials': n_new - 1}
     want_gen8 = dict(want_gen, flash_attention_buffer_q8=n_new - 1,
                      combine_partials=n_new - 1)
     del want_gen8['flash_attention_buffer']
@@ -2006,7 +2023,8 @@ def phase22_context_parallel(torch, np, smi, launches, ref21, model, tok,
     per_forward = {'rmsnorm': 65, 'fir_gate': 29, 'flash_attention': 3}
     ring_forward = {'rmsnorm': 65, 'fir_gate': 29}
     want_gen = {'rmsnorm': 65 * n_new, 'fir_gate': 29, 'flash_attention': 3,
-                'flash_attention_buffer': 3 * (n_new - 1)}
+                'flash_attention_buffer': 3 * (n_new - 1),
+                'combine_partials': 3 * (n_new - 1)}
     want_gen8 = {'rmsnorm': 65 * n_new, 'fir_gate': 29, 'flash_attention': 3,
                  'flash_attention_buffer_q8': 3 * (n_new - 1),
                  'combine_partials': 3 * (n_new - 1)}
@@ -2164,23 +2182,29 @@ def phase23_inputs(torch, np, d, corpus, spec_prompt):
     return inp
 
 
-def serve_launches(calls, chunks, layers, attn, int8=False, split_rows=4):
+def serve_launches(calls, chunks, layers, attn, int8=False,
+                   split_rows=None):
     """The launches of a server's run: each engine call of a fill (its
     length, resumed or fresh) a prefill's, and 8 decode steps a chunk,
-    each with one row a slot."""
+    each with one row a slot. `split_rows`: the most query rows of the
+    int8 and the bf16 buffer kernel's split key range (then the combine
+    kernel runs too)."""
     hyena = layers - attn
     steps = 8 * chunks
     fresh = sum(not resumed for _, resumed in calls)
+    if split_rows is None:
+        from evo_tpu_torch.ops import attention_buffer
+        split_rows = (attention_buffer.SPLIT_MAX_ROWS,
+                      attention_buffer.SPLIT_MAX_ROWS_BF16)
+    rows = split_rows[0] if int8 else split_rows[1]
     want = collections.Counter({
         'rmsnorm': (2 * layers + 1) * (steps + len(calls)),
         'fir_gate': hyena * sum(L >= 3 for L, _ in calls),
-        'flash_attention': attn * fresh})
-    if int8:
-        want['flash_attention_buffer_q8'] = attn * (steps + len(calls) - fresh)
-        want['combine_partials'] = attn * (steps + sum(
-            resumed and L <= split_rows for L, resumed in calls))
-    else:
-        want['flash_attention_buffer'] = attn * (steps + len(calls) - fresh)
+        'flash_attention': attn * fresh,
+        ('flash_attention_buffer_q8' if int8 else 'flash_attention_buffer'):
+            attn * (steps + len(calls) - fresh),
+        'combine_partials': attn * (steps + sum(
+            resumed and L <= rows for L, resumed in calls))})
     return {k: v for k, v in want.items() if v}
 
 
@@ -2834,9 +2858,23 @@ def main():
     _build.library()
     build_s = time.time() - t0
     log(f'== 2. kernels built in {build_s:.1f} s: {so.name}')
+    entry = None
     for line in so.with_suffix('.log').read_text().splitlines():
+        if 'Compiling entry function' in line:
+            entry = line.split("'")[1] if "'" in line else None
         if 'registers' in line or 'spill' in line:
             log('   ptxas:', line.strip())
+            # the split key ranges and the combine: name the kernel (and
+            # its template argument, ILi<R>E)
+            short = next((w for w in ('flash_buffer_bf16_split_kernel',
+                                      'flash_buffer_q8_split_kernel',
+                                      'combine_partials_kernel')
+                          if entry and w in entry), None)
+            if short and 'registers' in line:
+                rest = entry.split(short)[1]
+                log(f'   ptxas ({short}'
+                    f'{rest[:6] if rest.startswith("ILi") else ""}):',
+                    line.strip())
     g = torch.Generator(device=dev).manual_seed(0)
 
     def randn(*shape):
@@ -2980,9 +3018,11 @@ def main():
     # the quantisation itself enters the comparison. The buffers' tails
     # past the last query are finite garbage (x10) that the mask must
     # keep out; zeros there would hide a wrong mask.
-    def buffers(B, Lq, T, offset, heads=H):
-        q, kb, vb = (randn(B, Lq, heads, Dh), randn(B, T, heads, Dh),
-                     randn(B, T, heads, Dh))
+    def buffers(B, Lq, T, offset, heads=H, gen=None):
+        rn = randn if gen is None else (lambda *shape: torch.randn(
+            *shape, device=dev, generator=gen).bfloat16())
+        q, kb, vb = (rn(B, Lq, heads, Dh), rn(B, T, heads, Dh),
+                     rn(B, T, heads, Dh))
         offs = [offset] * B if isinstance(offset, int) else offset
         for b, o in enumerate(offs):
             kb[b, o + Lq:] *= 10
@@ -3028,6 +3068,50 @@ def main():
     check(scaled4 <= 2 ** -5, f'bf16 buffer kernel disagrees: {scaled4}')
     check(scaled5 <= 2 ** -5, f'int8 buffer kernel disagrees: {scaled5}')
 
+    # Kernel 4 at 1-16 query rows runs its split key range (mma.sync) and
+    # the combine kernel: more shapes of that regime (2-16 rows, per-row
+    # offsets near 0 and near T, T % 64 != 0) and the strided 16-head
+    # views of a tp = 2 rank under the Ulysses all-to-all, each within the
+    # same limit and the same bits on a second run. These draw from a
+    # generator of their own: `g`'s stream, and with it every later
+    # phase's inputs and the yardstick's random signs, stays as it was.
+    g21 = torch.Generator(device=dev).manual_seed(21)
+
+    def randn21(*shape):
+        return torch.randn(*shape, device=dev, generator=g21).bfloat16()
+
+    split4 = dict(max_abs_err=0.0, max_scaled_err=0.0, bit_equal=True)
+    split_cases = [(1, 2, 3000, 2000), (1, 8, 3000, 2000),
+                   (1, 9, 8100, 8000), (1, 16, 3000, 2000),
+                   (1, 16, 1000, 0), (2, 16, 1000, (100, 984)),
+                   (4, 9, 2048, (0, 17, 1919, 2039)),
+                   (2, 1, 1024, (512, 530), 'strided'),
+                   (2, 9, 1024, (100, 900), 'strided')]
+    for case in split_cases:
+        B, Lq, T, offset = case[:4]
+        if len(case) > 4:
+            qs = randn21(B, Lq, H, Dh)[:, :, H // 2:]
+            bfs = tuple(randn21(B, T, H, Dh)[:, :, :H // 2] for _ in (0, 1))
+            offs = torch.tensor(offset, dtype=torch.int32, device=dev)
+        else:
+            # (the last case's q, bf, i8 and sc above stay for the times)
+            qs, offs, bfs, _, _ = buffers(B, Lq, T, offset, gen=g21)
+        got = flash_attention_buffer(qs, *bfs, offs)
+        again = flash_attention_buffer(qs, *bfs, offs)
+        torch.cuda.synchronize()
+        want = attention_buffer_plain(qs, *bfs, offs)
+        e, r = float((got.float() - want.float()).abs().max()), scaled_err(
+            got, want)
+        split4['max_abs_err'] = max(split4['max_abs_err'], e)
+        split4['max_scaled_err'] = max(split4['max_scaled_err'], r)
+        split4['bit_equal'] &= torch.equal(got, again)
+        log(f'   flash_attention_buffer (bf16 split) {case}: max abs err '
+            f'{e:.3e}, scaled {r:.3e}, bit-equal on a rerun '
+            f'{torch.equal(got, again)}')
+        del qs, offs, bfs, got, again, want
+    check(split4['max_scaled_err'] <= 2 ** -5 and split4['bit_equal'],
+          f'bf16 split key range disagrees: {split4}')
+
     # Times at the shapes of a 131k run: the last prefill segment (q, bf,
     # i8 and sc are still that case) and one decode step over the 122,880
     # positions before it.
@@ -3068,7 +3152,52 @@ def main():
               'causal bias over the live prefix (library_mask_ms: SDPA with '
               'a dense boolean mask over the whole buffer); decode: q (1, 1, '
               '32, 128) at offset 122,879, SDPA over the live prefix beside '
-              'it')
+              'it; by_offset: one row at three offsets; regimes: 1-16 rows at '
+              'the end of the buffer and at offset 8,000 in each regime; '
+              'split: the split regime\'s checks; by graph replay')
+
+    # kernel 4 at few rows: one row over three live prefixes beside SDPA
+    # over the same prefix, and both regimes at 1 to 16 rows at the end of
+    # the 131k buffer and at offset 8,000 (a g = 8 verify pass), by graph
+    # replay; every live prefix here is over 120 MB, beyond the L2
+    def k4_bound_ms(o, rows=1):
+        return 1e3 * max((2 * (o + rows) + 2 * rows) * H * Dh * 2
+                         / peak['bytes_s'],
+                         attention_flops(H, Dh, rows, [o]) / peak['bf16'])
+
+    by_offset4 = {}
+    for o in (8191, 65535, 122879):
+        by_offset4[o] = dict(
+            ms=time_graph_ms(torch, [lambda: flash_attention_buffer(
+                q1, *bf, o)]),
+            library_ms=graph_or_events_ms(torch, [
+                lambda: sdpa_over_live_prefix(q1, *bf, o)]),
+            bound_ms=k4_bound_ms(o))
+    regimes4 = {}
+    split_rows4 = attention_buffer_mod.SPLIT_MAX_ROWS_BF16
+    for at_end in (True, False):
+        for rows in (1, 2, 4, 8, 9, 16):
+            o = T - rows if at_end else 8000
+            qr = randn21(1, rows, H, Dh)
+            entry = dict(bound_ms=k4_bound_ms(o, rows))
+            if rows <= split_rows4:
+                entry['split_ms'] = time_graph_ms(
+                    torch, [lambda: flash_attention_buffer(qr, *bf, o)])
+            attention_buffer_mod.SPLIT_MAX_ROWS_BF16 = 0
+            try:
+                entry['mainloop_ms'] = time_graph_ms(
+                    torch, [lambda: flash_attention_buffer(qr, *bf, o)])
+            finally:
+                attention_buffer_mod.SPLIT_MAX_ROWS_BF16 = split_rows4
+            if rows in (1, 4, 9):
+                entry['library_ms'] = graph_or_events_ms(torch, [
+                    lambda: sdpa_over_live_prefix(qr, *bf, o)])
+            regimes4[f'rows={rows} offset={o}'] = entry
+    log(f'   flash_attention_buffer (bf16) at one query row by offset: '
+        f'{by_offset4}; by regime: {regimes4}')
+    kernels['flash_attention_buffer'].update(
+        by_offset=by_offset4, regimes=regimes4, split=split4,
+        split_max_rows=split_rows4)
     # every code and scale of the live prefix is read once
     def kv8_bytes(n):
         return 2 * H * n * (Dh + 4)
@@ -3079,14 +3208,26 @@ def main():
                          attention_flops(H, Dh, rows, [o]) / peak['bf16'])
 
     # kernel 5 at one query row over three live prefixes (the split key
-    # range and the combine kernel), and both of its regimes at 1 to 8
-    # rows at the end of the 131k buffer, the split one where it is built
+    # range and the combine kernel; by graph replay also with a (1,)
+    # device offset beside the int one: the split's count follows the
+    # buffer then, each block's range the offset on the device), and both
+    # of its regimes at 1 to 8 rows at the end of the 131k buffer, the
+    # split one where it is built
     by_offset5 = {}
     for o in (8191, 65535, 122879):
+        dev_off = torch.full((1,), o, dtype=torch.int32, device=dev)
         by_offset5[o] = dict(
             ms=time_ms(torch, lambda: flash_attention_buffer(
                 q1, *i8, o, *sc), reps=10, warmup=2),
-            bound_ms=decode8_bound_ms(o))
+            bound_ms=decode8_bound_ms(o),
+            graph_ms_int_offset=time_graph_ms(torch, [
+                lambda: flash_attention_buffer(q1, *i8, o, *sc)]),
+            graph_ms_device_offset=time_graph_ms(torch, [
+                lambda: flash_attention_buffer(q1, *i8, dev_off, *sc)]))
+    ratio5 = (by_offset5[8191]['graph_ms_device_offset']
+              / by_offset5[8191]['graph_ms_int_offset'])
+    check(ratio5 <= 1.3, f'kernel 5 with a device offset at 8,191 live of '
+          f'131,072 takes {ratio5:.2f}x the int offset\'s time')
     regimes5 = {}
     split_rows = attention_buffer_mod.SPLIT_MAX_ROWS
     for rows in (1, 2, 4, 8):
@@ -3624,9 +3765,11 @@ def main():
                                n_tokens=n_new, verbose=0)
     gen_s = time.time() - t0
     launches['generate'] = dict(_build.LAUNCHES)
-    # every decode step reads the bf16 cache through kernel 4 at one row
+    # every decode step reads the bf16 cache through kernel 4 at one row:
+    # its split key range, then the combine kernel
     want = {'rmsnorm': 65 * n_new, 'fir_gate': 29, 'flash_attention': 3,
-            'flash_attention_buffer': 3 * (n_new - 1)}
+            'flash_attention_buffer': 3 * (n_new - 1),
+            'combine_partials': 3 * (n_new - 1)}
     check(launches['generate'] == want, f'launches {launches["generate"]}')
     check(all(len(s) == n_new for s in out)
           and all(np.isfinite(gen_scores)), f'generation {gen_scores}')
@@ -3660,14 +3803,48 @@ def main():
     # forward with ONE extra bf16 rounding step (a relative 2^-8 of
     # random sign) on the output of layer 0's first norm.
     sign = torch.randint(0, 2, (1, 1, 4096), device=dev, generator=g)
+    # Its size moves with the 4,096 signs: over 8 draws by 1.0-1.4x
+    # (`tools/yardstick_draws.py`), as far as the distances of phase 18
+    # under int4 lie below it. So the teacher-forcing checks of decode,
+    # serving and speculation (`seam_check`, `teacher_forced`,
+    # `spec_teacher_forced`) hold against the median over four fixed
+    # draws of a generator of their own; `sign`, the one draw of `g`,
+    # stays the yardstick of the other checks and is logged beside.
+    g36 = torch.Generator(device=dev).manual_seed(36)
+    signs4 = [torch.randint(0, 2, (1, 1, 4096), device=dev, generator=g36)
+              for _ in range(4)]
+    yardsticks = []
 
-    def nudged_forward(model, tokens):
+    def nudged_draws(model, tokens):
+        """One forward over `tokens` (B, L) five times in one batch: as it
+        is (a sign of 0.5 nudges by 0), then under each of the four draws;
+        logits (5, B, L, V). Each draw's yardstick is its distance from
+        the first, at the same batch shape."""
+        B = tokens.shape[0]
+        s = torch.cat([torch.full_like(sign, 0.5, dtype=torch.float32)]
+                      + [t.float() for t in signs4]).repeat_interleave(B, 0)
+        logits = nudged_forward(model, tokens.repeat(5, 1), s)
+        return logits.view(5, B, *logits.shape[1:])
+
+    def nudged_forward(model, tokens, s=None):
+        s = sign if s is None else s
         hook = model.module.blocks[0].pre_norm.register_forward_hook(
-            lambda mod, inp, out: out * (1 + (2 * sign - 1) * 2.0 ** -8).to(
+            lambda mod, inp, out: out * (1 + (2 * s - 1) * 2.0 ** -8).to(
                 out.dtype))
         logits, _ = model(tokens)
         hook.remove()
         return logits
+
+    def median_yardstick(what, distance, per_draw, single):
+        """The median of the four draws' yardsticks, with `g`'s one draw
+        logged and kept beside it."""
+        med = statistics.median(per_draw)
+        yardsticks.append(dict(check=what, distance=distance, median4=med,
+                               draws=per_draw, single_draw=single))
+        log(f'   yardstick of {what}: distance {distance:.5f}, median of 4 '
+            f'draws {med:.5f} ({", ".join(f"{x:.5f}" for x in per_draw)}), '
+            f'the single draw {single:.5f}')
+        return med
 
     def seam_check(model, label):
         """Prefill + decode logits of a greedy generation against one
@@ -3686,6 +3863,11 @@ def main():
         agree = float((step_logits.argmax(-1) == ref.argmax(-1)).float()
                       .mean())
         floor = (nudged_forward(model, full)[:, 511:511 + n_new] - ref).abs()
+        draws = nudged_draws(model, full)[:, :, 511:511 + n_new]
+        yard = median_yardstick(
+            f'the seam{label}', float(diff.mean()),
+            [float((draws[k] - draws[0]).abs().mean()) for k in range(1, 5)],
+            float(floor.mean()))
         steps = [0, 1, 2, 8, 32, n_new - 1]
         log(f'   seam{label}: prefill+decode vs forward logits: max abs diff '
             f'{float(diff.max()):.4f}, mean {float(diff.mean()):.5f} (by '
@@ -3693,8 +3875,8 @@ def main():
             f'argmax agreement {agree:.4f}; logit std '
             f'{float(ref.std()):.3f}; one rounding step at layer 0 moves '
             f'them by max {float(floor.max()):.4f}, mean '
-            f'{float(floor.mean()):.5f}')
-        check(float(diff.mean()) <= float(floor.mean()) and agree >= 0.75,
+            f'{float(floor.mean()):.5f} (median of 4 draws {yard:.5f})')
+        check(float(diff.mean()) <= yard and agree >= 0.75,
               f'seam logits disagree{label}')
 
     seam_check(evo.model, '')
@@ -3806,7 +3988,8 @@ def main():
     launches['fused_generate'] = dict(_build.LAUNCHES)
     check(launches['fused_generate'] == {
         'rmsnorm': 65 * n_new, 'hyena_mixer': 29, 'flash_attention': 3,
-        'flash_attention_buffer': 3 * (n_new - 1)},
+        'flash_attention_buffer': 3 * (n_new - 1),
+        'combine_partials': 3 * (n_new - 1)},
         f'launches {launches["fused_generate"]}')
     check(all(len(s) == n_new for s in out_f)
           and all(np.isfinite(scores_f)), f'generation {scores_f}')
@@ -3932,7 +4115,8 @@ def main():
     launches['fft_generate'] = dict(_build.LAUNCHES)
     check(launches['fft_generate'] == {
         'rmsnorm': 65 * n_fft, 'fir_gate': 29, 'flash_attention': 3,
-        'flash_attention_buffer': 3 * (n_fft - 1)},
+        'flash_attention_buffer': 3 * (n_fft - 1),
+        'combine_partials': 3 * (n_fft - 1)},
         f'launches {launches["fft_generate"]}')
     full = torch.cat([torch.as_tensor(prompt_ids, device=dev).long(), toks],
                      dim=1)
@@ -4026,16 +4210,22 @@ def main():
 
     def fill_launches(P):
         """Launches of one fill of P-token prompts: a fresh first chunk
-        (kernel 3), resumed chunks (kernel 4), each a forward's RMSNorms
-        and FIR + gates."""
-        n = server16._head_len(P) // 128 + 1
+        (kernel 3), resumed chunks (kernel 4; a tail of up to
+        SPLIT_MAX_ROWS_BF16 tokens through its split and the combine
+        kernel), each a forward's RMSNorms and FIR + gates."""
+        head = server16._head_len(P)
+        n = head // 128 + 1
+        tail_split = bool(head) and (
+            P - head <= attention_buffer_mod.SPLIT_MAX_ROWS_BF16)
         return collections.Counter({
             'rmsnorm': 65 * n, 'fir_gate': 29 * n, 'flash_attention': 3,
-            'flash_attention_buffer': 3 * (n - 1)})
+            'flash_attention_buffer': 3 * (n - 1),
+            'combine_partials': 3 * tail_split})
 
     n_steps16 = 8 * len(chunk_ms)
     want16 = collections.Counter({'rmsnorm': 65 * n_steps16,
-                                  'flash_attention_buffer': 3 * n_steps16})
+                                  'flash_attention_buffer': 3 * n_steps16,
+                                  'combine_partials': 3 * n_steps16})
     for P in plens[1:]:                     # the pair is one fill
         want16 += fill_launches(P)
     check(launches['serve_8k'] == dict(want16),
@@ -4047,7 +4237,10 @@ def main():
     # against the forward's argmax, agreement >= 0.75 as in phase 5.
 
     def teacher_forced(model, tokenizer, prompts, results, rids, greedy):
-        diffs, floors, agree = [], [], []
+        """(mean and max |recorded log-prob - forward's|, the yardstick's
+        mean over every request's tokens (median of the four draws),
+        greedy argmax agreement)."""
+        diffs, agree, floors, draws = [], [], [], []
         for i, rid in rids.items():
             res = results[rid]
             P = len(prompts[i])
@@ -4063,10 +4256,18 @@ def main():
                           - lp_ref).abs())
             floors.append((nud.gather(-1, toks[:, None])[:, 0]
                            - lp_ref).abs())
+            lp = torch.log_softmax(nudged_draws(model, full)[
+                :, 0, P - 1:-1].float(), -1).gather(
+                    -1, toks[None, :, None].expand(5, -1, 1))[..., 0]
+            draws.append((lp[1:] - lp[:1]).abs())
             if i in greedy:
                 agree.append((ref.argmax(-1) == toks).float())
-        d, f = torch.cat(diffs), torch.cat(floors)
-        return (float(d.mean()), float(d.max()), float(f.mean()),
+        d, draws = torch.cat(diffs), torch.cat(draws, dim=1)
+        f = median_yardstick(
+            'teacher forcing', float(d.mean()),
+            [float(x) for x in draws.mean(dim=1)],
+            float(torch.cat(floors).mean()))
+        return (float(d.mean()), float(d.max()), f,
                 float(torch.cat(agree).mean()))
 
     d16, dmax16, f16, agree16 = teacher_forced(
@@ -4228,19 +4429,19 @@ def main():
         want = collections.Counter({
             'rmsnorm': (2 * layers + 1) * n_calls, 'flash_attention': attn,
             'fir_gate': (layers - attn) * sum(L >= 3 for L in lengths)})
-        if quantized:
-            want['flash_attention_buffer_q8'] = attn * (n_calls - 1)
-            want['combine_partials'] = attn * sum(
-                L <= attention_buffer_mod.SPLIT_MAX_ROWS for L in lengths[1:])
-        else:
-            want['flash_attention_buffer'] = attn * (n_calls - 1)
+        rows = (attention_buffer_mod.SPLIT_MAX_ROWS if quantized
+                else attention_buffer_mod.SPLIT_MAX_ROWS_BF16)
+        want['flash_attention_buffer_q8' if quantized
+             else 'flash_attention_buffer'] = attn * (n_calls - 1)
+        want['combine_partials'] = attn * sum(L <= rows for L in lengths[1:])
         if int4:
             want['int4_matmul'] = 5 * layers * sum(L <= 128 for L in lengths)
         return {k: v for k, v in want.items() if v}
 
     def spec_teacher_forced(model, prompt, toks, logps):
         """(mean and max |log-prob - forward's|, the one-rounding
-        yardstick's mean, greedy argmax agreement) for one run."""
+        yardstick's mean (median of the four draws), greedy argmax
+        agreement) for one run."""
         P = len(prompt)
         full = torch.as_tensor(np.concatenate([tok.tokenize(prompt), toks]),
                                device=dev).long()[None]
@@ -4250,8 +4451,15 @@ def main():
                                 .float(), -1)
         lp_ref = ref.gather(-1, nxt[:, None])[:, 0]
         d = (torch.as_tensor(logps, device=dev) - lp_ref).abs()
-        f = (nud.gather(-1, nxt[:, None])[:, 0] - lp_ref).abs()
-        return (float(d.mean()), float(d.max()), float(f.mean()),
+        lp = torch.log_softmax(nudged_draws(model, full)[
+            :, 0, P - 1:-1].float(), -1).gather(
+                -1, nxt[None, :, None].expand(5, -1, 1))[..., 0]
+        f = median_yardstick(
+            'speculative log-probs', float(d.mean()),
+            [float((lp[k] - lp[0]).abs().mean()) for k in range(1, 5)],
+            float((nud.gather(-1, nxt[:, None])[:, 0] - lp_ref).abs()
+                  .mean()))
+        return (float(d.mean()), float(d.max()), f,
                 float((ref.argmax(-1) == nxt).float().mean()))
 
     tok = evo.tokenizer
@@ -4408,16 +4616,6 @@ def main():
         n = int(110e6 // (2 * (offset + Lq) * H * Dh * 2)) + 1
         return [buffers(1, Lq, T, offset) for _ in range(n)]
 
-    def graph_or_events_ms(fns):
-        """time_graph_ms, or CUDA events around the first call where the
-        library's kernels refuse the graph capture."""
-        try:
-            return time_graph_ms(torch, fns)
-        except RuntimeError as exc:
-            log(f'   (no graph capture: {str(exc)[:120]}; CUDA events)')
-            torch.cuda.synchronize()
-            return time_ms(torch, fns[0])
-
     spec_k4, spec_k5 = {}, {}
     err18 = {'flash_attention_buffer': 0.0, 'flash_attention_buffer_q8': 0.0}
     for Lq in (4, 9):
@@ -4445,7 +4643,7 @@ def main():
                     bound_ms=1e3 * max(
                         (qo + 2 * (offset + Lq) * H * Dh * 2)
                         / peak['bytes_s'], flops / peak['bf16']),
-                    library_ms=graph_or_events_ms([
+                    library_ms=graph_or_events_ms(torch, [
                         (lambda s=s: sdpa_over_live_prefix(
                             s[0], *s[2], offset)) for s in sets]))
             spec_k5[key] = dict(
@@ -4841,7 +5039,8 @@ def main():
     launches['generate_131k'] = counts
     check(counts == {'rmsnorm': 65 * n_new, 'fir_gate': 29,
                      'flash_attention': 3,
-                     'flash_attention_buffer': 3 * (n_new - 1)},
+                     'flash_attention_buffer': 3 * (n_new - 1),
+                     'combine_partials': 3 * (n_new - 1)},
           f'launches {counts}')
     log(f'== 7. generate 2 x 1024 nt + {n_new}, bf16 cache: {gen_s:.3f} s; '
         f'launches {counts}')
@@ -5272,7 +5471,8 @@ def main():
         cache = random_cache(kv_quant)
         layer = next(t for t in cache['layers'] if isinstance(t, dict))
         bufs = [layer[n] for n in ('k', 'v', 'ks', 'vs') if n in layer]
-        kernel = ({'flash_attention_buffer': 3} if kv_quant == 'none' else
+        kernel = ({'flash_attention_buffer': 3, 'combine_partials': 3}
+                  if kv_quant == 'none' else
                   {'flash_attention_buffer_q8': 3, 'combine_partials': 3})
         for o in (8191, 65535, 122879):
             turns = [timed_step(cache, o, plain)
@@ -5290,8 +5490,9 @@ def main():
                 new_peak_bytes=max(t['peak_bytes'] for t in new),
                 plain_peak_bytes=max(t['peak_bytes'] for t in old))
             # the layer's kernel alone at this offset, as an int (the
-            # wrapper may trim the key range on the host) and as a device
-            # tensor (the serving path: it may not), by graph replay
+            # split's count from the live prefix) and as a device tensor
+            # (the serving path: the count from the buffer, each block's
+            # range from the offset on the device), by graph replay
             for name, off in (
                     ('int', o),
                     ('device', torch.full((1,), o, dtype=torch.int32,
@@ -5526,6 +5727,7 @@ def main():
                                    for p, c in launches.items()}
         check(kk['launches'] > 0, f"{kk['name']} never ran in {phase}")
         rows.append(kk)
+    log(f'   teacher-forcing yardsticks: {json.dumps(yardsticks)}')
     log(smi)
     log(json.dumps({'kernels': rows}))
     log(json.dumps({'ok': True, 'device': {

@@ -61,10 +61,16 @@ _SIGNATURES = {
     # (q, k, v, ks, vs, offsets, o, B, Lq, T, H, strides, scale, stream)
     'evo_flash_attention_buffer_q8': (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                       _I, *(_L,) * 9, _F, _P),
-    # (q, k, v, ks, vs, offsets, m, l, acc, B, Lq, T, H, strides, chunk, S,
-    # scale, stream)
-    'evo_flash_attention_buffer_q8_split': (*(_P,) * 9, _I, _I, _I, _I,
-                                            *(_L,) * 9, _I, _I, _F, _P),
+    # (q, k, v, offsets or null, offset0, m, l, acc, B, Lq, T, H, strides,
+    # S, scale, stream)
+    'evo_flash_attention_buffer_bf16_split': (*(_P,) * 4, _I, *(_P,) * 3,
+                                              _I, _I, _I, _I, *(_L,) * 9, _I,
+                                              _F, _P),
+    # (q, k, v, ks, vs, offsets or null, offset0, m, l, acc, B, Lq, T, H,
+    # strides, S, scale, stream)
+    'evo_flash_attention_buffer_q8_split': (*(_P,) * 6, _I, *(_P,) * 3, _I,
+                                            _I, _I, _I, *(_L,) * 9, _I, _F,
+                                            _P),
     # (m, l, acc, o, B, H, Lq, S, stream)
     'evo_combine_partials': (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # (x, packed, scales, y, partials, tickets, M, K, Kp, N, bf16 output,

@@ -1,8 +1,8 @@
 """Attention of a query segment at an offset over a KV buffer: the CUDA
 kernels (`csrc/flash_attention_buffer.cu`: bf16 and int8 buffers on the
-Hopper mainloop of `csrc/flash_sm90.cuh`; int8 buffers at few query rows
-on a split of the key range and a combine kernel) and their plain
-versions.
+Hopper mainloop of `csrc/flash_sm90.cuh`; both at few query rows on a
+split of the key range, sized on the device, and a combine kernel) and
+their plain versions.
 
 Port of `evo_tpu/ops/pallas_attention.py:flash_attention_buffer`; the plain
 version is the chunked online softmax of `mha_full` in
@@ -35,6 +35,21 @@ Offset = Union[int, torch.Tensor]
 # wins up to 4, the most rows it is compiled for (254 registers there).
 SPLIT_MAX_ROWS = 4
 SPLIT_STEP = 64           # keys a block of the split kernel takes a step
+
+# The bf16 kernel's two regimes, the same way: up to this many query rows
+# (every bf16 decode step, a verify pass of up to 15 drafted tokens) the
+# split kernel on mma.sync and the combine kernel, above it the mainloop.
+# At the end of a 131k buffer (`tools/time_attention.py --split`, NVIDIA
+# H100 80GB HBM3 at 700 W, graph replay) the split takes 0.688-0.692 ms at
+# 1 to 16 rows, the mainloop 1.138-1.161; at offset 8,000 0.0504-0.0529
+# against 0.0753-0.0761: the split wins up to 16, the most it is built
+# for (one m16 tile of query rows).
+SPLIT_MAX_ROWS_BF16 = 16
+# blocks of the bf16 split kernel resident on an SM (96 KB of stages
+# each; `kBf16BlocksPerSm` of the kernel), and the fewest keys a split
+# takes
+SPLIT_BLOCKS_PER_SM_BF16 = 2
+SPLIT_MIN_KEYS_BF16 = 256
 
 
 def _offsets(offset: Offset, B: int, device) -> torch.Tensor:
@@ -148,18 +163,41 @@ def attention_buffer_plain(q: torch.Tensor, k_buf: torch.Tensor,
     return y.transpose(1, 2).to(q.dtype).contiguous()
 
 
+def split_bounds(live: int, S: int) -> list:
+    """The S + 1 bounds of the split kernels' key ranges over a batch row
+    with `live` keys (min(offset + Lq, T)), as each block computes its own
+    from the offset on the device: ceil(live / S) rounded up to
+    SPLIT_STEP keys a range, range s = [bounds[s], bounds[s + 1]), the
+    ranges past the live prefix empty."""
+    live = max(live, 0)
+    chunk = -(-live // S)
+    chunk = -(-chunk // SPLIT_STEP) * SPLIT_STEP
+    return [min(s * chunk, live) for s in range(S + 1)]
+
+
 def attention_buffer_partials_plain(q: torch.Tensor, k_buf: torch.Tensor,
                                     v_buf: torch.Tensor, offset: Offset,
-                                    bounds: Sequence[int],
+                                    bounds: Sequence,
                                     ks: Optional[torch.Tensor] = None,
                                     vs: Optional[torch.Tensor] = None):
     """The partials of the split key range: for the S ranges
     [bounds[i], bounds[i + 1]) the online-softmax state of
     `_softmax_state`, as the split kernel writes it: m, l (B, H, Lq, S)
-    and acc (B, H, Lq, S, Dh), float32. A range wholly past a row's live
-    prefix gives m = -inf, l = 0, acc = 0."""
+    and acc (B, H, Lq, S, Dh), float32. `bounds` is one list of S + 1 ints
+    for every row, or one such list a batch row (the kernels' per-row
+    ranges: `split_bounds(min(offset[b] + Lq, T), S)`). A range wholly
+    past a row's live prefix gives m = -inf, l = 0, acc = 0."""
     _check_shapes(q, k_buf, v_buf, offset, ks, vs)
     off = _offsets(offset, q.shape[0], q.device)
+    if bounds and not isinstance(bounds[0], int):
+        if len(bounds) != q.shape[0]:
+            raise ValueError(f'{len(bounds)} lists of bounds for '
+                             f'{q.shape[0]} rows')
+        rows = [attention_buffer_partials_plain(
+            q[b:b + 1], k_buf[b:b + 1], v_buf[b:b + 1], off[b:b + 1], bb,
+            *(None if t is None else t[b:b + 1] for t in (ks, vs)))
+            for b, bb in enumerate(bounds)]
+        return tuple(torch.cat(t, dim=0) for t in zip(*rows))
     parts = [_softmax_state(q, k_buf, v_buf, off, ks, vs, lo, hi)
              for lo, hi in zip(bounds[:-1], bounds[1:])]
     m, l, acc = (torch.stack(t, dim=3) for t in zip(*parts))
@@ -208,13 +246,24 @@ def combine_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
 def key_splits(n_keys: int, n_heads: int, n_sms: int):
     """(chunk, S): the split of [0, n_keys) into S ranges of `chunk` keys
     (a multiple of the split kernel's 64-key step) for `n_heads` (batch,
-    head) pairs: about four blocks on each of `n_sms` SMs, and no more
-    ranges than n_keys / 512 rounded up."""
-    want = max(1, -(-4 * n_sms // n_heads))
+    head) pairs: at most four blocks on each of `n_sms` SMs, one wave of
+    the int8 split kernel at one row (four fit an SM; a fifth block an SM
+    would wait for a second wave), and no more ranges than n_keys / 512
+    rounded up."""
+    want = max(1, 4 * n_sms // n_heads)
     S = max(1, min(want, -(-n_keys // 512)))
     chunk = -(-n_keys // S)
     chunk = -(-chunk // SPLIT_STEP) * SPLIT_STEP
     return chunk, -(-n_keys // chunk)
+
+
+def key_splits_bf16(n_keys: int, n_heads: int, n_sms: int) -> int:
+    """S, the ranges of the bf16 split kernel over up to n_keys keys for
+    `n_heads` (batch, head) pairs: one wave of blocks,
+    SPLIT_BLOCKS_PER_SM_BF16 on each of `n_sms` SMs, and no more ranges
+    than n_keys / SPLIT_MIN_KEYS_BF16 rounded up."""
+    want = SPLIT_BLOCKS_PER_SM_BF16 * n_sms // n_heads
+    return max(1, min(want, -(-n_keys // SPLIT_MIN_KEYS_BF16)))
 
 
 def flash_attention_buffer(q: torch.Tensor, k_buf: torch.Tensor,
@@ -230,9 +279,13 @@ def flash_attention_buffer(q: torch.Tensor, k_buf: torch.Tensor,
     (B, Lq, H, Dh) in q.dtype.
 
     A CUDA tensor launches the kernel (or raises on what it does not
-    take): int8 buffers at up to SPLIT_MAX_ROWS query rows launch the
-    split kernel and the combine kernel, counted apart. A CPU tensor takes
-    the plain version."""
+    take): int8 buffers at up to SPLIT_MAX_ROWS query rows and bf16 ones
+    at up to SPLIT_MAX_ROWS_BF16 launch the split kernel and the combine
+    kernel, counted apart. The split's count S follows from the buffer
+    length T (from the live prefix for an int offset), B * H and the SM
+    count; each block sizes its range from the offsets on the device
+    (`split_bounds`), so a (B,) offset tensor is never read back. A CPU
+    tensor takes the plain version."""
     if not _build.check_device(q, 'flash_attention_buffer'):
         return attention_buffer_plain(q, k_buf, v_buf, offset, ks, vs)
     refuse('flash_attention_buffer', q, k_buf, v_buf)
@@ -267,7 +320,9 @@ def flash_attention_buffer(q: torch.Tensor, k_buf: torch.Tensor,
     if B * H > 65535:
         raise ValueError(f'buffer-attention kernel grid: B*H={B * H} > '
                          f'65535')
-    off = _offsets(offset, B, q.device)
+    per_row = isinstance(offset, torch.Tensor)
+    if per_row:
+        _offsets(offset, B, q.device)
     if not q.numel():
         return torch.empty_like(q, memory_format=torch.contiguous_format)
     scale = 1.0 / math.sqrt(Dh)
@@ -279,27 +334,33 @@ def flash_attention_buffer(q: torch.Tensor, k_buf: torch.Tensor,
                 raise ValueError('scales must be contiguous float32 on '
                                  "q's device")
         ptrs += (ks.data_ptr(), vs.data_ptr())
-    if quantized and Lq <= SPLIT_MAX_ROWS:
-        # keys past the live prefix need no block; with device offsets the
-        # prefix is not known here, and blocks past a row's end drop out
-        n_keys = min(T, offset + Lq) if isinstance(offset, int) else T
-        chunk, S = key_splits(n_keys, B * H, _build.sm_count(
-            q.device.index if q.device.index is not None
-            else torch.cuda.current_device()))
+    counter = ('flash_attention_buffer_q8' if quantized
+               else 'flash_attention_buffer')
+    if Lq <= (SPLIT_MAX_ROWS if quantized else SPLIT_MAX_ROWS_BF16):
+        # S from the buffer (device offsets: the prefix is not known here)
+        # or the live prefix; each block sizes its range on the device
+        n_keys = T if per_row else min(T, offset + Lq)
+        sms = _build.sm_count(q.device.index if q.device.index is not None
+                              else torch.cuda.current_device())
+        S = (key_splits(n_keys, B * H, sms)[1] if quantized
+             else key_splits_bf16(n_keys, B * H, sms))
         m = torch.empty((B, H, Lq, S), dtype=torch.float32, device=q.device)
         l = torch.empty_like(m)
         acc = torch.empty((B, H, Lq, S, Dh), dtype=torch.float32,
                           device=q.device)
-        _build.launch('evo_flash_attention_buffer_q8_split',
-                      'flash_attention_buffer_q8', *ptrs, off.data_ptr(),
-                      m.data_ptr(), l.data_ptr(), acc.data_ptr(), B, Lq, T,
-                      H, *strides, chunk, S, scale)
+        # an int offset goes to the kernel as a number: no (B,) tensor to
+        # fill, one launch less a call
+        _build.launch(('evo_flash_attention_buffer_q8_split' if quantized
+                       else 'evo_flash_attention_buffer_bf16_split'),
+                      counter, *ptrs, offset.data_ptr() if per_row else None,
+                      0 if per_row else int(offset), m.data_ptr(),
+                      l.data_ptr(), acc.data_ptr(), B, Lq, T, H, *strides,
+                      S, scale)
         return combine_partials(m, l, acc)
     o = torch.empty((B, Lq, H, Dh), dtype=q.dtype, device=q.device)
-    entry, counter = (
-        ('evo_flash_attention_buffer_q8', 'flash_attention_buffer_q8')
-        if quantized else
-        ('evo_flash_attention_buffer_bf16', 'flash_attention_buffer'))
-    _build.launch(entry, counter, *ptrs, off.data_ptr(), o.data_ptr(), B, Lq,
-                  T, H, *strides, scale)
+    entry = ('evo_flash_attention_buffer_q8' if quantized
+             else 'evo_flash_attention_buffer_bf16')
+    _build.launch(entry, counter, *ptrs,
+                  _offsets(offset, B, q.device).data_ptr(), o.data_ptr(), B,
+                  Lq, T, H, *strides, scale)
     return o

@@ -16,6 +16,15 @@ offset 122,880, and the ms a decode step at B=2 after a 512-token prompt
 with evo-1-8k-base (bf16 cache) and evo-1-131k-base under the int8 KV
 cache: the decode steps are host-bound, so they show what else moved.
 
+With --split instead, only the buffer kernels at few query rows, each
+beside SDPA over the live prefix and its bytes bound, by CUDA graph
+replay: kernel 4 at one row at offsets 8,191, 65,535 and 122,879 of a
+131,072-long bf16 buffer and at 4 and 9 rows at offset 8,000; kernel 5
+at one row at the same three offsets of an int8 buffer, with an int
+offset and with a (1,) device offset; and, where the checkout has the
+bf16 split (`SPLIT_MAX_ROWS_BF16`), kernel 4 at 1, 2, 4, 8, 9 and 16 rows
+at the end of the buffer and at offset 8,000 in both regimes.
+
 To compare two versions, run this once per checkout in turns (A, B, B, A)
 in one session on one card: the script imports `evo_tpu_torch` from
 --root, so an older checkout unpacked beside this one times its own
@@ -47,10 +56,106 @@ def time_ms(torch, fn, reps, warmup=1):
     return statistics.median(a.elapsed_time(b) for a, b in evs)
 
 
+def time_graph_ms(torch, fn, rounds=10):
+    """Device ms a call of fn, replayed from a CUDA graph of `rounds`
+    calls (for calls shorter than the host takes to launch them)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(rounds):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / rounds)
+    return statistics.median(times)
+
+
+def split_times(torch, dev, randn, out):
+    """The --split mode (see the top of the file)."""
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+    from evo_tpu_torch.layers.attention import kv_quantize
+    from evo_tpu_torch.ops import attention_buffer as ab
+    fab = ab.flash_attention_buffer
+    H, Dh, T = 32, 128, 131072
+    rate = 3.35e12                      # H100 SXM HBM3 bytes/s
+
+    def sdpa(q, kb, vb, o):
+        live = o + q.shape[1]
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, kb[:, :live],
+                                                 vb[:, :live]))
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=causal_lower_right(q.shape[1], live))
+
+    def graph_or_events(fn):
+        try:
+            return time_graph_ms(torch, fn)
+        except RuntimeError:
+            torch.cuda.synchronize()
+            return time_ms(torch, fn, reps=10)
+
+    kb, vb = randn(1, T, H, Dh), randn(1, T, H, Dh)
+    k4 = {}
+    for rows, o in ((1, 8191), (1, 65535), (1, 122879), (4, 8000),
+                    (9, 8000)):
+        q = randn(1, rows, H, Dh)
+        k4[f'rows={rows} offset={o}'] = dict(
+            ms=time_graph_ms(torch, lambda: fab(q, kb, vb, o)),
+            library_ms=graph_or_events(lambda: sdpa(q, kb, vb, o)),
+            bound_ms=1e3 * (2 * (o + rows) + 2 * rows) * H * Dh * 2 / rate)
+    out['kernel4'] = k4
+    if hasattr(ab, 'SPLIT_MAX_ROWS_BF16'):
+        regimes, keep = {}, ab.SPLIT_MAX_ROWS_BF16
+        for o_end in (True, False):
+            for rows in (1, 2, 4, 8, 9, 16):
+                o = T - rows if o_end else 8000
+                q = randn(1, rows, H, Dh)
+                e = dict(bound_ms=1e3 * (2 * (o + rows) + 2 * rows) * H * Dh
+                         * 2 / rate)
+                if rows <= keep:
+                    e['split_ms'] = time_graph_ms(
+                        torch, lambda: fab(q, kb, vb, o))
+                ab.SPLIT_MAX_ROWS_BF16 = 0
+                try:
+                    e['mainloop_ms'] = time_graph_ms(
+                        torch, lambda: fab(q, kb, vb, o))
+                finally:
+                    ab.SPLIT_MAX_ROWS_BF16 = keep
+                regimes[f'rows={rows} offset={o}'] = e
+        out['kernel4_regimes'] = regimes
+    (kq, ks), (vq, vs) = kv_quantize(kb), kv_quantize(vb)
+    del kb, vb
+    i8 = [t.transpose(1, 2).contiguous() for t in (kq, vq, ks, vs)]
+    del kq, ks, vq, vs
+    q1 = randn(1, 1, H, Dh)
+    k5 = {}
+    for o in (8191, 65535, 122879):
+        dev_off = torch.full((1,), o, dtype=torch.int32, device=dev)
+        k5[f'offset={o}'] = dict(
+            int_offset_ms=time_graph_ms(
+                torch, lambda: fab(q1, i8[0], i8[1], o, i8[2], i8[3])),
+            device_offset_ms=time_graph_ms(
+                torch, lambda: fab(q1, i8[0], i8[1], dev_off, i8[2],
+                                   i8[3])),
+            bound_ms=1e3 * 2 * H * (o + 1) * (Dh + 4) / rate)
+    out['kernel5'] = k5
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument('--root', required=True)
     ap.add_argument('--model', action='store_true')
+    ap.add_argument('--split', action='store_true',
+                    help='only the buffer kernels at few query rows')
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -73,6 +178,10 @@ def main():
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
         timeout=60).stdout.strip())
+    if args.split:
+        split_times(torch, dev, randn, out)
+        print(json.dumps(out), flush=True)
+        return 0
     H, Dh, L = 32, 128, 8192
     qkv = randn(1, L, 3, H, Dh)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]

@@ -7,13 +7,16 @@ GPU machine that has neither (tests/conftest.py imports JAX; skip it):
     python -m pytest tests/test_torch_cuda.py --noconftest -o addopts= -q
 """
 
+import collections
+
 import pytest
 import torch
 
 from evo_tpu_torch.layers.attention import kv_quantize
 from evo_tpu_torch.ops.attention import (attention_plain,
                                          flash_attention_causal)
-from evo_tpu_torch.ops.attention_buffer import (attention_buffer_plain,
+from evo_tpu_torch.ops.attention_buffer import (SPLIT_MAX_ROWS_BF16,
+                                                attention_buffer_plain,
                                                 flash_attention_buffer)
 from evo_tpu_torch.ops import _build
 from evo_tpu_torch.ops.fir_gate import fir_gate, fir_gate_plain
@@ -934,10 +937,112 @@ def test_buffer_kernels_one_row_per_row_offsets(randn, T, quantized):
     name = 'flash_attention_buffer_q8' if quantized else \
         'flash_attention_buffer'
     before = _build.LAUNCHES[name]
+    combines = _build.LAUNCHES['combine_partials']
     got = flash_attention_buffer(q, *args)
     torch.cuda.synchronize()
+    # the split kernel, then the combine kernel
     assert _build.LAUNCHES[name] == before + 1
+    assert _build.LAUNCHES['combine_partials'] == combines + 1
     assert _scaled_err(got, attention_buffer_plain(q, *args)) <= 2 ** -5
+
+
+# -- kernel 4 at 1-16 query rows: the bf16 split key range --------------------
+
+@pytest.mark.parametrize('B,Lq,T,offset', [
+    (1, 1, 1000, 999),           # one row at the last slot, T % 64 != 0
+    (2, 1, 777, (5, 776)),       # per-row offsets, one near 0, one near T
+    (1, 1, 4096, 4095),          # the live prefix ends on a split edge
+    (1, 1, 4096, 511),           # ... and on a 64-key tile's edge
+    (2, 1, 65536, (5, 60000)),   # most splits of row 0 past its prefix
+    (1, 2, 3000, 2000), (1, 4, 3000, 2000), (1, 8, 3000, 2000),
+    (1, 9, 8100, 8000),          # a g = 8 verify pass
+    (1, 16, 3000, 2000),         # the most rows of the split regime
+    (1, 16, 1000, 0),            # rows at the start: row r sees r + 1 keys
+    (2, 16, 1000, (100, 984)),   # per-row offsets, the second to the brim
+    (4, 9, 2048, (0, 17, 1919, 2039)),
+    (1, 1, 131072, 122879),      # a decode step late in a 131k run
+])
+def test_bf16_split_kernel(randn, B, Lq, T, offset):
+    """Kernel 4 at up to SPLIT_MAX_ROWS_BF16 rows: one launch of the split
+    kernel and one of the combine kernel, within 2^-5 scaled of the plain
+    version, and the same bits on a second run (fixed merge order, no
+    atomics)."""
+    assert Lq <= SPLIT_MAX_ROWS_BF16
+    q, args = _buffer_case(randn, B, Lq, T, offset, False)
+    before = collections.Counter(_build.LAUNCHES)
+    got = flash_attention_buffer(q, *args)
+    again = flash_attention_buffer(q, *args)
+    torch.cuda.synchronize()
+    ran = collections.Counter(_build.LAUNCHES)
+    ran.subtract(before)
+    assert +ran == {'flash_attention_buffer': 2, 'combine_partials': 2}
+    assert got.is_contiguous() and got.shape == q.shape
+    assert torch.equal(got, again)
+    assert _scaled_err(got, attention_buffer_plain(q, *args)) <= 2 ** -5
+
+
+@pytest.mark.parametrize('Lq,offset', [(1, (512, 530)), (9, (100, 900)),
+                                       (16, (0, 1000))])
+@pytest.mark.parametrize('quantized', [False, True])
+def test_split_kernels_read_strided_views(randn, Lq, offset, quantized):
+    """A tp = 2 rank's 16 heads as the Ulysses all-to-all leaves them:
+    views of 32-head tensors (head stride 128, position stride 4,096),
+    through both split kernels (kernel 5 where it splits)."""
+    T, H = 1024, 16
+    q = randn(2, Lq, 2 * H, 128)[:, :, H:]
+    kb, vb = (randn(2, T, 2 * H, 128)[:, :, :H] for _ in range(2))
+    off = torch.tensor(offset, dtype=torch.int32, device='cuda')
+    if quantized:
+        (kq, ks), (vq, vs) = kv_quantize(kb), kv_quantize(vb)
+        args = (kq.transpose(1, 2), vq.transpose(1, 2), off,
+                ks.transpose(1, 2).contiguous(),
+                vs.transpose(1, 2).contiguous())
+    else:
+        args = (kb, vb, off)
+    assert not q.is_contiguous() and not args[0].is_contiguous()
+    got = flash_attention_buffer(q, *args)
+    torch.cuda.synchronize()
+    assert _scaled_err(got, attention_buffer_plain(q, *args)) <= 2 ** -5
+
+
+def test_bf16_split_in_a_cuda_graph(randn):
+    """The split's grid follows the buffer, not the offsets: one captured
+    decode attention replays at other device offsets, each replay within
+    2^-5 scaled of the plain version."""
+    B, T = 2, 4096
+    q, kb, vb = randn(B, 1, 32, 128), randn(B, T, 32, 128), randn(
+        B, T, 32, 128)
+    off = torch.tensor([5, 100], dtype=torch.int32, device='cuda')
+    flash_attention_buffer(q, kb, vb, off)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_attention_buffer(q, kb, vb, off)
+    for offsets in ((5, 100), (4095, 0), (2000, 3071), (63, 64)):
+        off.copy_(torch.tensor(offsets, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _scaled_err(out, attention_buffer_plain(q, kb, vb, off)) \
+            <= 2 ** -5, offsets
+
+
+@pytest.mark.parametrize('quantized', [False, True])
+def test_split_sized_on_the_device_over_a_long_cache(randn, quantized):
+    """Both splits at one row over 8,192 live keys of a 131,072-slot cache:
+    with a (1,) device offset the wrapper sizes S from the whole buffer
+    and each block its range from the offset; with an int offset, S from
+    the live prefix. Here the two give the same ranges (and an empty one
+    more from the device offset), so the same bits, and the plain
+    version's result within 2^-5 scaled."""
+    q, args = _buffer_case(randn, 1, 1, 131072, 8191, quantized)
+    dev_off = torch.tensor([8191], dtype=torch.int32, device='cuda')
+    on_device = flash_attention_buffer(
+        q, *args[:2], dev_off, *args[3:])
+    as_int = flash_attention_buffer(q, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(on_device, as_int)
+    assert _scaled_err(on_device, attention_buffer_plain(q, *args)) \
+        <= 2 ** -5
 
 
 @pytest.mark.parametrize('quantized', [False, True])
@@ -1136,6 +1241,8 @@ def test_greedy_speculative_on_the_card(gamma, kv_quant):
             want['flash_attention'] = n_attn
         elif kv_quant == 'none':
             want['flash_attention_buffer'] = n_attn
+            if L <= SPLIT_MAX_ROWS_BF16:
+                want['combine_partials'] = n_attn
         else:
             want['flash_attention_buffer_q8'] = n_attn
             if L <= 4:
