@@ -48,9 +48,11 @@ for an H100: the kernels target sm_90a). It
      autograd Function at 1, 2 and 128 rows, its gradient of x against
      the plain version's (1e-4 scaled), forward and backward timed; and
      kernel 8's other modes, 'block' (its kBlock instance, 1e-4 scaled)
-     and 'dots8' (`csrc/int4_dots8.cu`, bit-equal), at 1 to 128 rows on
-     every int4 weight shape of a layer, timed at 4096 x 12288 by graph
-     replay in turns with 'unroll' and torch._weight_int4pack_mm;
+     and 'dots8' (`csrc/int4_dots8.cu`, bit-equal: the int8 tensor
+     cores above `ops/int4.DOTS8_STREAM_MAX` rows, dp4a at or below), at 1
+     to 128 rows on every int4 weight shape of a layer, timed at 4096 x
+     12288 by graph replay at 1 to 128 rows in turns with 'unroll' and
+     torch._weight_int4pack_mm, with the design each row count takes;
   3. checks the whole port on a small bf16 model against the same model's
      plain PyTorch path on the CPU;
   4. scores with evo-1-8k-base at full width (32 layers, D=4096, random
@@ -204,7 +206,7 @@ for an H100: the kernels target sm_90a). It
      kernels 4 / 5 three
      times a step over a 16-head cache, and teacher forcing with the
      single process's tokens within its one-rounding yardstick (4x for
-     int8); (c) evo-1-131k-base, 16,384 nt in segments of 8,192 (a fresh
+     int8); (c) evo-1-131k-base, 10,240 nt in segments of 8,192 (a fresh
      first segment of 8,193, padded inside the model) within 1e-2 of the
      single process's score; (d) `cli.score --cp 2` over the first 4
      sequences of phase 21's FASTA within 1e-2 of the single-process
@@ -240,7 +242,7 @@ for an H100: the kernels target sm_90a). It
      (seed 20) at full width: (a) full fine-tuning, a window of L =
      2,048, 1 step under Ulysses, and a ragged L = 2,049 under Ulysses
      with remat (1 step), each leg from the seed's weights; (b) LoRA rank
-     8 on the seven targets at L = 8,192 with remat, 2 steps under
+     8 on the seven targets at L = 4,096 with remat, 2 steps under
      Ulysses, 1 under 'ring' and 1 under 'zigzag' (every leg but one
      under LoRA, whose gradient sum is small: a full step's took 9-20 s
      through gloo).
@@ -1638,27 +1640,45 @@ def int4_grad_checks(torch, log, kernels, randn, peak, int4_case,
 # to bf16 before its product and sums in float32 in another order than its
 # plain version: 1e-4 of the larger of the value and its row's rms, kernel
 # 8's own limit. 'dots8' takes exact integer dots and its plain version
-# adds their scaled float32 sums in the kernel's order: bit-equal (the
-# stated limit had the order differed: 1e-6 scaled).
+# adds their scaled float32 sums in the kernel's order (the order of the
+# design the row count takes): bit-equal (the stated limit had the order
+# differed: 1e-6 scaled).
+DOTS8_TIMED_ROWS = (1, 2, 4, 8, 9, 16, 32, 64, 128)
+
+
 def int4_mode_checks(torch, log, kernels, peak, int4_case, layer_calls,
                      tinygemm, int4_matmul, unroll_plain, block_plain,
                      dots8_plain):
-    """Both modes against their plain versions at M = 1, 2, 4, 9 and 128 on
-    every int4 weight shape of a layer (and two ragged ones), bit-equal run
-    to run, the bf16 output the float32 one rounded; then timed by graph
-    replay over cold weights at 4096 x 12288 in turns with 'unroll' and
-    tinygemm, in the same calls; their rows of the kernels line. Returns
-    the launches of each mode's stand-in main-path call (M = 1 at 4096 x
-    12288), counted from 0: no model path calls either mode."""
+    """Both modes against their plain versions at M = 1, 2, 4, 9 and 128
+    (and 'dots8' also at 3, 16, 33 and 65, the edges of its wgmma
+    instances) on every int4 weight shape of a layer and two ragged ones,
+    bit-equal run to run, the bf16 output the float32 one rounded; then
+    timed by graph replay over cold weights at 4096 x 12288 in turns with
+    'unroll' and tinygemm, in the same calls ('dots8' at 1-128 rows,
+    `DOTS8_TIMED_ROWS`, 'block' at 1, 2, 4, 9 and 128), with the design
+    each row count of 'dots8' takes; their rows of the kernels line.
+    Returns the launches of each mode's stand-in main-path calls (M = 1 and
+    9 at 4096 x 12288: both designs of each), counted from 0: no model
+    path calls either mode."""
     from evo_tpu_torch.ops import _build
+    from evo_tpu_torch.ops import int4 as int4_mod
     plains = {'block': block_plain, 'dots8': dots8_plain}
     errs = {m: [0.0, 0.0] for m in plains}
+    # the cases of the earlier runs draw from `int4_case`'s generator as
+    # they did, the others from one of their own: every later phase's
+    # inputs (and phase 5's yardstick) stay as they were
+    g22 = torch.Generator(device='cuda').manual_seed(22)
+    earlier = (1, 2, 4, 9, 128)
     for M, K, Kp, N in ([(M, K, Kp, N) for K, Kp, N in layer_calls
-                         for M in (1, 2, 4, 9, 128)]
+                         for M in (1, 2, 3, 4, 9, 16, 33, 65, 128)]
                         + [(5, 500, 512, 1001), (3, 130, 256, 40)]):
-        x, packed, sc = int4_case(M, Kp, N)
+        x, packed, sc = int4_case(
+            M, Kp, N, None if M in earlier or Kp < 4096 else g22)
         x = x[:, :K].contiguous()
         for mode, plain in plains.items():
+            if mode == 'block' and M in (3, 16, 33, 65) and \
+                    (K, Kp, N) in layer_calls:
+                continue        # the edges of dots8's wgmma instances
             got = int4_matmul(x, packed, sc, mode=mode)
             again = int4_matmul(x, packed, sc, mode=mode)
             got16 = int4_matmul(x, packed, sc, torch.bfloat16, mode=mode)
@@ -1684,10 +1704,17 @@ def int4_mode_checks(torch, log, kernels, peak, int4_case, layer_calls,
         return 1e3 * max(t_ops, t_bytes), (
             'operations' if t_ops > t_bytes else 'bytes')
 
+    def dots8_design(M):
+        if M <= int4_mod.DOTS8_STREAM_MAX:
+            return 'streaming, dp4a'
+        n = int4_mod.mma_plan(M, Kp, N, _build.sm_count(
+            torch.cuda.current_device()))[0]
+        return f'int8 wgmma, n = {n}'
+
     by_rows = {}
-    for M in (1, 2, 4, 9, 128):
-        ws = [int4_case(M, Kp, N) for _ in range(int(110e6 // (Kp // 2 * N))
-                                                  + 1)]
+    for M in DOTS8_TIMED_ROWS:
+        ws = [int4_case(M, Kp, N, None if M in earlier else g22)
+              for _ in range(int(110e6 // (Kp // 2 * N)) + 1)]
         tg = [tinygemm(p, s) for _x, p, s in ws]
 
         def calls(name):
@@ -1696,28 +1723,36 @@ def int4_mode_checks(torch, log, kernels, peak, int4_case, layer_calls,
                     x, t[0], 128, t[1])) for (x, _p, _s), t in zip(ws, tg)]
             return [(lambda c=c: int4_matmul(*c, torch.bfloat16, mode=name))
                     for c in ws]
+        turns = ('unroll', 'block', 'dots8', 'library', 'library', 'dots8',
+                 'block', 'unroll')
+        if M not in (1, 2, 4, 9, 128):
+            turns = tuple(t for t in turns if t != 'block')
         times = collections.defaultdict(list)
-        for name in ('unroll', 'block', 'dots8', 'library', 'library',
-                     'dots8', 'block', 'unroll'):
+        for name in turns:
             times[name].append(time_graph_ms(torch, calls(name)))
         row = {name: t for name, t in times.items()}
         for mode, plain in plains.items():
+            if mode not in row:
+                continue
             row[f'{mode}_plain_ms'] = time_ms(torch, lambda: plain(
                 *ws[0], torch.bfloat16), reps=3, warmup=1)
             row[f'{mode}_bound'] = bound(mode, M)
+        row['dots8_design'] = dots8_design(M)
         by_rows[M] = row
         del ws, tg
     log(f'   int4_matmul modes at 4096 x 12288 by rows (graph replay ms, in '
-        f'turns; library: torch._weight_int4pack_mm): {by_rows}')
+        f'turns; library: torch._weight_int4pack_mm; dots8_design: the '
+        f'design that row count of dots8 takes): {by_rows}')
 
     launches = {}
-    x, packed, sc = int4_case(1, Kp, N)
+    calls = [int4_case(1, Kp, N), int4_case(9, Kp, N, g22)]
     for mode in plains:
         _build.LAUNCHES.clear()
-        int4_matmul(x, packed, sc, torch.bfloat16, mode=mode)
+        for c in calls:
+            int4_matmul(*c, torch.bfloat16, mode=mode)
         torch.cuda.synchronize()
         launches[f'int4_{mode}_call'] = dict(_build.LAUNCHES)
-        check(launches[f'int4_{mode}_call'] == {f'int4_matmul_{mode}': 1},
+        check(launches[f'int4_{mode}_call'] == {f'int4_matmul_{mode}': 2},
               f'launches {launches[f"int4_{mode}_call"]}')
         row = by_rows[1]
         bound_ms, bound_by = row[f'{mode}_bound']
@@ -1737,11 +1772,16 @@ def int4_mode_checks(torch, log, kernels, peak, int4_case, layer_calls,
                              tinygemm_ms=r['library'],
                              plain_ms=r[f'{mode}_plain_ms'],
                              bound_ms=r[f'{mode}_bound'][0],
-                             bound_by=r[f'{mode}_bound'][1])
-                     for M, r in by_rows.items()},
+                             bound_by=r[f'{mode}_bound'][1],
+                             **({'design': r['dots8_design']}
+                                if mode == 'dots8' else {}))
+                     for M, r in by_rows.items() if mode in r},
             shape='x (1, 4096) bf16, packed (2048, 12288) int8, scales '
-                  '(32, 12288) fp32 -> y bf16 (by_rows: M = 1, 2, 4, 9, 128, '
-                  'each time graph replay in turns, twice)')
+                  '(32, 12288) fp32 -> y bf16 (by_rows: M = '
+                  + ', '.join(str(M) for M, r in by_rows.items()
+                              if mode in r)
+                  + ', each time graph replay in turns, twice; launches: '
+                    'M = 1 and 9)')
     return launches
 
 
@@ -1993,7 +2033,7 @@ def phase22_context_parallel(torch, np, smi, launches, ref21, model, tok,
     env = dict(os.environ, PYTHONPATH=ROOT)
     floor = ref21['floor']
     rng = np.random.default_rng(22)
-    long_seq = ''.join(rng.choice(list('ACGT'), 16384))
+    long_seq = ''.join(rng.choice(list('ACGT'), 10240))
     t = time.time()
     long_score = score_sequences_segmented([long_seq], model, tok,
                                            segment_len=8192)[0]
@@ -2004,7 +2044,7 @@ def phase22_context_parallel(torch, np, smi, launches, ref21, model, tok,
     torch.save(inp, path)
     log(f'== 22. context parallelism ({smi}): 2 ranks on one card as one '
         f'cp = 2 mesh, torch.distributed backend gloo (passed explicitly); '
-        f'the single process scores 16,384 nt with evo-1-131k-base in '
+        f'the single process scores 10,240 nt with evo-1-131k-base in '
         f'segments of 8,192 in {long_single_s:.2f} s: {long_score:.6f}')
 
     def run(argv, tag):
@@ -2028,8 +2068,8 @@ def phase22_context_parallel(torch, np, smi, launches, ref21, model, tok,
     want_gen8 = {'rmsnorm': 65 * n_new, 'fir_gate': 29, 'flash_attention': 3,
                  'flash_attention_buffer_q8': 3 * (n_new - 1),
                  'combine_partials': 3 * (n_new - 1)}
-    # 16,385 tokens with the BOS: a fresh segment of 8,193 (padded to
-    # 8,194 for cp = 2) and a resumed one of 8,192
+    # 10,241 tokens with the BOS: a fresh segment of 8,193 (padded to
+    # 8,194 for cp = 2) and a resumed one of 2,048
     want_long = {'rmsnorm': 65 * 2, 'fir_gate': 29 * 2, 'flash_attention': 3,
                  'flash_attention_buffer': 3}
     for r, m in enumerate(ranks):
@@ -2083,7 +2123,7 @@ def phase22_context_parallel(torch, np, smi, launches, ref21, model, tok,
             check(g['tokens_equal_across_ranks'],
                   f'cp {label}: the ranks\' tokens differ')
         c = m['long']
-        log(f'   (c) rank {r}: evo-1-131k-base 16,384 nt in segments of '
+        log(f'   (c) rank {r}: evo-1-131k-base 10,240 nt in segments of '
             f'8,192: {c["score"]:.6f} in {c["seconds"]:.2f} s (single '
             f'process {long_score:.6f} in {long_single_s:.2f} s; '
             f'difference {c["diff"]:.3e}, limit 1e-2), each collective '
@@ -2111,7 +2151,7 @@ def phase22_context_parallel(torch, np, smi, launches, ref21, model, tok,
         launches[f'cp2_forward_{mode}_2048'] = f['launches']
     launches['cp2_generate'] = m['generate']['bf16']['launches']
     launches['cp2_generate_int8'] = m['generate']['int8']['launches']
-    launches['cp2_score_segmented_16k'] = m['long']['launches']
+    launches['cp2_score_segmented_10k'] = m['long']['launches']
 
     # (d) the score CLI under --cp 2 over the first 4 sequences of phase
     # 21's FASTA, one batch
@@ -2490,8 +2530,8 @@ def phase23_cli(torch, np, inp, res23, d):
 
 
 def cp_kernel_grads(torch, kernels, smi):
-    """Kernels 1-3 under autograd at the shapes a cp = 2 rank of phase
-    24's LoRA legs gives them (L = 8,192 over two ranks): kernel 1 on the
+    """Kernels 1-3 under autograd at the shapes a cp = 2 rank gives them
+    at L = 8,192 (twice phase 24's LoRA window): kernel 1 on the
     rank's 4,096 rows; kernel 2 on the all-to-all's received buffer (1,
     8192, 3, 2048), C/cp channels over the whole L, read in place; kernel 3
     at H/cp = 16 heads over the whole L, q, k and v as views of the

@@ -86,13 +86,10 @@
 // 'block' costs a multiply and a rounding to bf16 a weight more in both
 // designs (in registers), and drops the scale from each group's sum.
 
-#include <algorithm>
 #include <cstdint>
-#include <cstring>
-#include <mutex>
-#include <type_traits>
 
 #include "common.cuh"
+#include "int4_sm90.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -100,16 +97,11 @@ namespace {
 using evo::cp_async16_zfill;
 using evo::cp_async_commit;
 using evo::cp_async_wait;
-
-constexpr int kBK = 128;  // byte rows a step = one scale group a nibble
-
-__device__ __forceinline__ void store_y(void* y, bool out_bf16, int64_t i,
-                                        float v) {
-  if (out_bf16)
-    static_cast<__nv_bfloat16*>(y)[i] = __float2bfloat16_rn(v);
-  else
-    static_cast<float*>(y)[i] = v;
-}
+using evo_int4::kBK;
+using evo_int4::store_cols;
+using evo_int4::store_y;
+using evo_int4::unit_block;
+using evo_int4::unit_start;
 
 // ---- M <= 2 -------------------------------------------------------------
 
@@ -433,7 +425,7 @@ struct MmaLayout {
   static constexpr int kBN = 2 * kTM * 64;
   static constexpr int kAtom = NI * 128;
   static constexpr int kXBytes = 4 * kAtom;
-  static constexpr int kBox = kBK * 128;  // a box of byte rows
+  static constexpr int kBox = evo_int4::kBox;  // a box of byte rows
   static constexpr int kWBytes = kBN / 128 * kBox;
   static constexpr int kScales = kXBytes + kWBytes;  // offset
   static constexpr int kStageBytes =
@@ -441,9 +433,9 @@ struct MmaLayout {
   static constexpr int kSmem = kStages * kStageBytes + 1024;
 };
 
-constexpr int kMmaProducers = 128;  // one warpgroup
-constexpr int kMmaConsumers = 256;  // two warpgroups
-constexpr int kMmaThreads = kMmaProducers + kMmaConsumers;
+constexpr int kMmaProducers = evo_int4::kProducers;
+constexpr int kMmaConsumers = evo_int4::kConsumers;
+constexpr int kMmaThreads = evo_int4::kThreads;
 
 // fence_regs for the accumulators and fragments of one warpgroup
 template <int A, int B>
@@ -536,99 +528,6 @@ __device__ __forceinline__ void issue_slabs(float (&d)[TM][NI / 2],
   }
 }
 
-// 2 TM values of one row of y (or of a block's part) at consecutive
-// elements from `at`; `valid` of them exist; `vec`: one vector store
-template <int TM>
-__device__ __forceinline__ void store_cols(void* out, bool bf16, int64_t at,
-                                           const float* v, int valid,
-                                           bool vec) {
-  if (vec && valid >= 2 * TM) {
-    if (bf16) {
-      if constexpr (TM == 1)
-        *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(out) + at) =
-            evo::pack_bf16(v[0], v[1]);
-      else
-        *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(out) + at) =
-            make_uint2(evo::pack_bf16(v[0], v[1]),
-                       evo::pack_bf16(v[2], v[3]));
-    } else {
-      if constexpr (TM == 1)
-        *reinterpret_cast<float2*>(static_cast<float*>(out) + at) =
-            make_float2(v[0], v[1]);
-      else
-        *reinterpret_cast<float4*>(static_cast<float*>(out) + at) =
-            make_float4(v[0], v[1], v[2], v[3]);
-    }
-    return;
-  }
-#pragma unroll
-  for (int e = 0; e < 2 * TM; ++e)
-    if (e < valid) store_y(out, bf16, at + e, v[e]);
-}
-
-// The tile's last contributor: y[m, n0..n0 + bn) = the `parts` parts
-// added in order, V columns a load (V = 4 needs N % 4 == 0); a thread
-// keeps kU groups of V columns and four parts of each in flight
-template <int V>
-__device__ __forceinline__ void combine_parts(const float* part, void* y,
-                                              bool bf16, int M, int N,
-                                              int n0, int bn, int parts,
-                                              int ctid) {
-  constexpr int kU = 4, kAhead = 4;
-  using Vec = typename std::conditional<V == 4, float4, float>::type;
-  const int nv = M * (bn / V);
-  for (int i0 = ctid; i0 < nv; i0 += kU * kMmaConsumers) {
-    float v[kU][V];
-    int64_t at[kU];
-    bool live[kU];
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      const int i = i0 + u * kMmaConsumers;
-      const int m = i / (bn / V), c = n0 + (i % (bn / V)) * V;
-      live[u] = i < nv && c < N;
-      at[u] = (int64_t)m * N + c;
-    }
-    for (int s0 = 0; s0 < parts; s0 += kAhead) {
-      Vec ps[kAhead][kU];
-#pragma unroll
-      for (int a = 0; a < kAhead; ++a)
-#pragma unroll
-        for (int u = 0; u < kU; ++u) {
-          const bool on = live[u] && s0 + a < parts;
-          const Vec* src = reinterpret_cast<const Vec*>(
-              part + (int64_t)(s0 + a) * M * N + at[u]);
-          ps[a][u] = on ? __ldcg(src) : Vec{};
-        }
-#pragma unroll
-      for (int a = 0; a < kAhead; ++a)
-#pragma unroll
-        for (int u = 0; u < kU; ++u) {
-          const float* p = reinterpret_cast<const float*>(&ps[a][u]);
-#pragma unroll
-          for (int e = 0; e < V; ++e)
-            if (s0 + a < parts)
-              v[u][e] = s0 + a == 0 ? p[e] : __fadd_rn(v[u][e], p[e]);
-        }
-    }
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      if (!live[u]) continue;
-      if constexpr (V == 4)
-        store_cols<2>(y, bf16, at[u], v[u], 4, true);
-      else
-        store_y(y, bf16, at[u], v[u][0]);
-    }
-  }
-}
-
-// The first unit of block b of G over U units, and the block of unit u
-__host__ __device__ __forceinline__ int unit_start(int b, int U, int G) {
-  return (int)((int64_t)b * U / G);
-}
-__host__ __device__ __forceinline__ int unit_block(int u, int U, int G) {
-  return (int)(((int64_t)(u + 1) * G + U - 1) / U) - 1;
-}
-
 // Block b of G takes the units [b U / G, (b + 1) U / G) of the U = tiles x
 // T units (column tile, step), tile by tile: a run of a tile's steps is a
 // segment. A segment that is the whole tile writes y; else it writes its
@@ -698,22 +597,8 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
         if (!tma_w) {
           // byte rows 128 t.. in the swizzled boxes, and the scales of
           // groups t and T + t (zeros past N), by every producer thread
-          const int8_t* const src = packed + (int64_t)t * kBK * N + n0;
-          for (int i = tid; i < kBK * (BN / 16); i += kMmaProducers) {
-            const int r = i / (BN / 16), c = i % (BN / 16);
-            uint32_t w[4] = {0u, 0u, 0u, 0u};
-            for (int b = 0; b < 16 && n0 + 16 * c + b < N; ++b)
-              w[b >> 2] |= (uint32_t)(uint8_t)src[(int64_t)r * N + 16 * c + b]
-                           << (8 * (b & 3));
-            *reinterpret_cast<uint4*>(wd + (c >> 3) * Lay::kBox + r * 128 +
-                                      (((c & 7) ^ (r & 7)) << 4)) =
-                make_uint4(w[0], w[1], w[2], w[3]);
-          }
-          for (int i = tid; i < 2 * BN; i += kMmaProducers) {
-            const int h = i / BN, c = n0 + i % BN;
-            sd[i] = c < N ? scales[(int64_t)(h ? T + t : t) * N + c] : 0.f;
-          }
-          asm volatile("bar.sync 2, %0;\n" ::"n"(kMmaProducers) : "memory");
+          evo_int4::copy_step<kMmaProducers>(wd, sd, packed, scales, t, T,
+                                             N, n0, BN, tid);
           if (tid) continue;
         }
         evo_sm90::mbar_expect_tx(
@@ -915,55 +800,12 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
     __threadfence();  // this block's own part, for the loads below
     asm volatile("bar.sync 1, %0;\n" ::"n"(kMmaConsumers) : "memory");
     if (N % 4 == 0)
-      combine_parts<4>(part, y, out_bf16 != 0, M, N, tile * BN, BN, parts,
-                       ctid);
+      evo_int4::combine_parts<4>(part, y, out_bf16 != 0, M, N, tile * BN, BN,
+                                 parts, nullptr, ctid);
     else
-      combine_parts<1>(part, y, out_bf16 != 0, M, N, tile * BN, BN, parts,
-                       ctid);
+      evo_int4::combine_parts<1>(part, y, out_bf16 != 0, M, N, tile * BN, BN,
+                                 parts, nullptr, ctid);
   }
-}
-
-// Tensor maps encoded once a (pointer, shape, box) and kept: a map is a
-// function of those alone, a weight is read by every call, and the
-// caching allocator hands x's few shapes the same addresses again
-struct MapCache {
-  struct Entry {
-    const void* p = nullptr;
-    int key[5] = {0, 0, 0, 0, 0};  // rows, cols, esize, box
-    CUtensorMap map;
-  };
-  static constexpr int kSlots = 2048;
-  std::mutex mu;
-  Entry slots[kSlots];
-};
-
-// rows x cols of `type` (`esize` bytes an element) at p (row stride cols),
-// boxes of box_cols x box_rows, under `swizzle` (the type and swizzle
-// follow from esize at every call)
-CUresult cached_map(CUtensorMap* out, const void* p, int rows, int cols,
-                    CUtensorMapDataType type, int esize, int box_cols,
-                    int box_rows, CUtensorMapSwizzle swizzle) {
-  static MapCache cache;
-  const int key[5] = {rows, cols, esize, box_cols, box_rows};
-  uint64_t h = (uintptr_t)p >> 4;
-  for (int k : key) h = (h ^ (uint64_t)k) * 0x9e3779b97f4a7c15ull;
-  MapCache::Entry& e = cache.slots[(h >> 32) % MapCache::kSlots];
-  std::lock_guard<std::mutex> lock(cache.mu);
-  if (e.p != p || memcmp(e.key, key, sizeof(key)) != 0) {
-    const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-    const cuuint64_t strides[1] = {(cuuint64_t)cols * esize};
-    const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-    const CUresult r =
-        evo_sm90::encode(&e.map, type, 2, p, dims, strides, box, swizzle);
-    if (r != CUDA_SUCCESS) {
-      e.p = nullptr;
-      return r;
-    }
-    e.p = p;
-    memcpy(e.key, key, sizeof(key));
-  }
-  *out = e.map;
-  return CUDA_SUCCESS;
 }
 
 template <int NI, bool kBlock>
@@ -981,24 +823,16 @@ int launch_mma(const void* x, const void* packed, const void* scales,
   }
   // x's slices as 64-column atoms of NI rows (zeros past K and M)
   CUtensorMap xm, wm, sm;
-  CUresult r = cached_map(&xm, x, M, K, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                          64, NI, CU_TENSOR_MAP_SWIZZLE_128B);
+  CUresult r = evo_int4::cached_map(&xm, x, M, K,
+                                    CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 64,
+                                    NI, CU_TENSOR_MAP_SWIZZLE_128B);
   if (r != CUDA_SUCCESS) return evo_sm90::kEncodeError + (int)r;
   // byte rows in 128 x 128 boxes, the scales a row of kBN: TMA takes
   // 16-byte aligned rows
-  const int tma_w = N % 16 == 0 && (uintptr_t)packed % 16 == 0 &&
-                    (uintptr_t)scales % 16 == 0;
-  memset(&wm, 0, sizeof(wm));
-  memset(&sm, 0, sizeof(sm));
-  if (tma_w) {
-    r = cached_map(&wm, packed, Kp / 2, N, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1,
-                   128, kBK, CU_TENSOR_MAP_SWIZZLE_128B);
-    if (r == CUDA_SUCCESS)
-      r = cached_map(&sm, scales, Kp / 128, N,
-                     CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, Lay::kBN, 1,
-                     CU_TENSOR_MAP_SWIZZLE_NONE);
-    if (r != CUDA_SUCCESS) return evo_sm90::kEncodeError + (int)r;
-  }
+  int tma_w = 0;
+  r = evo_int4::weight_maps(&wm, &sm, packed, scales, Kp, N, Lay::kBN,
+                            &tma_w);
+  if (r != CUDA_SUCCESS) return evo_sm90::kEncodeError + (int)r;
   auto kernel = int4_mma_kernel<NI, kBlock>;
   static uint64_t configured = 0;  // a bit a device
   int dev = 0;

@@ -2,8 +2,8 @@
 // with TMA and multiply them with wgmma: shared-memory barriers
 // (mbarrier), TMA loads and stores, wgmma descriptors, fences and
 // products, and the host-side encoding of TMA tensor maps. Included by
-// `flash_sm90.cuh` (kernels 3, 4 and 5), `mlp_gate.cu` (kernel 9) and
-// `int4_matmul.cu` (kernel 8 at 5-128 rows).
+// `flash_sm90.cuh` (kernels 3, 4 and 5), `mlp_gate.cu` (kernel 9),
+// `int4_matmul.cu` (kernel 8 at 3-128 rows) and `int4_dots8.cu` ('dots8').
 #pragma once
 
 #include <cuda.h>
@@ -331,6 +331,75 @@ struct WgmmaRsK<128> {
           "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
           "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
+// d (64 x N s32) (+)= A (64 x 32 s8, registers) B (32 x N s8, smem,
+// K-major, the only layout of 8-bit B); d is overwritten when `scale_d` is
+// 0. The integer products and sums are exact. One instance a width N: 16,
+// 32, 64 ('dots8''s x rows; 128 as two of 64).
+template <int N>
+struct WgmmaRsS8;
+
+template <>
+struct WgmmaRsS8<16> {
+  static __device__ __forceinline__ void run(int (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaRsS8<32> {
+  static __device__ __forceinline__ void run(int (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+          "+r"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaRsS8<64> {
+  static __device__ __forceinline__ void run(int (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+          "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+          "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
   }
 };

@@ -76,8 +76,9 @@ _SIGNATURES = {
     # (x, packed, scales, y, partials, tickets, M, K, Kp, N, bf16 output,
     # streaming design, 'block' mode, blocks of the wgmma design, stream)
     'evo_int4_matmul_bf16': (*(_P,) * 6, *(_I,) * 8, _P),
-    # (x, packed, scales, y, xq, xs, partials, tickets, M, K, Kp, N, rows a
-    # block, steps a block, bf16 output, stream)
+    # (x, packed, scales, y, xq, xs, partials, tickets, M, K, Kp, N, steps
+    # a block of the streaming design, blocks of the wgmma design, bf16
+    # output, stream)
     'evo_int4_dots8_bf16': (*(_P,) * 8, *(_I,) * 7, _P),
     # (zl, fir_w, fir_b, b_in, poles, residues, d_skip, fir0, st0, y, iir,
     # B, C, L, Ct, S, KF, stream)

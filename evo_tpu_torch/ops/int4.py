@@ -30,7 +30,13 @@ and no backward (they refuse a tensor that requires grad):
            1e-12; codes rounded half to even, clipped to +-127), exact
            integer dots with the int4 codes a scale group at a time, the
            group scales and then the row scale applied in float32
-           (`csrc/int4_dots8.cu`; counter `int4_matmul_dots8`).
+           (`csrc/int4_dots8.cu`; counter `int4_matmul_dots8`): a launch
+           that quantizes x, then the products, on the int8 tensor cores
+           above `DOTS8_STREAM_MAX` rows (`wgmma` s8 x s8 -> s32 on
+           `mma_plan`'s persistent blocks, each nibble a signed byte of 16 q
+           in registers) and by dp4a in a streaming design at or below it.
+           Its plain version adds the float32 sums in the order of the
+           design the row count takes, so the two are bit-equal.
 """
 
 from __future__ import annotations
@@ -53,6 +59,10 @@ M_MAX = 128
 # the faster one from 3 rows on at each of evo-1's weight shapes (PERF.md,
 # kernel 8)
 GEMV_M_MAX = 2
+# 'dots8' streams the weight with dp4a up to this many rows; more rows take
+# its int8 wgmma design, the faster one from 2 rows on at 4096 x 12288
+# (PERF.md, kernel 8c)
+DOTS8_STREAM_MAX = 1
 # the SMs of the card the CPU tests plan for (H100 SXM); on a card the
 # wrapper asks the device
 SMS = 132
@@ -137,12 +147,29 @@ def _tickets(device, tiles: int) -> torch.Tensor:
 _WORKSPACE: dict = {}
 
 
-def _workspace(device, numel: int) -> torch.Tensor:
-    held = _WORKSPACE.setdefault(device, [])
+def _kept(store: dict, device, numel: int, dtype) -> torch.Tensor:
+    held = store.setdefault(device, [])
     if not held or held[-1].numel() < numel:
-        held.append(torch.empty(max(numel, 1 << 20), dtype=torch.float32,
+        held.append(torch.empty(max(numel, 1 << 20), dtype=dtype,
                                 device=device))
     return held[-1]
+
+
+def _workspace(device, numel: int) -> torch.Tensor:
+    return _kept(_WORKSPACE, device, numel, torch.float32)
+
+
+# per device: 'dots8''s row codes (M, Kp) int8 and row scales (M,) float32,
+# which its quantize launch writes and its product reads, in one buffer
+# kept as the workspace is
+_CODES: dict = {}
+
+
+def _codes(device, M: int, Kp: int):
+    buf = _kept(_CODES, device, M * Kp + 4 * M, torch.uint8)
+    xq = buf[:M * Kp].view(torch.int8).view(M, Kp)
+    xs = buf[M * Kp:M * Kp + 4 * M].view(torch.float32)
+    return xq, xs
 
 
 def _check_shapes(x, packed, scales):
@@ -220,16 +247,14 @@ def quantize_rows(x: torch.Tensor):
     return torch.clamp(torch.round(x32 / xs), -127, 127), xs
 
 
-def dots8_plan(M: int, Kp: int, N: int):
-    """(rows of x a block, splits of the contraction, steps of 128 byte
-    rows a split) of the 'dots8' kernel: the columns (512 a block) and rows
-    (1, 2, 4 or 8 a block) give the blocks, and the contraction is split
-    until there are about 384 of them (three an SM)."""
-    mt = 1 if M <= 1 else 2 if M <= 2 else 4 if M <= 4 else 8
+def dots8_stream_plan(Kp: int, N: int):
+    """(splits of the contraction, steps of 128 byte rows a split) of
+    'dots8''s streaming design at one row: the columns (512 a block) give
+    the blocks, and the contraction is split until there are about 384 of
+    them (three an SM)."""
     T = Kp // 256
-    base = -(-M // mt) * -(-N // 512)
-    steps = -(-T // min(T, max(1, -(-384 // base))))
-    return mt, -(-T // steps), steps
+    steps = -(-T // min(T, max(1, -(-384 // -(-N // 512)))))
+    return -(-T // steps), steps
 
 
 def int4_matmul_dots8_plain(x: torch.Tensor, packed: torch.Tensor,
@@ -237,40 +262,86 @@ def int4_matmul_dots8_plain(x: torch.Tensor, packed: torch.Tensor,
                             out_dtype: torch.dtype = torch.float32
                             ) -> torch.Tensor:
     """'dots8' mode in plain PyTorch, in the kernel's order of float32
-    operations, so the two agree bit for bit: for each step t (byte rows
-    128 t.., scale groups t and T + t) the exact integer dots lo and hi
-    give (lo * s_t) + (hi * s_T+t); the steps of a split (`dots8_plan`)
-    add up in order, the splits in order, and the sum is multiplied by the
-    row's scale, then rounded once to `out_dtype`."""
+    operations, so the two agree bit for bit (`dots8_products`), rounded
+    once to `out_dtype`."""
     _check_shapes(x, packed, scales)
     _check_out(out_dtype)
     codes, xs = quantize_rows(x)
     return dots8_products(codes, xs, packed, scales).to(out_dtype)
 
 
+def _plan_sms(t: torch.Tensor) -> int:
+    """The SMs the kernel plans for: the card's, or `SMS` on the CPU."""
+    return _build.sm_count(t.device.index) if t.device.type == 'cuda' \
+        else SMS
+
+
 def dots8_products(codes: torch.Tensor, xs: torch.Tensor,
                    packed: torch.Tensor, scales: torch.Tensor
                    ) -> torch.Tensor:
     """The product part of 'dots8' on given codes (M, K <= Kp) and row
-    scales (M, 1), in the kernel's order: float32 (M, N)."""
+    scales (M, 1), in the order of the design M takes: float32 (M, N).
+    For each step t (byte rows 128 t.., scale groups t and T + t) the exact
+    integer dots lo and hi give p = (lo * s_t) + (hi * s_T+t). Above
+    `DOTS8_STREAM_MAX` rows (`mma_plan`, stream-K): the steps of a column
+    tile that fall to one block add up in order, the tile's parts in block
+    order; at or below (`dots8_stream_plan`): the steps of a split in
+    order, the splits in order. The sum is multiplied by the row's
+    scale."""
     M, K, Kp, N = _check_shapes(codes, packed, scales)
     G, T = Kp // 128, Kp // 256
     if K < Kp:
         codes = torch.nn.functional.pad(codes, (0, Kp - K))
     w = unpack_int4(packed).float().reshape(G, 128, N)
     xg = codes.reshape(M, G, 128)
-    _, _, steps = dots8_plan(M, Kp, N)
-    total = None
-    for s0 in range(0, T, steps):
-        run = None
-        for t in range(s0, min(T, s0 + steps)):
-            # integer dots of at most 128 x 127 x 8 in magnitude: exact in
-            # float32, whatever the order of the sum
-            p = (xg[:, t] @ w[t]) * scales[t] + \
-                (xg[:, T + t] @ w[T + t]) * scales[T + t]
-            run = p if run is None else run + p
-        total = run if total is None else total + run
+
+    def step(t):
+        # integer dots of at most 128 x 127 x 8 in magnitude: exact in
+        # float32, whatever the order of the sum
+        return (xg[:, t] @ w[t]) * scales[t] + \
+            (xg[:, T + t] @ w[T + t]) * scales[T + t]
+    if M <= DOTS8_STREAM_MAX:
+        _, steps = dots8_stream_plan(Kp, N)
+        total = None
+        for s0 in range(0, T, steps):
+            run = None
+            for t in range(s0, min(T, s0 + steps)):
+                p = step(t)
+                run = p if run is None else run + p
+            total = run if total is None else total + run
+        return total * xs
+    # where each column's tile starts and ends a block's segment of steps
+    start, end = dots8_segments(M, Kp, N, _plan_sms(codes))
+    start, end = start.to(codes.device), end.to(codes.device)
+    total = torch.zeros((M, N), dtype=torch.float32, device=codes.device)
+    written = torch.zeros(N, dtype=torch.bool, device=codes.device)
+    run = None
+    for t in range(T):
+        p = step(t)
+        run = p if run is None else torch.where(start[:, t], p, run + p)
+        e = end[:, t]
+        total = torch.where(e, torch.where(written, total + run, run), total)
+        written = written | e
     return total * xs
+
+
+def dots8_segments(M: int, Kp: int, N: int, sms: int = SMS):
+    """(start, end), bool (N, Kp / 256): whether step t of column n's tile
+    is the first, or the last, of a block's segment of that tile under the
+    wgmma design's plan (`mma_plan`: U = tiles x T units in equal runs over
+    the blocks)."""
+    _n, cols, G, _parts = mma_plan(M, Kp, N, sms)
+    T = Kp // 256
+    tiles = -(-N // cols)
+    U = tiles * T
+    u = torch.arange(U).reshape(tiles, T)
+    blk = ((u + 1) * G + U - 1) // U - 1      # the kernel's `unit_block`
+    start = torch.ones((tiles, T), dtype=torch.bool)
+    start[:, 1:] = blk[:, 1:] != blk[:, :-1]
+    end = torch.ones((tiles, T), dtype=torch.bool)
+    end[:, :-1] = start[:, 1:]
+    tile = torch.arange(N) // cols
+    return start[tile], end[tile]
 
 
 def int4_matmul_kernel(x: torch.Tensor, packed: torch.Tensor,
@@ -330,27 +401,36 @@ def int4_dots8_kernel(x: torch.Tensor, packed: torch.Tensor,
                       scales: torch.Tensor,
                       out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Launch the 'dots8' kernel on CUDA tensors (raises on what it does
-    not take), counted under 'int4_matmul_dots8'."""
+    not take), counted under 'int4_matmul_dots8': the streaming design up
+    to `DOTS8_STREAM_MAX` rows, else the int8 wgmma design on `mma_plan`'s
+    blocks. The codes, row scales, partial sums and tickets are the
+    device's kept buffers."""
     M, K, Kp, N = _check_shapes(x, packed, scales)
     _check_out(out_dtype)
     _check_operands(x, packed, scales)
     y = torch.empty((M, N), dtype=out_dtype, device=x.device)
     if not (M and N):
         return y
-    mt, splits, steps = dots8_plan(M, Kp, N)
-    xq = torch.empty((M, Kp), dtype=torch.int8, device=x.device)
-    xs = torch.empty(M, dtype=torch.float32, device=x.device)
-    part = tickets = None      # one split: no workspace
-    if splits > 1:
-        part = torch.empty(splits * M * N, dtype=torch.float32,
-                           device=x.device)
-        tickets = _tickets(x.device, -(-N // 512) * -(-M // mt))
+    if M <= DOTS8_STREAM_MAX:
+        splits, steps = dots8_stream_plan(Kp, N)
+        blocks, parts = 0, (splits if splits > 1 else 0)
+        tiles = -(-N // 512)
+    else:
+        _n, cols, blocks, parts = mma_plan(M, Kp, N,
+                                           _build.sm_count(x.device.index))
+        steps = 0
+        tiles = -(-N // cols)
+    xq, xs = _codes(x.device, M, Kp)
+    part = tickets = None      # no split: no workspace
+    if parts:
+        part = _workspace(x.device, parts * M * N)
+        tickets = _tickets(x.device, tiles)
     _build.launch('evo_int4_dots8_bf16', 'int4_matmul_dots8', x.data_ptr(),
                   packed.data_ptr(), scales.data_ptr(), y.data_ptr(),
                   xq.data_ptr(), xs.data_ptr(),
                   None if part is None else part.data_ptr(),
                   None if tickets is None else tickets.data_ptr(), M, K, Kp,
-                  N, mt, steps, int(out_dtype == torch.bfloat16))
+                  N, steps, blocks, int(out_dtype == torch.bfloat16))
     return y
 
 

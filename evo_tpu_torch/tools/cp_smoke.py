@@ -25,7 +25,7 @@ reads `<dir>/cp_in.pt` (what the single process gave on the same inputs):
       teacher forcing: the single process's tokens fed to the cp model,
       its logits at each step against the single process's; one decode
       step's time;
-  (c) evo-1-131k-base (seed 0): a 16,384-nt sequence scored in segments of
+  (c) evo-1-131k-base (seed 0): a 10,240-nt sequence scored in segments of
       8,192, with launches, time and the time in the collectives.
 
 Times are taken with both ranks on one card over gloo, whose all-to-alls

@@ -18,7 +18,7 @@ cp_train_rank<r>.json`:
       ragged L = 2,049 under Ulysses with remat, each leg from the seed's
       weights and fresh AdamW state;
   (b) LoRA rank 8 on the seven default targets of the same 9 layers at
-      L = 8,192 with remat: 2 steps under Ulysses, 1 under 'ring' and 1
+      L = 4,096 with remat: 2 steps under Ulysses, 1 under 'ring' and 1
       under 'zigzag', each leg from the same fresh adapters. The rings
       run under LoRA, whose gradient sum is the adapters' alone: a full
       step's sum of 1.8 G float32 gradients took 9-20 s through gloo.
@@ -139,7 +139,7 @@ FULL_LEGS = (('ulysses', 'ulysses', 2047, False, 1, 'full_2048'),
 LORA_LEGS = (('ulysses', 'ulysses', 2, 'lora'),
              ('ring', 'ring', 1, 'lora_plain'),
              ('zigzag', 'zigzag', 1, 'lora_plain'))
-LORA_SEQ_LEN = 8191
+LORA_SEQ_LEN = 4095
 FULL_SEED, LORA_SEED = 20, 24
 
 

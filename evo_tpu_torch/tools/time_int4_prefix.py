@@ -32,6 +32,10 @@ KV cache, each also profiled (device ms and kernels a step, from
 `torch.profiler`, and kernel 8's device ms a step). `--decode` runs only
 those decode steps of --model. `--quick --rows 8`: kernel 8 alone at
 4096 x 12288 and 8 rows, a process short enough to repeat in turns.
+`--dots8`: kernel 8c ('dots8') alone at 4096 x 12288 and 1-128 rows (both
+of its designs at the rows where the checkout can take either); with
+`--variants DIR` also in copies with pieces of its design taken out
+(`DOTS8_VARIANTS`), between two runs of the checkout itself.
 
 To compare two versions, run this once per checkout in turns (A, B, B, A)
 in one call on one card: the script imports `evo_tpu_torch` from --root,
@@ -219,6 +223,59 @@ def int4_section(torch, out, shapes=LAYER_SHAPES, rows=ROWS,
     out['kernel8'] = res
 
 
+DOTS8_ROWS = (1, 2, 4, 8, 9, 16, 32, 64, 128)
+
+
+def kernel_ms(torch, calls):
+    """Device ms a call of each kernel the calls launch, by name (the
+    profiler over one round of the calls, eager)."""
+    from torch.profiler import ProfilerActivity, profile
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn in calls:
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.split('(')[0][-40:]: e.self_device_time_total / 1e3
+            / len(calls)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def dots8_section(torch, out, rows=DOTS8_ROWS):
+    """Kernel 8c ('dots8') at 4096 x 12288, bf16 out, each row count by
+    graph replay over enough weights to exceed the 50 MB L2; at the rows
+    the streaming design may take (`DOTS8_STREAM_MAX` and fewer, where the
+    checkout has it) both designs, `streaming_graph_ms` and
+    `tensor_cores_graph_ms`: the crossover."""
+    from evo_tpu_torch.ops import int4 as int4_mod
+    K, Kp, N = 4096, 4096, 12288
+    dev = torch.device('cuda')
+    g = torch.Generator(device=dev).manual_seed(2)
+    ws = [(torch.randint(-128, 128, (Kp // 2, N), device=dev, generator=g,
+                         dtype=torch.int8),
+           torch.rand(Kp // 128, N, device=dev, generator=g) * 0.09 + 0.01)
+          for _ in range(int(110e6 // (Kp // 2 * N)) + 1)]
+    keep = getattr(int4_mod, 'DOTS8_STREAM_MAX', None)
+    res = {}
+    for M in rows:
+        x = torch.randn(M, K, device=dev, generator=g).bfloat16()
+        calls = [lambda p=p, s=s: int4_mod.int4_matmul(
+            x, p, s, torch.bfloat16, mode='dots8') for p, s in ws]
+        row = dict(graph_ms=time_graph_ms(torch, calls),
+                   kernels_ms=kernel_ms(torch, calls))
+        if keep is not None and M <= keep:
+            for name, limit in (('streaming', keep), ('tensor_cores', 0)):
+                int4_mod.DOTS8_STREAM_MAX = limit
+                row[f'{name}_graph_ms'] = time_graph_ms(torch, calls)
+            int4_mod.DOTS8_STREAM_MAX = keep
+        res[f'M={M}'] = row
+    out['dots8'] = res
+    del ws
+    torch.cuda.empty_cache()
+
+
 def prefix_section(torch, out):
     from evo_tpu_torch.ops import modal_prefix as prefix_mod
     takes_s0 = 's0' in inspect.signature(prefix_mod.modal_prefix).parameters
@@ -378,19 +435,32 @@ VARIANTS = {'without_conversion': [_CONVERT], 'without_arithmetic': [_MATH],
             'without_loads_arithmetic_combine': [_LOADS, _MATH, _COMBINE]}
 
 
-def time_variants(root, out_dir):
+# Edits of csrc/int4_dots8.cu that take one piece of 'dots8''s design
+# out (the outputs stay right): the programmatic dependent launch of its
+# product (a plain launch after the quantize launch's end), and the quantize
+# launch's 16-byte loads (one value at a time)
+DOTS8_VARIANTS = {
+    'without_pdl': [('constexpr int kPdl = 1;', 'constexpr int kPdl = 0;')],
+    'scalar_quantize': [
+        ('const int vec = K % 8 == 0 && (uintptr_t)x % 16 == 0;',
+         'const int vec = 0;')]}
+
+
+def time_variants(root, out_dir, source='int4_matmul.cu', variants=None,
+                  flags=('--quick',), key='kernel8'):
     """Kernel 8's graph-replay ms at 4096 x 12288, M = 1 and 2, in each
-    variant of `VARIANTS`, each run in a process of its own on a copy of
-    the checkout's package."""
+    variant of `VARIANTS` (or the edits `variants` of `source`, timed by
+    the tool's `flags`, the `key` of its line), each run in a process of
+    its own on a copy of the checkout's package."""
     import shutil
     times = {}
-    for name, edits in VARIANTS.items():
+    for name, edits in (VARIANTS if variants is None else variants).items():
         dst = os.path.join(os.path.abspath(out_dir), name)
         shutil.rmtree(dst, ignore_errors=True)
         shutil.copytree(os.path.join(root, 'evo_tpu_torch'),
                         os.path.join(dst, 'evo_tpu_torch'),
                         ignore=shutil.ignore_patterns('build', '__pycache__'))
-        src = os.path.join(dst, 'evo_tpu_torch', 'csrc', 'int4_matmul.cu')
+        src = os.path.join(dst, 'evo_tpu_torch', 'csrc', source)
         with open(src) as f:
             text = f.read()
         for old, new in edits:
@@ -401,9 +471,9 @@ def time_variants(root, out_dir):
         with open(src, 'w') as f:
             f.write(text)
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              '--root', dst, '--quick'], capture_output=True,
+                              '--root', dst, *flags], capture_output=True,
                              text=True, timeout=900, check=True)
-        k8 = json.loads(res.stdout.strip().splitlines()[-1])['kernel8']
+        k8 = json.loads(res.stdout.strip().splitlines()[-1])[key]
         times[name] = {k: v['graph_ms'] for k, v in k8.items()}
     return times
 
@@ -419,6 +489,9 @@ def main():
                          '--rows')
     ap.add_argument('--rows', default='1,2',
                     help="--quick's row counts, comma-separated")
+    ap.add_argument('--dots8', action='store_true',
+                    help="kernel 8c ('dots8') alone, at 4096 x 12288 and "
+                         'the rows of DOTS8_ROWS')
     ap.add_argument('--variants', default='',
                     help='also time the edits of VARIANTS in copies of the '
                          'package written under this directory')
@@ -433,6 +506,18 @@ def main():
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
         timeout=60).stdout.strip())
+    if args.dots8:
+        dots8_section(torch, out)
+        if args.variants:
+            # in turns: this checkout before and after the variants
+            first = out['dots8']
+            out['dots8_variants_graph_ms'] = time_variants(
+                root, args.variants, 'int4_dots8.cu', DOTS8_VARIANTS,
+                ('--dots8',), 'dots8')
+            dots8_section(torch, out)
+            out['dots8'], out['dots8_again'] = first, out['dots8']
+        print(json.dumps(out), flush=True)
+        return 0
     if args.quick:
         int4_section(torch, out, shapes=LAYER_SHAPES[2:3],
                      rows=tuple(int(m) for m in args.rows.split(',')),

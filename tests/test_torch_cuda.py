@@ -487,15 +487,15 @@ def test_int4_matmul_wgmma_in_a_cuda_graph(M):
 
 
 @pytest.mark.parametrize('M,K,Kp,N', [
+    # 1-4 rows and both wgmma designs' instances on every layer shape
     *[(M, K, Kp, N) for K, Kp, N in _LAYER_SHAPES
-      for M in (1, 2, 4, 5, 9, 128)],
+      for M in (1, 2, 3, 4, *_MMA_ROWS)],
     *[(M, 1000, 1024, 1001) for M in (1, 3, 9, 33)],    # ragged N, K
     (1, 40, 256, 24), (8, 130, 512, 136), (2, 4300, 4352, 600),
-    # the wgmma design's instances, at evo-1's w3 (K < Kp) and ragged
-    *[(M, K, Kp, N) for K, Kp, N in [_LAYER_SHAPES[1], (1000, 1024, 1001),
-                                      (4300, 4352, 600)]
-      for M in _MMA_ROWS if (M, K) not in ((5, 10928), (9, 10928),
-                                           (9, 1000), (33, 1000))],
+    # ragged: N % 16 != 0 (the weight's copy path), K < Kp, and K % 8 != 0
+    *[(M, K, Kp, N) for K, Kp, N in [(1000, 1024, 1001), (4300, 4352, 600),
+                                      (4301, 4352, 600)]
+      for M in _MMA_ROWS if (M, K) not in ((9, 1000), (33, 1000))],
     (100, 130, 512, 136)])
 @pytest.mark.parametrize('mode', ['block', 'dots8'])
 def test_int4_other_modes_kernel(mode, M, K, Kp, N):
@@ -525,6 +525,61 @@ def test_int4_other_modes_kernel(mode, M, K, Kp, N):
         want = int4_matmul_block_plain(x, packed, s)
         rms = want.pow(2).mean(-1, keepdim=True).sqrt()
         assert ((got - want).abs() / want.abs().maximum(rms)).max() <= 1e-4
+
+
+@pytest.mark.parametrize('M', [1, 2, 3, 9, 64, 128])
+def test_int4_dots8_takes_any_x(M):
+    """'dots8' on an x that is a view off 16-byte alignment, with K % 8 !=
+    0 and K < Kp (its quantize launch reads x; TMA reads the codes):
+    bit-equal to the plain version and to the same values aligned, one
+    launch a call, under either design."""
+    from evo_tpu_torch.ops.int4 import int4_matmul_dots8_plain
+    K, Kp, N = 4093, 4096, 12288
+    x, packed, s = _int4_case(M, Kp, N, seed=M)
+    flat = torch.empty(M * K + 3, dtype=torch.bfloat16, device='cuda')
+    xv = flat[3:].view(M, K)
+    xv.copy_(x[:, :K])
+    assert xv.data_ptr() % 16 and xv.is_contiguous()
+    before = _build.LAUNCHES['int4_matmul_dots8']
+    got = int4_matmul(xv, packed, s, torch.bfloat16, mode='dots8')
+    aligned = int4_matmul(x[:, :K].contiguous(), packed, s, torch.bfloat16,
+                          mode='dots8')
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES['int4_matmul_dots8'] == before + 2
+    assert torch.equal(got, aligned)
+    assert torch.equal(got, int4_matmul_dots8_plain(xv, packed, s,
+                                                    torch.bfloat16))
+
+
+@pytest.mark.parametrize('M', [2, 9, 128])
+def test_int4_dots8_in_a_cuda_graph(M):
+    """'dots8' replayed from a CUDA graph: its codes, row scales and the
+    split tiles' parts are the device's kept buffers, the parts added in
+    block (or split) order, so every replay is bit-equal to the eager call
+    and to the plain version, the tickets are back at zero after each
+    launch, and an eager call between replays leaves the buffers fit for
+    the next replay."""
+    from evo_tpu_torch.ops import int4 as int4_mod
+    x, packed, s = _int4_case(M, 4096, 12288, seed=M)
+    first = int4_matmul(x, packed, s, torch.bfloat16, mode='dots8')
+    torch.cuda.synchronize()
+    assert torch.equal(first, int4_mod.int4_matmul_dots8_plain(
+        x, packed, s, torch.bfloat16))
+    tickets = int4_mod._TICKETS[x.device]
+    assert int(tickets.abs().sum()) == 0
+    other = _int4_case(M, 4096, 12288, seed=M + 1)[0]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = int4_matmul(x, packed, s, torch.bfloat16, mode='dots8')
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, first)
+        assert int(tickets.abs().sum()) == 0
+        int4_matmul(other, packed, s, torch.bfloat16, mode='dots8')
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, first)
 
 
 def test_int4_other_modes_refuse_grad():
