@@ -23,6 +23,10 @@ tensor parallel and N-way context parallel (each sequence split over N
 ranks), with the host's ranks / (T N) data-parallel ranks inside it that
 split each batch, and the hosts split the shards. `--dist-backend gloo`
 runs several ranks on one card (NCCL refuses that).
+
+`--trace-dir DIR` profiles the run (`runtime.trace`): a Chrome trace of
+the host's operators and the card's kernels, with the program's spans
+beside them, and the counters and span totals in `DIR/spans.json`.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from __future__ import annotations
 import argparse
 from typing import List, Optional
 
+from evo_tpu_torch import runtime
 from evo_tpu_torch.config import cli_quant_overrides, cli_tiny_overrides
 from evo_tpu_torch.io.fasta import read_fasta
 from evo_tpu_torch.models import Evo
@@ -75,7 +80,16 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=['none', 'int8'],
                         help='int8 attention KV cache: halves the KV '
                              'buffers of --segment-len scoring (opt-in)')
+    add_trace_flag(parser)
     return parser
+
+
+def add_trace_flag(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument('--trace-dir', default=None,
+                        help='profile the run into TRACE_DIR: a Chrome '
+                             'trace with the program\'s spans, and their '
+                             'totals and counters in spans.json (keep the '
+                             'run short: the profiler holds it in memory)')
 
 
 def add_mesh_flags(parser: argparse.ArgumentParser) -> None:
@@ -161,19 +175,20 @@ def main(argv: Optional[List[str]] = None):
     print(f'Scoring {len(seqs)} sequences...', flush=True)
     if multi:
         return _score_sharded(args, evo, seqs, mesh)
-    if args.segment_len:
-        scores = score_sequences_segmented(
-            seqs, evo.model, evo.tokenizer, segment_len=args.segment_len,
-            reduce_method=args.reduce_method)
-    else:
-        batches = [seqs[i:i + args.batch_size]
-                   for i in range(0, len(seqs), args.batch_size)]
-        scores = score_stream(
-            batches, evo.model, evo.tokenizer,
-            reduce_method=args.reduce_method,
-            pad_to_bucket=not args.no_bucket,
-            progress=lambda done: print(f'  {done}/{len(seqs)}',
-                                        flush=True))
+    with runtime.trace(args.trace_dir):
+        if args.segment_len:
+            scores = score_sequences_segmented(
+                seqs, evo.model, evo.tokenizer, segment_len=args.segment_len,
+                reduce_method=args.reduce_method)
+        else:
+            batches = [seqs[i:i + args.batch_size]
+                       for i in range(0, len(seqs), args.batch_size)]
+            scores = score_stream(
+                batches, evo.model, evo.tokenizer,
+                reduce_method=args.reduce_method,
+                pad_to_bucket=not args.no_bucket,
+                progress=lambda done: print(f'  {done}/{len(seqs)}',
+                                            flush=True))
 
     with open(args.output_tsv, 'w') as f:
         f.write('seqs\tscores\n')

@@ -30,6 +30,10 @@ script's flags make one over a host's chips:
 Rank 0 reads the requests (or serves HTTP) and writes the results; the
 other ranks follow its schedule (`serving.GenerationServer`).
 `--dist-backend gloo` runs several ranks on one card (NCCL refuses that).
+
+`--trace-dir DIR` profiles rank 0's run (`runtime.trace`): a Chrome trace
+with the server's spans beside the operators and kernels, and the
+counters and span totals in `DIR/spans.json`.
 """
 
 from __future__ import annotations
@@ -39,8 +43,9 @@ import json
 import sys
 from typing import List, Optional
 
-from evo_tpu_torch.cli.score import (add_mesh_flags, build_overrides,
-                                     start_ranks)
+from evo_tpu_torch import runtime
+from evo_tpu_torch.cli.score import (add_mesh_flags, add_trace_flag,
+                                     build_overrides, start_ranks)
 from evo_tpu_torch.models import Evo
 from evo_tpu_torch.serving import GenerationServer, ServerLoop
 
@@ -93,6 +98,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--http', type=int, default=None,
                    help='serve HTTP on this port instead of batch mode')
     p.add_argument('--request-timeout', type=float, default=600.0)
+    add_trace_flag(p)
     return p
 
 
@@ -259,10 +265,11 @@ def main(argv: Optional[List[str]] = None):
         else:
             server.run()
         return
-    if args.http is not None:
-        run_http(args, server)
-    else:
-        run_jsonl(args, server)
+    with runtime.trace(args.trace_dir):
+        if args.http is not None:
+            run_http(args, server)
+        else:
+            run_jsonl(args, server)
 
 
 if __name__ == '__main__':

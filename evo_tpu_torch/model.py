@@ -22,6 +22,11 @@ keep a cache as it was clones it first (`generation._grow_cache`). Every
 buffer is made of zeros: the attention kernels multiply masked keys by 0,
 which a NaN survives.
 
+Under a profiler the entry points record spans (`runtime.py`): a
+full-sequence pass is `engine.forward`, a decode step `engine.decode_step`,
+and within either each block's mixer `layer.hyena` or `layer.attention`
+and its MLP `layer.mlp`, with the layer index.
+
 Under a mesh (`parallel/`, `StripedHyena(cfg, device, mesh)`) every rank
 holds its tensor-parallel shards and runs the same entry points on them:
 the layers sum their row-parallel products over tp, while the embedding,
@@ -55,6 +60,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from evo_tpu_torch import runtime
 from evo_tpu_torch.config import ModelConfig
 from evo_tpu_torch.layers.adapters import refuse_in_decode
 from evo_tpu_torch.layers.attention import Attention, mha_full, mha_step
@@ -242,20 +248,23 @@ def _block(blk, cfg: ModelConfig, x: torch.Tensor, layers=None, i: int = 0,
     norm(x)), then + mlp(norm(x)). With `layers` (the cache's list), the
     block's decode state is written into layers[i]. `seq_len`: under cp,
     the real positions of the padded sequence whose rows x holds."""
-    h = blk.pre_norm(x)
-    if isinstance(blk, AttentionBlock):
-        mix, _ = mha_full(blk.attn, cfg, h, kv_buffers=(
-            None if layers is None else layers[i]), offset=offset,
-            attend_buffer=resume, seq_len=seq_len)
-    else:
-        mix, st = hyena_full(blk.hyena, cfg, h,
-                             collect_state=layers is not None,
-                             state=layers[i] if resume else None,
-                             seq_len=seq_len)
-        if layers is not None:
-            layers[i] = st
-    x = x + mix
-    return x + blk.mlp(blk.post_norm(x))
+    attn = isinstance(blk, AttentionBlock)
+    with runtime.span('layer.attention' if attn else 'layer.hyena', i=i):
+        h = blk.pre_norm(x)
+        if attn:
+            mix, _ = mha_full(blk.attn, cfg, h, kv_buffers=(
+                None if layers is None else layers[i]), offset=offset,
+                attend_buffer=resume, seq_len=seq_len)
+        else:
+            mix, st = hyena_full(blk.hyena, cfg, h,
+                                 collect_state=layers is not None,
+                                 state=layers[i] if resume else None,
+                                 seq_len=seq_len)
+            if layers is not None:
+                layers[i] = st
+        x = x + mix
+    with runtime.span('layer.mlp', i=i):
+        return x + blk.mlp(blk.post_norm(x))
 
 
 def _full_sequence(model: StripedHyena, ids: torch.Tensor, layers=None,
@@ -274,27 +283,29 @@ def _full_sequence(model: StripedHyena, ids: torch.Tensor, layers=None,
     the JAX package's ValueError), and returns the whole logits, or with
     `gather=False` this rank's rows of the padded sequence's."""
     cfg = model.config if cfg is None else cfg
-    remat = cfg.remat and layers is None and torch.is_grad_enabled()
-    mesh = model.mesh
-    seq_len = None
-    if has_cp(mesh):
-        seq_len = ids.shape[1]
-        pad = -seq_len % mesh.cp
-        if pad:
-            ids = F.pad(ids, (0, pad))
-        ids = split_seq(ids, mesh)
-    x = _embed(model, ids)
-    for i, blk in enumerate(model.blocks):
-        if remat:
-            x = torch.utils.checkpoint.checkpoint(
-                _block, blk, cfg, x, layers, i, offset, resume, seq_len,
-                use_reentrant=False)
-        else:
-            x = _block(blk, cfg, x, layers, i, offset, resume, seq_len)
-    logits = _unembed(model, x)
-    if seq_len is None or not gather:
-        return logits
-    return gather_seq(logits, mesh)[:, :seq_len]
+    with runtime.span('engine.forward', rows=ids.shape[0], len=ids.shape[1],
+                      offset=offset):
+        remat = cfg.remat and layers is None and torch.is_grad_enabled()
+        mesh = model.mesh
+        seq_len = None
+        if has_cp(mesh):
+            seq_len = ids.shape[1]
+            pad = -seq_len % mesh.cp
+            if pad:
+                ids = F.pad(ids, (0, pad))
+            ids = split_seq(ids, mesh)
+        x = _embed(model, ids)
+        for i, blk in enumerate(model.blocks):
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(
+                    _block, blk, cfg, x, layers, i, offset, resume, seq_len,
+                    use_reentrant=False)
+            else:
+                x = _block(blk, cfg, x, layers, i, offset, resume, seq_len)
+        logits = _unembed(model, x)
+        if seq_len is None or not gather:
+            return logits
+        return gather_seq(logits, mesh)[:, :seq_len]
 
 
 def forward(model: StripedHyena, ids: torch.Tensor,
@@ -345,15 +356,20 @@ def decode_step(model: StripedHyena, token: torch.Tensor, cache: Cache):
         token = token[:, None]
     offset = cache['offset']
     layers = cache['layers']
-    x = _embed(model, token)
-    for i, blk in enumerate(model.blocks):
-        refuse_in_decode(blk.mlp)
-        h = blk.pre_norm(x)
-        if isinstance(blk, AttentionBlock):
-            mix, _ = mha_step(blk.attn, cfg, h, layers[i], offset)
-        else:
-            mix, layers[i] = hyena_step(blk.hyena, cfg, h, layers[i])
-        x = x + mix
-        x = x + blk.mlp(blk.post_norm(x))
-    cache['offset'] = offset + 1
-    return _unembed(model, x)[:, 0], cache
+    with runtime.span('engine.decode_step', rows=token.shape[0]):
+        x = _embed(model, token)
+        for i, blk in enumerate(model.blocks):
+            refuse_in_decode(blk.mlp)
+            attn = isinstance(blk, AttentionBlock)
+            with runtime.span('layer.attention' if attn else 'layer.hyena',
+                              i=i):
+                h = blk.pre_norm(x)
+                if attn:
+                    mix, _ = mha_step(blk.attn, cfg, h, layers[i], offset)
+                else:
+                    mix, layers[i] = hyena_step(blk.hyena, cfg, h, layers[i])
+                x = x + mix
+            with runtime.span('layer.mlp', i=i):
+                x = x + blk.mlp(blk.post_norm(x))
+        cache['offset'] = offset + 1
+        return _unembed(model, x)[:, 0], cache

@@ -5,6 +5,11 @@ padding is harmless because every mixer is causal, and outputs are sliced
 to the true lengths afterwards. The segmented entry points prefill a long
 sequence in pieces through the resumable cache, so activation memory is
 that of one segment; this is the one-device path to 131k-long sequences.
+
+Under a profiler (`runtime.py`) `score_stream` records a `score.batch`
+span a batch on the calling thread and a `score.prep` span a batch on its
+prefetch thread, the segmented entries a `score.segment` span a segment,
+and every entry a `score.readback` span around each read to the host.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ from typing import Callable, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from evo_tpu_torch import runtime
 from evo_tpu_torch.tokenizer import CharLevelTokenizer
 
 
@@ -81,7 +87,9 @@ def score_sequences(seqs: Sequence[str], model, tokenizer: CharLevelTokenizer,
     logits, _ = model(input_ids)
     # the reference trims even without BOS: the trim pairs position t's
     # logits with the t+1 target
-    logprobs = logits_to_logprobs(logits, input_ids).cpu().numpy()
+    logprobs = logits_to_logprobs(logits, input_ids)
+    with runtime.span('score.readback'):
+        logprobs = logprobs.cpu().numpy()
     return [float(reduce_func(logprobs[i][:n]))
             for i, n in enumerate(seq_lengths)]
 
@@ -106,12 +114,14 @@ def score_stream(seq_batches: Iterable[Sequence[str]], model,
     scores: List[float] = []
 
     def prep(batch):
-        return prepare_batch(batch, tokenizer, prepend_bos=prepend_bos,
-                             pad_to_bucket=pad_to_bucket)
+        with runtime.span('score.prep'):
+            return prepare_batch(batch, tokenizer, prepend_bos=prepend_bos,
+                                 pad_to_bucket=pad_to_bucket)
 
     def finalize(pending):
         logprobs, seq_lengths = pending
-        logprobs = logprobs.cpu().numpy()
+        with runtime.span('score.readback'):
+            logprobs = logprobs.cpu().numpy()
         scores.extend(float(reduce_func(logprobs[i][:n]))
                       for i, n in enumerate(seq_lengths))
         if progress is not None:
@@ -120,11 +130,13 @@ def score_stream(seq_batches: Iterable[Sequence[str]], model,
     pending = None
     for input_ids, seq_lengths in prefetch_map(prep, seq_batches,
                                                depth=prefetch_depth):
-        logits, _ = model(input_ids)
-        logprobs = logits_to_logprobs(logits, input_ids)
-        if pending is not None:
-            finalize(pending)
-        pending = (logprobs, seq_lengths)
+        with runtime.span('score.batch', rows=input_ids.shape[0],
+                          len=input_ids.shape[1]):
+            logits, _ = model(input_ids)
+            logprobs = logits_to_logprobs(logits, input_ids)
+            if pending is not None:
+                finalize(pending)
+            pending = (logprobs, seq_lengths)
     if pending is not None:
         finalize(pending)
     return scores
@@ -141,7 +153,9 @@ def positional_entropies(seqs: Sequence[str], model,
     logp = torch.log_softmax(logits.float(), dim=-1)
     if prepend_bos:
         logp = logp[:, :-1]
-    ent = (-torch.sum(torch.exp(logp) * logp, dim=-1)).cpu().numpy()
+    ent = -torch.sum(torch.exp(logp) * logp, dim=-1)
+    with runtime.span('score.readback'):
+        ent = ent.cpu().numpy()
     return [ent[i][:n] for i, n in enumerate(seq_lengths)]
 
 
@@ -176,16 +190,19 @@ def _segment_bounds(L: int, segment_len: int) -> List[int]:
 def _segment_logits(seq: str, model, tokenizer: CharLevelTokenizer,
                     segment_len: int, prepend_bos: bool):
     """Prefill one sequence in segments through a cache of its own;
-    yields (ids of the segment (1, l), its logits (1, l, V))."""
+    yields (ids of the segment (1, l), its logits (1, l, V)). Each
+    segment's `score.segment` span lasts until the caller asks for the
+    next, so it holds the caller's work on the segment too."""
     ids, _ = prepare_batch([seq], tokenizer, prepend_bos=prepend_bos)
     L = ids.shape[1]
     cache = model.initialize_inference_params(
         1, _aligned_cache_len(L, _cache_align(model.config)))
     bounds = _segment_bounds(L, segment_len)
-    for s, e in zip(bounds[:-1], bounds[1:]):
-        logits, cache = model(ids[:, s:e], inference_params_dict=cache,
-                              donate_cache=True, resume=s > 0)
-        yield ids[:, s:e], logits
+    for j, (s, e) in enumerate(zip(bounds[:-1], bounds[1:])):
+        with runtime.span('score.segment', index=j, offset=s):
+            logits, cache = model(ids[:, s:e], inference_params_dict=cache,
+                                  donate_cache=True, resume=s > 0)
+            yield ids[:, s:e], logits
 
 
 def score_sequences_segmented(seqs: Sequence[str], model,
@@ -212,7 +229,9 @@ def score_sequences_segmented(seqs: Sequence[str], model,
                                                  trim_bos=False))
             pieces.append(logits_to_logprobs(logits, seg))
             carry = logits[:, -1:]
-        logprobs = torch.cat(pieces, dim=1)[0].cpu().numpy()
+        logprobs = torch.cat(pieces, dim=1)[0]
+        with runtime.span('score.readback'):
+            logprobs = logprobs.cpu().numpy()
         scores.append(float(reduce_func(logprobs[:len(seq)])))
     return scores
 
@@ -232,7 +251,9 @@ def positional_entropies_segmented(seqs: Sequence[str], model,
                                          segment_len, prepend_bos):
             logp = torch.log_softmax(logits.float(), dim=-1)
             pieces.append(-torch.sum(torch.exp(logp) * logp, dim=-1))
-        ent = torch.cat(pieces, dim=1)[0].cpu().numpy()
+        ent = torch.cat(pieces, dim=1)[0]
+        with runtime.span('score.readback'):
+            ent = ent.cpu().numpy()
         # with BOS, position i's entropy describes the prediction OF
         # sequence character i (the last position predicts nothing scored)
         if prepend_bos:

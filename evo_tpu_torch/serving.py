@@ -30,6 +30,17 @@ one frees up, so ragged, staggered traffic decodes as one batch:
     co-tenants, its arrival or its slot. The streams are not the JAX
     package's threefry streams.
 
+Under a profiler each `step()` records its spans (`runtime.py`):
+`serve.step`, and under it `serve.sync`, `serve.fill` (a fill started or
+advanced, or a prefix-cache admission; its chunks, tail and admissions),
+`serve.decode` (each step's `engine.decode_step` and `serve.sample`),
+`serve.readback` and `serve.harvest`; each admitted request's
+`serve.queued`, from `submit()` to its admission. Its counters: the rows
+prefilled (`serve.fill_rows`), those of them that repeat an earlier row
+of the same fill (`serve.fill_rows_repeated`), the prefix-cache
+admissions (`serve.prefix_admissions`), and the row-steps harvested
+(`serve.slot_steps`) and thrown away (`serve.slot_steps_wasted`).
+
 Rows without a live request keep stepping; their outputs are discarded and
 their cache row is overwritten in full at the next admission. The host
 bounds every request by `max_len` and keeps every slot's offset inside the
@@ -77,6 +88,7 @@ import numpy as np
 import torch
 
 from evo_tpu_torch import model as model_lib
+from evo_tpu_torch import runtime
 from evo_tpu_torch.generation import _cache_kv_len
 from evo_tpu_torch.ops.sampling import NEG_INF
 from evo_tpu_torch.parallel.collectives import (broadcast_object, dp_rows,
@@ -169,10 +181,11 @@ def _decode_chunk(module, tokens: torch.Tensor, cache, top_ks, top_ps,
         logits, cache = model_lib.decode_step(module, tokens, cache)
         if T is not None:
             cache['offset'].clamp_(max=T - 1)
-        tokens, logp = _sample_slots(logits, top_ks, top_ps, temps,
-                                     generators)
-        emitted[i] = tokens
-        logps[i] = logp
+        with runtime.span('serve.sample'):
+            tokens, logp = _sample_slots(logits, top_ks, top_ps, temps,
+                                         generators)
+            emitted[i] = tokens
+            logps[i] = logp
     return tokens, cache, emitted, logps
 
 
@@ -208,6 +221,7 @@ class _Request:
     tokens: List[int] = dataclasses.field(default_factory=list)
     logps: List[float] = dataclasses.field(default_factory=list)
     done: bool = False
+    t_submit: int = dataclasses.field(default_factory=time.time_ns)
 
 
 @dataclasses.dataclass
@@ -435,37 +449,40 @@ class GenerationServer:
         return head - self.prompt_chunk if head == P else head
 
     def _insert_from(self, fill_cache, last_logits, slot: int,
-                     req: _Request, src: int = 0) -> None:
+                     req: _Request, src: int = 0,
+                     prefix: bool = False) -> None:
         """Admit `req` into `slot`: sample its first token from row `src`
         of the fill's last logits with the request's generator and, on the
         slot's dp rank, set the slot's sampling parameters and copy row
         `src` of `fill_cache` into it. The fill cache is only read: it may
-        be the prefix cache, and a batched fill's rows are admitted one at
-        a time."""
-        gen = None
-        if req.temperature > 0.0:
-            gen = torch.Generator(device=self.device).manual_seed(
-                _stream_seed(self.seed, req.seed))
-        row = slot - self._base
-        mine = 0 <= row < self._rows
-        if mine:
-            s = slice(row, row + 1)
-            params = (self._topks[s], self._topps[s], self._temps[s])
-        else:
-            params = self._one
-        params[0].fill_(req.top_k)
-        params[1].fill_(req.top_p)
-        params[2].fill_(req.temperature)
-        tok0, logp0 = _sample_slots(last_logits[src:src + 1, -1], *params,
-                                    [gen])
-        if mine:
-            _admit_slot(self._cache, fill_cache, src, row)
-            self._tokens[s].copy_(tok0)
-            self._gens[row] = gen
-        self._slots[slot] = req
-        # the first token stays on the device until the next host
-        # observation (_flush_firsts), so admission never waits for it
-        self._pending_first.append((req, tok0, logp0))
+        be the prefix cache (`prefix`), and a batched fill's rows are
+        admitted one at a time."""
+        runtime.record_span('serve.queued', req.t_submit, rid=req.rid)
+        with runtime.span('serve.admit', rid=req.rid, prefix=prefix):
+            gen = None
+            if req.temperature > 0.0:
+                gen = torch.Generator(device=self.device).manual_seed(
+                    _stream_seed(self.seed, req.seed))
+            row = slot - self._base
+            mine = 0 <= row < self._rows
+            if mine:
+                s = slice(row, row + 1)
+                params = (self._topks[s], self._topps[s], self._temps[s])
+            else:
+                params = self._one
+            params[0].fill_(req.top_k)
+            params[1].fill_(req.top_p)
+            params[2].fill_(req.temperature)
+            tok0, logp0 = _sample_slots(last_logits[src:src + 1, -1], *params,
+                                        [gen])
+            if mine:
+                _admit_slot(self._cache, fill_cache, src, row)
+                self._tokens[s].copy_(tok0)
+                self._gens[row] = gen
+            self._slots[slot] = req
+            # the first token stays on the device until the next host
+            # observation (_flush_firsts), so admission never waits for it
+            self._pending_first.append((req, tok0, logp0))
 
     def _flush_firsts(self) -> None:
         """Read the deferred first tokens back (one transfer) and record
@@ -492,45 +509,61 @@ class GenerationServer:
         every B=1 fill; a batched scratch is kept for the next fill of its
         size."""
         budget = self.prefill_chunks_per_sync or float('inf')
-        while budget > 0:
-            if self._fill is None:
-                if not self._start_fill():
-                    return
+        while budget > 0 and (self._fill is not None or (
+                self._queue and any(r is None for r in self._slots))):
+            with runtime.span('serve.fill') as sp:
+                reqs = (self._fill['reqs'] if self._fill is not None
+                        else self._start_fill())
+                if sp is not None:
+                    sp.attrs.update(
+                        rows=0 if self._fill is None else len(reqs),
+                        prompt_len=int(reqs[0].input_ids.size),
+                        rids=[r.rid for r in reqs])
                 if self._fill is None:
                     continue                 # prefix-cache admission
-            f = self._fill
-            if all(r.done for r in f['reqs']):
-                self._fill = None            # every row cancelled
-                continue
-            k = len(f['reqs'])
-            ids = f['ids']
-            head = self._head_len(int(ids.shape[1]))
-            while f['pos'] < head and budget > 0:
-                s = f['pos']
+                budget = self._advance_fill(budget)
+                if self._fill is not None:
+                    return                   # mid-fill; decode goes on
+
+    def _advance_fill(self, budget):
+        """Run the fill in progress for at most `budget` prompt chunks
+        (its tail counts as one); admit its rows when it completes.
+        Returns the budget left."""
+        f = self._fill
+        if all(r.done for r in f['reqs']):
+            self._fill = None                # every row cancelled
+            return budget
+        k = len(f['reqs'])
+        ids = f['ids']
+        head = self._head_len(int(ids.shape[1]))
+        while f['pos'] < head and budget > 0:
+            s = f['pos']
+            with runtime.span('serve.fill_chunk', pos=s):
                 _, self._prefill_caches[k] = self.model(
                     ids[:, s:s + self.prompt_chunk],
                     inference_params_dict=self._prefill_caches[k],
                     donate_cache=True, resume=s > 0, split_dp=False)
-                f['pos'] += self.prompt_chunk
-                budget -= 1
-            if f['pos'] < head:
-                return                       # mid-fill; decode goes on
-            budget -= 1                      # the tail below
+            f['pos'] += self.prompt_chunk
+            budget -= 1
+        if f['pos'] < head:
+            return budget                    # mid-fill
+        budget -= 1                          # the tail below
+        with runtime.span('serve.fill_tail', pos=head):
             last_logits, filled = self.model(
                 ids[:, head:], inference_params_dict=self._prefill_caches[k],
                 donate_cache=True, resume=head > 0, split_dp=False)
-            if k == 1:
-                self._prefill_caches[1] = (
-                    self._prefix['cache'] if self._prefix is not None
-                    else self._fill_cache(1))
-                self._prefix = {'key': f['reqs'][0].input_ids.tobytes(),
-                                'cache': filled,
-                                'last_logits': last_logits}
-            for src, (slot, req) in enumerate(zip(f['slots'], f['reqs'])):
-                if not req.done:             # rows cancelled mid-fill
-                    self._insert_from(filled, last_logits, slot, req,
-                                      src=src)
-            self._fill = None
+        if k == 1:
+            self._prefill_caches[1] = (
+                self._prefix['cache'] if self._prefix is not None
+                else self._fill_cache(1))
+            self._prefix = {'key': f['reqs'][0].input_ids.tobytes(),
+                            'cache': filled,
+                            'last_logits': last_logits}
+        for src, (slot, req) in enumerate(zip(f['slots'], f['reqs'])):
+            if not req.done:                 # rows cancelled mid-fill
+                self._insert_from(filled, last_logits, slot, req, src=src)
+        self._fill = None
+        return budget
 
     def _fill_cache(self, k: int):
         """A zeroed prefill cache of k rows, every row on every dp rank
@@ -546,19 +579,19 @@ class GenerationServer:
             g *= 2
         return g
 
-    def _start_fill(self) -> bool:
-        """Take the next request(s) off the queue: a prefix-cache
-        admission, a B=1 fill, or a same-length batched fill of a ladder
-        size. Returns False when no work can start."""
+    def _start_fill(self) -> List[_Request]:
+        """Take the next request(s) off the queue (there is one, and a
+        free slot): a prefix-cache admission, a B=1 fill, or a same-length
+        batched fill of a ladder size. Returns the requests taken."""
         free = [i for i, r in enumerate(self._slots) if r is None]
-        if not free or not self._queue:
-            return False
         req = self._queue.popleft()
         if (self._prefix is not None
                 and self._prefix['key'] == req.input_ids.tobytes()):
             self._insert_from(self._prefix['cache'],
-                              self._prefix['last_logits'], free[0], req)
-            return True
+                              self._prefix['last_logits'], free[0], req,
+                              prefix=True)
+            runtime.count('serve.prefix_admissions')
+            return [req]
         reqs = [req]
         if self.prefill_batch > 1:
             P = req.input_ids.size
@@ -578,7 +611,10 @@ class GenerationServer:
                           np.stack([r.input_ids for r in reqs]),
                           device=self.device).long(),
                       'pos': 0}
-        return True
+        runtime.count('serve.fill_rows', len(reqs))
+        runtime.count('serve.fill_rows_repeated', len(reqs) - len(
+            {r.input_ids.tobytes() for r in reqs}))
+        return reqs
 
     def _record(self, req: _Request, token: int, logp: float) -> None:
         req.tokens.append(token)
@@ -607,12 +643,16 @@ class GenerationServer:
     def _harvest(self, emitted: np.ndarray, logps: np.ndarray) -> None:
         """emitted, logps: (steps, B) from one decode chunk."""
         self._flush_firsts()     # first tokens precede this chunk's
+        wasted = 0
         for step in range(emitted.shape[0]):
             for slot, req in enumerate(self._slots):
                 if req is None or req.done:
+                    wasted += 1
                     continue
                 self._record(req, int(emitted[step, slot]),
                              float(logps[step, slot]))
+        runtime.count('serve.slot_steps', emitted.size)
+        runtime.count('serve.slot_steps_wasted', wasted)
         for slot, req in enumerate(self._slots):
             if req is not None and req.done:
                 self._free(slot)
@@ -622,35 +662,41 @@ class GenerationServer:
         tokens back. Under ranks it starts with the lead's broadcast, and
         returns False on a follower that received an 'end' or a 'stop'
         instead of a step; True otherwise."""
-        if not self._sync():
-            return False
-        self._service_fills()
-        for slot, req in enumerate(self._slots):
-            if req is not None and req.done:
-                self._free(slot)
-        if all(r is None for r in self._slots):
+        with runtime.span('serve.step'):
+            with runtime.span('serve.sync'):
+                go = self._sync()
+            if not go:
+                return False
+            self._service_fills()
+            for slot, req in enumerate(self._slots):
+                if req is not None and req.done:
+                    self._free(slot)
+            if all(r is None for r in self._slots):
+                return True
+            # idle rows restart at position 0, so they take one key tile of
+            # kernel 4 instead of walking toward the end of the cache (fill_,
+            # not an item assignment: nothing reads a host scalar); so do the
+            # rows past max_slots of the last dp rank's block
+            offsets = self._cache['offset']
+            for row in range(self._rows):
+                slot = self._base + row
+                if slot >= self.max_slots or self._slots[slot] is None:
+                    offsets[row:row + 1].zero_()
+            # always exactly steps_per_sync steps: the chunk's shapes and
+            # launches stay the same whatever the requests need
+            with runtime.span('serve.decode'):
+                self._tokens, self._cache, emitted, logps = _decode_chunk(
+                    self.model.module, self._tokens, self._cache, self._topks,
+                    self._topps, self._temps, self._gens, self.steps_per_sync)
+            # the one readback of the chunk: tokens (exact in float64) and
+            # log-probs together, every dp rank's slots, (slots, 2, steps)
+            with runtime.span('serve.readback'):
+                out = gather_rows_to_host(
+                    torch.stack([emitted.double(), logps.double()]).permute(
+                        2, 0, 1), self.mesh, self.max_slots).numpy()
+            with runtime.span('serve.harvest'):
+                self._harvest(out[:, 0].T.astype(np.int64), out[:, 1].T)
             return True
-        # idle rows restart at position 0, so they take one key tile of
-        # kernel 4 instead of walking toward the end of the cache (fill_,
-        # not an item assignment: nothing reads a host scalar); so do the
-        # rows past max_slots of the last dp rank's block
-        offsets = self._cache['offset']
-        for row in range(self._rows):
-            slot = self._base + row
-            if slot >= self.max_slots or self._slots[slot] is None:
-                offsets[row:row + 1].zero_()
-        # always exactly steps_per_sync steps: the chunk's shapes and
-        # launches stay the same whatever the requests need
-        self._tokens, self._cache, emitted, logps = _decode_chunk(
-            self.model.module, self._tokens, self._cache, self._topks,
-            self._topps, self._temps, self._gens, self.steps_per_sync)
-        # the one readback of the chunk: tokens (exact in float64) and
-        # log-probs together, every dp rank's slots, (slots, 2, steps)
-        out = gather_rows_to_host(
-            torch.stack([emitted.double(), logps.double()]).permute(2, 0, 1),
-            self.mesh, self.max_slots).numpy()
-        self._harvest(out[:, 0].T.astype(np.int64), out[:, 1].T)
-        return True
 
     def run(self) -> Dict[int, GenerationResult]:
         """Drive the loop until every submitted request has finished. Under

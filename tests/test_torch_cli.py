@@ -156,13 +156,19 @@ def test_unported_flags_raise(tmp_path, cli, flag):
 def test_flags_and_defaults_match_jax_scripts(script, cli):
     """Every flag of the JAX script, under the same name and with the same
     default, save `--device`: honoured here, 'cuda' unless told; the port
-    adds `--dist-backend` (its process groups' backend)."""
+    adds `--dist-backend` (its process groups' backend) and, to the score
+    CLI, `--trace-dir` (a profile of the run, off unless given)."""
     src = open(os.path.join(ROOT, 'scripts', script)).read()
     want = set(re.findall(r"add_argument\('(--[a-z-]+)'", src))
     actions = {a.option_strings[0]: a
                for a in cli.build_parser()._actions if a.option_strings}
-    assert set(actions) - {'-h', '--dist-backend'} == want
+    port = {'--dist-backend'} | ({'--trace-dir'} if cli is score_cli
+                                else set())
+    assert set(actions) - {'-h'} - port == want
+    assert port <= set(actions)
     assert actions['--dist-backend'].default is None
+    if cli is score_cli:
+        assert actions['--trace-dir'].default is None
     assert actions['--device'].default == 'cuda'
     for flag, default in (('--model-name', 'evo-1-8k-base'),
                           ('--quant', 'none'), ('--kv-quant', 'none'),
